@@ -1,0 +1,402 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``multimodal_tpu_torch/csrc`` and runs,
+in order (any failure exits non-zero):
+
+1. the card's name and power limit, and the kernels' build time;
+2. each kernel against its plain PyTorch version on the card, at the CLIP
+   ViT-B/32 shapes of batch 512 (both towers) in bf16 and fp32, plus every
+   MLP activation and the attention key-bias lane at small shapes: max abs
+   error against its tolerance, and the kernel's, the plain version's and
+   one library call's times beside the card's bound;
+3. CLIP ViT-B/32 embedding serving at full width and depth, random weights
+   from a seed: an image server (uint8 256x256 -> preprocess ->
+   encode_image) and a text server (token ids -> encode_text) answer
+   requests of 1, 3, 64 and 300 rows; the launch counters must show 12
+   launches of each kernel per tower forward; 4 image and 4 text rows are
+   held against the same weights in fp32 on the CPU (cosine >= 0.999);
+   pairs/s at batch 512;
+4. a ``kernels`` JSON line, the card line, and the result line
+   ``{"ok": true, "device": {...}}``.
+
+Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / fp32 non-tensor
+BATCH = 512
+
+
+def fail(msg: str) -> None:
+    print(f"FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, stdout=subprocess.PIPE, text=True,
+    ).stdout.strip().splitlines()
+    return out[torch.cuda.current_device()] if len(out) > 1 else out[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` in ms, from CUDA events around ``reps``
+    calls after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
+    """bf16: two units in the last place of the largest output (one rounding
+    of the output landing on the other side of a tie, plus probabilities or
+    intermediates rounded to bf16 at a different tie); fp32: 1e-4 of the
+    output scale (the same products summed in another order, up to 3072
+    terms)."""
+    scale = max(1.0, ref.abs().max().item())
+    return (2.0 ** -6 if dtype == torch.bfloat16 else 1e-4) * scale
+
+
+def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def reps_for(ms_guess: float) -> int:
+    return max(3, min(50, int(300 / max(ms_guess, 1e-3))))
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+
+def attention_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen):
+    qkv = torch.randn(b, s, 3 * d, device="cuda", generator=gen).to(dtype)
+    kb = None
+    if key_bias:
+        kb = torch.zeros(b, s, device="cuda")
+        kb[:, s // 2:] = torch.where(
+            torch.rand(b, s - s // 2, device="cuda", generator=gen) < 0.5, -1e30, 0.0)
+    with torch.inference_mode():
+        out = fe.fused_qkv_attention(qkv, h, causal, None, kb)
+        ref = fe.qkv_attention_plain(qkv, h, causal, None, kb)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = tolerance(dtype, ref)
+        kernel_ms = time_ms(lambda: fe.fused_qkv_attention(qkv, h, causal, None, kb), 1)
+        reps = reps_for(kernel_ms)
+        kernel_ms = time_ms(lambda: fe.fused_qkv_attention(qkv, h, causal, None, kb), reps)
+        plain_ms = time_ms(lambda: fe.qkv_attention_plain(qkv, h, causal, None, kb), reps)
+        q, k, v = qkv.view(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        mask = None
+        if kb is not None:
+            mask = kb[:, None, None, :]
+            if causal:
+                mask = mask + torch.full((s, s), -1e30, device="cuda").triu(1)
+            mask = mask.to(dtype)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None), reps)
+    es = qkv.element_size()
+    nbytes = qkv.numel() * es + out.numel() * es + (0 if kb is None else kb.numel() * 4)
+    pairs = s * (s + 1) // 2 if causal else s * s  # (query, key) products the mask leaves
+    flops = 4.0 * b * h * pairs * (d // h)
+    bms, by = bound_ms(nbytes, flops, dtype)
+    return dict(kernel="fused_qkv_attention", case=name, shape=[b, s, 3 * d], heads=h,
+                causal=causal, key_bias=key_bias, dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=err, tol=tol, ok=bool(err <= tol), ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+
+
+def mlp_case(fe, name, rows, din, dff, dout, act, dtype, gen):
+    x = torch.randn(rows, din, device="cuda", generator=gen).to(dtype)
+    w1t = (torch.randn(dff, din, device="cuda", generator=gen) * din ** -0.5).to(dtype)
+    b1 = (torch.randn(dff, device="cuda", generator=gen) * 0.02).to(dtype)
+    w2t = (torch.randn(dout, dff, device="cuda", generator=gen) * dff ** -0.5).to(dtype)
+    b2 = (torch.randn(dout, device="cuda", generator=gen) * 0.02).to(dtype)
+    w1, w2 = w1t.t(), w2t.t()  # (Din, Dff), (Dff, Dout) column-major, as nn.Linear holds them
+    lib_act = fe._ACTIVATIONS[act]
+    with torch.inference_mode():
+        out = fe.fused_mlp(x, w1, b1, w2, b2, act)
+        ref = fe.mlp_plain(x, w1, b1, w2, b2, act)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = tolerance(dtype, ref)
+        kernel_ms = time_ms(lambda: fe.fused_mlp(x, w1, b1, w2, b2, act), 1)
+        reps = reps_for(kernel_ms)
+        kernel_ms = time_ms(lambda: fe.fused_mlp(x, w1, b1, w2, b2, act), reps)
+        plain_ms = time_ms(lambda: fe.mlp_plain(x, w1, b1, w2, b2, act), reps)
+        lib_ms = time_ms(lambda: F.linear(lib_act(F.linear(x, w1t, b1)), w2t, b2), reps)
+    es = x.element_size()
+    nbytes = (x.numel() + w1.numel() + b1.numel() + w2.numel() + b2.numel() + out.numel()) * es
+    flops = 2.0 * rows * (din * dff + dff * dout)
+    bms, by = bound_ms(nbytes, flops, dtype)
+    return dict(kernel="fused_mlp", case=name, shape=[rows, din, dff, dout], activation=act,
+                dtype=str(dtype).replace("torch.", ""), max_abs_err=err, tol=tol,
+                ok=bool(err <= tol), ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by)
+
+
+def check_kernels(fe):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append(attention_case(fe, "vision", BATCH, 50, 768, 12, False, dtype, False, gen))
+        cases.append(attention_case(fe, "text", BATCH, 77, 512, 8, True, dtype, False, gen))
+        cases.append(attention_case(fe, "key_bias", 8, 40, 256, 4, False, dtype, True, gen))
+        cases.append(attention_case(fe, "key_bias_causal", 8, 77, 256, 4, True, dtype, True, gen))
+        cases.append(attention_case(fe, "head_width_96", 8, 50, 384, 4, True, dtype, False, gen))
+        cases.append(mlp_case(fe, "vision", BATCH * 50, 768, 3072, 768, "quick_gelu", dtype, gen))
+        cases.append(mlp_case(fe, "text", BATCH * 77, 512, 2048, 512, "quick_gelu", dtype, gen))
+        for act in ("quick_gelu", "gelu", "gelu_exact", "relu", "silu"):
+            cases.append(mlp_case(fe, f"small_{act}", 300, 256, 512, 192, act, dtype, gen))
+    print("kernel_check tolerance: " + " ".join(tolerance.__doc__.split()), flush=True)
+    for c in cases:
+        print("kernel_check " + json.dumps(c), flush=True)
+    return cases
+
+
+# --------------------------------------------------------------------------
+# phase 3: CLIP ViT-B/32 embedding serving
+# --------------------------------------------------------------------------
+
+
+def token_ids(rng, n):
+    """(n, 77) ids as CLIP's tokenizer lays them out: SOT, words, EOT (the
+    highest id), zero padding."""
+    ids = np.zeros((n, 77), dtype=np.int64)
+    for i in range(n):
+        length = int(rng.integers(3, 76))
+        ids[i, 0] = 49406
+        ids[i, 1:length] = rng.integers(1, 49405, size=length - 1)
+        ids[i, length] = 49407
+    return ids
+
+
+def cosine_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    a = a.astype(np.float64)
+    b = b.astype(np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def serve(fe, card):
+    from multimodal_tpu_torch.models.clip.model import clip_vit_b32
+    from multimodal_tpu_torch.ops.image import fused_preprocess_for_encoder
+    from multimodal_tpu_torch.serving.embedding import EmbeddingServer
+
+    t0 = time.perf_counter()
+    model = clip_vit_b32(dtype=torch.bfloat16, seed=0)
+    print(f"serve: built clip_vit_b32 bf16 in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def encode_images(u8):
+        return model.encode_image(fused_preprocess_for_encoder(u8, 224, dtype=torch.bfloat16))
+
+    image_server = EmbeddingServer(encode_images, max_batch=256)
+    text_server = EmbeddingServer(model.encode_text, max_batch=256)
+
+    rng = np.random.default_rng(0)
+    sizes = (1, 3, 64, 300)
+    requests = [(rng.integers(0, 256, size=(n, 256, 256, 3), dtype=np.uint8),
+                 token_ids(rng, n)) for n in sizes]
+    # the one-row request reappears as row 0 of the largest: row alignment
+    requests[-1][0][0] = requests[0][0][0]
+    requests[-1][1][0] = requests[0][1][0]
+
+    fe.reset_launch_counts()
+    outs = [(image_server.encode(im), text_server.encode(tx)) for im, tx in requests]
+    torch.cuda.synchronize()
+    launches = {"fused_qkv_attention": fe.fused_qkv_attention.launches,
+                "fused_mlp": fe.fused_mlp.launches}
+    forwards = 2 * sum(math.ceil(n / 256) for n in sizes)  # both towers
+    want = 12 * forwards
+    print(f"serve: launches {launches}, want {want} each ({forwards} tower forwards x 12 layers)",
+          flush=True)
+    for k, v in launches.items():
+        if v != want:
+            fail(f"{k} launched {v} times on the main path, want {want}")
+
+    for (im, tx), (ei, et), n in zip(requests, outs, sizes):
+        if ei.shape != (n, 512) or et.shape != (n, 512):
+            fail(f"request of {n}: embedding shapes {ei.shape}, {et.shape}")
+        scores = ei @ et.T
+        if not (np.isfinite(ei).all() and np.isfinite(et).all() and np.isfinite(scores).all()):
+            fail(f"request of {n}: non-finite embeddings or scores")
+        norms = np.linalg.norm(ei, axis=-1)
+        if np.abs(norms - 1).max() > 1e-2:
+            fail(f"request of {n}: image embeddings not unit norm ({norms.min()}..{norms.max()})")
+    align = min(cosine_rows(outs[0][0][:1], outs[-1][0][:1]).min(),
+                cosine_rows(outs[0][1][:1], outs[-1][1][:1]).min())
+    print(f"serve: row alignment cosine (1-row request vs row 0 of 300) {align:.6f}", flush=True)
+    if align < 0.999:
+        fail(f"row alignment cosine {align} < 0.999")
+
+    # 4 image and 4 text rows against the same weights in fp32 on the CPU
+    ref_model = clip_vit_b32(device="cpu", dtype=torch.float32)
+    ref_model.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    im, tx = requests[2]
+    with torch.inference_mode():
+        ref_i = ref_model.encode_image(fused_preprocess_for_encoder(
+            torch.from_numpy(im[:4]), 224, dtype=torch.float32)).numpy()
+        ref_t = ref_model.encode_text(torch.from_numpy(tx[:4])).numpy()
+    cos_i = cosine_rows(outs[2][0][:4], ref_i)
+    cos_t = cosine_rows(outs[2][1][:4], ref_t)
+    min_cos = float(min(cos_i.min(), cos_t.min()))
+    print(f"serve: cosine vs fp32 CPU: image {cos_i.round(6).tolist()} text "
+          f"{cos_t.round(6).tolist()} min {min_cos:.6f} (bar 0.999)", flush=True)
+    if min_cos < 0.999:
+        fail(f"served embeddings reach cosine {min_cos} < 0.999 against fp32")
+
+    # throughput at batch 512: device-resident inputs, and through the servers
+    u8 = torch.from_numpy(rng.integers(0, 256, size=(BATCH, 256, 256, 3), dtype=np.uint8)).cuda()
+    ids_np = token_ids(rng, BATCH)
+    ids = torch.from_numpy(ids_np).cuda()
+
+    def step():
+        return encode_images(u8), model.encode_text(ids)
+
+    with torch.inference_mode():
+        step()
+        torch.cuda.synchronize()
+        iters = 5
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        device_rate = BATCH * iters / (time.perf_counter() - t0)
+        breakdown = profile_step(step)
+    host_u8 = u8.cpu().numpy()
+    t0 = time.perf_counter()
+    image_server.encode(host_u8)
+    text_server.encode(ids_np)
+    served_rate = BATCH / (time.perf_counter() - t0)
+    print(f"serve: {device_rate:.1f} pairs/s at batch {BATCH} on device-resident inputs; "
+          f"{served_rate:.1f} pairs/s through the servers from host arrays "
+          f"(max_batch 256) on {card}", flush=True)
+    print("serve: device time by kernel at batch 512 " + json.dumps(breakdown), flush=True)
+    return launches, min_cos, device_rate, served_rate
+
+
+def profile_step(step):
+    """Device time of one batch-512 step, summed by kernel group, from
+    torch.profiler; 'not measured' when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    groups, top = {}, []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if not us or e.device_type.name != "CUDA":
+            continue
+        name = e.key
+        low = name.lower()
+        if "qkv_attention" in name:
+            g = "fused_qkv_attention"
+        elif "fused_mlp_kernel" in name:
+            g = "fused_mlp"
+        elif any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma")):
+            g = "library_gemm"
+        elif "layer_norm" in low:
+            g = "layer_norm"
+        elif "conv" in low:
+            g = "conv"
+        elif "upsample" in low or "interp" in low:
+            g = "resize"
+        else:
+            g = "other"
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+        top.append((round(us / 1e3, 3), name[:90]))
+    if not groups:
+        return "not measured"
+    print("serve: top kernels (ms) " + json.dumps(sorted(top, reverse=True)[:10]), flush=True)
+    return {k: round(v, 3) for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
+              file=sys.stderr)
+        sys.exit(2)
+    from multimodal_tpu_torch.ops import _build
+    from multimodal_tpu_torch.ops import fused_encoder as fe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    print(f"device: {card} | {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    lib = _build.build()
+    build_s = time.perf_counter() - t0
+    print(f"build: {lib.name} in {build_s:.1f} s (nvcc -gencode arch=compute_90a,code=sm_90a)",
+          flush=True)
+    if _build.build_log:
+        for line in _build.build_log.splitlines():
+            if "registers" in line or "spill" in line or line.startswith("=="):
+                print("  " + line.strip(), flush=True)
+
+    cases = check_kernels(fe)
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        fail(f"{len(bad)} kernel case(s) outside tolerance: "
+             + ", ".join(f"{c['kernel']}/{c['case']}/{c['dtype']}" for c in bad))
+
+    launches, min_cos, device_rate, served_rate = serve(fe, card)
+
+    kernels = []
+    for name, source, replaces in (
+        ("fused_qkv_attention", "multimodal_tpu_torch/csrc/fused_qkv_attention.cu",
+         "multimodal_tpu/ops/fused_encoder.py:200"),
+        ("fused_mlp", "multimodal_tpu_torch/csrc/fused_mlp.cu",
+         "multimodal_tpu/ops/fused_encoder.py:500"),
+    ):
+        mine = [c for c in cases if c["kernel"] == name]
+        head = next(c for c in mine if c["case"] == "vision" and c["dtype"] == "bfloat16")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": head["max_abs_err"],
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "passed": all(c["ok"] for c in mine),
+            "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err", "tol", "ms",
+                                         "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                      for c in mine],
+        })
+    print(f"summary: min cosine {min_cos:.6f}, {device_rate:.1f} pairs/s device, "
+          f"{served_rate:.1f} pairs/s served, build {build_s:.1f} s", flush=True)
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,108 @@
+"""Builds and loads the port's CUDA kernels.
+
+Every ``multimodal_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, loaded with
+``ctypes``. The library lands in ``build/multimodal_tpu_torch/`` at the root
+of the checkout (listed in ``.gitignore``) under a name that carries a hash
+of the sources and flags, so an edited source is rebuilt at first use. The
+sources compile in parallel, one ``nvcc`` each, and are then linked.
+
+Nothing here runs at import time: the library is built by the first kernel
+launch, or ahead of it by calling :func:`load_library`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import List
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "multimodal_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+build_log = ""  # nvcc's output of the last build in this process (ptxas -v)
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``CUDA_HOME``, then ``PATH``, then ``/usr/local/cuda``."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin); "
+        "the CUDA kernels cannot be built"
+    )
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library of the current sources, headers and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmm_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources into the library unless it is already built.
+
+    Raises ``RuntimeError`` when ``nvcc`` is missing or a compile fails.
+    """
+    global build_log
+    target = library_path()
+    if target.exists():
+        return target
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs, failed = [], []
+        for src, proc in zip(sources(), procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp_lib = Path(tmp) / target.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp_lib), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+        os.replace(tmp_lib, target)  # atomic: a concurrent build sees all or nothing
+    return target
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built first if needed."""
+    return ctypes.CDLL(str(build()))

@@ -1,0 +1,80 @@
+"""Weight carry-over from the JAX package.
+
+``clip_state_dict_from_jax`` turns the JAX package's CLIP parameter tree
+(numpy arrays) into this package's ``state_dict``. It is the inverse of
+``multimodal_tpu/utils/checkpoint.py:clip_params_from_torch``. Layouts:
+
+- ``nn.Dense`` kernels are ``(in, out)``; ``nn.Linear`` weights ``(out, in)``;
+- the patch conv is HWIO in JAX and OIHW in torch;
+- ``Fp32LayerNorm`` parameters sit under ``LayerNorm_0`` in JAX, as
+  ``scale`` / ``bias``;
+- the fused ``in_proj`` holds ``[q | k | v]`` in both.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(a: Any) -> torch.Tensor:
+    a = np.asarray(a)
+    # arrays that JAX hands out are read-only; torch tensors never are
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def _linear(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    out = {f"{prefix}.weight": _t(np.asarray(p["kernel"]).T)}
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+    return out
+
+
+def _fp32_layernorm(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    ln = p["LayerNorm_0"]
+    return {f"{prefix}.weight": _t(ln["scale"]), f"{prefix}.bias": _t(ln["bias"])}
+
+
+def _layernorm(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(p["scale"]), f"{prefix}.bias": _t(p["bias"])}
+
+
+def _encoder_stack(p: Mapping, prefix: str, n_layers: int) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(n_layers):
+        lp = p[f"layer_{i}"]
+        q = f"{prefix}.layers.{i}"
+        out[f"{q}.self_attn.in_proj_weight"] = _t(np.asarray(lp["in_proj"]["kernel"]).T)
+        out[f"{q}.self_attn.in_proj_bias"] = _t(lp["in_proj"]["bias"])
+        out.update(_linear(lp["out_proj"], f"{q}.self_attn.out_proj"))
+        out.update(_linear(lp["linear1"], f"{q}.linear1"))
+        out.update(_linear(lp["linear2"], f"{q}.linear2"))
+        out.update(_layernorm(lp["norm1"], f"{q}.norm1"))
+        out.update(_layernorm(lp["norm2"], f"{q}.norm2"))
+    return out
+
+
+def clip_state_dict_from_jax(
+    params: Mapping, n_vision_layers: int = 12, n_text_layers: int = 12
+) -> Dict[str, torch.Tensor]:
+    """JAX CLIP variables (``{"params": {"encoder_a": ..., "encoder_b": ...}}``,
+    leaves as numpy arrays) -> this package's CLIP ``state_dict``."""
+    p = params["params"] if "params" in params else params
+    va, tb = p["encoder_a"], p["encoder_b"]
+    sd: Dict[str, torch.Tensor] = {
+        "encoder_a.conv.weight": _t(np.asarray(va["conv"]["kernel"]).transpose(3, 2, 0, 1)),
+        "encoder_a.cls_token_embedding": _t(va["cls_token_embedding"]),
+        "encoder_a.positional_embedding": _t(va["positional_embedding"]),
+        "encoder_a.projection": _t(va["projection"]),
+    }
+    sd.update(_fp32_layernorm(va["ln_pre"], "encoder_a.ln_pre"))
+    sd.update(_encoder_stack(va["encoder"], "encoder_a.encoder", n_vision_layers))
+    sd.update(_fp32_layernorm(va["ln_post"], "encoder_a.ln_post"))
+    sd["encoder_b.token_embedding.weight"] = _t(tb["token_embedding"]["embedding"])
+    sd["encoder_b.positional_embedding"] = _t(tb["positional_embedding"])
+    sd.update(_encoder_stack(tb["encoder"], "encoder_b.encoder", n_text_layers))
+    sd.update(_fp32_layernorm(tb["ln_final"], "encoder_b.ln_final"))
+    sd.update(_linear(tb["projection"], "encoder_b.projection"))
+    return sd

@@ -1,0 +1,84 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points refuse to run without CUDA unless asked for the CPU, and on
+CPU tensors no kernel is launched."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import multimodal_tpu_torch
+from multimodal_tpu_torch.models.clip import model as clip_model
+from multimodal_tpu_torch.models.clip.image_encoder import CLIPViTEncoder
+from multimodal_tpu_torch.models.clip.text_encoder import CLIPTextEncoder
+from multimodal_tpu_torch.ops import fused_encoder as fe
+from multimodal_tpu_torch.serving.embedding import EmbeddingServer
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_tpu"}
+
+
+def _port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(
+            multimodal_tpu_torch.__path__, prefix="multimodal_tpu_torch.")
+    )
+
+
+def test_every_module_imports_with_jax_blocked():
+    blocked = "; ".join(f"sys.modules[{name!r}] = None" for name in sorted(FORBIDDEN))
+    imports = "; ".join(f"importlib.import_module({m!r})" for m in _port_modules())
+    code = f"import importlib, sys; {blocked}; {imports}; print('ok')"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_no_jax_imports_in_the_source():
+    files = sorted((ROOT / "multimodal_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{f.name}: {n}" for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not offenders
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        clip_model.clip_vit_b32()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EmbeddingServer(lambda x: x)
+
+
+def test_cpu_tensors_launch_no_kernel():
+    fe.reset_launch_counts()
+    r = np.random.RandomState(0)
+    qkv = torch.from_numpy(r.randn(2, 9, 3 * 32).astype(np.float32))
+    fe.fused_qkv_attention(qkv, 4, True)
+    x = torch.from_numpy(r.randn(5, 64).astype(np.float32))
+    w1, w2 = torch.randn(64, 128), torch.randn(128, 64)
+    fe.fused_mlp(x, w1, torch.zeros(128), w2, torch.zeros(64), "quick_gelu")
+    model = clip_model.CLIP(
+        CLIPViTEncoder(embedding_dim=16, patch_size=16, image_size=32, width=64, heads=2,
+                       layers=1),
+        CLIPTextEncoder(embedding_dim=16, vocab_size=100, width=64, dim_feedforward=128,
+                        heads=2, layers=1),
+    )
+    clip_model.init_parameters_(model, torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        model(torch.zeros(1, 32, 32, 3), torch.ones(1, 77, dtype=torch.long))
+    assert fe.fused_qkv_attention.launches == 0
+    assert fe.fused_mlp.launches == 0
