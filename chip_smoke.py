@@ -7,10 +7,11 @@ in order (any failure exits non-zero):
 
 1. the card's name and power limit, and the kernels' build time;
 2. each kernel against its plain PyTorch version on the card, at the CLIP
-   ViT-B/32 shapes of batch 512 (both towers) in bf16 and fp32, plus every
-   MLP activation and the attention key-bias lane at small shapes: max abs
-   error against its tolerance, and the kernel's, the plain version's and
-   one library call's times beside the card's bound;
+   ViT-B/32 shapes (both towers; batch 512 for the forward kernels, the
+   train step's 256 for the backward ones) in bf16 and fp32, plus every
+   MLP activation, head width 96 and the attention key-bias lane at small
+   shapes: max abs error against its tolerance, and the kernel's, the
+   plain version's and one library call's times beside the card's bound;
 3. CLIP ViT-B/32 embedding serving at full width and depth, random weights
    from a seed: an image server (uint8 256x256 -> preprocess ->
    encode_image) and a text server (token ids -> encode_text) answer
@@ -18,8 +19,19 @@ in order (any failure exits non-zero):
    launches of each kernel per tower forward; 4 image and 4 text rows are
    held against the same weights in fp32 on the CPU (cosine >= 0.999);
    pairs/s at batch 512;
-4. a ``kernels`` JSON line, the card line, and the result line
+4. one CLIP ViT-B/32 contrastive train step at full width and depth, batch
+   256 (bench.py's train step): fp32 parameters, bf16 compute, random
+   weights from a seed, the port's ``Trainer`` with AdamW (weight decay
+   1e-4, as ``optax.adamw(1e-4)``). The gradients of 8 pairs are held
+   against an fp32 step of the same weights on the CPU (concatenated
+   cosine >= 0.99); then 2 warm-up steps and 10 timed steps, which must show
+   24 launches of each of the four kernels a step and finite losses;
+   items/s, ms a step, peak memory and one step's device time by kernel
+   group;
+5. a ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}``.
+
+``--kernels-only`` stops after phase 2 and prints no result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -39,6 +51,7 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / fp32 non-tensor
 BATCH = 512
+TRAIN_BATCH = 256  # bench.py's TRAIN_BATCH
 
 
 def fail(msg: str) -> None:
@@ -160,6 +173,80 @@ def mlp_case(fe, name, rows, din, dff, dout, act, dtype, gen):
                 bound_ms=bms, bound_by=by)
 
 
+def attention_bwd_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen):
+    qkv = torch.randn(b, s, 3 * d, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(b, s, d, device="cuda", generator=gen).to(dtype)
+    kb = None
+    if key_bias:
+        kb = torch.zeros(b, s, device="cuda")
+        kb[:, s // 2:] = torch.where(
+            torch.rand(b, s - s // 2, device="cuda", generator=gen) < 0.5, -1e30, 0.0)
+    out = fe.fused_qkv_attention_bwd(qkv, g, h, causal, None, kb)
+    ref = fe.qkv_attention_bwd_plain(qkv, g, h, causal, None, kb)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = tolerance(dtype, ref)
+    kernel_ms = time_ms(lambda: fe.fused_qkv_attention_bwd(qkv, g, h, causal, None, kb), 1)
+    reps = reps_for(kernel_ms)
+    kernel_ms = time_ms(lambda: fe.fused_qkv_attention_bwd(qkv, g, h, causal, None, kb), reps)
+    plain_ms = time_ms(lambda: fe.qkv_attention_bwd_plain(qkv, g, h, causal, None, kb), reps)
+    q, k, v = (t.detach().requires_grad_() for t in
+               qkv.view(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4).contiguous().unbind(0))
+    go = g.view(b, s, h, d // h).transpose(1, 2).contiguous()
+    mask = None
+    if kb is not None:
+        mask = kb[:, None, None, :]
+        if causal:
+            mask = mask + torch.full((s, s), -1e30, device="cuda").triu(1)
+        mask = mask.to(dtype)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=causal and mask is None)
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True), reps)
+    es = qkv.element_size()
+    nbytes = (qkv.numel() + g.numel() + out.numel()) * es + (0 if kb is None else kb.numel() * 4)
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 10.0 * b * h * pairs * (d // h)  # five S x S x Dh products
+    bms, by = bound_ms(nbytes, flops, dtype)
+    return dict(kernel="fused_qkv_attention_bwd", case=name, shape=[b, s, 3 * d], heads=h,
+                causal=causal, key_bias=key_bias, dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=err, tol=tol, ok=bool(err <= tol), ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+
+
+def mlp_bwd_case(fe, name, rows, din, dff, dout, act, dtype, gen):
+    x = torch.randn(rows, din, device="cuda", generator=gen).to(dtype)
+    g = (torch.randn(rows, dout, device="cuda", generator=gen) * 0.1).to(dtype)
+    w1t = (torch.randn(dff, din, device="cuda", generator=gen) * din ** -0.5).to(dtype)
+    b1 = (torch.randn(dff, device="cuda", generator=gen) * 0.02).to(dtype)
+    w2t = (torch.randn(dout, dff, device="cuda", generator=gen) * dff ** -0.5).to(dtype)
+    b2 = torch.zeros(dout, device="cuda", dtype=dtype)
+    w1, w2 = w1t.t(), w2t.t()
+    outs = fe.fused_mlp_bwd(x, g, w1, b1, w2, act)
+    refs = fe.mlp_bwd_plain(x, g, w1, b1, w2, act)
+    torch.cuda.synchronize()
+    errs = [(o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs)]
+    tols = [tolerance(dtype, r) for r in refs]
+    kernel_ms = time_ms(lambda: fe.fused_mlp_bwd(x, g, w1, b1, w2, act), 1)
+    reps = reps_for(kernel_ms)
+    kernel_ms = time_ms(lambda: fe.fused_mlp_bwd(x, g, w1, b1, w2, act), reps)
+    plain_ms = time_ms(lambda: fe.mlp_bwd_plain(x, g, w1, b1, w2, act), reps)
+    lib_act = fe._ACTIVATIONS[act]
+    xg = x.detach().requires_grad_()
+    # the recompute VJP: forward again, then autograd back to x
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        F.linear(lib_act(F.linear(xg, w1t, b1)), w2t, b2), xg, g), reps)
+    es = x.element_size()
+    nbytes = (x.numel() + g.numel() + w1.numel() + b1.numel() + w2.numel()
+              + sum(o.numel() for o in outs)) * es
+    flops = 2.0 * rows * dff * (2 * din + dout)
+    bms, by = bound_ms(nbytes, flops, dtype)
+    worst = max(range(3), key=lambda i: errs[i] / tols[i])  # each output has its own tolerance
+    return dict(kernel="fused_mlp_bwd", case=name, shape=[rows, din, dff, dout], activation=act,
+                dtype=str(dtype).replace("torch.", ""), max_abs_err=errs[worst], tol=tols[worst],
+                max_abs_err_dx_da_h=errs, tol_dx_da_h=tols,
+                ok=all(e <= t for e, t in zip(errs, tols)), ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bms, bound_by=by)
+
+
 def check_kernels(fe):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -173,6 +260,18 @@ def check_kernels(fe):
         cases.append(mlp_case(fe, "text", BATCH * 77, 512, 2048, 512, "quick_gelu", dtype, gen))
         for act in ("quick_gelu", "gelu", "gelu_exact", "relu", "silu"):
             cases.append(mlp_case(fe, f"small_{act}", 300, 256, 512, 192, act, dtype, gen))
+        tb = TRAIN_BATCH
+        cases.append(attention_bwd_case(fe, "vision", tb, 50, 768, 12, False, dtype, False, gen))
+        cases.append(attention_bwd_case(fe, "text", tb, 77, 512, 8, True, dtype, False, gen))
+        cases.append(attention_bwd_case(fe, "key_bias", 8, 40, 256, 4, False, dtype, True, gen))
+        cases.append(attention_bwd_case(fe, "key_bias_causal", 8, 77, 256, 4, True, dtype, True,
+                                        gen))
+        cases.append(attention_bwd_case(fe, "head_width_96", 8, 50, 384, 4, True, dtype, False,
+                                        gen))
+        cases.append(mlp_bwd_case(fe, "vision", tb * 50, 768, 3072, 768, "quick_gelu", dtype, gen))
+        cases.append(mlp_bwd_case(fe, "text", tb * 77, 512, 2048, 512, "quick_gelu", dtype, gen))
+        for act in ("quick_gelu", "gelu", "gelu_exact", "relu", "silu"):
+            cases.append(mlp_bwd_case(fe, f"small_{act}", 300, 256, 512, 192, act, dtype, gen))
     print("kernel_check tolerance: " + " ".join(tolerance.__doc__.split()), flush=True)
     for c in cases:
         print("kernel_check " + json.dumps(c), flush=True)
@@ -286,7 +385,7 @@ def serve(fe, card):
             step()
         torch.cuda.synchronize()
         device_rate = BATCH * iters / (time.perf_counter() - t0)
-        breakdown = profile_step(step)
+        breakdown = profile_step(step, "serve")
     host_u8 = u8.cpu().numpy()
     t0 = time.perf_counter()
     image_server.encode(host_u8)
@@ -299,43 +398,174 @@ def serve(fe, card):
     return launches, min_cos, device_rate, served_rate
 
 
-def profile_step(step):
-    """Device time of one batch-512 step, summed by kernel group, from
+def kernel_group(name: str) -> str:
+    low = name.lower()
+    if "qkv_attention_bwd" in name:
+        return "fused_qkv_attention_bwd"
+    if "qkv_attention" in name:
+        return "fused_qkv_attention"
+    if "fused_mlp_bwd_kernel" in name:
+        return "fused_mlp_bwd"
+    if "fused_mlp_kernel" in name:
+        return "fused_mlp"
+    if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "library_gemm"
+    if "layer_norm" in low:
+        return "layer_norm"
+    if "conv" in low or "wgrad" in low or "dgrad" in low:
+        return "conv"
+    if "upsample" in low or "interp" in low:
+        return "resize"
+    if "adam" in low or "multi_tensor" in low:
+        return "optimizer"
+    if "reduce" in low:
+        return "reduce"
+    return "other"
+
+
+def profile_step(step, label: str):
+    """Device time of one ``step()``, summed by kernel group, from
     torch.profiler; 'not measured' when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     groups, top = {}, []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        if not us or e.device_type.name != "CUDA":
-            continue
-        name = e.key
-        low = name.lower()
-        if "qkv_attention" in name:
-            g = "fused_qkv_attention"
-        elif "fused_mlp_kernel" in name:
-            g = "fused_mlp"
-        elif any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma")):
-            g = "library_gemm"
-        elif "layer_norm" in low:
-            g = "layer_norm"
-        elif "conv" in low:
-            g = "conv"
-        elif "upsample" in low or "interp" in low:
-            g = "resize"
-        else:
-            g = "other"
+        if not us or e.device_type.name != "CUDA" or getattr(e, "is_user_annotation", False):
+            continue  # annotations (Optimizer.step#...) span kernels counted on their own
+        g = kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3
-        top.append((round(us / 1e3, 3), name[:90]))
+        top.append((round(us / 1e3, 3), e.key[:90]))
     if not groups:
         return "not measured"
-    print("serve: top kernels (ms) " + json.dumps(sorted(top, reverse=True)[:10]), flush=True)
-    return {k: round(v, 3) for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}
+    print(f"{label}: top kernels (ms) " + json.dumps(sorted(top, reverse=True)[:12]), flush=True)
+    out = {k: round(v, 3) for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}
+    out["total_device_ms"] = round(sum(groups.values()), 3)
+    out["wall_ms_under_profiler"] = round(wall_ms, 3)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 4: CLIP ViT-B/32 contrastive train step
+# --------------------------------------------------------------------------
+
+
+def clip_loss_fn(dtype):
+    """bench.py's loss_fn: uint8 images -> preprocess -> both towers ->
+    contrastive loss at logit scale 4.6052."""
+    from multimodal_tpu_torch.modules.losses.contrastive_loss_with_temperature import (
+        contrastive_loss_with_temperature,
+    )
+    from multimodal_tpu_torch.ops.image import fused_preprocess_for_encoder
+
+    def loss_fn(model, batch):
+        images_u8, text = batch
+        out = model(fused_preprocess_for_encoder(images_u8, 224, dtype=dtype), text)
+        return contrastive_loss_with_temperature(
+            out.embeddings_a, out.embeddings_b, 4.6052).loss, {}
+
+    return loss_fn
+
+
+def grad_cosines(model, batch):
+    """Cosines of the card's bf16 gradients against an fp32 step of the
+    same weights on the CPU through the plain versions: the concatenated
+    gradient's, and the lowest single tensor's with its name."""
+    from multimodal_tpu_torch.models.clip.model import clip_vit_b32
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = clip_loss_fn(torch.bfloat16)(model, tuple(t.cuda() for t in batch))
+    loss.backward()
+    loss = loss.detach()
+    ref = clip_vit_b32(device="cpu", dtype=torch.float32)
+    ref.load_state_dict({k: v.detach().float().cpu() for k, v in model.state_dict().items()})
+    ref_loss, _ = clip_loss_fn(torch.float32)(ref, batch)
+    ref_loss.backward()
+    ref_loss = ref_loss.detach()
+    ref_grads = dict(ref.named_parameters())
+    dots = sq_a = sq_b = 0.0
+    worst = (2.0, "")
+    for name, p in model.named_parameters():
+        a = p.grad.double().cpu().flatten()
+        b = ref_grads[name].grad.double().flatten()
+        dots += float(a @ b)
+        sq_a += float(a @ a)
+        sq_b += float(b @ b)
+        cos = float(a @ b) / max(float(a.norm() * b.norm()), 1e-300)
+        worst = min(worst, (cos, name))
+    model.zero_grad(set_to_none=True)
+    return dots / math.sqrt(sq_a * sq_b), worst, loss.item(), ref_loss.item()
+
+
+def train(fe, card):
+    from multimodal_tpu_torch.models.clip.model import clip_vit_b32
+    from multimodal_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    model = clip_vit_b32(dtype=torch.bfloat16, param_dtype=torch.float32, seed=0).train()
+    print(f"train: built clip_vit_b32 (fp32 params, bf16 compute) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    rng = np.random.default_rng(1)
+    small = (torch.from_numpy(rng.integers(0, 256, size=(8, 256, 256, 3), dtype=np.uint8)),
+             torch.from_numpy(token_ids(rng, 8)))
+    t0 = time.perf_counter()
+    cos, (worst_cos, worst_name), loss_card, loss_cpu = grad_cosines(model, small)
+    print(f"train: gradient cosine vs fp32 CPU at 8 pairs: {cos:.6f} (bar 0.99); lowest "
+          f"tensor {worst_name} {worst_cos:.6f}; loss card {loss_card:.6f} cpu {loss_cpu:.6f} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not cos >= 0.99:
+        fail(f"gradient cosine {cos} < 0.99 against fp32 on the CPU")
+
+    warmup, steps = 2, 10
+    batches = [(rng.integers(0, 256, size=(TRAIN_BATCH, 256, 256, 3), dtype=np.uint8),
+                token_ids(rng, TRAIN_BATCH)) for _ in range(warmup + steps + 1)]
+    # optax.adamw(1e-4): weight decay 1e-4 on every parameter; PyTorch's
+    # single-kernel (fused) AdamW
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4, fused=True)
+    # no log boundary inside the window: the metrics reach the host at the
+    # last step of a fit only (the losses are printed below)
+    trainer = Trainer(clip_loss_fn(torch.bfloat16), opt, log_interval=100)
+    # two warm-up steps: the prefetch's two pinned host buffers exist before
+    # the timed window
+    trainer.fit(model, batches[:warmup], warmup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fe.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(model, batches[warmup:warmup + steps], steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"fused_qkv_attention": fe.fused_qkv_attention.launches,
+                "fused_qkv_attention_bwd": fe.fused_qkv_attention_bwd.launches,
+                "fused_mlp": fe.fused_mlp.launches,
+                "fused_mlp_bwd": fe.fused_mlp_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in trainer.logger.records if "loss" in r]
+    want = 24 * steps
+    print(f"train: launches {launches}, want {want} each (24 a step: 12 layers x 2 towers)",
+          flush=True)
+    for k, v in launches.items():
+        if v != want:
+            fail(f"{k} launched {v} times in {steps} train steps, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss: {losses}")
+    rate = TRAIN_BATCH * steps / dt
+    print(f"train: {rate:.1f} items/s, {dt / steps * 1e3:.1f} ms a step at batch {TRAIN_BATCH} "
+          f"(host batches, prefetched), peak memory {peak / 2**30:.2f} GiB, losses "
+          f"{[round(x, 5) for x in losses]} on {card}", flush=True)
+    breakdown = profile_step(lambda: trainer.fit(model, batches[-1:], 1), "train")
+    print("train: device time of one step by kernel group " + json.dumps(breakdown), flush=True)
+    return launches, cos, rate, dt / steps * 1e3, peak
 
 
 def main() -> None:
@@ -367,30 +597,43 @@ def main() -> None:
     if bad:
         fail(f"{len(bad)} kernel case(s) outside tolerance: "
              + ", ".join(f"{c['kernel']}/{c['case']}/{c['dtype']}" for c in bad))
+    if "--kernels-only" in sys.argv[1:]:
+        print("kernels only: every case within tolerance; no result line", flush=True)
+        return
 
-    launches, min_cos, device_rate, served_rate = serve(fe, card)
+    serve_launches, min_cos, device_rate, served_rate = serve(fe, card)
+    launches, grad_cos, train_rate, step_ms, peak = train(fe, card)
 
     kernels = []
     for name, source, replaces in (
         ("fused_qkv_attention", "multimodal_tpu_torch/csrc/fused_qkv_attention.cu",
          "multimodal_tpu/ops/fused_encoder.py:200"),
+        ("fused_qkv_attention_bwd", "multimodal_tpu_torch/csrc/fused_qkv_attention_bwd.cu",
+         "multimodal_tpu/ops/fused_encoder.py:317"),
         ("fused_mlp", "multimodal_tpu_torch/csrc/fused_mlp.cu",
          "multimodal_tpu/ops/fused_encoder.py:500"),
+        ("fused_mlp_bwd", "multimodal_tpu_torch/csrc/fused_mlp_bwd.cu",
+         "multimodal_tpu/ops/fused_encoder.py:603"),
     ):
         mine = [c for c in cases if c["kernel"] == name]
         head = next(c for c in mine if c["case"] == "vision" and c["dtype"] == "bfloat16")
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": head["max_abs_err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "passed": all(c["ok"] for c in mine),
-            "cases": [{k: c[k] for k in ("case", "dtype", "max_abs_err", "tol", "ms",
-                                         "plain_ms", "library_ms", "bound_ms", "bound_by")}
-                      for c in mine],
-        })
-    print(f"summary: min cosine {min_cos:.6f}, {device_rate:.1f} pairs/s device, "
-          f"{served_rate:.1f} pairs/s served, build {build_s:.1f} s", flush=True)
+        }
+        if name in serve_launches:
+            entry["launches_serve"] = serve_launches[name]
+        entry["cases"] = [{k: c[k] for k in ("case", "dtype", "max_abs_err", "tol", "ms",
+                                             "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                          for c in mine]
+        kernels.append(entry)
+    print(f"summary: serve min cosine {min_cos:.6f}, {device_rate:.1f} pairs/s device, "
+          f"{served_rate:.1f} pairs/s served; train gradient cosine {grad_cos:.6f}, "
+          f"{train_rate:.1f} items/s, {step_ms:.1f} ms a step, peak {peak / 2**30:.2f} GiB; "
+          f"build {build_s:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,13 @@ Counterpart of ``multimodal_tpu/models/clip/model.py``. The builders make a
 model with random weights from a seed; weights from the JAX package load
 through ``utils/checkpoint.py:clip_state_dict_from_jax``.
 
-Numerics under a low-precision compute dtype: the LayerNorm parameters stay
-in fp32 and every other weight is held in the compute dtype, cast once when
-it is built or loaded. This gives the numbers the JAX package gives with
-fp32 parameters cast at each use.
+Numerics under a low-precision compute dtype ``dtype``: the LayerNorm
+parameters stay in fp32; every other weight is held in ``param_dtype`` and
+cast to ``dtype`` at each use, as the JAX layers do with their
+``param_dtype`` and ``dtype``. ``param_dtype`` defaults to ``dtype``, which
+is right for serving: the weights are cast once when built or loaded and
+the casts at use are no-ops. Training keeps fp32 master weights with
+``param_dtype=torch.float32, dtype=torch.bfloat16``.
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> None:
             normal_(m.positional_embedding, m.POS_EMBEDDING_INIT_STD)
 
 
-def to_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+def to_param_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast every weight to ``dtype`` except the fp32 LayerNorms'."""
     model.to(dtype)
     for m in model.modules():
@@ -93,25 +96,31 @@ def to_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
-def _clip_vit(vision: dict, text: dict, device, dtype, seed) -> CLIP:
+Device = Optional[Union[str, torch.device]]
+DType = Optional[torch.dtype]
+
+
+def _clip_vit(vision: dict, text: dict, device: Device, dtype: torch.dtype, seed: int,
+              param_dtype: DType) -> CLIP:
     dev = resolve_device(device)
     with torch.device(dev):
-        model = CLIP(CLIPViTEncoder(**vision), CLIPTextEncoder(**text))
+        model = CLIP(CLIPViTEncoder(**vision, dtype=dtype),
+                     CLIPTextEncoder(**text, dtype=dtype))
     if dev.type != "meta":
         init_parameters_(model, torch.Generator().manual_seed(seed))
-    return to_compute_dtype(model, dtype).eval()
+    return to_param_dtype(model, param_dtype or dtype).eval()
 
 
-Device = Optional[Union[str, torch.device]]
+def clip_vit_b16(device: Device = None, dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 param_dtype: DType = None) -> CLIP:
+    return _clip_vit(dict(image_size=224, patch_size=16, layers=12, heads=12, width=768, embedding_dim=512), dict(embedding_dim=512), device, dtype, seed, param_dtype)
 
 
-def clip_vit_b16(device: Device = None, dtype: torch.dtype = torch.bfloat16, seed: int = 0) -> CLIP:
-    return _clip_vit(dict(image_size=224, patch_size=16, layers=12, heads=12, width=768, embedding_dim=512), dict(embedding_dim=512), device, dtype, seed)
+def clip_vit_b32(device: Device = None, dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 param_dtype: DType = None) -> CLIP:
+    return _clip_vit(dict(image_size=224, patch_size=32, layers=12, heads=12, width=768, embedding_dim=512), dict(embedding_dim=512), device, dtype, seed, param_dtype)
 
 
-def clip_vit_b32(device: Device = None, dtype: torch.dtype = torch.bfloat16, seed: int = 0) -> CLIP:
-    return _clip_vit(dict(image_size=224, patch_size=32, layers=12, heads=12, width=768, embedding_dim=512), dict(embedding_dim=512), device, dtype, seed)
-
-
-def clip_vit_l14(device: Device = None, dtype: torch.dtype = torch.bfloat16, seed: int = 0) -> CLIP:
-    return _clip_vit(dict(image_size=224, patch_size=14, layers=24, heads=16, width=1024, embedding_dim=768), dict(embedding_dim=768, width=768, dim_feedforward=3072, heads=12), device, dtype, seed)
+def clip_vit_l14(device: Device = None, dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 param_dtype: DType = None) -> CLIP:
+    return _clip_vit(dict(image_size=224, patch_size=14, layers=24, heads=16, width=1024, embedding_dim=768), dict(embedding_dim=768, width=768, dim_feedforward=3072, heads=12), device, dtype, seed, param_dtype)

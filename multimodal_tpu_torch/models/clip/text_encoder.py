@@ -3,13 +3,17 @@
 
 Token and position embedding, the causal pre-norm stack, fp32
 ``ln_final``, pooling at the EOT token (the argmax of the token ids) and a
-bias-free projection.
+bias-free projection. ``dtype`` is the compute dtype (None: the weights'
+dtype); every weight but the LayerNorm's is cast to it at use.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from multimodal_tpu_torch.models.clip.transformer import CLIPTransformer
 from multimodal_tpu_torch.modules.layers.normalizations import Fp32LayerNorm
@@ -21,8 +25,10 @@ class CLIPTextEncoder(nn.Module):
 
     def __init__(self, embedding_dim: int = 512, context_length: int = 77,
                  vocab_size: int = 49408, width: int = 512,
-                 dim_feedforward: int = 2048, heads: int = 8, layers: int = 12):
+                 dim_feedforward: int = 2048, heads: int = 8, layers: int = 12,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.context_length = context_length
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.positional_embedding = nn.Parameter(torch.empty(context_length, width))
@@ -37,8 +43,10 @@ class CLIPTextEncoder(nn.Module):
             raise ValueError(
                 f"length of input should be {self.context_length} but found {text.shape[1]}"
             )
-        h = self.token_embedding(text) + self.positional_embedding
+        dtype = self.dtype or self.token_embedding.weight.dtype
+        # gather, then cast: the same values as casting the table first
+        h = self.token_embedding(text).to(dtype) + self.positional_embedding.to(dtype)
         hidden = self.ln_final(self.encoder(h, is_causal=True))
         eot = text.argmax(dim=-1)
         pooled = hidden[torch.arange(text.shape[0], device=text.device), eot]
-        return self.projection(pooled)
+        return F.linear(pooled, self.projection.weight.to(dtype))

@@ -38,7 +38,8 @@ class SelfAttentionProjections(nn.Module):
 class CLIPEncoderLayer(nn.Module):
     """Pre-norm encoder layer: fp32 LayerNorms (eps 1e-5), fused QKV
     attention, quick-GELU MLP. The residual stream stays in the compute
-    dtype.
+    dtype, the dtype of ``x``; every weight but the LayerNorms' is cast to
+    it at use, a no-op when the weights are held in it already.
 
     On CUDA tensors attention and MLP always run the hand-written kernels;
     on CPU tensors, their plain PyTorch versions.
@@ -61,13 +62,16 @@ class CLIPEncoderLayer(nn.Module):
                 "longer sequences need the flash-attention kernels, still to be "
                 "ported (ROADMAP.md, queue B, flash attention)"
             )
-        qkv = F.linear(self.norm1(x), self.self_attn.in_proj_weight,
-                       self.self_attn.in_proj_bias)
-        x = x + self.self_attn.out_proj(fused_qkv_attention(qkv, self.heads, is_causal))
+        dt = x.dtype
+        attn, out_proj = self.self_attn, self.self_attn.out_proj
+        qkv = F.linear(self.norm1(x), attn.in_proj_weight.to(dt), attn.in_proj_bias.to(dt))
+        x = x + F.linear(fused_qkv_attention(qkv, self.heads, is_causal),
+                         out_proj.weight.to(dt), out_proj.bias.to(dt))
         y = self.norm2(x)
+        # .to(dt).t(): the column-major (in, out) view the MLP kernels read
         return x + fused_mlp(
-            y, self.linear1.weight.t(), self.linear1.bias,
-            self.linear2.weight.t(), self.linear2.bias, "quick_gelu",
+            y, self.linear1.weight.to(dt).t(), self.linear1.bias.to(dt),
+            self.linear2.weight.to(dt).t(), self.linear2.bias.to(dt), "quick_gelu",
         )
 
 

@@ -1,29 +1,35 @@
 """Fused encoder-block kernels: attention off the fused QKV projection, and
-the two-layer MLP with its intermediate kept on chip.
+the two-layer MLP with its intermediate kept on chip, each with its
+backward.
 
 Counterpart of ``multimodal_tpu/ops/fused_encoder.py``. Each function here
 takes the JAX function's layouts:
 
 - ``fused_qkv_attention``: ``qkv`` is ``(B, S, 3D)`` laid out ``[q | k | v]``
-  with heads contiguous; the output is ``(B, S, D)``.
+  with heads contiguous; the output is ``(B, S, D)``; the gradient comes
+  back in ``qkv``'s fused layout.
 - ``fused_mlp``: ``x`` is ``(..., Din)``, weights ``(Din, Dff)`` and
-  ``(Dff, Dout)``. The kernel reads the weights column-major, as
+  ``(Dff, Dout)``. The kernels read the weights column-major, as
   ``linear.weight.t()`` of an ``nn.Linear`` gives them, so the layer passes
   its weights without a copy.
 
-On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/fused_qkv_attention.cu``, ``csrc/fused_mlp.cu``) or raises; it never
-falls back. On a CPU tensor it runs the plain PyTorch version, which follows
-the TPU kernel body's arithmetic (where it rounds to the compute type and
-where it stays in fp32). Each wrapper counts its kernel launches in its
-``launches`` attribute.
+Both are ``torch.autograd.Function``s, as the JAX functions are
+``custom_vjp``s: the forward saves its inputs only, and the backward
+recomputes what it needs. On a CUDA tensor each wrapper launches its
+hand-written kernel (forward ``csrc/fused_qkv_attention.cu`` and
+``csrc/fused_mlp.cu``, backward ``csrc/fused_qkv_attention_bwd.cu`` and
+``csrc/fused_mlp_bwd.cu``) or raises; it never falls back. On a CPU tensor
+it runs the plain PyTorch version, which follows the TPU kernel body's
+arithmetic (where it rounds to the compute type and where it stays in
+fp32). Each kernel wrapper counts its launches in its ``launches``
+attribute.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,7 +38,7 @@ from multimodal_tpu_torch.ops import _build
 _SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on sm_90
 _MAX_SEQ = 256         # score row kept in registers: 8 values per lane
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Activation codes of csrc/fused_mlp.cu's `act` template.
+# Activation codes of the `act` templates in csrc/fused_mlp*.cu.
 _ACT_CODES = {"quick_gelu": 0, "gelu": 1, "gelu_exact": 2, "relu": 3, "silu": 4}
 _ACTIVATIONS = {
     "quick_gelu": lambda z: z * torch.sigmoid(1.702 * z),
@@ -54,9 +60,15 @@ def _kernels() -> ctypes.CDLL:
         lib.mm_qkv_attention.argtypes = [
             _V, _V, _V, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
         lib.mm_qkv_attention.restype = _I
+        lib.mm_qkv_attention_bwd.argtypes = [
+            _V, _V, _V, _V, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
+        lib.mm_qkv_attention_bwd.restype = _I
         lib.mm_fused_mlp.argtypes = [
             _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _V]
         lib.mm_fused_mlp.restype = _I
+        lib.mm_fused_mlp_bwd.argtypes = [
+            _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _V]
+        lib.mm_fused_mlp_bwd.restype = _I
         _lib = lib
     return _lib
 
@@ -68,6 +80,14 @@ def _attention_smem_bytes(seq: int, head_dim: int) -> int:
     warps, rows = 8, 4
     return 4 * (head_dim * (sp + 1) + seq * head_dim
                 + warps * rows * head_dim + warps * sp * rows)
+
+
+def _attention_bwd_smem_bytes(seq: int, head_dim: int) -> int:
+    """Mirror of ``smem_floats`` in csrc/fused_qkv_attention_bwd.cu (the
+    FP32-pipe path): K^T and V^T, q and g, and the rounded p and ds
+    matrices of one head, all in fp32."""
+    kp = -(-seq // 32) * 32 + 1
+    return 4 * (2 * head_dim * kp + 2 * seq * head_dim + 2 * seq * seq)
 
 
 def fused_attention_supported(seq: int, embed_dim: int, num_heads: int) -> bool:
@@ -82,14 +102,18 @@ def fused_attention_supported(seq: int, embed_dim: int, num_heads: int) -> bool:
     return _attention_smem_bytes(seq, dh) <= _SMEM_LIMIT
 
 
-def _check_no_grad(*tensors: Optional[torch.Tensor]) -> None:
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors
-    ):
-        raise RuntimeError(
-            "the CUDA kernel has no backward yet; call it under "
-            "torch.no_grad() or torch.inference_mode()"
-        )
+def fused_attention_bwd_supported(seq: int, embed_dim: int, num_heads: int,
+                                  dtype: torch.dtype) -> bool:
+    """Shape predicate of the attention backward kernel. bf16 at head width
+    64 and ``seq <= 128`` takes the tensor-core path (its two S x S bf16
+    matrices fit shared memory); every other shape the forward admits runs
+    on the FP32 pipes when that path's block fits shared memory."""
+    if not fused_attention_supported(seq, embed_dim, num_heads):
+        return False
+    dh = embed_dim // num_heads
+    if dtype == torch.bfloat16 and dh == 64 and seq <= 128:
+        return True
+    return _attention_bwd_smem_bytes(seq, dh) <= _SMEM_LIMIT
 
 
 def _check_cuda(name: str, device: torch.device, dtype: torch.dtype,
@@ -112,9 +136,32 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 # --------------------------------------------------------------------------
 # fused QKV self-attention
 # --------------------------------------------------------------------------
+
+
+def _split_heads(qkv: torch.Tensor, num_heads: int):
+    b, s, three_d = qkv.shape
+    d = three_d // 3
+    return (t.reshape(b, s, num_heads, d // num_heads).transpose(1, 2)
+            for t in qkv.split(d, dim=-1))
+
+
+def _attention_probs(q, k, scale, is_causal, key_bias) -> torch.Tensor:
+    """fp32 softmax probabilities of ``(B, H, S, Dh)`` q and k."""
+    s = q.shape[2]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if key_bias is not None:
+        logits = logits + key_bias.float()[:, None, None, :]
+    if is_causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, -1e30)
+    return torch.softmax(logits, dim=-1)
 
 
 def qkv_attention_plain(
@@ -129,21 +176,137 @@ def qkv_attention_plain(
     compute type before ``p . v``, fp32 sum."""
     b, s, three_d = qkv.shape
     d = three_d // 3
-    dh = d // num_heads
-    scale = sm_scale if sm_scale is not None else dh ** -0.5
-    q, k, v = (
-        t.reshape(b, s, num_heads, dh).transpose(1, 2)
-        for t in qkv.split(d, dim=-1)
-    )
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if key_bias is not None:
-        logits = logits + key_bias.float()[:, None, None, :]
-    if is_causal:
-        keep = torch.ones(s, s, dtype=torch.bool, device=qkv.device).tril()
-        logits = logits.masked_fill(~keep, -1e30)
-    p = torch.softmax(logits, dim=-1).to(qkv.dtype).float()
+    scale = sm_scale if sm_scale is not None else (d // num_heads) ** -0.5
+    q, k, v = _split_heads(qkv, num_heads)
+    p = _attention_probs(q, k, scale, is_causal, key_bias).to(qkv.dtype).float()
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return o.transpose(1, 2).reshape(b, s, d).to(qkv.dtype)
+
+
+def qkv_attention_bwd_plain(
+    qkv: torch.Tensor,
+    g: torch.Tensor,
+    num_heads: int,
+    is_causal: bool = False,
+    sm_scale: Optional[float] = None,
+    key_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel (the TPU kernel's
+    ``_qkv_attn_bwd_loop``): ``p`` recomputed in fp32; ``dv = T(p)^T g``;
+    ``dp = g v^T`` in fp32; ``ds = p (dp - rowsum(dp p)) scale`` from the
+    fp32 ``p``; ``dq = T(ds) k`` and ``dk = T(ds)^T q``; fp32 sums, each
+    result rounded to the compute type T and laid out as ``qkv``."""
+    b, s, three_d = qkv.shape
+    d = three_d // 3
+    scale = sm_scale if sm_scale is not None else (d // num_heads) ** -0.5
+    q, k, v = _split_heads(qkv, num_heads)
+    gh = g.reshape(b, s, num_heads, d // num_heads).transpose(1, 2).float()
+    p = _attention_probs(q, k, scale, is_causal, key_bias)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(qkv.dtype).float(), gh)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gh, v.float())
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    dsb = ds.to(qkv.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", dsb, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", dsb, q.float())
+    return torch.cat(
+        [t.transpose(1, 2).reshape(b, s, d) for t in (dq, dk, dv)], dim=-1
+    ).to(qkv.dtype)
+
+
+def _check_attention(name: str, qkv: torch.Tensor, num_heads: int,
+                     key_bias: Optional[torch.Tensor]) -> None:
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"{name}: qkv must be (B, S, 3D), got {tuple(qkv.shape)}")
+    b, s, three_d = qkv.shape
+    if not fused_attention_supported(s, three_d // 3, num_heads):
+        raise ValueError(
+            f"{name}: no kernel for seq={s}, embed_dim={three_d // 3}, "
+            f"num_heads={num_heads}"
+        )
+    _check_cuda(name, qkv.device, qkv.dtype, qkv)
+    if key_bias is not None:
+        if key_bias.shape != (b, s):
+            raise ValueError(f"{name}: key_bias must be (B, S)")
+        _check_cuda(name, qkv.device, torch.float32, key_bias)
+
+
+def _attention_fwd(qkv, num_heads, is_causal, sm_scale, key_bias) -> torch.Tensor:
+    """Kernel #1 on CUDA, its plain version on the CPU."""
+    if qkv.device.type == "cpu":
+        return qkv_attention_plain(qkv, num_heads, is_causal, sm_scale, key_bias)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_qkv_attention: no kernel for {qkv.device}")
+    _check_attention("fused_qkv_attention", qkv, num_heads, key_bias)
+    b, s, three_d = qkv.shape
+    d = three_d // 3
+    scale = sm_scale if sm_scale is not None else (d // num_heads) ** -0.5
+    out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
+    err = _kernels().mm_qkv_attention(
+        qkv.data_ptr(), key_bias.data_ptr() if key_bias is not None else None,
+        out.data_ptr(), b, s, d, num_heads, float(scale), int(is_causal),
+        _DTYPE_CODES[qkv.dtype], _stream(qkv),
+    )
+    _raise_on(err, "fused_qkv_attention")
+    fused_qkv_attention.launches += 1
+    return out
+
+
+def fused_qkv_attention_bwd(
+    qkv: torch.Tensor,
+    g: torch.Tensor,
+    num_heads: int,
+    is_causal: bool = False,
+    sm_scale: Optional[float] = None,
+    key_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``dqkv`` ``(B, S, 3D)`` of ``fused_qkv_attention`` given its output
+    gradient ``g`` ``(B, S, D)``: kernel #2 on CUDA, its plain version on
+    the CPU."""
+    if qkv.device.type == "cpu":
+        return qkv_attention_bwd_plain(qkv, g, num_heads, is_causal, sm_scale, key_bias)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_qkv_attention_bwd: no kernel for {qkv.device}")
+    _check_attention("fused_qkv_attention_bwd", qkv, num_heads, key_bias)
+    b, s, three_d = qkv.shape
+    d = three_d // 3
+    if not fused_attention_bwd_supported(s, d, num_heads, qkv.dtype):
+        raise ValueError(
+            f"fused_qkv_attention_bwd: no kernel for seq={s}, embed_dim={d}, "
+            f"num_heads={num_heads} in {qkv.dtype} (shared memory)"
+        )
+    if g.shape != (b, s, d):
+        raise ValueError(f"fused_qkv_attention_bwd: g must be {(b, s, d)}, got {tuple(g.shape)}")
+    _check_cuda("fused_qkv_attention_bwd", qkv.device, qkv.dtype, g)
+    scale = sm_scale if sm_scale is not None else (d // num_heads) ** -0.5
+    dqkv = torch.empty_like(qkv)
+    err = _kernels().mm_qkv_attention_bwd(
+        qkv.data_ptr(), g.data_ptr(),
+        key_bias.data_ptr() if key_bias is not None else None, dqkv.data_ptr(),
+        b, s, d, num_heads, float(scale), int(is_causal), _DTYPE_CODES[qkv.dtype],
+        _stream(qkv),
+    )
+    _raise_on(err, "fused_qkv_attention_bwd")
+    fused_qkv_attention_bwd.launches += 1
+    return dqkv
+
+
+class _QKVAttention(torch.autograd.Function):
+    """Kernel #1 forward, kernel #2 backward (``_qkv_attn_fwd`` /
+    ``_qkv_attn_bwd``): only ``qkv`` and ``key_bias`` are saved; the
+    scores and probabilities are recomputed. ``key_bias`` is data and gets
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, key_bias, num_heads, is_causal, sm_scale):
+        ctx.save_for_backward(qkv, key_bias)
+        ctx.args = (num_heads, is_causal, sm_scale)
+        return _attention_fwd(qkv, num_heads, is_causal, sm_scale, key_bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, key_bias = ctx.saved_tensors
+        dqkv = fused_qkv_attention_bwd(qkv, g.contiguous(), *ctx.args, key_bias)
+        return dqkv, None, None, None, None
 
 
 def fused_qkv_attention(
@@ -153,7 +316,8 @@ def fused_qkv_attention(
     sm_scale: Optional[float] = None,
     key_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Self-attention straight off the fused QKV projection.
+    """Self-attention straight off the fused QKV projection, differentiable
+    in ``qkv``.
 
     Args:
         qkv: ``(B, S, 3*D)``, laid out ``[q | k | v]`` along the last axis,
@@ -163,38 +327,11 @@ def fused_qkv_attention(
     Returns:
         ``(B, S, D)`` attention output in ``qkv``'s dtype.
     """
-    if qkv.device.type == "cpu":
-        return qkv_attention_plain(qkv, num_heads, is_causal, sm_scale, key_bias)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"fused_qkv_attention: no kernel for {qkv.device}")
-    if qkv.dim() != 3 or qkv.shape[-1] % 3:
-        raise ValueError(f"fused_qkv_attention: qkv must be (B, S, 3D), got {tuple(qkv.shape)}")
-    b, s, three_d = qkv.shape
-    d = three_d // 3
-    if not fused_attention_supported(s, d, num_heads):
-        raise ValueError(
-            f"fused_qkv_attention: no kernel for seq={s}, embed_dim={d}, "
-            f"num_heads={num_heads}"
-        )
-    _check_no_grad(qkv)
-    _check_cuda("fused_qkv_attention", qkv.device, qkv.dtype, qkv)
-    if key_bias is not None:
-        if key_bias.shape != (b, s):
-            raise ValueError("fused_qkv_attention: key_bias must be (B, S)")
-        _check_cuda("fused_qkv_attention", qkv.device, torch.float32, key_bias)
-    scale = sm_scale if sm_scale is not None else (d // num_heads) ** -0.5
-    out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
-    err = _kernels().mm_qkv_attention(
-        qkv.data_ptr(), key_bias.data_ptr() if key_bias is not None else None,
-        out.data_ptr(), b, s, d, num_heads, float(scale), int(is_causal),
-        _DTYPE_CODES[qkv.dtype], torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
-    _raise_on(err, "fused_qkv_attention")
-    fused_qkv_attention.launches += 1
-    return out
+    return _QKVAttention.apply(qkv, key_bias, num_heads, is_causal, sm_scale)
 
 
 fused_qkv_attention.launches = 0
+fused_qkv_attention_bwd.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -212,32 +349,71 @@ def mlp_plain(x, w1, b1, w2, b2, activation: str = "gelu") -> torch.Tensor:
     return (h.float() @ w2.float() + b2.float()).to(x.dtype)
 
 
-def fused_mlp(x, w1, b1, w2, b2, activation: str = "gelu") -> torch.Tensor:
-    """``act(x @ w1 + b1) @ w2 + b2`` with the ``(rows, Dff)`` intermediate
-    kept on chip. All operands share the compute dtype; ``x`` is
-    ``(..., Din)``, ``w1`` ``(Din, Dff)``, ``w2`` ``(Dff, Dout)``.
-    ``activation`` is one of quick_gelu, gelu (tanh form), gelu_exact, relu
-    and silu. On CUDA the weights must be column-major (``w1.t()`` and
-    ``w2.t()`` contiguous), as ``nn.Linear`` weights transposed are."""
+def _act_and_grad(name: str, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``(act(z), act'(z))``: the analytic forms of the JAX package's
+    ``_act_and_grad``, with ``torch.erf`` for ``gelu_exact``."""
+    if name == "quick_gelu":
+        s = torch.sigmoid(1.702 * z)
+        return z * s, s * (1.0 + 1.702 * z * (1.0 - s))
+    if name == "silu":
+        s = torch.sigmoid(z)
+        return z * s, s * (1.0 + z * (1.0 - s))
+    if name == "relu":
+        return torch.clamp_min(z, 0.0), (z > 0.0).to(z.dtype)
+    if name == "gelu":  # tanh approximation
+        c = 0.7978845608028654  # sqrt(2/pi)
+        t = torch.tanh(c * (z + 0.044715 * z ** 3))
+        du = c * (1.0 + 3 * 0.044715 * z * z)
+        return 0.5 * z * (1.0 + t), 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * du
+    if name == "gelu_exact":
+        erf = torch.erf(z * 2.0 ** -0.5)
+        pdf = torch.exp(-0.5 * z * z) * 0.3989422804014327  # 1/sqrt(2*pi)
+        return 0.5 * z * (1.0 + erf), 0.5 * (1.0 + erf) + z * pdf
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def mlp_bwd_plain(x, g, w1, b1, w2, activation: str = "gelu"):
+    """Plain PyTorch version of the backward kernel (the TPU kernel's
+    ``_mlp_bwd_kernel``), on ``x`` ``(rows, Din)`` and ``g`` ``(rows, Dout)``:
+    ``z = x W1 + b1`` in fp32, ``da = (g W2^T) act'(z)`` rounded to the
+    compute type, ``dx = da W1^T``. Returns ``(dx, da, h)``, all in the
+    compute type."""
+    z = x.float() @ w1.float() + b1.float()
+    h, dact = _act_and_grad(activation, z)
+    da = ((g.float() @ w2.float().t()) * dact).to(x.dtype)
+    dx = da.float() @ w1.float().t()
+    return dx.to(x.dtype), da, h.to(x.dtype)
+
+
+def _check_mlp(name: str, x, w1, b1, w2, b2, activation: str) -> None:
+    if activation not in _ACT_CODES:
+        raise ValueError(f"{name}: unknown activation {activation!r}")
+    din, dff = w1.shape
+    dout = w2.shape[-1]
+    if (x.shape[-1] != din or w2.shape != (dff, dout) or b1.shape != (dff,)
+            or (b2 is not None and b2.shape != (dout,))):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if din % 64 or dff % 64 or dout % 64:
+        raise ValueError(
+            f"{name}: no kernel for widths {din}->{dff}->{dout} "
+            "(needs Din, Dff and Dout multiples of 64)"
+        )
+    # w1.t() / w2.t() are the row-major (Dff, Din) / (Dout, Dff) the kernels read
+    _check_cuda(name, x.device, x.dtype, x, w1.t(), b1, w2.t(),
+                *(() if b2 is None else (b2,)))
+
+
+def _mlp_fwd(x, w1, b1, w2, b2, activation: str) -> torch.Tensor:
+    """Kernel #3 on CUDA, its plain version on the CPU."""
     if activation not in _ACT_CODES:
         raise ValueError(f"fused_mlp: unknown activation {activation!r}")
     if x.device.type == "cpu":
         return mlp_plain(x, w1, b1, w2, b2, activation)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp: no kernel for {x.device}")
+    _check_mlp("fused_mlp", x, w1, b1, w2, b2, activation)
     din, dff = w1.shape
     dout = w2.shape[-1]
-    if (x.shape[-1] != din or w2.shape != (dff, dout) or b1.shape != (dff,)
-            or b2.shape != (dout,)):
-        raise ValueError("fused_mlp: inconsistent shapes")
-    if din % 64 or dff % 64 or dout % 64:
-        raise ValueError(
-            f"fused_mlp: no kernel for widths {din}->{dff}->{dout} "
-            "(needs Din, Dff and Dout multiples of 64)"
-        )
-    _check_no_grad(x, w1, b1, w2, b2)
-    # w1.t() / w2.t() are the row-major (Dff, Din) / (Dout, Dff) the kernel reads
-    _check_cuda("fused_mlp", x.device, x.dtype, x, w1.t(), b1, w2.t(), b2)
     rows = math.prod(x.shape[:-1])
     out = torch.empty((*x.shape[:-1], dout), dtype=x.dtype, device=x.device)
     if rows == 0:
@@ -245,16 +421,90 @@ def fused_mlp(x, w1, b1, w2, b2, activation: str = "gelu") -> torch.Tensor:
     err = _kernels().mm_fused_mlp(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         out.data_ptr(), rows, din, dff, dout, _ACT_CODES[activation],
-        _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        _DTYPE_CODES[x.dtype], _stream(x),
     )
     _raise_on(err, "fused_mlp")
     fused_mlp.launches += 1
     return out
 
 
+def fused_mlp_bwd(x, g, w1, b1, w2, activation: str = "gelu"):
+    """Stage 1 of the MLP backward on ``x`` ``(rows, Din)`` and the output
+    gradient ``g`` ``(rows, Dout)``: ``(dx, da, h)`` in the compute type.
+    Kernel #4 on CUDA, its plain version on the CPU."""
+    if activation not in _ACT_CODES:
+        raise ValueError(f"fused_mlp_bwd: unknown activation {activation!r}")
+    if x.device.type == "cpu":
+        return mlp_bwd_plain(x, g, w1, b1, w2, activation)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_bwd: no kernel for {x.device}")
+    _check_mlp("fused_mlp_bwd", x, w1, b1, w2, None, activation)
+    rows, din = x.shape
+    dff, dout = w2.shape
+    if g.shape != (rows, dout):
+        raise ValueError(f"fused_mlp_bwd: g must be {(rows, dout)}, got {tuple(g.shape)}")
+    _check_cuda("fused_mlp_bwd", x.device, x.dtype, g)
+    dx = torch.empty_like(x)
+    da = torch.empty((rows, dff), dtype=x.dtype, device=x.device)
+    h = torch.empty_like(da)
+    if rows == 0:
+        return dx, da, h
+    err = _kernels().mm_fused_mlp_bwd(
+        x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        dx.data_ptr(), da.data_ptr(), h.data_ptr(), rows, din, dff, dout,
+        _ACT_CODES[activation], _DTYPE_CODES[x.dtype], _stream(x),
+    )
+    _raise_on(err, "fused_mlp_bwd")
+    fused_mlp_bwd.launches += 1
+    return dx, da, h
+
+
+class _MLP(torch.autograd.Function):
+    """Kernel #3 forward, kernel #4 backward (``_mlp_fwd`` / ``_mlp_bwd``'s
+    staged branch): the weight and bias gradients are plain large products
+    and sums over ``da``, ``h`` and ``g`` outside the kernel, fp32
+    accumulation, each returned in its input's dtype and shape."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, activation):
+        ctx.save_for_backward(x, w1, b1, w2)
+        ctx.activation = activation
+        ctx.b2_dtype = b2.dtype
+        return _mlp_fwd(x, w1, b1, w2, b2, activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2 = ctx.saved_tensors
+        x2 = x.reshape(-1, x.shape[-1])
+        g2 = g.reshape(-1, g.shape[-1]).contiguous()
+        dx, da, h = fused_mlp_bwd(x2, g2, w1, b1, w2, ctx.activation)
+        # (Dff, Din) and (Dout, Dff) products, handed back as the (Din, Dff)
+        # and (Dff, Dout) views: nn.Linear's weights get contiguous grads.
+        dw1 = torch.matmul(da.t(), x2).t() if ctx.needs_input_grad[1] else None
+        dw2 = torch.matmul(g2.t(), h).t() if ctx.needs_input_grad[3] else None
+        # fp32 accumulation without an fp32 copy of the (rows, Dff) da
+        db1 = da.sum(0, dtype=torch.float32).to(b1.dtype)
+        db2 = g2.sum(0, dtype=torch.float32).to(ctx.b2_dtype)
+        return dx.reshape(x.shape), dw1, db1, dw2, db2, None
+
+
+def fused_mlp(x, w1, b1, w2, b2, activation: str = "gelu") -> torch.Tensor:
+    """``act(x @ w1 + b1) @ w2 + b2`` with the ``(rows, Dff)`` intermediate
+    kept on chip, differentiable in every operand. All operands share the
+    compute dtype; ``x`` is ``(..., Din)``, ``w1`` ``(Din, Dff)``, ``w2``
+    ``(Dff, Dout)``. ``activation`` is one of quick_gelu, gelu (tanh form),
+    gelu_exact, relu and silu. On CUDA the weights must be column-major
+    (``w1.t()`` and ``w2.t()`` contiguous), as ``nn.Linear`` weights
+    transposed are."""
+    return _MLP.apply(x, w1, b1, w2, b2, activation)
+
+
 fused_mlp.launches = 0
+fused_mlp_bwd.launches = 0
 
 
 def reset_launch_counts() -> None:
     fused_qkv_attention.launches = 0
+    fused_qkv_attention_bwd.launches = 0
     fused_mlp.launches = 0
+    fused_mlp_bwd.launches = 0

@@ -9,6 +9,10 @@
 - ``Fp32LayerNorm`` parameters sit under ``LayerNorm_0`` in JAX, as
   ``scale`` / ``bias``;
 - the fused ``in_proj`` holds ``[q | k | v]`` in both.
+
+The map is linear (transposes and renames only), so it carries a JAX
+gradient tree into the port's parameter names just as it carries weights;
+the tests hold the port's gradients against ``jax.grad``'s that way.
 """
 
 from __future__ import annotations

@@ -1,0 +1,200 @@
+"""The backward of the port's fused encoder kernels
+(multimodal_tpu_torch/ops/fused_encoder.py) held against the JAX package.
+
+On the CPU the port's backward wrappers run their plain versions
+(``qkv_attention_bwd_plain``, ``mlp_bwd_plain``) inside the same
+``torch.autograd.Function``s the CUDA kernels sit in. The JAX side runs its
+Pallas backward kernels in interpret mode (as tests/ops/test_fused_encoder.py
+does) and ``jax.grad`` / ``jax.vjp`` of its XLA references. Inputs come from
+a numpy seed and go to both as the same arrays.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_tpu.ops import fused_encoder as jfe
+from multimodal_tpu_torch.ops import fused_encoder as tfe
+
+# fp32 attention: the same exact-softmax arithmetic in two frameworks, sums
+# in another order; the JAX package's own kernel-vs-XLA tolerance.
+ATTN_ATOL = 2e-5
+# fp32 MLP: as above, over up to 256-term sums; the Pallas gelu_exact uses
+# an erf polynomial 1.5e-7 off where the port uses torch.erf.
+MLP_ATOL = 1e-4
+
+
+def _bf16_atol(want: np.ndarray) -> float:
+    """Two bf16 units in the last place of the output scale: a rounded
+    intermediate (p, ds, da) or the rounded result landing on the other side
+    of a tie moves a value by one unit (2**-7 relative)."""
+    return 2 * 2.0 ** -7 * max(1.0, float(np.abs(want).max()))
+
+
+def _key_bias(r, b, s):
+    kb = np.where(r.rand(b, s) < 0.3, -1e30, 0.0).astype(np.float32)
+    kb[:, 0] = 0.0  # every row keeps a visible key
+    return kb
+
+
+ATTN_CASES = [
+    # b, s, d, h, causal, sm_scale, key_bias
+    (2, 50, 192, 2, False, None, False),   # head width 96, vision-like S
+    (2, 77, 128, 2, True, None, False),    # head width 64, text-like S, causal
+    (3, 26, 144, 3, True, None, False),    # head width 48
+    (2, 25, 128, 2, False, 0.5, False),    # sm_scale
+    (2, 20, 128, 2, False, None, True),    # key-bias lane
+    (2, 20, 128, 2, True, None, True),     # key-bias lane, causal
+]
+
+
+@pytest.mark.parametrize("b,s,d,h,causal,scale,kb", ATTN_CASES)
+def test_attention_bwd_plain_matches_jax(b, s, d, h, causal, scale, kb):
+    r = np.random.RandomState(s + d)
+    qkv = r.randn(b, s, 3 * d).astype(np.float32)
+    g = r.randn(b, s, d).astype(np.float32)
+    bias = _key_bias(r, b, s) if kb else None
+    jbias = None if bias is None else jnp.asarray(bias)
+    want_kernel = np.asarray(jfe._qkv_attention_bwd_impl(
+        jnp.asarray(qkv), jnp.asarray(g), h, causal, scale, jbias))
+    _, vjp = jax.vjp(lambda t: jfe._qkv_attention_xla(t, h, causal, scale, jbias),
+                     jnp.asarray(qkv))
+    want_xla = np.asarray(vjp(jnp.asarray(g))[0])
+    got = tfe.qkv_attention_bwd_plain(
+        torch.from_numpy(qkv), torch.from_numpy(g), h, causal, scale,
+        None if bias is None else torch.from_numpy(bias)).numpy()
+    assert got.shape == (b, s, 3 * d)
+    np.testing.assert_allclose(got, want_kernel, atol=ATTN_ATOL)
+    np.testing.assert_allclose(got, want_xla, atol=ATTN_ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_function_grad_matches_plain_autograd(causal):
+    """The Function's backward (plain backward on the CPU) against autograd
+    through the plain forward: the plumbing hands the right gradient to
+    ``qkv`` and none to the key bias."""
+    r = np.random.RandomState(5)
+    qkv = torch.from_numpy(r.randn(2, 19, 3 * 96).astype(np.float32)).requires_grad_()
+    bias = torch.from_numpy(_key_bias(r, 2, 19)).requires_grad_()
+    g = torch.from_numpy(r.randn(2, 19, 96).astype(np.float32))
+    out = tfe.fused_qkv_attention(qkv, 4, causal, None, bias)
+    got, got_bias = torch.autograd.grad(out, (qkv, bias), g, allow_unused=True)
+    ref = tfe.qkv_attention_plain(qkv, 4, causal, None, bias.detach())
+    (want,) = torch.autograd.grad(ref, qkv, g)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATTN_ATOL)
+    assert got_bias is None
+
+
+def test_attention_bwd_bf16_matches_jax():
+    r = np.random.RandomState(6)
+    qkv = r.randn(2, 50, 3 * 128).astype(np.float32)
+    g = r.randn(2, 50, 128).astype(np.float32)
+    want = np.asarray(jfe._qkv_attention_bwd_impl(
+        jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16), 2, True, None
+    )).astype(np.float32)
+    got = tfe.qkv_attention_bwd_plain(
+        torch.from_numpy(qkv).bfloat16(), torch.from_numpy(g).bfloat16(), 2, True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=_bf16_atol(want))
+
+
+@pytest.fixture
+def _force_fused(monkeypatch):
+    monkeypatch.setenv("MMTPU_FORCE_FUSED_ENCODER", "1")
+
+
+def _mlp_inputs(seed, rows=76, din=128, dff=256, dout=128):
+    r = np.random.RandomState(seed)
+    x = r.randn(rows, din).astype(np.float32)
+    g = (r.randn(rows, dout) * 0.5).astype(np.float32)
+    w1 = (r.randn(din, dff) * din ** -0.5).astype(np.float32)
+    b1 = (r.randn(dff) * 0.1).astype(np.float32)
+    w2 = (r.randn(dff, dout) * dff ** -0.5).astype(np.float32)
+    b2 = (r.randn(dout) * 0.1).astype(np.float32)
+    return x, g, w1, b1, w2, b2
+
+
+ACTS = ["quick_gelu", "gelu", "gelu_exact", "relu", "silu"]
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_mlp_bwd_plain_matches_jax_kernel(act, _force_fused):
+    x, g, w1, b1, w2, _ = _mlp_inputs(7)
+    want = jfe._mlp_bwd_pallas(*map(jnp.asarray, (x, g, w1, b1, w2)), act)
+    got = tfe.mlp_bwd_plain(*map(torch.from_numpy, (x, g, w1, b1, w2)), act)
+    for name, gv, wv in zip(("dx", "da", "h"), got, want):
+        np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=MLP_ATOL, err_msg=name)
+
+
+def _port_mlp_grads(x, g, w1, b1, w2, b2, act):
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, w1, b1, w2, b2)]
+    out = tfe.fused_mlp(*ts, act)
+    return [t.numpy() for t in torch.autograd.grad(out, ts, torch.from_numpy(g))]
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_mlp_function_grads_match_jax(act, _force_fused, monkeypatch):
+    """(dx, dW1, db1, dW2, db2) of the port's Function against jax.grad of
+    the XLA reference (the JAX default VJP) and of ``fused_mlp`` with the
+    opt-in Pallas tiers on (``_mlp_bwd`` tries the dW-accumulating tier
+    first, so this holds the port's staged arithmetic against it)."""
+    x, g, w1, b1, w2, b2 = _mlp_inputs(8)
+    got = _port_mlp_grads(x, g, w1, b1, w2, b2, act)
+    args = tuple(map(jnp.asarray, (x, w1, b1, w2, b2)))
+    _, vjp = jax.vjp(lambda *a: jfe._mlp_xla(*a, act), *args)
+    want_xla = vjp(jnp.asarray(g))
+    monkeypatch.setenv("MMTPU_FUSED_MLP_BWD", "1")
+    _, vjp = jax.vjp(lambda *a: jfe.fused_mlp(*a, act), *args)
+    want_fused = vjp(jnp.asarray(g))
+    for name, gv, wx, wf in zip(("dx", "dW1", "db1", "dW2", "db2"), got, want_xla, want_fused):
+        assert gv.shape == wx.shape, name
+        np.testing.assert_allclose(gv, np.asarray(wx), atol=MLP_ATOL, err_msg=name)
+        np.testing.assert_allclose(gv, np.asarray(wf), atol=MLP_ATOL, err_msg=name)
+
+
+def test_mlp_bwd_bf16_matches_jax_kernel(_force_fused):
+    x, g, w1, b1, w2, _ = _mlp_inputs(9)
+    want = jfe._mlp_bwd_pallas(*(jnp.asarray(a, jnp.bfloat16) for a in (x, g, w1, b1, w2)),
+                               "quick_gelu")
+    got = tfe.mlp_bwd_plain(*(torch.from_numpy(a).bfloat16() for a in (x, g, w1, b1, w2)),
+                            "quick_gelu")
+    for name, gv, wv in zip(("dx", "da", "h"), got, want):
+        assert gv.dtype == torch.bfloat16, name
+        wv = np.asarray(wv).astype(np.float32)
+        np.testing.assert_allclose(gv.float().numpy(), wv, atol=_bf16_atol(wv), err_msg=name)
+
+
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu_exact"])
+def test_mlp_function_grad_matches_plain_autograd(act):
+    """The Function's backward against autograd through the plain forward,
+    with the weights passed as the column-major views an nn.Linear gives:
+    each gradient comes back in its input's shape."""
+    x, g, w1, b1, w2, b2 = _mlp_inputs(10)
+    lin1 = torch.from_numpy(np.ascontiguousarray(w1.T)).requires_grad_()
+    lin2 = torch.from_numpy(np.ascontiguousarray(w2.T)).requires_grad_()
+    xs, b1s, b2s = (torch.from_numpy(a).requires_grad_() for a in (x, b1, b2))
+    leaves = (xs, lin1, b1s, lin2, b2s)
+    got = torch.autograd.grad(tfe.fused_mlp(xs, lin1.t(), b1s, lin2.t(), b2s, act),
+                              leaves, torch.from_numpy(g))
+    want = torch.autograd.grad(tfe.mlp_plain(xs, lin1.t(), b1s, lin2.t(), b2s, act),
+                               leaves, torch.from_numpy(g))
+    for leaf, gv, wv in zip(leaves, got, want):
+        assert gv.shape == leaf.shape
+        np.testing.assert_allclose(gv.numpy(), wv.numpy(), atol=MLP_ATOL)
+
+
+@pytest.mark.parametrize(
+    "seq,width,heads,dtype,ok",
+    [(50, 768, 12, torch.bfloat16, True), (77, 512, 8, torch.bfloat16, True),
+     (128, 768, 12, torch.bfloat16, True), (197, 768, 12, torch.bfloat16, False),
+     (77, 512, 8, torch.float32, True), (50, 384, 4, torch.float32, True),
+     (77, 512, 4, torch.float32, True), (128, 768, 12, torch.float32, False),
+     (257, 1024, 16, torch.bfloat16, False)],
+)
+def test_attention_bwd_shape_predicate(seq, width, heads, dtype, ok):
+    """The backward admits CLIP's S=50 / 77 in bf16 and fp32, bf16 at head
+    width 64 up to S=128 (tensor-core path), and other shapes while the
+    FP32-pipe path's block fits shared memory."""
+    assert tfe.fused_attention_bwd_supported(seq, width, heads, dtype) is ok

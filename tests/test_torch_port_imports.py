@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
-entry points refuse to run without CUDA unless asked for the CPU, and on
-CPU tensors no kernel is launched."""
+entry points (model constructors, server, trainer) refuse to run without CUDA unless
+asked for the CPU, and on CPU tensors no kernel is launched, forward or
+backward."""
 
 import ast
 import pkgutil
@@ -18,6 +19,7 @@ from multimodal_tpu_torch.models.clip.image_encoder import CLIPViTEncoder
 from multimodal_tpu_torch.models.clip.text_encoder import CLIPTextEncoder
 from multimodal_tpu_torch.ops import fused_encoder as fe
 from multimodal_tpu_torch.serving.embedding import EmbeddingServer
+from multimodal_tpu_torch.training.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_tpu"}
@@ -61,16 +63,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         clip_model.clip_vit_b32()
     with pytest.raises(RuntimeError, match="CUDA"):
         EmbeddingServer(lambda x: x)
+    model = torch.nn.Linear(2, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(lambda m, b: (m(b).sum(), {}), torch.optim.AdamW(model.parameters()))
 
 
 def test_cpu_tensors_launch_no_kernel():
     fe.reset_launch_counts()
     r = np.random.RandomState(0)
-    qkv = torch.from_numpy(r.randn(2, 9, 3 * 32).astype(np.float32))
-    fe.fused_qkv_attention(qkv, 4, True)
-    x = torch.from_numpy(r.randn(5, 64).astype(np.float32))
+    qkv = torch.from_numpy(r.randn(2, 9, 3 * 32).astype(np.float32)).requires_grad_()
+    fe.fused_qkv_attention(qkv, 4, True).sum().backward()
+    x = torch.from_numpy(r.randn(5, 64).astype(np.float32)).requires_grad_()
     w1, w2 = torch.randn(64, 128), torch.randn(128, 64)
-    fe.fused_mlp(x, w1, torch.zeros(128), w2, torch.zeros(64), "quick_gelu")
+    fe.fused_mlp(x, w1, torch.zeros(128), w2, torch.zeros(64), "quick_gelu").sum().backward()
+    assert qkv.grad is not None and x.grad is not None
     model = clip_model.CLIP(
         CLIPViTEncoder(embedding_dim=16, patch_size=16, image_size=32, width=64, heads=2,
                        layers=1),
@@ -82,3 +88,5 @@ def test_cpu_tensors_launch_no_kernel():
         model(torch.zeros(1, 32, 32, 3), torch.ones(1, 77, dtype=torch.long))
     assert fe.fused_qkv_attention.launches == 0
     assert fe.fused_mlp.launches == 0
+    assert fe.fused_qkv_attention_bwd.launches == 0
+    assert fe.fused_mlp_bwd.launches == 0
