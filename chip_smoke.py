@@ -28,10 +28,30 @@ in order (any failure exits non-zero):
    24 launches of each of the four kernels a step and finite losses;
    items/s, ms a step, peak memory and one step's device time by kernel
    group;
-5. a ``kernels`` JSON line, the card line, and the result line
+5. CLIP ViT-L/14's image tower (S = 257, past the fused kernels) at batch 8
+   on the card against fp32 on the CPU (cosine >= 0.999);
+6. long-context LM serving at bench.py's serving width and depth (12
+   layers, d_model 768, 12 heads, d_ff 3072, vocab 32768, bf16, random
+   weights from a seed) through ``InferenceEngine`` (32 slots, 4096-long
+   int8 KV cache, prefill batch 8, 16 decode ticks a call, top-k 50): 48
+   requests with prompts of 600-3000 tokens and 32-128 new tokens, half
+   greedy, half at temperature 1. Every request must reach its length; the
+   counters must show 12 launches of #6 per prefill call, 12 of #10 per
+   decode tick and 12 of #3 per either; 2 requests' logits, teacher-forced
+   with an int8 cache, are held against fp32 on the CPU (cosine >= 0.99);
+   prefill and decode tokens/s, ms a tick, time to first token, peak
+   memory and the device time of one prefill and one decode call by
+   kernel group;
+7. a ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
-``--kernels-only`` stops after phase 2 and prints no result line.
+Phase 2 also checks the flash attention forward (#6) at the prefill shape
+(8, 12, 2048, 64) causal and its masking variants, and the int8-cache decode
+attention (#10) at the decode shape (33 x 12 heads, 4096 positions) and its
+verify-window and GQA variants, each output element held to its own row's
+scale (``row_relative_error``), and times #6 against the plain path at
+S = 32 to 1024 (the numbers ``ops/attention.py:FLASH_MIN_SEQ`` is set
+from). ``--kernels-only`` stops after phase 2 and prints no result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -90,6 +110,33 @@ def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
     terms)."""
     scale = max(1.0, ref.abs().max().item())
     return (2.0 ** -6 if dtype == torch.bfloat16 else 1e-4) * scale
+
+
+def row_relative_error(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest |got - ref| / (|ref| + rms of ref's row) over the elements, a
+    row being the last dimension (one query row of one head). Each element
+    is held to its own row's scale, so the rows that see few keys (outputs
+    up to 4) do not loosen the bar for rows that see thousands (outputs near
+    0.03), as a bar scaled by the largest output would."""
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    denom = r.abs() + r.pow(2).mean(-1, keepdim=True).sqrt()
+    return torch.where(err == 0, 0.0, err / denom).max().item()
+
+
+# Bars of row_relative_error for kernels #6 and #10. bf16: 2^-6, two units in
+# the last place of the element (kernel and plain version each round the
+# output once, and round the probabilities to bf16 at points that can fall
+# on opposite sides of a tie). fp32: #6 rounds nothing to bf16, so only the
+# order of the sums differs; #10 rounds p x v_scale to bf16 on both sides
+# (as the TPU kernel does), so a score summed in another order can move one
+# of those roundings across a tie.
+ROW_RELATIVE_BAR = {
+    ("flash_attention", torch.bfloat16): 2.0 ** -6,
+    ("flash_attention", torch.float32): 2.0 ** -15,
+    ("quantized_cache_attention", torch.bfloat16): 2.0 ** -6,
+    ("quantized_cache_attention", torch.float32): 2.0 ** -9,
+}
 
 
 def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
@@ -247,6 +294,180 @@ def mlp_bwd_case(fe, name, rows, din, dff, dout, act, dtype, gen):
                 library_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
+def _segments(b, s, gen):
+    """(b, s) int32 packed-document ids: 4 documents a row, cut at random."""
+    cuts = torch.sort(torch.randperm(s - 1, generator=gen, device="cuda")[:3] + 1).values
+    ids = torch.searchsorted(cuts, torch.arange(s, device="cuda"), right=True)
+    return ids.to(torch.int32)[None].expand(b, s).contiguous()
+
+
+def flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
+               segments=False, lse=False):
+    """Kernel #6 against its plain version; the library call is SDPA with
+    the same visibility and bias as an explicit mask (``is_causal`` where it
+    is the square causal mask, since SDPA's causal is top-left aligned)."""
+    q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen).to(dtype)
+               for s in (sq, sk, sk))
+    bias = None
+    if bias_kind == "1h1k":  # ALiBi-style per-head key ramp
+        bias = -0.05 * torch.rand(1, h, 1, 1, device="cuda", generator=gen) * torch.arange(
+            sk, device="cuda")[None, None, None, :]
+    elif bias_kind == "b1qk":
+        bias = torch.randn(b, 1, sq, sk, device="cuda", generator=gen)
+    qseg = kvseg = None
+    if segments:
+        qseg = kvseg = _segments(b, sq, gen)
+    kw = dict(causal=causal, return_lse=lse, q_segment_ids=qseg, kv_segment_ids=kvseg)
+    with torch.inference_mode():
+        got = fa.flash_attention_forward(q, k, v, bias, **kw)
+        ref = fa.flash_attention_plain(q, k, v, bias, **kw)
+        torch.cuda.synchronize()
+        out, ref_out = (got[0], ref[0]) if lse else (got, ref)
+        err = (out.float() - ref_out.float()).abs().max().item()
+        rel_err = row_relative_error(out, ref_out)
+        tol = ROW_RELATIVE_BAR["flash_attention", dtype]
+        ok = rel_err <= tol
+        lse_err = None
+        if lse:
+            fin = torch.isfinite(ref[1])
+            lse_err = (got[1][fin] - ref[1][fin]).abs().max().item()
+            ok = ok and lse_err <= 1e-4 * max(1.0, ref[1][fin].abs().max().item()) and bool(
+                torch.equal(torch.isfinite(got[1]), fin))
+        visible = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+        if causal:
+            visible = visible.tril(sk - sq)
+        visible = visible[None, None].expand(b, 1, sq, sk)
+        if segments:
+            visible = visible & (qseg[:, None, :, None] == kvseg[:, None, None, :])
+        pairs = int(visible.sum().item()) * h
+        lib_mask = None
+        if bias is not None or segments or (causal and sq != sk):
+            lib_mask = torch.where(visible, 0.0, -math.inf)
+            if bias is not None:
+                lib_mask = lib_mask + bias
+            lib_mask = lib_mask.to(dtype)
+        lib_causal = causal and lib_mask is None
+        call = lambda: fa.flash_attention_forward(q, k, v, bias, **kw)
+        kernel_ms = time_ms(call, 1)
+        reps = reps_for(kernel_ms)
+        kernel_ms = time_ms(call, reps)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, bias, **kw),
+                           max(3, reps // 4))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=lib_mask, is_causal=lib_causal), reps)
+    es = q.element_size()
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * es
+    nbytes += 0 if bias is None else bias.numel() * 4
+    nbytes += 0 if not segments else (b * sq + b * sk) * 4
+    nbytes += 0 if not lse else b * h * sq * 4
+    flops = 4.0 * d * pairs  # q.k and p.v over the visible (query, key) pairs
+    bms, by = bound_ms(nbytes, flops, dtype)
+    return dict(kernel="flash_attention", case=name, shape=[b, h, sq, sk, d], causal=causal,
+                bias=bias_kind, segments=segments, lse=lse,
+                dtype=str(dtype).replace("torch.", ""), max_abs_err=err, rel_err=rel_err,
+                tol=tol, lse_err=lse_err, ok=bool(ok), ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by)
+
+
+def decode_mask(b, s, length, gen, lo=600, hi=3200):
+    """(b, 1, s, L) bool: row i of slot n sees positions <= pos_n + i, pos_n
+    drawn in [lo, hi) as the engine's slots sit after prompts of 600-3000
+    tokens; the last row is an idle slot pinned at L - 1, as the engine
+    pins it."""
+    pos = torch.randint(lo, hi, (b,), device="cuda", generator=gen)
+    pos[-1] = length - s
+    ar = torch.arange(length, device="cuda")
+    rows = pos[:, None] + torch.arange(s, device="cuda")[None, :]
+    return ar[None, None, None, :] <= rows[:, None, :, None]
+
+
+def qca_case(qa, kv, name, b, hq, hkv, s, length, d, dtype, gen):
+    """Kernel #10 against its plain version; the library call is SDPA over a
+    bf16 cache of the same length (another function: it reads twice the
+    cache bytes, all L positions)."""
+    q = torch.randn(b, hq, s, d, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, hkv, length, d, device="cuda", generator=gen)
+    v = torch.randn(b, hkv, length, d, device="cuda", generator=gen)
+    kc, vc = kv.QuantizedKV(*kv.quantize_kv(k)), kv.QuantizedKV(*kv.quantize_kv(v))
+    mask = decode_mask(b, s, length, gen)
+    with torch.inference_mode():
+        out = qa.quantized_cache_attention(q, kc, vc, mask)
+        ref = qa.quantized_cache_attention_plain(q, kc, vc, mask)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        rel_err = row_relative_error(out, ref)
+        tol = ROW_RELATIVE_BAR["quantized_cache_attention", dtype]
+        call = lambda: qa.quantized_cache_attention(q, kc, vc, mask)
+        kernel_ms = time_ms(call, 1)
+        reps = reps_for(kernel_ms)
+        kernel_ms = time_ms(call, reps)
+        plain_ms = time_ms(lambda: qa.quantized_cache_attention_plain(q, kc, vc, mask),
+                           max(3, reps // 4))
+        group = hq // hkv
+        kb = kc.dequantize(torch.bfloat16).repeat_interleave(group, dim=1)
+        vb = vc.dequantize(torch.bfloat16).repeat_interleave(group, dim=1)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q.to(torch.bfloat16), kb, vb, attn_mask=mask), reps)
+        # the positions some row of a slot sees: the rows the kernel reads
+        seen = int(mask.any(dim=2).sum().item())  # sum over slots
+    nbytes = seen * hkv * (2 * d + 8) + mask.numel() + (q.numel() + out.numel()) * q.element_size()
+    flops = 4.0 * seen * hkv * group * s * d
+    bms, by = bound_ms(nbytes, flops, torch.bfloat16)
+    return dict(kernel="quantized_cache_attention", case=name, shape=[b, hq, hkv, s, length, d],
+                dtype=str(dtype).replace("torch.", ""), max_abs_err=err, rel_err=rel_err,
+                tol=tol, ok=bool(rel_err <= tol), ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library="SDPA over a bf16 cache (2x the bytes, all positions)", bound_ms=bms,
+                bound_by=by)
+
+
+def flash_threshold(fa, attn, gen, heads=12, d=64, batch=8):
+    """Kernel #6 against the port's plain path at S = 32 to 1024, bf16
+    causal at the LM's heads: the numbers FLASH_MIN_SEQ is set from."""
+    rows = []
+    with torch.inference_mode():
+        for s in (32, 64, 128, 256, 512, 1024):
+            q, k, v = (torch.randn(batch, heads, s, d, device="cuda", generator=gen)
+                       .to(torch.bfloat16) for _ in range(3))
+            flash = lambda: fa.flash_attention_forward(q, k, v, causal=True)
+            plain = lambda: attn.attention_plain(q, k, v, is_causal=True)
+            reps = reps_for(time_ms(flash, 1))
+            rows.append({"seq": s, "flash_ms": time_ms(flash, reps),
+                         "plain_ms": time_ms(plain, reps)})
+    return rows
+
+
+def check_new_kernels(fa, qa, kv):
+    """The cases of kernels #6 and #10 (LM prefill and decode shapes)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append(flash_case(fa, "prefill", 8, 12, 2048, 2048, 64, True, dtype, gen))
+        cases.append(flash_case(fa, "sq512_sk2048", 8, 12, 512, 2048, 64, True, dtype, gen))
+        cases.append(flash_case(fa, "non_causal", 4, 12, 1024, 1024, 64, False, dtype, gen))
+        cases.append(flash_case(fa, "segment_ids", 4, 12, 1024, 1024, 64, True, dtype, gen,
+                                segments=True))
+        cases.append(flash_case(fa, "bias_1h1k", 4, 12, 1024, 1024, 64, True, dtype, gen,
+                                bias_kind="1h1k"))
+        cases.append(flash_case(fa, "bias_b1qk", 4, 12, 1024, 1024, 64, False, dtype, gen,
+                                bias_kind="b1qk"))
+        cases.append(flash_case(fa, "lse", 4, 12, 1024, 1024, 64, True, dtype, gen, lse=True))
+        cases.append(flash_case(fa, "ragged_1000", 4, 12, 1000, 1000, 64, True, dtype, gen,
+                                lse=True))
+        cases.append(flash_case(fa, "head_width_32", 4, 12, 1024, 1024, 32, True, dtype, gen))
+        cases.append(flash_case(fa, "head_width_128", 4, 12, 1024, 1024, 128, True, dtype, gen))
+        cases.append(qca_case(qa, kv, "decode", 33, 12, 12, 1, 4096, 64, dtype, gen))
+        cases.append(qca_case(qa, kv, "verify_window", 8, 12, 12, 5, 4096, 64, dtype, gen))
+        cases.append(qca_case(qa, kv, "gqa_group4", 8, 12, 3, 2, 4096, 64, dtype, gen))
+        cases.append(qca_case(qa, kv, "head_width_128", 8, 8, 8, 1, 2048, 128, dtype, gen))
+    print("kernel_check tolerance #6, #10: row_relative_error (the largest |got - ref| / "
+          "(|ref| + rms of ref's row)) within " + json.dumps(
+              {f"{k}/{str(d).replace('torch.', '')}": v for (k, d), v in ROW_RELATIVE_BAR.items()}),
+          flush=True)
+    for c in cases:
+        print("kernel_check " + json.dumps(c), flush=True)
+    return cases
+
+
 def check_kernels(fe):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -260,6 +481,10 @@ def check_kernels(fe):
         cases.append(mlp_case(fe, "text", BATCH * 77, 512, 2048, 512, "quick_gelu", dtype, gen))
         for act in ("quick_gelu", "gelu", "gelu_exact", "relu", "silu"):
             cases.append(mlp_case(fe, f"small_{act}", 300, 256, 512, 192, act, dtype, gen))
+        # the LM's MLP (exact GELU): a prefill call of 8 x 2048 rows, a decode tick of 33
+        cases.append(mlp_case(fe, "lm_prefill", 8 * 2048, 768, 3072, 768, "gelu_exact", dtype,
+                              gen))
+        cases.append(mlp_case(fe, "lm_decode", 33, 768, 3072, 768, "gelu_exact", dtype, gen))
         tb = TRAIN_BATCH
         cases.append(attention_bwd_case(fe, "vision", tb, 50, 768, 12, False, dtype, False, gen))
         cases.append(attention_bwd_case(fe, "text", tb, 77, 512, 8, True, dtype, False, gen))
@@ -398,8 +623,214 @@ def serve(fe, card):
     return launches, min_cos, device_rate, served_rate
 
 
+def vit_l14_check(card):
+    """CLIP ViT-L/14's image tower (S = 257, beyond the fused kernels) on the
+    card at batch 8 in bf16 against the same weights in fp32 on the CPU."""
+    from multimodal_tpu_torch.models.clip.model import clip_vit_l14
+    from multimodal_tpu_torch.ops.image import fused_preprocess_for_encoder
+
+    model = clip_vit_l14(dtype=torch.bfloat16, seed=0)
+    u8 = torch.from_numpy(np.random.default_rng(3).integers(0, 256, size=(8, 256, 256, 3),
+                                                            dtype=np.uint8))
+    with torch.inference_mode():
+        got = model.encode_image(fused_preprocess_for_encoder(u8.cuda(), 224,
+                                                              dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+        ref_model = clip_vit_l14(device="cpu", dtype=torch.float32)
+        ref_model.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+        ref = ref_model.encode_image(fused_preprocess_for_encoder(u8, 224, dtype=torch.float32))
+    got = got.float().cpu().numpy()
+    if got.shape != (8, 768) or not np.isfinite(got).all():
+        fail(f"clip_vit_l14 image embeddings {got.shape}, finite {np.isfinite(got).all()}")
+    cos = float(cosine_rows(got, ref.numpy()).min())
+    print(f"vit_l14: image tower at S=257 on the card, min cosine vs fp32 CPU {cos:.6f} "
+          "(bar 0.999)", flush=True)
+    if cos < 0.999:
+        fail(f"clip_vit_l14 embeddings reach cosine {cos} < 0.999 against fp32")
+    return cos
+
+
+# --------------------------------------------------------------------------
+# phase 5: long-context LM serving (continuous batching, int8 KV cache)
+# --------------------------------------------------------------------------
+
+LM = dict(vocab_size=32768, max_seq_len=4096, n_layer=12, d_model=768, n_head=12,
+          dim_feedforward=3072)  # bench.py's serving model
+
+
+def lm_requests(rng, n):
+    from multimodal_tpu_torch.serving.engine import Request
+
+    out = []
+    for i in range(n):
+        length = int(rng.integers(600, 3001))  # buckets 1024, 2048 and 4096
+        out.append(Request(rng.integers(0, LM["vocab_size"], size=length).tolist(),
+                           max_new_tokens=int(rng.integers(32, 129)),
+                           temperature=0.0 if i % 2 == 0 else 1.0, request_id=i))
+    return out
+
+
+def teacher_forced(model, prompt, feed, device):
+    """Logits at the prompt's last position and at each of ``feed``'s
+    decode steps: the prompt's keys and values go into a one-row int8 cache,
+    then the fed tokens decode over it, as the engine does."""
+    from multimodal_tpu_torch.ops.kv_cache import quantized_kv_zeros
+    from multimodal_tpu_torch.serving.engine import _kv_set_rows
+
+    length = 2048
+    toks = torch.tensor([prompt], device=device)
+    with torch.inference_mode():
+        logits, kvs = model(toks, use_cache=True)
+        rows = [logits[0, -1].float().cpu()]
+        shape = (1, LM["n_head"], length, LM["d_model"] // LM["n_head"])
+        cache = tuple((quantized_kv_zeros(shape, device), quantized_kv_zeros(shape, device))
+                      for _ in range(LM["n_layer"]))
+        slot = torch.zeros(1, dtype=torch.long, device=device)
+        for (ck, cv), (k, v) in zip(cache, kvs):
+            _kv_set_rows(ck, k, slot, len(prompt))
+            _kv_set_rows(cv, v, slot, len(prompt))
+        ar = torch.arange(length, device=device)
+        for t, tok in enumerate(feed):
+            pos = torch.tensor([len(prompt) + t], device=device)
+            logits, _ = model(torch.tensor([[tok]], device=device), positions=pos[:, None],
+                              past_key_values=cache, cache_index=pos,
+                              attention_mask=(ar <= pos)[None, None, None, :], use_cache=True)
+            rows.append(logits[0, 0].float().cpu())
+    return torch.stack(rows).double()
+
+
+def lm_serve(fe, fa, qa, card):
+    from multimodal_tpu_torch.examples.long_context.model import long_context_lm
+    from multimodal_tpu_torch.serving.engine import InferenceEngine
+
+    t0 = time.perf_counter()
+    model = long_context_lm(dtype=torch.bfloat16, seed=0, **LM)
+    print(f"lm: built LongContextLM {LM} bf16 in {time.perf_counter() - t0:.2f} s", flush=True)
+    engine_kw = dict(n_slots=32, max_len=4096, cache_dtype="int8", prefill_batch=8,
+                     decode_steps=16, top_k=50)
+    rng = np.random.default_rng(4)
+
+    # warm-up: one request per bucket through a throwaway engine
+    warm = InferenceEngine(model, **engine_kw)
+    for r in lm_requests(rng, 3):
+        r.max_new_tokens = 16
+        warm.submit(r)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+
+    engine = InferenceEngine(model, **engine_kw)
+    timing = {"prefill": 0.0, "decode": 0.0}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            timing[name] += time.perf_counter() - t
+            return out
+        return run
+
+    engine._prefill = timed("prefill", engine._prefill)
+    engine._decode = timed("decode", engine._decode)
+    reqs = lm_requests(rng, 48)
+    fe.reset_launch_counts()
+    fa.reset_launch_counts()
+    qa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    outs = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.flash_attention_forward.launches,
+                "quantized_cache_attention": qa.quantized_cache_attention.launches,
+                "fused_mlp": fe.fused_mlp.launches}
+    calls, ticks, layers = engine.prefill_calls, engine.ticks, LM["n_layer"]
+    want = {"flash_attention": layers * calls, "quantized_cache_attention": layers * ticks,
+            "fused_mlp": layers * (calls + ticks)}
+    print(f"lm: launches {launches}, want {want} ({calls} prefill calls, {ticks} decode ticks, "
+          f"{layers} layers)", flush=True)
+    for k, v in launches.items():
+        if v != want[k]:
+            fail(f"{k} launched {v} times on the LM serving path, want {want[k]}")
+    by_id = {o.request_id: o for o in outs}
+    if len(by_id) != len(reqs):
+        fail(f"{len(by_id)} of {len(reqs)} requests finished")
+    for r in reqs:
+        o = by_id[r.request_id]
+        if o.finish_reason != "length" or len(o.tokens) != r.max_new_tokens:
+            fail(f"request {r.request_id}: {o.finish_reason}, {len(o.tokens)} of "
+                 f"{r.max_new_tokens} tokens")
+        if not all(0 <= t < LM["vocab_size"] for t in o.tokens):
+            fail(f"request {r.request_id}: token ids out of range")
+    peak = torch.cuda.max_memory_allocated()
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    decoded = sum(len(o.tokens) - 1 for o in outs)  # the first token comes from the prefill
+    ttft = sorted(o.queue_time + o.prefill_time for o in outs)
+    stats = engine.stats()
+    result = {
+        "requests": len(reqs), "prompt_tokens": prompt_tokens, "generated_tokens": decoded + len(outs),
+        "prefill_calls": calls, "decode_ticks": ticks, "occupancy": stats["occupancy"],
+        "prefill_tokens_per_s": prompt_tokens / timing["prefill"],
+        "decode_tokens_per_s": decoded / timing["decode"],
+        "ms_per_tick": timing["decode"] / ticks * 1e3,
+        "prefill_s": timing["prefill"], "decode_s": timing["decode"], "wall_s": wall,
+        "ttft_p50_s": ttft[len(ttft) // 2],
+        "prefill_time_p50_s": sorted(o.prefill_time for o in outs)[len(outs) // 2],
+        "peak_gib": peak / 2 ** 30,
+    }
+    print("lm: serving " + json.dumps(result) + f" on {card}", flush=True)
+
+    # accuracy: 2 requests teacher-forced, card bf16 against fp32 on the CPU
+    ref = long_context_lm(device="cpu", dtype=torch.float32, **LM)
+    ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    worst = 1.0
+    for r in (reqs[0], reqs[1]):
+        prompt = list(r.prompt[:700 + 400 * r.request_id])
+        feed = by_id[r.request_id].tokens[:8]
+        a = teacher_forced(model, prompt, feed, "cuda")
+        b = teacher_forced(ref, prompt, feed, "cpu")
+        cos = ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min().item()
+        worst = min(worst, cos)
+        print(f"lm: teacher-forced logits, prompt {len(prompt)} + 8 decode steps, min cosine "
+              f"vs fp32 CPU {cos:.6f}", flush=True)
+    print("lm: bar 0.99: bf16 activations through 12 layers (each rounding 2^-9 relative), "
+          "probabilities rounded to bf16 in #6 and #10, and int8 codes that can differ by one "
+          "step where the bf16 keys and values differ from the fp32 ones", flush=True)
+    if worst < 0.99:
+        fail(f"LM logits reach cosine {worst} < 0.99 against fp32")
+
+    # device time of one prefill call (bucket 2048) and one decode call by group
+    n = engine.prefill_batch
+    dev = engine.device
+    tokens = torch.from_numpy(rng.integers(0, LM["vocab_size"], size=(n, 2048))).to(dev)
+    slots = torch.arange(n, device=dev)
+    lengths = torch.full((n,), 2000, device=dev)
+    sampling = torch.tensor([[0.0, 50.0, 1.0]] * n, device=dev)
+    prefill_groups = profile_step(lambda: engine._prefill(tokens, slots, lengths, sampling),
+                                  "lm prefill")
+    rows = engine.n_slots + 1
+    dtok = torch.from_numpy(rng.integers(0, LM["vocab_size"], size=rows)).to(dev)
+    dpos = torch.full((rows,), 2100, device=dev)
+    dsamp = torch.tensor([[0.0, 50.0, 1.0]] * rows, device=dev)
+    decode_groups = profile_step(lambda: engine._decode(dtok, dpos, torch.ones_like(dpos), dsamp,
+                                                        False), "lm decode")
+    print("lm: device time of one prefill call (8 x 2048) by kernel group "
+          + json.dumps(prefill_groups), flush=True)
+    print("lm: device time of one decode call (16 ticks x 33 rows at position 2100) by kernel "
+          "group " + json.dumps(decode_groups), flush=True)
+    result.update(min_cosine=worst, prefill_profile=prefill_groups, decode_profile=decode_groups)
+    return launches, result
+
+
 def kernel_group(name: str) -> str:
     low = name.lower()
+    if "flash_fwd" in name:
+        return "flash_attention"
+    if "quantized_cache_attention" in name:
+        return "quantized_cache_attention"
     if "qkv_attention_bwd" in name:
         return "fused_qkv_attention_bwd"
     if "qkv_attention" in name:
@@ -447,6 +878,9 @@ def profile_step(step, label: str):
     if not groups:
         return "not measured"
     print(f"{label}: top kernels (ms) " + json.dumps(sorted(top, reverse=True)[:12]), flush=True)
+    host = sorted(((round(e.self_cpu_time_total / 1e3, 3), e.count, e.key[:60])
+                   for e in prof.key_averages() if e.self_cpu_time_total > 0), reverse=True)
+    print(f"{label}: top host ops (self ms, calls) " + json.dumps(host[:10]), flush=True)
     out = {k: round(v, 3) for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}
     out["total_device_ms"] = round(sum(groups.values()), 3)
     out["wall_ms_under_profiler"] = round(wall_ms, 3)
@@ -574,7 +1008,11 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(2)
     from multimodal_tpu_torch.ops import _build
+    from multimodal_tpu_torch.ops import attention as attn
+    from multimodal_tpu_torch.ops import flash_attention as fa
     from multimodal_tpu_torch.ops import fused_encoder as fe
+    from multimodal_tpu_torch.ops import kv_cache as kv
+    from multimodal_tpu_torch.ops import quantized_attention as qa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -592,48 +1030,64 @@ def main() -> None:
             if "registers" in line or "spill" in line or line.startswith("=="):
                 print("  " + line.strip(), flush=True)
 
-    cases = check_kernels(fe)
+    cases = check_kernels(fe) + check_new_kernels(fa, qa, kv)
     bad = [c for c in cases if not c["ok"]]
     if bad:
         fail(f"{len(bad)} kernel case(s) outside tolerance: "
              + ", ".join(f"{c['kernel']}/{c['case']}/{c['dtype']}" for c in bad))
+    threshold = flash_threshold(fa, attn, torch.Generator(device="cuda").manual_seed(2))
+    print(f"threshold: flash vs the plain path, (8, 12, S, 64) bf16 causal: {json.dumps(threshold)}"
+          f"; FLASH_MIN_SEQ = {attn.FLASH_MIN_SEQ}", flush=True)
     if "--kernels-only" in sys.argv[1:]:
         print("kernels only: every case within tolerance; no result line", flush=True)
         return
 
     serve_launches, min_cos, device_rate, served_rate = serve(fe, card)
     launches, grad_cos, train_rate, step_ms, peak = train(fe, card)
+    vit_cos = vit_l14_check(card)
+    lm_launches, lm = lm_serve(fe, fa, qa, card)
 
     kernels = []
-    for name, source, replaces in (
+    for name, source, replaces, head_case in (
         ("fused_qkv_attention", "multimodal_tpu_torch/csrc/fused_qkv_attention.cu",
-         "multimodal_tpu/ops/fused_encoder.py:200"),
+         "multimodal_tpu/ops/fused_encoder.py:200", "vision"),
         ("fused_qkv_attention_bwd", "multimodal_tpu_torch/csrc/fused_qkv_attention_bwd.cu",
-         "multimodal_tpu/ops/fused_encoder.py:317"),
+         "multimodal_tpu/ops/fused_encoder.py:317", "vision"),
         ("fused_mlp", "multimodal_tpu_torch/csrc/fused_mlp.cu",
-         "multimodal_tpu/ops/fused_encoder.py:500"),
+         "multimodal_tpu/ops/fused_encoder.py:500", "vision"),
         ("fused_mlp_bwd", "multimodal_tpu_torch/csrc/fused_mlp_bwd.cu",
-         "multimodal_tpu/ops/fused_encoder.py:603"),
+         "multimodal_tpu/ops/fused_encoder.py:603", "vision"),
+        ("flash_attention", "multimodal_tpu_torch/csrc/flash_attention_fwd.cu",
+         "multimodal_tpu/ops/flash_attention.py:336", "prefill"),
+        ("quantized_cache_attention", "multimodal_tpu_torch/csrc/quantized_cache_attention.cu",
+         "multimodal_tpu/ops/quantized_attention.py:117", "decode"),
     ):
         mine = [c for c in cases if c["kernel"] == name]
-        head = next(c for c in mine if c["case"] == "vision" and c["dtype"] == "bfloat16")
+        head = next(c for c in mine if c["case"] == head_case and c["dtype"] == "bfloat16")
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": head["max_abs_err"],
+            "launches": launches[name] if name in launches else lm_launches[name],
+            "max_abs_err": head["max_abs_err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "passed": all(c["ok"] for c in mine),
         }
         if name in serve_launches:
             entry["launches_serve"] = serve_launches[name]
-        entry["cases"] = [{k: c[k] for k in ("case", "dtype", "max_abs_err", "tol", "ms",
-                                             "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        if name in lm_launches:
+            entry["launches_lm"] = lm_launches[name]
+        entry["cases"] = [{k: c[k] for k in ("case", "dtype", "max_abs_err", "rel_err", "tol",
+                                             "ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bound_by") if k in c}
                           for c in mine]
         kernels.append(entry)
     print(f"summary: serve min cosine {min_cos:.6f}, {device_rate:.1f} pairs/s device, "
           f"{served_rate:.1f} pairs/s served; train gradient cosine {grad_cos:.6f}, "
           f"{train_rate:.1f} items/s, {step_ms:.1f} ms a step, peak {peak / 2**30:.2f} GiB; "
-          f"build {build_s:.1f} s", flush=True)
+          f"ViT-L/14 cosine {vit_cos:.6f}; LM serving {lm['prefill_tokens_per_s']:.1f} prefill "
+          f"tokens/s, {lm['decode_tokens_per_s']:.1f} decode tokens/s, {lm['ms_per_tick']:.2f} "
+          f"ms a tick, TTFT p50 {lm['ttft_p50_s']:.3f} s, peak {lm['peak_gib']:.2f} GiB, logit "
+          f"cosine {lm['min_cosine']:.6f}; build {build_s:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

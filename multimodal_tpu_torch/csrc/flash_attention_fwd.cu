@@ -1,0 +1,527 @@
+// Flash attention forward (blockwise online softmax in log2 space), for Hopper.
+//
+// Replaces: multimodal_tpu/ops/flash_attention.py, `flash_attention_forward`
+// (kernel body `_flash_kernel`).
+//
+// What it computes, per batch b, head h and query row i (Sq rows, Sk keys):
+//   s2_ij = (q_i . k_j) * scale * log2(e) + bias[b, h, i, j] * log2(e)
+//   key j is visible iff j < Sk, (causal) j <= i + Sk - Sq (bottom-right
+//   alignment), and (segments) q_seg[b, i] == kv_seg[b, j]
+//   o_i   = sum_j T(exp2(s2_ij - m_i)) v_j / sum_j exp2(s2_ij - m_i)
+//   lse_i = m_i + log2(sum_j exp2(s2_ij - m_i))            (log2 space)
+// with m the running maximum of the online softmax: the probabilities are
+// rounded to the compute type T relative to the running maximum before the
+// product with v, and the row sum is taken in fp32 unrounded, as the TPU
+// kernel does. The bias is fp32 of any broadcast shape: its four strides
+// come from the wrapper (0 on a size-1 dimension), so a broadcast bias is
+// read in place and never materialised. A row that sees no key at all (l = 0)
+// is defined here as o = 0 and lse = -inf.
+//
+// What bounds it on this card: operations. At the LM prefill shape
+// (8, 12, S, 64) bf16 causal, the products are 4 * 64 * S(S+1)/2 FLOPs a head
+// (0.4 TFLOP at S = 4096, 0.4 ms at 989 TF/s) against 4 * 8 * 12 * S * 64 * 2
+// bytes of q, k, v and o (0.1 ms at 3.35 TB/s).
+//
+// Design (bf16 at head width 32, 64 or 128): one block of 4 warps per
+// (64-query tile, head, batch); each warp owns 16 query rows and keeps its q
+// fragments, its 16 x 64 score tile and its 16 x D output accumulator in
+// registers. The block walks 64-key tiles of K and V staged in a two-stage
+// cp.async double buffer in shared memory (the next tile loads under the
+// current tile's products); q . k^T and T(p) . v are `mma.sync` m16n8k16
+// products (fragments by `ldmatrix`, V by `ldmatrix.trans`), and the score
+// tile, rounded to bf16, is reused in registers as the A fragment of p . v.
+// With the causal mask the walk stops at the last key tile that any row of
+// the query tile can see, so tiles wholly above the diagonal are never read;
+// the per-element masks (causal, ragged edges, segments, bias) run only on
+// the tiles that need them, since their integer work per score otherwise
+// outweighs the tensor-core products (the first version, which masked every
+// tile, ran the prefill shape at 70 TF/s).
+// The row statistics (running max, partial row sums) stay in fp32 registers;
+// the partial sums of a row's four lanes are reduced once, at the end.
+//
+// fp32, and bf16 at other head widths, run on the FP32 pipes: a block of 8
+// warps owns 32 query rows (4 per warp), stages 32-key tiles of K (transposed,
+// odd pitch) and V in fp32 shared memory; a lane owns one key of the tile for
+// the scores and 32-column slices of the output for p . v, with the
+// probabilities broadcast by shuffles. wgmma and TMA are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+using mm::from_f;
+using mm::to_f;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  long long qs[3], ks[3], vs[3], os[3];  // batch, head, row strides in elements
+  const float* bias;
+  long long bs[4];  // bias strides (batch, head, row, key); 0 on broadcast dims
+  const int* qseg;
+  const int* kvseg;
+  long long qseg_b, kvseg_b;  // batch strides of the segment ids (row stride 1)
+  float* lse;                 // (B, H, Sq) fp32 or null
+  int B, H, Sq, Sk;
+  float scale_log2;  // sm_scale * log2(e)
+  int causal;
+};
+
+// Whether key j (< Sk) is visible from query row i (< Sq), and the fp32
+// log2-space bias to add.
+__device__ __forceinline__ bool visible(const Args& a, int b, int i, int j) {
+  if (a.causal && j > i + (a.Sk - a.Sq)) return false;
+  if (a.qseg && a.qseg[b * a.qseg_b + i] != a.kvseg[b * a.kvseg_b + j]) return false;
+  return true;
+}
+
+__device__ __forceinline__ float bias_at(const Args& a, int b, int h, int i, int j) {
+  return a.bias[b * a.bs[0] + h * a.bs[1] + i * a.bs[2] + j * a.bs[3]] * kLog2e;
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core path: bf16 at head width 32, 64 or 128.
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = 4;
+constexpr int kBQ = 16 * kWarps;  // query rows a block owns
+constexpr int kBK = 64;           // keys a tile holds
+
+template <int D>
+struct Tile {
+  static constexpr int kPitch = D + 8;  // bf16 row pitch: conflict-free ldmatrix
+  static constexpr int kElems = 64 * kPitch;
+  static constexpr size_t kSmem = 5 * kElems * sizeof(__nv_bfloat16);  // Q, 2 x (K, V)
+};
+
+// Copy 64 rows of width D (bf16) from `src` (row stride `rs`) into `dst`;
+// rows at or past `n` are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long rs, int n) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kWarps * 32) {
+    const int r = idx / kChunks;
+    const int c = (idx - r * kChunks) * 8;
+    const bool in = r < n;
+    mm::cp_async16(dst + r * Tile<D>::kPitch + c, in ? src + r * rs + c : src, in ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWarps * 32) flash_fwd_mma_kernel(Args a) {
+  constexpr int P = Tile<D>::kPitch;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* kbuf = qs + Tile<D>::kElems;            // [2][64][P]
+  __nv_bfloat16* vbuf = kbuf + 2 * Tile<D>::kElems;       // [2][64][P]
+
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int off = a.Sk - a.Sq;
+  const __nv_bfloat16* qg =
+      static_cast<const __nv_bfloat16*>(a.q) + b * a.qs[0] + h * a.qs[1] + q0 * a.qs[2];
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + b * a.ks[0] + h * a.ks[1];
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + b * a.vs[0] + h * a.vs[1];
+
+  // Key tiles any row of this query tile can see.
+  int n_tiles = (a.Sk + kBK - 1) / kBK;
+  if (a.causal) {
+    const int last_key = min(a.Sq, q0 + kBQ) - 1 + off;
+    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kBK + 1);
+  }
+
+  load_tile<D>(qs, qg, a.qs[2], a.Sq - q0);
+  if (n_tiles > 0) {
+    load_tile<D>(kbuf, kg, a.ks[2], a.Sk);
+    load_tile<D>(vbuf, vg, a.vs[2], a.Sk);
+  }
+  mm::cp_async_commit();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int row0 = q0 + 16 * warp + g;  // rows of this lane: row0 and row0 + 8
+  const int rows[2] = {row0, row0 + 8};
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this lane's partial row sums
+  float o[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  uint32_t qf[D / 16][4];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {
+      const int k1 = (t + 1) * kBK;
+      load_tile<D>(kbuf + (st ^ 1) * Tile<D>::kElems, kg + k1 * a.ks[2], a.ks[2], a.Sk - k1);
+      load_tile<D>(vbuf + (st ^ 1) * Tile<D>::kElems, vg + k1 * a.vs[2], a.vs[2], a.Sk - k1);
+      mm::cp_async_commit();
+      mm::cp_async_wait<1>();
+    } else {
+      mm::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd)
+        mm::ldsm_x4(qf[kd], qs + (16 * warp + (lane & 15)) * P + 16 * kd + (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* ks = kbuf + st * Tile<D>::kElems;
+    const __nv_bfloat16* vs = vbuf + st * Tile<D>::kElems;
+    const int k0 = t * kBK;
+
+    // s = q . k^T: 8-key tile nt holds keys 8 nt + 2 t4, +1.
+    float sc[kBK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+#pragma unroll
+      for (int j = 0; j < kBK / 16; ++j) {
+        uint32_t bk[4];
+        mm::ldsm_x4(bk, ks + (16 * j + (lane & 7) + ((lane >> 4) << 3)) * P + 16 * kd +
+                            ((lane >> 3) & 1) * 8);
+        mm::mma_bf16(sc[2 * j], qf[kd], bk[0], bk[1]);
+        mm::mma_bf16(sc[2 * j + 1], qf[kd], bk[2], bk[3]);
+      }
+    }
+
+    // Scale, bias and masks in log2 space; the running maximum. A tile that
+    // every row of the block sees whole (below the causal diagonal, inside
+    // Sq and Sk, no bias or segments) skips the per-element checks.
+    float mx[2] = {-INFINITY, -INFINITY};
+    const bool whole = !a.bias && !a.qseg && q0 + kBQ <= a.Sq && k0 + kBK <= a.Sk &&
+                       (!a.causal || k0 + kBK - 1 <= q0 + off);
+    if (whole) {
+#pragma unroll
+      for (int nt = 0; nt < kBK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[nt][e] *= a.scale_log2;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+        }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < kBK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = rows[e >> 1];
+          const int j = k0 + 8 * nt + 2 * t4 + (e & 1);
+          float s = -INFINITY;
+          if (i < a.Sq && j < a.Sk && visible(a, b, i, j)) {
+            s = sc[nt][e] * a.scale_log2;
+            if (a.bias) s += bias_at(a, b, h, i, j);
+          }
+          sc[nt][e] = s;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s);
+        }
+    }
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      mu[r] = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet: p = 0
+      alpha[r] = exp2f(m[r] - mu[r]);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[nt][e] - mu[e >> 1]);
+        sc[nt][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      o[dt][0] *= alpha[0];
+      o[dt][1] *= alpha[0];
+      o[dt][2] *= alpha[1];
+      o[dt][3] *= alpha[1];
+    }
+
+    // o += bf16(p) . v: the score tiles of a 16-key group are the A fragment.
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j) {
+      uint32_t pa[4];
+      pa[0] = mm::pack_bf16(sc[2 * j][0], sc[2 * j][1]);
+      pa[1] = mm::pack_bf16(sc[2 * j][2], sc[2 * j][3]);
+      pa[2] = mm::pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]);
+      pa[3] = mm::pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3]);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; dt += 2) {
+        uint32_t bv[4];
+        mm::ldsm_x4_trans(bv, vs + (16 * j + (lane & 7) + ((lane >> 3) & 1) * 8) * P + 8 * dt +
+                                  (lane >> 4) * 8);
+        mm::mma_bf16(o[dt], pa, bv[0], bv[1]);
+        mm::mma_bf16(o[dt + 1], pa, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // the next iteration refills this stage
+  }
+  mm::cp_async_wait<0>();  // no copy outlives the block (n_tiles == 0)
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) + b * a.os[0] + h * a.os[1];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = rows[r];
+    if (i >= a.Sq) continue;
+    const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(og + i * a.os[2] + 8 * dt + 2 * t4) =
+          __floats2bfloat162_rn(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
+    if (a.lse && t4 == 0)
+      a.lse[((long long)b * a.H + h) * a.Sq + i] = l[r] == 0.f ? -INFINITY : m[r] + log2f(l[r]);
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  auto kernel = flash_fwd_mma_kernel<D>;
+  const size_t smem = Tile<D>::kSmem;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.Sq + kBQ - 1) / kBQ, a.H, a.B), kWarps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// FP32-pipe path: fp32, and bf16 at other head widths (D % 8 == 0, D <= 128).
+// ---------------------------------------------------------------------------
+
+constexpr int kFWarps = 8;
+constexpr int kFRows = 4;                // query rows a warp carries
+constexpr int kFBQ = kFWarps * kFRows;   // query rows a block owns
+constexpr int kFBK = 32;                 // keys a tile holds: one a lane
+
+__host__ __device__ inline int fp32_smem_floats(int D) {
+  return D * (kFBK + 1) + kFBK * D + kFBQ * D;  // K^T, V, Q
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T, int NC>  // NC: 32-column slices of the head a lane owns
+__global__ void __launch_bounds__(kFWarps * 32) flash_fwd_fp32_kernel(Args a, int D) {
+  extern __shared__ __align__(16) float fsm[];
+  constexpr int kp = kFBK + 1;
+  float* kt = fsm;              // [D][kp]  K^T of the tile
+  float* vsm = kt + D * kp;     // [kFBK][D]
+  float* qsm = vsm + kFBK * D;  // [kFBQ][D]
+
+  const int q0 = blockIdx.x * kFBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int off = a.Sk - a.Sq;
+  const T* qg = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[1];
+  const T* kg = static_cast<const T*>(a.k) + b * a.ks[0] + h * a.ks[1];
+  const T* vg = static_cast<const T*>(a.v) + b * a.vs[0] + h * a.vs[1];
+
+  for (int idx = threadIdx.x; idx < kFBQ * D; idx += blockDim.x) {
+    const int r = idx / D;
+    const int c = idx - r * D;
+    qsm[idx] = q0 + r < a.Sq ? to_f(qg[(q0 + r) * a.qs[2] + c]) : 0.f;
+  }
+
+  int n_tiles = (a.Sk + kFBK - 1) / kFBK;
+  if (a.causal) {
+    const int last_key = min(a.Sq, q0 + kFBQ) - 1 + off;
+    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kFBK + 1);
+  }
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int i0 = q0 + warp * kFRows;
+  float m[kFRows], l[kFRows], o[kFRows][NC];
+#pragma unroll
+  for (int r = 0; r < kFRows; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) o[r][cc] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kFBK;
+    __syncthreads();  // the previous tile is consumed (and Q is staged)
+    for (int idx = threadIdx.x; idx < kFBK * D; idx += blockDim.x) {
+      const int j = idx / D;
+      const int c = idx - j * D;
+      const bool in = k0 + j < a.Sk;
+      kt[c * kp + j] = in ? to_f(kg[(k0 + j) * a.ks[2] + c]) : 0.f;
+      vsm[idx] = in ? to_f(vg[(k0 + j) * a.vs[2] + c]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[kFRows];
+#pragma unroll
+    for (int r = 0; r < kFRows; ++r) s[r] = 0.f;
+    for (int c = 0; c < D; c += 4) {
+      const float k0v = kt[c * kp + lane], k1v = kt[(c + 1) * kp + lane];
+      const float k2v = kt[(c + 2) * kp + lane], k3v = kt[(c + 3) * kp + lane];
+#pragma unroll
+      for (int r = 0; r < kFRows; ++r) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qsm + (warp * kFRows + r) * D + c);
+        s[r] = fmaf(q4.x, k0v, s[r]);
+        s[r] = fmaf(q4.y, k1v, s[r]);
+        s[r] = fmaf(q4.z, k2v, s[r]);
+        s[r] = fmaf(q4.w, k3v, s[r]);
+      }
+    }
+
+    const int j = k0 + lane;
+    float p[kFRows];
+#pragma unroll
+    for (int r = 0; r < kFRows; ++r) {
+      const int i = i0 + r;
+      float sv = -INFINITY;
+      if (i < a.Sq && j < a.Sk && visible(a, b, i, j)) {
+        sv = s[r] * a.scale_log2;
+        if (a.bias) sv += bias_at(a, b, h, i, j);
+      }
+      const float m_new = fmaxf(m[r], warp_max(sv));
+      const float mu = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[r] - mu);
+      m[r] = m_new;
+      const float e = exp2f(sv - mu);
+      l[r] = l[r] * alpha + warp_sum(e);
+      p[r] = to_f(from_f<T>(e));  // rounded to the compute type before p . v
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) o[r][cc] *= alpha;
+    }
+    for (int jj = 0; jj < kFBK; ++jj) {
+      const float* vrow = vsm + jj * D + lane;
+#pragma unroll
+      for (int r = 0; r < kFRows; ++r) {
+        const float pj = __shfl_sync(0xffffffffu, p[r], jj);
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc)
+          if (32 * cc + lane < D) o[r][cc] = fmaf(pj, vrow[32 * cc], o[r][cc]);
+      }
+    }
+  }
+
+  T* og = static_cast<T*>(a.o) + b * a.os[0] + h * a.os[1];
+#pragma unroll
+  for (int r = 0; r < kFRows; ++r) {
+    const int i = i0 + r;
+    if (i >= a.Sq) break;
+    const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+      const int c = 32 * cc + lane;
+      if (c < D) og[i * a.os[2] + c] = from_f<T>(o[r][cc] * inv);
+    }
+    if (a.lse && lane == 0)
+      a.lse[((long long)b * a.H + h) * a.Sq + i] = l[r] == 0.f ? -INFINITY : m[r] + log2f(l[r]);
+  }
+}
+
+template <typename T, int NC>
+cudaError_t launch_fp32(const Args& a, int D, cudaStream_t stream) {
+  auto kernel = flash_fwd_fp32_kernel<T, NC>;
+  const size_t smem = sizeof(float) * (size_t)fp32_smem_floats(D);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.Sq + kFBQ - 1) / kFBQ, a.H, a.B), kFWarps * 32, smem, stream>>>(a, D);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_fp32(const Args& a, int D, cudaStream_t stream) {
+  if (D <= 32) return launch_fp32<T, 1>(a, D, stream);
+  if (D <= 64) return launch_fp32<T, 2>(a, D, stream);
+  if (D <= 96) return launch_fp32<T, 3>(a, D, stream);
+  return launch_fp32<T, 4>(a, D, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (B, H, Sq, D), k and v (B, H, Sk, D), o (B, H, Sq, D), all of `dtype`
+// (0 = fp32, 1 = bf16) with the last dimension contiguous and the other
+// three strides given in elements (16-byte aligned rows). bias: fp32 with
+// strides bs (0 on broadcast dimensions) or null. qseg (B, Sq) / kvseg
+// (B, Sk) int32 with batch strides, both or neither. lse: (B, H, Sq) fp32 or
+// null. Launches on `stream`, allocates nothing, returns cudaGetLastError().
+int mm_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                           const long long* q_strides, const long long* k_strides,
+                           const long long* v_strides, const long long* o_strides,
+                           const void* bias, const long long* bias_strides, const void* qseg,
+                           long long qseg_b, const void* kvseg, long long kvseg_b, void* lse,
+                           int B, int H, int Sq, int Sk, int D, float sm_scale, int causal,
+                           int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || D <= 0 || D % 8 != 0 || D > 128 ||
+      (dtype != 0 && dtype != 1) || ((qseg == nullptr) != (kvseg == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  for (int i = 0; i < 3; ++i) {
+    a.qs[i] = q_strides[i];
+    a.ks[i] = k_strides[i];
+    a.vs[i] = v_strides[i];
+    a.os[i] = o_strides[i];
+  }
+  a.bias = static_cast<const float*>(bias);
+  for (int i = 0; i < 4; ++i) a.bs[i] = bias ? bias_strides[i] : 0;
+  a.qseg = static_cast<const int*>(qseg);
+  a.kvseg = static_cast<const int*>(kvseg);
+  a.qseg_b = qseg_b;
+  a.kvseg_b = kvseg_b;
+  a.lse = static_cast<float*>(lse);
+  a.B = B;
+  a.H = H;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.scale_log2 = sm_scale * kLog2e;
+  a.causal = causal;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dispatch_fp32<float>(a, D, st);
+  if (D == 32) return (int)launch_mma<32>(a, st);
+  if (D == 64) return (int)launch_mma<64>(a, st);
+  if (D == 128) return (int)launch_mma<128>(a, st);
+  return (int)dispatch_fp32<__nv_bfloat16>(a, D, st);
+}
+
+}  // extern "C"

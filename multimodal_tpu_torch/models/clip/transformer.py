@@ -4,8 +4,11 @@ Counterpart of ``multimodal_tpu/models/clip/transformer.py``. Parameter
 names follow the ``nn.TransformerEncoderLayer`` that TorchMultimodal's CLIP
 encoders instantiate (``self_attn.in_proj_weight``, ``self_attn.out_proj``,
 ``linear1``, ``linear2``, ``norm1``, ``norm2``), so a TorchMultimodal state
-dict loads as it is. Attention and the MLP go through the fused kernels of
-``ops/fused_encoder.py``; ``nn.MultiheadAttention``'s forward is never used.
+dict loads as it is. Where the fused encoder kernels take the shape,
+attention and the MLP go through them (``ops/fused_encoder.py``); otherwise
+attention goes through ``ops/attention.py`` (the flash kernel from its
+threshold up, plain math below) and the MLP through ``F.linear``, the JAX
+layer's own dispatch. ``nn.MultiheadAttention``'s forward is never used.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from multimodal_tpu_torch.modules.layers.activation import quick_gelu
 from multimodal_tpu_torch.modules.layers.normalizations import Fp32LayerNorm
+from multimodal_tpu_torch.ops.attention import scaled_dot_product_attention
 from multimodal_tpu_torch.ops.fused_encoder import (
     fused_attention_supported,
     fused_mlp,
@@ -41,8 +46,12 @@ class CLIPEncoderLayer(nn.Module):
     dtype, the dtype of ``x``; every weight but the LayerNorms' is cast to
     it at use, a no-op when the weights are held in it already.
 
-    On CUDA tensors attention and MLP always run the hand-written kernels;
-    on CPU tensors, their plain PyTorch versions.
+    When ``fused_attention_supported`` holds for the shape (S <= 256, a
+    clean head split), attention and the MLP run the fused encoder kernels
+    on CUDA tensors and their plain versions on CPU tensors; otherwise, as
+    the JAX layer does when its ``fused`` flag is False, attention runs on
+    split heads through ``scaled_dot_product_attention`` and the MLP through
+    ``F.linear``. This is a dispatch by shape, not a fallback on failure.
     """
 
     def __init__(self, width: int, heads: int, dim_feedforward: int):
@@ -56,23 +65,25 @@ class CLIPEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, is_causal: bool = False) -> torch.Tensor:
         b, s, e = x.shape
-        if x.is_cuda and not fused_attention_supported(s, e, self.heads):
-            raise NotImplementedError(
-                f"no attention kernel for seq={s}, width={e}, heads={self.heads}: "
-                "longer sequences need the flash-attention kernels, still to be "
-                "ported (ROADMAP.md, queue B, flash attention)"
-            )
+        h = self.heads
+        fused = fused_attention_supported(s, e, h)
         dt = x.dtype
         attn, out_proj = self.self_attn, self.self_attn.out_proj
         qkv = F.linear(self.norm1(x), attn.in_proj_weight.to(dt), attn.in_proj_bias.to(dt))
-        x = x + F.linear(fused_qkv_attention(qkv, self.heads, is_causal),
-                         out_proj.weight.to(dt), out_proj.bias.to(dt))
+        if fused:
+            a = fused_qkv_attention(qkv, h, is_causal)
+        else:
+            q, k, v = (t.reshape(b, s, h, e // h).transpose(1, 2) for t in qkv.split(e, dim=-1))
+            a = scaled_dot_product_attention(q, k, v, is_causal=is_causal)
+            a = a.transpose(1, 2).reshape(b, s, e)
+        x = x + F.linear(a, out_proj.weight.to(dt), out_proj.bias.to(dt))
         y = self.norm2(x)
-        # .to(dt).t(): the column-major (in, out) view the MLP kernels read
-        return x + fused_mlp(
-            y, self.linear1.weight.to(dt).t(), self.linear1.bias.to(dt),
-            self.linear2.weight.to(dt).t(), self.linear2.bias.to(dt), "quick_gelu",
-        )
+        w1, b1 = self.linear1.weight.to(dt), self.linear1.bias.to(dt)
+        w2, b2 = self.linear2.weight.to(dt), self.linear2.bias.to(dt)
+        if fused:
+            # .t(): the column-major (in, out) views the MLP kernels read
+            return x + fused_mlp(y, w1.t(), b1, w2.t(), b2, "quick_gelu")
+        return x + F.linear(quick_gelu(F.linear(y, w1, b1)), w2, b2)
 
 
 class CLIPTransformer(nn.Module):

@@ -1,0 +1,185 @@
+"""Transformer decoder. Counterpart of
+``multimodal_tpu/modules/layers/transformer.py`` (``TransformerDecoderLayer``
+and ``TransformerDecoder``), in the loop layout: causal self-attention with
+a per-layer KV cache, optional cross-attention, the MLP, pre- or post-norm,
+and an optional final LayerNorm. Rematerialisation, MoE layers and context
+parallelism are refused (ROADMAP.md, queue A7).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from multimodal_tpu_torch.modules.layers.mlp import MLP
+from multimodal_tpu_torch.modules.layers.multi_head_attention import MultiHeadAttentionWithCache
+from multimodal_tpu_torch.modules.layers.normalizations import Fp32LayerNorm
+
+
+class TransformerOutput(NamedTuple):
+    last_hidden_state: torch.Tensor
+    hidden_states: Optional[Tuple[torch.Tensor, ...]] = None
+    current_key_values: Optional[Tuple] = None
+
+
+def _refuse(remat: bool, moe_num_experts: Optional[int], cp_axis_name: Optional[str]) -> None:
+    for flag, what in ((remat, "remat"), (moe_num_experts, "MoE layers"),
+                       (cp_axis_name, "context parallelism")):
+        if flag:
+            raise NotImplementedError(
+                f"{what} in the decoder is not ported yet (ROADMAP.md, queue A7)")
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Decoder block: causal self-attention (+KV cache), optional
+    cross-attention, MLP."""
+
+    def __init__(
+        self,
+        d_model: int,
+        n_head: int,
+        dim_feedforward: int,
+        dropout: float = 0.0,
+        activation: Union[str, Callable] = "relu",
+        layer_norm_eps: float = 1e-12,
+        norm_first: bool = False,
+        use_cross_attention: bool = True,
+        dim_kv: Optional[int] = None,
+        n_kv_head: Optional[int] = None,
+        moe_num_experts: Optional[int] = None,
+        cp_axis_name: Optional[str] = None,
+    ):
+        super().__init__()
+        _refuse(False, moe_num_experts, cp_axis_name)
+        self.norm_first = norm_first
+        self.use_cross_attention = use_cross_attention
+        self.dropout = dropout
+        self.attention = MultiHeadAttentionWithCache(
+            d_model, d_model, n_head, dropout=dropout, num_kv_heads=n_kv_head)
+        self.attention_layernorm = Fp32LayerNorm(d_model, eps=layer_norm_eps)
+        if use_cross_attention:
+            self.cross_attention = MultiHeadAttentionWithCache(
+                d_model, dim_kv if dim_kv is not None else d_model, n_head, dropout=dropout)
+            self.cross_attention_layernorm = Fp32LayerNorm(d_model, eps=layer_norm_eps)
+        self.feedforward = MLP(d_model, d_model, dim_feedforward, dropout=dropout,
+                               activation=activation)
+        self.feedforward_layernorm = Fp32LayerNorm(d_model, eps=layer_norm_eps)
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        encoder_hidden_states: Optional[torch.Tensor] = None,
+        attention_mask: Optional[torch.Tensor] = None,
+        cross_attention_mask: Optional[torch.Tensor] = None,
+        past_key_value: Optional[Tuple] = None,
+        use_cache: bool = False,
+        is_causal: bool = False,
+        deterministic: bool = True,
+        cache_index=None,
+        rope_positions: Optional[torch.Tensor] = None,
+    ):
+        def drop(t):
+            return F.dropout(t, self.dropout, training=not deterministic and self.dropout > 0)
+
+        def self_attn(inp):
+            out = self.attention(inp, inp, inp, attn_mask=attention_mask,
+                                 past_key_value=past_key_value, is_causal=is_causal,
+                                 use_cache=use_cache, deterministic=deterministic,
+                                 cache_index=cache_index, rope_positions=rope_positions)
+            return (out.attn_output, out.past_key_value) if use_cache else (out, None)
+
+        def cross_attn(inp):
+            return self.cross_attention(inp, encoder_hidden_states, encoder_hidden_states,
+                                        attn_mask=cross_attention_mask,
+                                        deterministic=deterministic)
+
+        x = hidden_states
+        if self.norm_first:
+            attn_out, present_kv = self_attn(self.attention_layernorm(x))
+            x = x + drop(attn_out)
+            if self.use_cross_attention and encoder_hidden_states is not None:
+                x = x + drop(cross_attn(self.cross_attention_layernorm(x)))
+            x = x + drop(self.feedforward(self.feedforward_layernorm(x), deterministic))
+        else:
+            attn_out, present_kv = self_attn(x)
+            x = self.attention_layernorm(x + drop(attn_out))
+            if self.use_cross_attention:
+                if encoder_hidden_states is None:
+                    raise ValueError("encoder_hidden_states required for cross attention")
+                x = self.cross_attention_layernorm(x + drop(cross_attn(x)))
+            x = self.feedforward_layernorm(x + drop(self.feedforward(x, deterministic)))
+        return x, present_kv
+
+
+class TransformerDecoder(nn.Module):
+    """Stack of decoder layers; cross-attention every
+    ``cross_attention_interval`` layers; threads per-layer KV caches."""
+
+    def __init__(
+        self,
+        n_layer: int,
+        d_model: int,
+        n_head: int,
+        dim_feedforward: int,
+        dropout: float = 0.0,
+        activation: Union[str, Callable] = "relu",
+        layer_norm_eps: float = 1e-12,
+        norm_first: bool = False,
+        use_cross_attention: bool = True,
+        dim_kv: Optional[int] = None,
+        cross_attention_interval: int = 1,
+        final_layer_norm_eps: Optional[float] = None,
+        n_kv_head: Optional[int] = None,
+        remat: bool = False,
+        moe_num_experts: Optional[int] = None,
+        cp_axis_name: Optional[str] = None,
+    ):
+        super().__init__()
+        _refuse(remat, moe_num_experts, cp_axis_name)
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(
+                d_model, n_head, dim_feedforward, dropout, activation, layer_norm_eps,
+                norm_first, use_cross_attention and i % cross_attention_interval == 0, dim_kv,
+                n_kv_head)
+            for i in range(n_layer)
+        )
+        self.final_layer_norm = (Fp32LayerNorm(d_model, eps=final_layer_norm_eps)
+                                 if final_layer_norm_eps is not None else None)
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        encoder_hidden_states: Optional[torch.Tensor] = None,
+        attention_mask: Optional[torch.Tensor] = None,
+        cross_attention_mask: Optional[torch.Tensor] = None,
+        past_key_values: Optional[Tuple] = None,
+        use_cache: bool = False,
+        is_causal: bool = False,
+        return_hidden_states: bool = False,
+        deterministic: bool = True,
+        cache_index=None,
+        rope_positions: Optional[torch.Tensor] = None,
+    ) -> TransformerOutput:
+        all_hidden_states: List[torch.Tensor] = []
+        current_key_values: List[Tuple] = []
+        for i, layer in enumerate(self.layers):
+            if return_hidden_states:
+                all_hidden_states.append(hidden_states)
+            pkv = past_key_values[i] if past_key_values is not None else None
+            hidden_states, present_kv = layer(
+                hidden_states, encoder_hidden_states, attention_mask, cross_attention_mask,
+                pkv, use_cache, is_causal, deterministic, cache_index, rope_positions)
+            if use_cache and present_kv is not None:
+                current_key_values.append(present_kv)
+        if return_hidden_states:
+            all_hidden_states.append(hidden_states)
+        if self.final_layer_norm is not None:
+            hidden_states = self.final_layer_norm(hidden_states)
+        return TransformerOutput(
+            last_hidden_state=hidden_states,
+            hidden_states=tuple(all_hidden_states) if return_hidden_states else None,
+            current_key_values=tuple(current_key_values) if use_cache else None,
+        )

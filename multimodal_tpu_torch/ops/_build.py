@@ -106,3 +106,21 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built first if needed."""
     return ctypes.CDLL(str(build()))
+
+
+def raise_on(err: int, name: str) -> None:
+    """Raise when a C entry point returned a CUDA error (a refused launch)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def stream_of(t) -> int:
+    """PyTorch's current stream on ``t``'s device, as the kernels take it."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def int64s(*values: int) -> ctypes.Array:
+    """A C array of ``long long``, for the strides the kernels take."""
+    return (ctypes.c_longlong * len(values))(*values)

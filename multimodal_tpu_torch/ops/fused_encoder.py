@@ -48,6 +48,19 @@ _ACTIVATIONS = {
     "silu": torch.nn.functional.silu,
 }
 
+# Generic-module activation names (modules/layers/activation.ACT2FN) -> the
+# fused kernel's activation table. NOTE the "gelu" flip: the library's
+# "gelu" is exact (erf) while the kernel table's "gelu" is the tanh
+# approximation; map through this, never pass ACT2FN names directly.
+FUSED_ACT_FOR = {
+    "gelu": "gelu_exact",
+    "gelu_tanh": "gelu",
+    "quick_gelu": "quick_gelu",
+    "relu": "relu",
+    "silu": "silu",
+    "swish": "silu",
+}
+
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _lib: Optional[ctypes.CDLL] = None
@@ -102,6 +115,11 @@ def fused_attention_supported(seq: int, embed_dim: int, num_heads: int) -> bool:
     return _attention_smem_bytes(seq, dh) <= _SMEM_LIMIT
 
 
+def fused_mlp_available(in_dim: int, hidden_dim: int, out_dim: int) -> bool:
+    """Shape predicate of the MLP kernels: every width a multiple of 64."""
+    return in_dim % 64 == 0 and hidden_dim % 64 == 0 and out_dim % 64 == 0
+
+
 def fused_attention_bwd_supported(seq: int, embed_dim: int, num_heads: int,
                                   dtype: torch.dtype) -> bool:
     """Shape predicate of the attention backward kernel. bf16 at head width
@@ -129,15 +147,6 @@ def _check_cuda(name: str, device: torch.device, dtype: torch.dtype,
             raise ValueError(f"{name}: tensors must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # --------------------------------------------------------------------------
@@ -244,9 +253,9 @@ def _attention_fwd(qkv, num_heads, is_causal, sm_scale, key_bias) -> torch.Tenso
     err = _kernels().mm_qkv_attention(
         qkv.data_ptr(), key_bias.data_ptr() if key_bias is not None else None,
         out.data_ptr(), b, s, d, num_heads, float(scale), int(is_causal),
-        _DTYPE_CODES[qkv.dtype], _stream(qkv),
+        _DTYPE_CODES[qkv.dtype], _build.stream_of(qkv),
     )
-    _raise_on(err, "fused_qkv_attention")
+    _build.raise_on(err, "fused_qkv_attention")
     fused_qkv_attention.launches += 1
     return out
 
@@ -283,9 +292,9 @@ def fused_qkv_attention_bwd(
         qkv.data_ptr(), g.data_ptr(),
         key_bias.data_ptr() if key_bias is not None else None, dqkv.data_ptr(),
         b, s, d, num_heads, float(scale), int(is_causal), _DTYPE_CODES[qkv.dtype],
-        _stream(qkv),
+        _build.stream_of(qkv),
     )
-    _raise_on(err, "fused_qkv_attention_bwd")
+    _build.raise_on(err, "fused_qkv_attention_bwd")
     fused_qkv_attention_bwd.launches += 1
     return dqkv
 
@@ -421,9 +430,9 @@ def _mlp_fwd(x, w1, b1, w2, b2, activation: str) -> torch.Tensor:
     err = _kernels().mm_fused_mlp(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         out.data_ptr(), rows, din, dff, dout, _ACT_CODES[activation],
-        _DTYPE_CODES[x.dtype], _stream(x),
+        _DTYPE_CODES[x.dtype], _build.stream_of(x),
     )
-    _raise_on(err, "fused_mlp")
+    _build.raise_on(err, "fused_mlp")
     fused_mlp.launches += 1
     return out
 
@@ -452,9 +461,9 @@ def fused_mlp_bwd(x, g, w1, b1, w2, activation: str = "gelu"):
     err = _kernels().mm_fused_mlp_bwd(
         x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         dx.data_ptr(), da.data_ptr(), h.data_ptr(), rows, din, dff, dout,
-        _ACT_CODES[activation], _DTYPE_CODES[x.dtype], _stream(x),
+        _ACT_CODES[activation], _DTYPE_CODES[x.dtype], _build.stream_of(x),
     )
-    _raise_on(err, "fused_mlp_bwd")
+    _build.raise_on(err, "fused_mlp_bwd")
     fused_mlp_bwd.launches += 1
     return dx, da, h
 

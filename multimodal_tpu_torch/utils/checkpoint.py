@@ -2,7 +2,10 @@
 
 ``clip_state_dict_from_jax`` turns the JAX package's CLIP parameter tree
 (numpy arrays) into this package's ``state_dict``. It is the inverse of
-``multimodal_tpu/utils/checkpoint.py:clip_params_from_torch``. Layouts:
+``multimodal_tpu/utils/checkpoint.py:clip_params_from_torch``.
+``long_context_lm_state_dict_from_jax`` does the same for the JAX
+``LongContextLM`` (``multimodal_tpu/examples/long_context/model.py``).
+Layouts:
 
 - ``nn.Dense`` kernels are ``(in, out)``; ``nn.Linear`` weights ``(out, in)``;
 - the patch conv is HWIO in JAX and OIHW in torch;
@@ -81,4 +84,28 @@ def clip_state_dict_from_jax(
     sd.update(_encoder_stack(tb["encoder"], "encoder_b.encoder", n_text_layers))
     sd.update(_fp32_layernorm(tb["ln_final"], "encoder_b.ln_final"))
     sd.update(_linear(tb["projection"], "encoder_b.projection"))
+    return sd
+
+
+def long_context_lm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``LongContextLM`` variables (``{"params": ...}`` or the bare
+    tree, leaves as numpy arrays) -> this package's ``LongContextLM``
+    ``state_dict``. The number of layers is read off the tree."""
+    p = params["params"] if "params" in params else params
+    dec = p["decoder"]
+    sd: Dict[str, torch.Tensor] = {"tok_embed.weight": _t(p["tok_embed"]["embedding"])}
+    if "pos_embed" in p:
+        sd["pos_embed.weight"] = _t(p["pos_embed"]["embedding"])
+    n_layer = sum(1 for k in dec if k.startswith("layer_"))
+    for i in range(n_layer):
+        lp = dec[f"layer_{i}"]
+        q = f"decoder.layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "output_proj"):
+            sd.update(_linear(lp["attention"][proj], f"{q}.attention.{proj}"))
+        sd.update(_fp32_layernorm(lp["attention_layernorm"], f"{q}.attention_layernorm"))
+        sd.update(_linear(lp["feedforward"]["hidden_0"], f"{q}.feedforward.hidden_0"))
+        sd.update(_linear(lp["feedforward"]["out"], f"{q}.feedforward.out"))
+        sd.update(_fp32_layernorm(lp["feedforward_layernorm"], f"{q}.feedforward_layernorm"))
+    sd.update(_fp32_layernorm(dec["final_layer_norm"], "decoder.final_layer_norm"))
+    sd.update(_linear(p["lm_head"], "lm_head"))
     return sd

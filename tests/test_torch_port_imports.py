@@ -1,5 +1,5 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
-entry points (model constructors, server, trainer) refuse to run without CUDA unless
+entry points (model constructors, servers, trainer, LM engine) refuse to run without CUDA unless
 asked for the CPU, and on CPU tensors no kernel is launched, forward or
 backward."""
 
@@ -14,14 +14,21 @@ import pytest
 import torch
 
 import multimodal_tpu_torch
+from multimodal_tpu_torch.examples.long_context.model import long_context_lm
 from multimodal_tpu_torch.models.clip import model as clip_model
 from multimodal_tpu_torch.models.clip.image_encoder import CLIPViTEncoder
 from multimodal_tpu_torch.models.clip.text_encoder import CLIPTextEncoder
+from multimodal_tpu_torch.ops import attention as attn
+from multimodal_tpu_torch.ops import flash_attention as fa
 from multimodal_tpu_torch.ops import fused_encoder as fe
+from multimodal_tpu_torch.ops import quantized_attention as qa
 from multimodal_tpu_torch.serving.embedding import EmbeddingServer
+from multimodal_tpu_torch.serving.engine import InferenceEngine, Request
 from multimodal_tpu_torch.training.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parents[1]
+TINY_LM = dict(vocab_size=64, max_seq_len=1024, n_layer=1, d_model=64, n_head=2,
+               dim_feedforward=128)
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "multimodal_tpu"}
 
 
@@ -66,6 +73,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     model = torch.nn.Linear(2, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(lambda m, b: (m(b).sum(), {}), torch.optim.AdamW(model.parameters()))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        long_context_lm(**TINY_LM)
+    lm = long_context_lm(device="cpu", dtype=torch.float32, **TINY_LM)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(lm, n_slots=2, max_len=1024, cache_dtype="int8")
 
 
 def test_cpu_tensors_launch_no_kernel():
@@ -86,7 +98,18 @@ def test_cpu_tensors_launch_no_kernel():
     clip_model.init_parameters_(model, torch.Generator().manual_seed(0))
     with torch.inference_mode():
         model(torch.zeros(1, 32, 32, 3), torch.ones(1, 77, dtype=torch.long))
+    # the LM path on the CPU: a prompt past the flash threshold, int8 decode
+    fa.reset_launch_counts()
+    qa.reset_launch_counts()
+    lm = long_context_lm(device="cpu", dtype=torch.float32, **TINY_LM)
+    engine = InferenceEngine(lm, n_slots=2, max_len=1024, cache_dtype="int8", device="cpu",
+                             prefill_batch=2, decode_steps=2)
+    engine.submit(Request(list(r.randint(0, 64, size=attn.FLASH_MIN_SEQ + 5)), 3))
+    engine.submit(Request([1, 2, 3], 2))
+    assert [len(o.tokens) for o in engine.run()] in ([2, 3], [3, 2])
     assert fe.fused_qkv_attention.launches == 0
     assert fe.fused_mlp.launches == 0
     assert fe.fused_qkv_attention_bwd.launches == 0
     assert fe.fused_mlp_bwd.launches == 0
+    assert fa.flash_attention_forward.launches == 0
+    assert qa.quantized_cache_attention.launches == 0
