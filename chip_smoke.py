@@ -42,7 +42,19 @@ in order (any failure exits non-zero):
    prefill and decode tokens/s, ms a tick, time to first token, peak
    memory and the device time of one prefill and one decode call by
    kernel group;
-7. a ``kernels`` JSON line, the card line, and the result line
+7. long-context LM training at the recipe's defaults
+   (``examples/long_context/train.py``: 12 layers, d_model 768, 12 heads,
+   d_ff 3072, vocab 32000, fp32 parameters, bf16 compute, remat, global-norm
+   clipping + AdamW) through ``build_trainer`` and ``Trainer.fit``: the
+   gradients of one packed row (1 x 1024 tokens, segment ids on) held
+   against an fp32 step of the same weights on the CPU (concatenated cosine
+   >= 0.99); 2 warm-up and 5 timed steps on synthetic windows of batch 8 x
+   8192, whose counters must show, a step, 24 launches of #6 (forward and
+   remat recompute), 12 of #7, 12 of #8, 0 of #9, 24 of #3 and 12 of #4, and
+   finite losses; tokens/s, ms a step, peak memory and one step's device
+   time by kernel group; then the recipe's ``main`` with ``--packed-docs
+   synthetic --steps 2 --bf16`` (batch 8 x 8192), finite losses;
+8. a ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 also checks the flash attention forward (#6) at the prefill shape
@@ -51,7 +63,16 @@ attention (#10) at the decode shape (33 x 12 heads, 4096 positions) and its
 verify-window and GQA variants, each output element held to its own row's
 scale (``row_relative_error``), and times #6 against the plain path at
 S = 32 to 1024 (the numbers ``ops/attention.py:FLASH_MIN_SEQ`` is set
-from). ``--kernels-only`` stops after phase 2 and prints no result line.
+from). It checks the flash attention backward (#7 dq, #8 dk/dv, #9 the bias
+gradient) against the plain backward at the prefill shape causal and #6's
+variants, bf16 and fp32, with the lse cotangent through
+``flash_attention_lse``, each element to its row's scale; and times #7, #8
+and #9 at the LM training shape (8, 12, 8192, 64) bf16 causal beside their
+bound, the plain version and the SDPA backward (for #9 with a
+differentiable float mask, whose gradient is ds). ``--kernels-only`` stops
+after phase 2 and prints no result line; ``--planted-faults`` only builds
+copies of #7-#9 with known faults (``PLANTED_FAULTS``) and shows that the
+checks catch each one.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -63,6 +84,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -112,16 +134,29 @@ def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
     return (2.0 ** -6 if dtype == torch.bfloat16 else 1e-4) * scale
 
 
-def row_relative_error(got: torch.Tensor, ref: torch.Tensor) -> float:
+def row_relative_error(got: torch.Tensor, ref: torch.Tensor,
+                       terms: Optional[torch.Tensor] = None,
+                       keep: Optional[torch.Tensor] = None) -> float:
     """Largest |got - ref| / (|ref| + rms of ref's row) over the elements, a
     row being the last dimension (one query row of one head). Each element
     is held to its own row's scale, so the rows that see few keys (outputs
     up to 4) do not loosen the bar for rows that see thousands (outputs near
-    0.03), as a bar scaled by the largest output would."""
+    0.03), as a bar scaled by the largest output would. With ``terms`` (each
+    element's sum over the absolute values of its terms) the denominator
+    gains 2^-8 of the element's terms: an element whose exact value is 0 (in
+    the attention backward the first causal query row, ds_00 = dp_00 -
+    delta_0 with o_0 = v_0) holds only the rounding noise of a cancellation,
+    whose scale is that of its terms, not of the result. With ``keep`` only
+    the elements where it is true count."""
     g, r = got.float(), ref.float()
     err = (g - r).abs()
     denom = r.abs() + r.pow(2).mean(-1, keepdim=True).sqrt()
-    return torch.where(err == 0, 0.0, err / denom).max().item()
+    if terms is not None:
+        denom = denom + 2.0 ** -8 * terms.float()
+    rel = torch.where(err == 0, 0.0, err / denom)
+    if keep is not None:
+        rel = torch.where(keep, rel, 0.0)
+    return rel.max().item()
 
 
 # Bars of row_relative_error for kernels #6 and #10. bf16: 2^-6, two units in
@@ -468,6 +503,240 @@ def check_new_kernels(fa, qa, kv):
     return cases
 
 
+# Bars of row_relative_error for kernels #7-#9 (dq by query row, dk and dv by
+# key row, the bias gradient ds by query row, each with its terms' scale),
+# keyed on the output's dtype: dq, dk and dv come back in the inputs' dtype,
+# ds in fp32 whatever the inputs (as the TPU kernel writes it). Set from the
+# readings in PERF.md (its LM training findings).
+ROW_RELATIVE_BAR_BWD = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -15}
+
+
+def bwd_readings(got, ref, terms):
+    """row_relative_error of each output with its terms, and, to show what
+    the terms let through, without them: over every element, and over the
+    elements that are no cancellation (|ref| at least 2^-8 of their terms)."""
+    rel = {n: row_relative_error(got[n], ref[n], terms[n]) for n in got}
+    no_terms = {n: [row_relative_error(got[n], ref[n]), row_relative_error(
+        got[n], ref[n], keep=ref[n].float().abs() >= 2.0 ** -8 * terms[n])] for n in got}
+    return rel, no_terms
+
+
+def _bwd_inputs(b, h, sq, sk, d, dtype, gen, bias_kind, segments):
+    """q, k, v as #6's cases make them; do in (B, Sq, H, D) storage, as the
+    gradient of #6's output arrives."""
+    q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen).to(dtype)
+               for s in (sq, sk, sk))
+    do = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+    bias = None
+    if bias_kind == "1h1k":  # ALiBi-style per-head key ramp
+        bias = -0.05 * torch.rand(1, h, 1, 1, device="cuda", generator=gen) * torch.arange(
+            sk, device="cuda")[None, None, None, :]
+    elif bias_kind == "b1qk":
+        bias = torch.randn(b, 1, sq, sk, device="cuda", generator=gen)
+    seg = _segments(b, sq, gen) if segments else None
+    return q, k, v, do, bias, seg
+
+
+def bwd_terms(fa, q, k, v, out, do, lse, dlse, bias, causal, seg, parts):
+    """Each backward output element's sum over the absolute values of its
+    terms, for ``row_relative_error``: with a_ij = p_ij (|do_i| . |v_j| +
+    |do_i| . |o_i| + |dlse_i| log2(e)), the size of the terms of ds_ij = p_ij
+    (do_i . v_j - delta_i), dq_i sums a_ij |k_j| scale, dk_j sums a_ij |q_i|
+    scale, dv_j sums p_ij |do_i|, and ds_ij is a_ij."""
+    d = q.shape[-1]
+    scale = d ** -0.5
+    s2 = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (scale * fa.LOG2E)
+    if bias is not None:
+        s2 = s2 + fa._as_4d_bias(bias) * fa.LOG2E
+    visible = fa._visible(q.shape[2], k.shape[2], causal, seg, seg, q.device)
+    lse = torch.where(lse == -math.inf, math.inf, lse)
+    p = torch.where(visible, torch.exp2(s2 - lse[..., None]), 0.0)
+    del s2
+    row = (do.float().abs() * out.float().abs()).sum(-1)
+    if dlse is not None:
+        row = row + dlse.abs() * fa.LOG2E
+    a = p * (torch.einsum("bhqd,bhkd->bhqk", do.float().abs(), v.float().abs()) + row[..., None])
+    terms = {}
+    if "dq" in parts:
+        terms["dq"] = torch.einsum("bhqk,bhkd->bhqd", a, k.float().abs()) * scale
+    if "dk" in parts:
+        terms["dk"] = torch.einsum("bhqk,bhqd->bhkd", a, q.float().abs()) * scale
+    if "dv" in parts:
+        terms["dv"] = torch.einsum("bhqk,bhqd->bhkd", p, do.float().abs())
+    if "ds" in parts:
+        terms["ds"] = a
+    return terms
+
+
+def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
+                   segments=False, dbias=False, lse_cot=False):
+    """Kernels #7, #8 (and #9 with ``dbias``) against the plain backward on
+    the same inputs, each output element to its row's scale; with
+    ``lse_cot`` through ``flash_attention_lse``'s autograd with both
+    cotangents."""
+    q, k, v, do, bias, seg = _bwd_inputs(b, h, sq, sk, d, dtype, gen, bias_kind, segments)
+    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    if lse_cot:
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out, lse = fa.flash_attention_lse(qg, kg, vg, causal)
+        glse = torch.randn(lse.shape, device="cuda", generator=gen)
+        gq, gk, gv = torch.autograd.grad((out, lse), (qg, kg, vg), (do, glse))
+        got = {"dq": gq, "dk": gk, "dv": gv}
+        with torch.no_grad():
+            dlse = torch.where(torch.isfinite(lse), glse, 0.0)
+            out, lse = out.detach(), lse.detach()
+            ref = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(
+                q, k, v, out, lse, do, causal=causal, dlse=dlse)))
+            terms = bwd_terms(fa, q, k, v, out, do, lse, dlse, None, causal, None,
+                              ("dq", "dk", "dv"))
+    else:
+        with torch.no_grad():
+            out, lse = fa.flash_attention_forward(q, k, v, bias, return_lse=True, **kw)
+            delta = fa._delta(out, do, None)
+            got = {"dq": fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, bias, **kw)}
+            got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias, **kw)
+            parts = ("dq", "dk", "dv")
+            if dbias:
+                got["ds"] = fa.flash_attention_bwd_dbias(q, k, v, do, lse, delta, bias, **kw)
+                parts += ("ds",)
+            ref = fa._bwd_plain_parts(q, k, v, do, lse, delta, bias, causal, None, seg, seg,
+                                      parts)
+            terms = bwd_terms(fa, q, k, v, out, do, lse, None, bias, causal, seg, parts)
+    torch.cuda.synchronize()
+    rel, no_terms = bwd_readings(got, ref, terms)
+    err = {n: (got[n].float() - ref[n].float()).abs().max().item() for n in got}
+    tol = {n: ROW_RELATIVE_BAR_BWD[got[n].dtype] for n in got}
+    return dict(kernel="flash_attention_bwd", case=name, shape=[b, h, sq, sk, d], causal=causal,
+                bias=bias_kind, segments=segments, dbias=dbias, lse_cotangent=lse_cot,
+                dtype=str(dtype).replace("torch.", ""), rel_err=rel, max_abs_err=err, tol=tol,
+                rel_err_no_terms=no_terms, ok=all(rel[n] <= tol[n] for n in rel))
+
+
+def check_bwd_kernels(fa, dtypes=(torch.bfloat16, torch.float32)):
+    """The cases of kernels #7-#9: the LM prefill shape causal and #6's
+    variants."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = []
+    for dtype in dtypes:
+        cases.append(flash_bwd_case(fa, "prefill", 8, 12, 2048, 2048, 64, True, dtype, gen))
+        cases.append(flash_bwd_case(fa, "sq512_sk2048", 8, 12, 512, 2048, 64, True, dtype, gen))
+        cases.append(flash_bwd_case(fa, "non_causal", 4, 12, 1024, 1024, 64, False, dtype, gen))
+        cases.append(flash_bwd_case(fa, "segment_ids", 4, 12, 1024, 1024, 64, True, dtype, gen,
+                                    segments=True))
+        cases.append(flash_bwd_case(fa, "bias_1h1k_dbias", 4, 12, 1024, 1024, 64, True, dtype,
+                                    gen, bias_kind="1h1k", dbias=True))
+        cases.append(flash_bwd_case(fa, "bias_b1qk_dbias", 4, 12, 1024, 1024, 64, False, dtype,
+                                    gen, bias_kind="b1qk", dbias=True))
+        cases.append(flash_bwd_case(fa, "ragged_1000", 4, 12, 1000, 1000, 64, True, dtype, gen,
+                                    dbias=True))
+        cases.append(flash_bwd_case(fa, "head_width_32", 4, 12, 1024, 1024, 32, True, dtype, gen))
+        cases.append(flash_bwd_case(fa, "head_width_128", 4, 12, 1024, 1024, 128, True, dtype,
+                                    gen))
+        cases.append(flash_bwd_case(fa, "head_width_96", 2, 4, 300, 300, 96, True, dtype, gen,
+                                    bias_kind="1h1k", dbias=True))
+        cases.append(flash_bwd_case(fa, "lse_cotangent", 4, 12, 1000, 1000, 64, True, dtype,
+                                    gen, lse_cot=True))
+    print("kernel_check tolerance #7-#9: row_relative_error with the terms, by the output's "
+          "dtype (ds is fp32 in every case), within " + json.dumps(
+              {str(k).replace("torch.", ""): v for k, v in ROW_RELATIVE_BAR_BWD.items()}),
+          flush=True)
+    for c in cases:
+        print("kernel_check " + json.dumps(c), flush=True)
+    return cases
+
+
+def flash_bwd_timing(fa, b=8, h=12, s=8192, d=64):
+    """#7, #8 and #9 at the LM training shape, bf16 causal (#9 with an
+    ALiBi-style (1, H, 1, S) bias, the case that differentiates one): each
+    held against the plain backward (run a batch row at a time: its (S, S)
+    fp32 matrices of all 8 rows would not fit) and timed beside the plain
+    version, the SDPA backward (dq, dk and dv in one call, timed only) and
+    the card's bound. The library time of #9 is the SDPA backward with a
+    differentiable float mask (ALiBi plus the causal -inf), on the
+    memory-efficient backend: it returns the mask's gradient, the full
+    (B, H, S, S) ds summed to the mask's shape, with dq, dk and dv."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dtype = torch.bfloat16
+    q, k, v, do, _, _ = _bwd_inputs(b, h, s, s, d, dtype, gen, None, False)
+    alibi = -0.05 * torch.rand(1, h, 1, 1, device="cuda", generator=gen) * torch.arange(
+        s, device="cuda")[None, None, None, :]
+    pairs = b * h * s * (s + 1) // 2
+    es = q.element_size()
+    io = 4 * q.numel() * es + 2 * b * h * s * 4  # q, k, v, do, lse, delta
+    rows = []
+    with torch.no_grad():
+        for name, bias in (("dq", None), ("dkv", None), ("dbias", alibi)):
+            out, lse = fa.flash_attention_forward(q, k, v, bias, causal=True, return_lse=True)
+            delta = fa._delta(out, do, None)
+            args = (q, k, v, do, lse, delta, bias)
+            fn = {"dq": fa.flash_attention_bwd_dq, "dkv": fa.flash_attention_bwd_dkv,
+                  "dbias": fa.flash_attention_bwd_dbias}[name]
+            parts = {"dq": ("dq",), "dkv": ("dk", "dv"), "dbias": ("ds",)}[name]
+            got = fn(*args, causal=True)
+            got = dict(zip(parts, got if name == "dkv" else (got,)))
+            tol = {n: ROW_RELATIVE_BAR_BWD[got[n].dtype] for n in parts}
+            rel, err = {n: 0.0 for n in parts}, {n: 0.0 for n in parts}
+            no_terms = {n: [0.0, 0.0] for n in parts}
+
+            def plain(i):
+                return fa._bwd_plain_parts(q[i:i + 1], k[i:i + 1], v[i:i + 1], do[i:i + 1],
+                                           lse[i:i + 1], delta[i:i + 1], bias, True, None,
+                                           None, None, parts)
+
+            for i in range(b):
+                ref = plain(i)
+                terms = bwd_terms(fa, q[i:i + 1], k[i:i + 1], v[i:i + 1], out[i:i + 1],
+                                  do[i:i + 1], lse[i:i + 1], None, bias, True, None, parts)
+                rel_i, no_terms_i = bwd_readings({n: got[n][i:i + 1] for n in parts}, ref, terms)
+                for n in parts:
+                    rel[n] = max(rel[n], rel_i[n])
+                    no_terms[n] = [max(a, b) for a, b in zip(no_terms[n], no_terms_i[n])]
+                    err[n] = max(err[n], (got[n][i:i + 1].float() - ref[n].float()).abs()
+                                 .max().item())
+                del ref, terms
+            del got
+            kernel_ms = time_ms(lambda: fn(*args, causal=True), 1, warmup=1)
+            kernel_ms = time_ms(lambda: fn(*args, causal=True), reps_for(kernel_ms), warmup=1)
+            plain_ms = time_ms(lambda: [plain(i) for i in range(b)], 2, warmup=1)
+            if name == "dq":
+                flops, nbytes = 6.0 * d * pairs, io + q.numel() * es
+            elif name == "dkv":
+                flops, nbytes = 8.0 * d * pairs, io + 2 * k.numel() * es
+            else:
+                flops, nbytes = 4.0 * d * pairs, io + alibi.numel() * 4 + b * h * s * s * 4
+            bms, by = bound_ms(nbytes, flops, dtype)
+            rows.append(dict(kernel=f"flash_attention_bwd_{name}", case="train",
+                             shape=[b, h, s, s, d], causal=True, dtype="bfloat16",
+                             rel_err=rel, max_abs_err=max(err.values()), tol=tol,
+                             rel_err_no_terms=no_terms, ok=all(rel[n] <= tol[n] for n in rel),
+                             ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             tflops=flops / kernel_ms / 1e9))
+            del out, lse, delta, args
+            torch.cuda.empty_cache()
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True), 3)
+    del o
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    mask = (alibi + torch.full((s, s), -math.inf, device="cuda").triu(1)).to(dtype)
+    mask.requires_grad_()
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask.expand(b, h, s, s))
+        lib_ds_ms = time_ms(lambda: torch.autograd.grad(o, (mask, qg, kg, vg), do,
+                                                        retain_graph=True), 3)
+    del o, mask
+    torch.cuda.empty_cache()
+    for r in rows:
+        dbias = r["kernel"].endswith("dbias")
+        r["library_ms"] = lib_ds_ms if dbias else lib_ms
+        r["library"] = ("SDPA backward with a differentiable float mask, memory-efficient "
+                        "backend (ds summed to the mask's shape, dq, dk and dv in one call)"
+                        if dbias else "SDPA backward (dq, dk and dv in one call)")
+        print("kernel_check " + json.dumps(r), flush=True)
+    return rows
+
+
 def check_kernels(fe):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -501,6 +770,66 @@ def check_kernels(fe):
     for c in cases:
         print("kernel_check " + json.dumps(c), flush=True)
     return cases
+
+
+# Faults planted in copies of the backward kernels' source (under build/,
+# never in the checkout's sources): (kernel function, text, replacement).
+PLANTED_FAULTS = {
+    "dkv: one key past the causal diagonal": (
+        "flash_bwd_dkv_mma_kernel", "visible(a, b, i, j)",
+        "(visible(a, b, i, j) || (a.causal && j == i + 1 + off && (!a.qseg || "
+        "a.qseg[b * a.qseg_b + i] == a.kvseg[b * a.kvseg_b + j])))"),
+    "dkv: the ragged last query tile dropped": (
+        "flash_bwd_dkv_mma_kernel", "const int nq = (a.Sq + QT - 1) / QT;",
+        "const int nq = a.Sq / QT;"),
+    "dq: delta left out": (
+        "flash_bwd_dq_mma_kernel", "p * (dp[nt][e] - delta[e >> 1])", "p * dp[nt][e]"),
+}
+
+
+def planted_faults() -> None:
+    """Each fault of PLANTED_FAULTS in a copy of the package (only the flash
+    kernels' sources, so the copy builds quickly) whose bf16 #7-#9 cases run
+    in a process of their own: a fault that no case catches fails the run."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    for n, (name, (kernel, old, new)) in enumerate(PLANTED_FAULTS.items()):
+        copy = root / "build" / "planted_faults" / str(n)
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(root / "multimodal_tpu_torch", copy / "multimodal_tpu_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(root / "chip_smoke.py", copy / "chip_smoke.py")
+        csrc = copy / "multimodal_tpu_torch" / "csrc"
+        for src in csrc.glob("*.cu"):
+            if src.name not in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
+                src.unlink()
+        cu = csrc / "flash_attention_bwd.cu"
+        text = cu.read_text()
+        start = text.index(f"{kernel}(Args a)")
+        end = text.index("\n}\n", start)
+        if text[start:end].count(old) != 1:
+            fail(f"planted fault {name!r}: {old!r} is not once in {kernel}")
+        cu.write_text(text[:start] + text[start:end].replace(old, new) + text[end:])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import torch, chip_smoke as cs; "
+             "from multimodal_tpu_torch.ops import flash_attention as fa; "
+             "cs.check_bwd_kernels(fa, (torch.bfloat16,))"],
+            cwd=copy, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        checked = [json.loads(line[len("kernel_check "):]) for line in proc.stdout.splitlines()
+                   if line.startswith("kernel_check {")]
+        caught = [c for c in checked if not c["ok"]]
+        print(f"planted fault {name!r}: {len(caught)} of {len(checked)} bf16 cases fail "
+              f"({time.perf_counter() - t0:.0f} s): " + json.dumps(
+                  {c["case"]: {k: round(v, 4) for k, v in c["rel_err"].items()}
+                   for c in caught}), flush=True)
+        if proc.returncode != 0 or not checked:
+            fail(f"planted fault {name!r}: the check did not run\n{proc.stdout[-3000:]}")
+        if not caught:
+            fail(f"planted fault {name!r}: no case caught it")
+        shutil.rmtree(copy, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------
@@ -829,6 +1158,10 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in name:
         return "flash_attention"
+    if "flash_bwd_dkv" in name:
+        return "flash_attention_bwd_dkv"
+    if "flash_bwd_dq" in name:
+        return "flash_attention_bwd_dbias" if "true" in name else "flash_attention_bwd_dq"
     if "quantized_cache_attention" in name:
         return "quantized_cache_attention"
     if "qkv_attention_bwd" in name:
@@ -849,6 +1182,10 @@ def kernel_group(name: str) -> str:
         return "resize"
     if "adam" in low or "multi_tensor" in low:
         return "optimizer"
+    if "softmax" in low:
+        return "softmax"
+    if "embedding" in low:
+        return "embedding"
     if "reduce" in low:
         return "reduce"
     return "other"
@@ -1002,6 +1339,138 @@ def train(fe, card):
     return launches, cos, rate, dt / steps * 1e3, peak
 
 
+# --------------------------------------------------------------------------
+# phase 7: long-context LM training (kernels #6-#8, #3, #4)
+# --------------------------------------------------------------------------
+
+LM_TRAIN = dict(vocab_size=32000, max_seq_len=8192, n_layer=12, d_model=768, n_head=12,
+                dim_feedforward=3072)  # the training recipe's defaults
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 8192
+
+
+def lm_grad_cosine(model, trainer, batch):
+    """Cosine of the card's gradients (bf16 compute) against an fp32 step of
+    the same weights on the CPU through the plain versions, both through the
+    recipe's loss: the concatenated gradient's, and the lowest single
+    tensor's with its name."""
+    from multimodal_tpu_torch.examples.long_context import train as lt
+    from multimodal_tpu_torch.examples.long_context.model import long_context_lm
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = trainer.loss_fn(model, {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    loss.backward()
+    ref = long_context_lm(device="cpu", dtype=torch.float32, **LM_TRAIN).train()
+    ref.load_state_dict({k: v.detach().float().cpu() for k, v in model.state_dict().items()})
+    ref_loss, _ = lt.build_trainer(ref).loss_fn(ref, {k: torch.from_numpy(v)
+                                                      for k, v in batch.items()})
+    ref_loss.backward()
+    ref_grads = dict(ref.named_parameters())
+    dots = sq_a = sq_b = 0.0
+    worst = (2.0, "")
+    for name, p in model.named_parameters():
+        a = p.grad.double().cpu().flatten()
+        b = ref_grads[name].grad.double().flatten()
+        dots += float(a @ b)
+        sq_a += float(a @ a)
+        sq_b += float(b @ b)
+        worst = min(worst, (float(a @ b) / max(float(a.norm() * b.norm()), 1e-300), name))
+    model.zero_grad(set_to_none=True)
+    return dots / math.sqrt(sq_a * sq_b), worst, loss.item(), ref_loss.item()
+
+
+def lm_train(fe, fa, card):
+    """The recipe at its defaults through ``build_trainer`` and
+    ``Trainer.fit``: fp32 parameters, bf16 compute, remat, clipping + AdamW,
+    synthetic token windows at batch 8 x 8192; then ``main`` itself with
+    packed documents."""
+    from multimodal_tpu_torch.examples.long_context import train as lt
+    from multimodal_tpu_torch.examples.long_context.model import long_context_lm
+
+    t0 = time.perf_counter()
+    model = long_context_lm(dtype=torch.bfloat16, param_dtype=torch.float32, seed=0, remat=True,
+                            **LM_TRAIN)
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = lt.build_trainer(model, log_interval=100)
+    print(f"lm train: built LongContextLM {LM_TRAIN} ({n_params / 1e6:.1f}M parameters, fp32, "
+          f"bf16 compute, remat) in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # the row of a packed batch of 4 that holds the most documents
+    packed = next(lt.packed_document_batches(None, LM_TRAIN["vocab_size"], 1024, 4, seed=0))
+    row = int(packed["segment_ids"].max(axis=1).argmax())
+    packed = {k: v[row:row + 1] for k, v in packed.items()}
+    n_docs = int(packed["segment_ids"].max())
+    t0 = time.perf_counter()
+    cos, (worst_cos, worst_name), loss_card, loss_cpu = lm_grad_cosine(model, trainer, packed)
+    print(f"lm train: gradient cosine vs fp32 CPU, one packed row of 1024 tokens ({n_docs} "
+          f"documents, segment ids on), {LM_TRAIN['n_layer']} layers: {cos:.6f} (bar 0.99); "
+          f"lowest tensor "
+          f"{worst_name} {worst_cos:.6f}; loss card {loss_card:.6f} cpu {loss_cpu:.6f} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not cos >= 0.99:
+        fail(f"LM gradient cosine {cos} < 0.99 against fp32 on the CPU")
+
+    warmup, steps = 2, 5
+    stream = lt.synthetic_tokens(LM_TRAIN["vocab_size"], LM_TRAIN_BATCH * LM_TRAIN_SEQ * 64)
+    data = lt.token_batches(lt.TokenWindowDataset(stream, LM_TRAIN_SEQ), LM_TRAIN_BATCH)
+    batches = [next(data) for _ in range(warmup + steps + 1)]
+    trainer.fit(model, batches[:warmup], warmup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fe.reset_launch_counts()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(model, batches[warmup:warmup + steps], steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"flash_attention": fa.flash_attention_forward.launches,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
+                "flash_attention_bwd_dbias": fa.flash_attention_bwd_dbias.launches,
+                "fused_mlp": fe.fused_mlp.launches, "fused_mlp_bwd": fe.fused_mlp_bwd.launches}
+    layers = LM_TRAIN["n_layer"]
+    # forward and remat recompute: 2 a layer; backward: 1; #9 only for a differentiated bias
+    want = {"flash_attention": 2 * layers * steps, "flash_attention_bwd_dq": layers * steps,
+            "flash_attention_bwd_dkv": layers * steps, "flash_attention_bwd_dbias": 0,
+            "fused_mlp": 2 * layers * steps, "fused_mlp_bwd": layers * steps}
+    print(f"lm train: launches {launches}, want {want} ({steps} steps, {layers} layers)",
+          flush=True)
+    for k, v in launches.items():
+        if v != want[k]:
+            fail(f"{k} launched {v} times in {steps} LM train steps, want {want[k]}")
+    losses = [r["loss"] for r in trainer.logger.records[-steps:]]
+    skipped = [r["nonfinite_skipped"] for r in trainer.logger.records[-steps:]]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses) or any(skipped):
+        fail(f"LM train losses {losses}, skipped {skipped}")
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ * steps
+    result = {"tokens_per_s": tokens / dt, "ms_per_step": dt / steps * 1e3,
+              "peak_gib": peak / 2 ** 30, "losses": losses, "grad_cosine": cos,
+              "grad_cosine_lowest": [worst_name, worst_cos]}
+    print(f"lm train: {tokens / dt:.1f} tokens/s, {dt / steps * 1e3:.1f} ms a step at batch "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} (host batches, prefetched), peak memory "
+          f"{peak / 2 ** 30:.2f} GiB, losses {[round(x, 5) for x in losses]} on {card}",
+          flush=True)
+    breakdown = profile_step(lambda: trainer.fit(model, batches[-1:], 1), "lm train")
+    print("lm train: device time of one step by kernel group " + json.dumps(breakdown),
+          flush=True)
+    result["profile"] = breakdown
+    del model, trainer, batches
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model, trainer = lt.main(["--packed-docs", "synthetic", "--steps", "2", "--bf16"])
+    torch.cuda.synchronize()
+    cli_losses = [r["loss"] for r in trainer.logger.records]
+    print(f"lm train: main(--packed-docs synthetic --steps 2 --bf16) at batch 8 x 8192: losses "
+          f"{[round(x, 5) for x in cli_losses]} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if len(cli_losses) != 2 or not all(math.isfinite(x) for x in cli_losses):
+        fail(f"the packed CLI run's losses {cli_losses}")
+    result["cli_packed_losses"] = cli_losses
+    del model, trainer
+    torch.cuda.empty_cache()
+    return launches, result
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -1020,6 +1489,10 @@ def main() -> None:
     card = card_line()
     print(f"device: {card} | {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    if "--planted-faults" in sys.argv[1:]:
+        planted_faults()
+        print("planted faults: each failed at least one case; no result line", flush=True)
+        return
     t0 = time.perf_counter()
     lib = _build.build()
     build_s = time.perf_counter() - t0
@@ -1027,10 +1500,13 @@ def main() -> None:
           flush=True)
     if _build.build_log:
         for line in _build.build_log.splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if ("registers" in line or "spill" in line or "entry function" in line
+                    or line.startswith("==")):
                 print("  " + line.strip(), flush=True)
 
-    cases = check_kernels(fe) + check_new_kernels(fa, qa, kv)
+    cases = check_kernels(fe) + check_new_kernels(fa, qa, kv) + check_bwd_kernels(fa)
+    bwd_rows = flash_bwd_timing(fa)
+    cases += bwd_rows
     bad = [c for c in cases if not c["ok"]]
     if bad:
         fail(f"{len(bad)} kernel case(s) outside tolerance: "
@@ -1046,6 +1522,7 @@ def main() -> None:
     launches, grad_cos, train_rate, step_ms, peak = train(fe, card)
     vit_cos = vit_l14_check(card)
     lm_launches, lm = lm_serve(fe, fa, qa, card)
+    train_launches, lm_tr = lm_train(fe, fa, card)
 
     kernels = []
     for name, source, replaces, head_case in (
@@ -1076,18 +1553,37 @@ def main() -> None:
             entry["launches_serve"] = serve_launches[name]
         if name in lm_launches:
             entry["launches_lm"] = lm_launches[name]
+        if name in train_launches:
+            entry["launches_train"] = train_launches[name]
         entry["cases"] = [{k: c[k] for k in ("case", "dtype", "max_abs_err", "rel_err", "tol",
                                              "ms", "plain_ms", "library_ms", "bound_ms",
                                              "bound_by") if k in c}
                           for c in mine]
         kernels.append(entry)
+    bwd_checks = [c for c in cases if c["kernel"] == "flash_attention_bwd"]
+    for row, line, parts in zip(bwd_rows, (625, 650, 679), (("dq",), ("dk", "dv"), ("ds",))):
+        name = row["kernel"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "multimodal_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"multimodal_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[name], "launches_train": train_launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "passed": row["ok"] and all(c["ok"] for c in bwd_checks),
+            "cases": [{"case": c["case"], "dtype": c["dtype"],
+                       "tol": {n: c["tol"][n] for n in parts},
+                       "rel_err": {n: c["rel_err"][n] for n in parts}}
+                      for c in bwd_checks if parts[0] in c["rel_err"]]})
     print(f"summary: serve min cosine {min_cos:.6f}, {device_rate:.1f} pairs/s device, "
           f"{served_rate:.1f} pairs/s served; train gradient cosine {grad_cos:.6f}, "
           f"{train_rate:.1f} items/s, {step_ms:.1f} ms a step, peak {peak / 2**30:.2f} GiB; "
           f"ViT-L/14 cosine {vit_cos:.6f}; LM serving {lm['prefill_tokens_per_s']:.1f} prefill "
           f"tokens/s, {lm['decode_tokens_per_s']:.1f} decode tokens/s, {lm['ms_per_tick']:.2f} "
           f"ms a tick, TTFT p50 {lm['ttft_p50_s']:.3f} s, peak {lm['peak_gib']:.2f} GiB, logit "
-          f"cosine {lm['min_cosine']:.6f}; build {build_s:.1f} s", flush=True)
+          f"cosine {lm['min_cosine']:.6f}; LM training {lm_tr['tokens_per_s']:.1f} tokens/s, "
+          f"{lm_tr['ms_per_step']:.1f} ms a step, peak {lm_tr['peak_gib']:.2f} GiB, gradient "
+          f"cosine {lm_tr['grad_cosine']:.6f}; build {build_s:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

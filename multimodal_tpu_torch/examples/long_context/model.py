@@ -2,8 +2,10 @@
 ``multimodal_tpu/examples/long_context/model.py`` (``LongContextLM``) on
 one device: token embedding (+ learned positions, or rotary inside the
 attention), a pre-norm ``TransformerDecoder`` with exact-GELU MLPs and a
-final LayerNorm, and an untied LM head. Context parallelism, MoE and remat
-are refused (ROADMAP.md, queue A4/A7).
+final LayerNorm, and an untied LM head. ``remat=True`` recomputes each
+layer in the backward; ``segment_ids=`` trains on packed documents
+(``data/packing.py``: block-diagonal causal attention). Context parallelism
+and MoE are refused (ROADMAP.md, queue A4).
 
 Besides the plain causal forward it has the serving engine's decode
 surface (``serving/engine.py``): ``positions=`` per-row position ids,
@@ -80,6 +82,7 @@ class LongContextLM(nn.Module):
         cache_index=None,
         attention_mask: Optional[torch.Tensor] = None,
         use_cache: bool = False,
+        segment_ids: Optional[torch.Tensor] = None,
     ):
         b, s = tokens.shape
         x = self.tok_embed(tokens).to(self.dtype)
@@ -96,7 +99,7 @@ class LongContextLM(nn.Module):
             # with an explicit mask (decode over a fixed buffer) causality is
             # the caller's; plain forwards stay causal
             is_causal=attention_mask is None, deterministic=deterministic,
-            cache_index=cache_index, rope_positions=rope_positions,
+            cache_index=cache_index, rope_positions=rope_positions, segment_ids=segment_ids,
         )
         logits = F.linear(out.last_hidden_state, self.lm_head.weight.to(self.dtype))
         if use_cache:
@@ -109,6 +112,19 @@ def next_token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
     ``tokens[:, :-1]`` and pass ``tokens[:, 1:]`` here."""
     logp = F.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
+
+
+def packed_next_token_loss(logits: torch.Tensor, targets: torch.Tensor,
+                           segment_ids: torch.Tensor) -> torch.Tensor:
+    """Next-token loss over a packed batch (``data/packing.py``): feed the
+    model ``tokens[:, :-1]`` with ``segment_ids[:, :-1]`` and pass
+    ``tokens[:, 1:]`` and the whole ``segment_ids`` here. A position counts
+    only when its target is the next token of the same document and not
+    padding (segment 0)."""
+    valid = (segment_ids[:, :-1] == segment_ids[:, 1:]) & (segment_ids[:, 1:] > 0)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp_min(1)
 
 
 @torch.no_grad()

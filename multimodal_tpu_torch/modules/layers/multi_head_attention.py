@@ -138,7 +138,15 @@ class MultiHeadAttentionWithCache(nn.Module):
         deterministic: bool = True,
         cache_index=None,
         rope_positions: Optional[torch.Tensor] = None,
+        segment_ids: Optional[torch.Tensor] = None,
     ):
+        """``segment_ids`` ((b, s) integers): packed-sequence self-attention,
+        positions attend only within their segment (composed with
+        ``is_causal``: block-diagonal causal); a training-shape feature, so
+        refused with a cache."""
+        if segment_ids is not None and (
+                past_key_value is not None or use_cache or cache_index is not None):
+            raise ValueError("segment_ids are a training-shape feature (no KV cache)")
         dt = query.dtype
         kv_heads = self.num_kv_heads
         q = _split_heads(self._dense(self.q_proj, query, dt), self.num_heads)
@@ -180,7 +188,7 @@ class MultiHeadAttentionWithCache(nn.Module):
             v = v.repeat_interleave(group, dim=1)
         mask, bias = _mask_or_bias(attn_mask)
         attn = scaled_dot_product_attention(q, k, v, mask=mask, bias=bias, is_causal=is_causal,
-                                            dropout_rate=rate)
+                                            dropout_rate=rate, segment_ids=segment_ids)
         out = self._dense(self.output_proj, _merge_heads(attn), dt)
         if use_cache:
             return MHAWithCacheOutput(out, cache_out if cache_out is not None else kv_present)

@@ -2,8 +2,11 @@
 ``multimodal_tpu/modules/layers/transformer.py`` (``TransformerDecoderLayer``
 and ``TransformerDecoder``), in the loop layout: causal self-attention with
 a per-layer KV cache, optional cross-attention, the MLP, pre- or post-norm,
-and an optional final LayerNorm. Rematerialisation, MoE layers and context
-parallelism are refused (ROADMAP.md, queue A7).
+and an optional final LayerNorm. ``segment_ids`` (packed sequences) reach
+every layer's self-attention. ``remat=True`` recomputes each layer in the
+backward from its input alone (``torch.utils.checkpoint``, the counterpart
+of ``nn.remat(policy=nothing_saveable)``). MoE layers and context
+parallelism are refused (ROADMAP.md, queue A4).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from multimodal_tpu_torch.modules.layers.mlp import MLP
 from multimodal_tpu_torch.modules.layers.multi_head_attention import MultiHeadAttentionWithCache
@@ -25,12 +29,11 @@ class TransformerOutput(NamedTuple):
     current_key_values: Optional[Tuple] = None
 
 
-def _refuse(remat: bool, moe_num_experts: Optional[int], cp_axis_name: Optional[str]) -> None:
-    for flag, what in ((remat, "remat"), (moe_num_experts, "MoE layers"),
-                       (cp_axis_name, "context parallelism")):
+def _refuse(moe_num_experts: Optional[int], cp_axis_name: Optional[str]) -> None:
+    for flag, what in ((moe_num_experts, "MoE layers"), (cp_axis_name, "context parallelism")):
         if flag:
             raise NotImplementedError(
-                f"{what} in the decoder is not ported yet (ROADMAP.md, queue A7)")
+                f"{what} in the decoder is not ported yet (ROADMAP.md, queue A4)")
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -53,7 +56,7 @@ class TransformerDecoderLayer(nn.Module):
         cp_axis_name: Optional[str] = None,
     ):
         super().__init__()
-        _refuse(False, moe_num_experts, cp_axis_name)
+        _refuse(moe_num_experts, cp_axis_name)
         self.norm_first = norm_first
         self.use_cross_attention = use_cross_attention
         self.dropout = dropout
@@ -80,6 +83,7 @@ class TransformerDecoderLayer(nn.Module):
         deterministic: bool = True,
         cache_index=None,
         rope_positions: Optional[torch.Tensor] = None,
+        segment_ids: Optional[torch.Tensor] = None,
     ):
         def drop(t):
             return F.dropout(t, self.dropout, training=not deterministic and self.dropout > 0)
@@ -88,7 +92,8 @@ class TransformerDecoderLayer(nn.Module):
             out = self.attention(inp, inp, inp, attn_mask=attention_mask,
                                  past_key_value=past_key_value, is_causal=is_causal,
                                  use_cache=use_cache, deterministic=deterministic,
-                                 cache_index=cache_index, rope_positions=rope_positions)
+                                 cache_index=cache_index, rope_positions=rope_positions,
+                                 segment_ids=segment_ids)
             return (out.attn_output, out.past_key_value) if use_cache else (out, None)
 
         def cross_attn(inp):
@@ -138,7 +143,8 @@ class TransformerDecoder(nn.Module):
         cp_axis_name: Optional[str] = None,
     ):
         super().__init__()
-        _refuse(remat, moe_num_experts, cp_axis_name)
+        _refuse(moe_num_experts, cp_axis_name)
+        self.remat = remat
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(
                 d_model, n_head, dim_feedforward, dropout, activation, layer_norm_eps,
@@ -162,6 +168,7 @@ class TransformerDecoder(nn.Module):
         deterministic: bool = True,
         cache_index=None,
         rope_positions: Optional[torch.Tensor] = None,
+        segment_ids: Optional[torch.Tensor] = None,
     ) -> TransformerOutput:
         all_hidden_states: List[torch.Tensor] = []
         current_key_values: List[Tuple] = []
@@ -169,9 +176,15 @@ class TransformerDecoder(nn.Module):
             if return_hidden_states:
                 all_hidden_states.append(hidden_states)
             pkv = past_key_values[i] if past_key_values is not None else None
-            hidden_states, present_kv = layer(
-                hidden_states, encoder_hidden_states, attention_mask, cross_attention_mask,
-                pkv, use_cache, is_causal, deterministic, cache_index, rope_positions)
+            args = (hidden_states, encoder_hidden_states, attention_mask, cross_attention_mask,
+                    pkv, use_cache, is_causal, deterministic, cache_index, rope_positions,
+                    segment_ids)
+            if self.remat and torch.is_grad_enabled():
+                # only the layer's inputs are kept; its activations are
+                # recomputed in the backward
+                hidden_states, present_kv = checkpoint(layer, *args, use_reentrant=False)
+            else:
+                hidden_states, present_kv = layer(*args)
             if use_cache and present_kv is not None:
                 current_key_values.append(present_kv)
         if return_hidden_states:

@@ -1,9 +1,9 @@
-"""Flash attention forward: blockwise online softmax, the ``(Sq, Sk)``
-scores never in device memory.
+"""Flash attention, forward and backward: blockwise, the ``(Sq, Sk)``
+scores never in device memory (except the bias gradient, which is that
+matrix).
 
-Counterpart of ``multimodal_tpu/ops/flash_attention.py``, forward only.
-Layout: ``q (B, H, Sq, D)``, ``k``/``v`` ``(B, H, Sk, D)``. Masking, all of
-which composes:
+Counterpart of ``multimodal_tpu/ops/flash_attention.py``. Layout: ``q (B, H,
+Sq, D)``, ``k``/``v`` ``(B, H, Sk, D)``. Masking, all of which composes:
 
 - ``causal``: bottom-right aligned, query ``i`` sees key ``j`` iff
   ``j <= i + Sk - Sq``; key tiles wholly above the diagonal are skipped.
@@ -11,19 +11,30 @@ which composes:
   integers): positions attend iff their ids match.
 - ``bias``: an additive float bias broadcastable to ``(B, H, Sq, Sk)``
   (ALiBi-style ``(1, H, 1, Sk)``, per-batch ``(B, 1, Sq, Sk)``), read at its
-  broadcast shape: the kernel takes its strides, 0 on the size-1 dims.
+  broadcast shape: the kernels take its strides, 0 on the size-1 dims.
 
 With ``return_lse`` the per-row logsumexp in log2 space (``(B, H, Sq)``
 fp32) comes back too, for the backward and lse merges. A row that sees no
 key returns 0 and lse ``-inf`` (the TPU kernel, masking with ``-1e30``,
 returns there the mean of V over whatever its padded block held).
 
-On a CUDA tensor ``flash_attention_forward`` launches
-``csrc/flash_attention_fwd.cu`` or raises; on a CPU tensor it runs
-:func:`flash_attention_plain`, the same arithmetic in one pass: log2-space
-fp32 scores, the probabilities rounded to the compute type before ``p . v``,
-the row sums in fp32. It counts launches in
-``flash_attention_forward.launches``.
+The backward (the TPU's ``_flash_backward``) recomputes the probabilities
+blockwise from ``q``, ``k`` and the forward's lse: ``p = exp2(s2 - lse)``
+(0 where a pair is not visible or the row's lse is ``-inf``), ``dp = do .
+v^T``, ``ds = p (dp - delta)`` with ``delta = rowsum(do * o)`` in fp32, then
+``dq = ds k scale`` (kernel #7), ``dk = ds^T q scale`` and ``dv = p^T do``
+(kernel #8), and, only when the caller differentiates the bias, ``ds``
+itself as the fp32 ``(B, H, Sq, Sk)`` bias gradient (kernel #9), summed
+back to the bias's shape. ``ds`` is rounded to the inputs' dtype before its
+products and ``p`` to ``do``'s before ``p^T do``; the sums are fp32.
+
+On a CUDA tensor each wrapper (``flash_attention_forward``,
+``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``,
+``flash_attention_bwd_dbias``) launches its kernel in
+``csrc/flash_attention_{fwd,bwd}.cu`` or raises, and counts its launches in
+its ``launches``; on a CPU tensor it runs its part of the plain versions
+(:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`), the same
+arithmetic a whole row at a time.
 """
 
 from __future__ import annotations
@@ -54,6 +65,10 @@ def _kernels() -> ctypes.CDLL:
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _V, _L, _V,
             _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
         lib.mm_flash_attention_fwd.restype = _I
+        lib.mm_flash_attention_bwd.argtypes = [
+            _I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _V, _L, _V, _V,
+            _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
+        lib.mm_flash_attention_bwd.restype = _I
         _lib = lib
     return _lib
 
@@ -84,12 +99,7 @@ def flash_attention_plain(
     s2 = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (scale * LOG2E)
     if bias is not None:
         s2 = s2 + _as_4d_bias(bias) * LOG2E
-    visible = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
-    if causal:
-        visible = visible.tril(sk - sq)
-    visible = visible[None, None]
-    if q_segment_ids is not None:
-        visible = visible & (q_segment_ids[:, None, :, None] == kv_segment_ids[:, None, None, :])
+    visible = _visible(sq, sk, causal, q_segment_ids, kv_segment_ids, q.device)
     s2 = s2.masked_fill(~visible, -math.inf)
     m = s2.amax(dim=-1, keepdim=True)
     m = torch.where(m == -math.inf, 0.0, m)  # a row that sees no key: p = 0
@@ -103,8 +113,16 @@ def flash_attention_plain(
     return o, lse
 
 
-def _check(q, k, v, bias, q_segment_ids, kv_segment_ids) -> None:
-    name = "flash_attention_forward"
+def _rows_ok(t: torch.Tensor) -> bool:
+    """Whether the kernels can read ``t``'s rows: the last dimension
+    contiguous, rows 16-byte aligned."""
+    align = 16 // t.element_size()
+    return t.stride(-1) == 1 and not any(st % align for st in t.stride()[:3]) \
+        and t.data_ptr() % 16 == 0
+
+
+def _check(q, k, v, bias, q_segment_ids, kv_segment_ids,
+           name: str = "flash_attention_forward") -> None:
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported (fp32 or bf16)")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -115,11 +133,10 @@ def _check(q, k, v, bias, q_segment_ids, kv_segment_ids) -> None:
         raise ValueError(f"{name}: k {tuple(k.shape)} does not fit q {tuple(q.shape)}")
     if d % 8 or d > 128:
         raise ValueError(f"{name}: no kernel for head width {d} (a multiple of 8, <= 128)")
-    align = 16 // q.element_size()
     for t in (q, k, v):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name}: q, k and v must share device and dtype")
-        if t.stride(-1) != 1 or any(st % align for st in t.stride()[:3]) or t.data_ptr() % 16:
+        if not _rows_ok(t):
             raise ValueError(f"{name}: rows must be contiguous and 16-byte aligned")
     if bias is not None and bias.device != q.device:
         raise ValueError(f"{name}: bias on {bias.device}, q on {q.device}")
@@ -189,32 +206,267 @@ def flash_attention_forward(
 flash_attention_forward.launches = 0
 
 
+def _visible(sq: int, sk: int, causal: bool, q_segment_ids, kv_segment_ids, device):
+    """Bool ``(1 or B, 1, Sq, Sk)``: which (query, key) pairs attend."""
+    visible = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    if causal:
+        visible = visible.tril(sk - sq)
+    visible = visible[None, None]
+    if q_segment_ids is not None:
+        visible = visible & (q_segment_ids[:, None, :, None] == kv_segment_ids[:, None, None, :])
+    return visible
+
+
+def _bwd_plain_parts(q, k, v, do, lse, delta, bias, causal, sm_scale, q_segment_ids,
+                     kv_segment_ids, parts):
+    """The parts (``"dq"``, ``"dk"``, ``"dv"``, ``"ds"``) of the plain
+    backward, from the forward's log2-space ``lse`` and ``delta``."""
+    d = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    s2 = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (scale * LOG2E)
+    if bias is not None:
+        s2 = s2 + _as_4d_bias(bias) * LOG2E
+    visible = _visible(q.shape[2], k.shape[2], causal, q_segment_ids, kv_segment_ids, q.device)
+    # a row that saw no key (lse -inf) gives p = 0, not exp2(-inf + inf)
+    lse = torch.where(lse == -math.inf, math.inf, lse.float())
+    p = torch.where(visible, torch.exp2(s2 - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta.float()[..., None])
+    out = {}
+    if "dq" in parts:
+        out["dq"] = (torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), k.float())
+                     * scale).to(q.dtype)
+    if "dk" in parts:
+        out["dk"] = (torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+                     * scale).to(k.dtype)
+    if "dv" in parts:
+        out["dv"] = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(),
+                                 do.float()).to(v.dtype)
+    if "ds" in parts:
+        out["ds"] = ds
+    return out
+
+
+def _delta(out: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor]) -> torch.Tensor:
+    """``rowsum(do * o)`` in fp32, ``(B, H, Sq)``; an lse cotangent folds in
+    as ``delta - dlse * log2(e)``: ``d lse2 / d s_ij = p_ij log2(e)``."""
+    delta = (do.float() * out.float()).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse.float() * LOG2E
+    return delta.contiguous()
+
+
+def _reduce_dbias(ds: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The full ``(B, H, Sq, Sk)`` fp32 bias gradient summed over the
+    bias's broadcast dims, in its shape and dtype."""
+    b4 = _as_4d_bias(bias)
+    axes = tuple(i for i in range(4) if b4.shape[i] == 1 and ds.shape[i] > 1)
+    red = ds.sum(dim=axes, keepdim=True) if axes else ds
+    return red.reshape(bias.shape).to(bias.dtype)
+
+
+def flash_attention_bwd_plain(
+    q, k, v, out, lse, do, bias=None, *, causal: bool = False,
+    sm_scale: Optional[float] = None, q_segment_ids=None, kv_segment_ids=None,
+    dlse=None, need_dbias: bool = False,
+):
+    """Plain PyTorch version of the backward (the TPU's ``_flash_backward``
+    and its three kernel bodies), the whole ``(Sq, Sk)`` matrix at once.
+    Returns ``(dq, dk, dv)``, and the bias gradient when ``need_dbias``."""
+    parts = _bwd_plain_parts(q, k, v, do, lse, _delta(out, do, dlse), bias, causal, sm_scale,
+                             q_segment_ids, kv_segment_ids,
+                             ("dq", "dk", "dv") + (("ds",) if need_dbias else ()))
+    grads = (parts["dq"], parts["dk"], parts["dv"])
+    return grads + (_reduce_dbias(parts["ds"], bias),) if need_dbias else grads
+
+
+def _launch_bwd(which: int, name: str, q, k, v, do, outs, lse, delta, bias, causal, sm_scale,
+                q_segment_ids, kv_segment_ids) -> None:
+    _check(q, k, v, bias, q_segment_ids, kv_segment_ids, name)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"{name}: do must match q {tuple(q.shape)} {q.dtype}")
+    if not _rows_ok(do):
+        raise ValueError(f"{name}: rows of do must be contiguous and 16-byte aligned")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    for t in (lse, delta):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: lse and delta must be contiguous fp32 {(b, h, sq)}")
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    bias_ptr, bias_strides = None, None
+    if bias is not None:
+        bias = _as_4d_bias(bias)
+        bias_strides = _build.int64s(*bias.expand(b, h, sq, sk).stride())
+        bias_ptr = bias.data_ptr()
+    qseg = kvseg = None
+    if q_segment_ids is not None:
+        qseg = q_segment_ids.to(torch.int32).expand(b, sq).contiguous()
+        kvseg = kv_segment_ids.to(torch.int32).expand(b, sk).contiguous()
+    out_strides = [st for t in outs for st in t.stride()[:3]]
+    out_strides += [0] * (6 - len(out_strides))
+    err = _kernels().mm_flash_attention_bwd(
+        which, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), outs[0].data_ptr(),
+        outs[1].data_ptr() if len(outs) > 1 else None,
+        _build.int64s(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3]),
+        _build.int64s(*out_strides), bias_ptr, bias_strides,
+        None if qseg is None else qseg.data_ptr(), sq,
+        None if kvseg is None else kvseg.data_ptr(), sk,
+        lse.data_ptr(), delta.data_ptr(),
+        b, h, sq, sk, d, float(scale), int(causal), _DTYPE_CODES[q.dtype], _build.stream_of(q),
+    )
+    _build.raise_on(err, name)
+
+
+def _grad_like(t: torch.Tensor) -> torch.Tensor:
+    """A ``(B, H, S, D)`` gradient of ``t``'s shape and dtype with storage
+    ``(B, S, H, D)``: merging its heads is a view."""
+    b, h, s, d = t.shape
+    return torch.empty((b, s, h, d), dtype=t.dtype, device=t.device).transpose(1, 2)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, bias=None, *, causal: bool = False,
+                           sm_scale: Optional[float] = None, q_segment_ids=None,
+                           kv_segment_ids=None) -> torch.Tensor:
+    """``dq`` ``(B, H, Sq, D)`` in q's dtype, storage ``(B, Sq, H, D)``:
+    kernel #7 on CUDA, the plain version's ``dq`` on the CPU. ``lse`` is the
+    forward's log2-space lse, ``delta`` :func:`_delta`'s rows, both
+    ``(B, H, Sq)`` fp32."""
+    if q.device.type == "cpu":
+        return _bwd_plain_parts(q, k, v, do, lse, delta, bias, causal, sm_scale,
+                                q_segment_ids, kv_segment_ids, ("dq",))["dq"]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_dq: no kernel for {q.device}")
+    dq = _grad_like(q)
+    _launch_bwd(0, "flash_attention_bwd_dq", q, k, v, do, (dq,), lse, delta, bias, causal,
+                sm_scale, q_segment_ids, kv_segment_ids)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias=None, *, causal: bool = False,
+                            sm_scale: Optional[float] = None, q_segment_ids=None,
+                            kv_segment_ids=None):
+    """``(dk, dv)``, each ``(B, H, Sk, D)`` in k's dtype with storage
+    ``(B, Sk, H, D)``: kernel #8 on CUDA, the plain version's on the CPU."""
+    if q.device.type == "cpu":
+        parts = _bwd_plain_parts(q, k, v, do, lse, delta, bias, causal, sm_scale,
+                                 q_segment_ids, kv_segment_ids, ("dk", "dv"))
+        return parts["dk"], parts["dv"]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_dkv: no kernel for {q.device}")
+    dk, dv = _grad_like(k), _grad_like(v)
+    _launch_bwd(1, "flash_attention_bwd_dkv", q, k, v, do, (dk, dv), lse, delta, bias, causal,
+                sm_scale, q_segment_ids, kv_segment_ids)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dbias(q, k, v, do, lse, delta, bias, *, causal: bool = False,
+                              sm_scale: Optional[float] = None, q_segment_ids=None,
+                              kv_segment_ids=None) -> torch.Tensor:
+    """``ds``, the full fp32 ``(B, H, Sq, Sk)`` bias gradient before its sum
+    over the bias's broadcast dims (0 on causally skipped tiles): kernel #9
+    on CUDA, the plain version's ``ds`` on the CPU."""
+    if q.device.type == "cpu":
+        return _bwd_plain_parts(q, k, v, do, lse, delta, bias, causal, sm_scale,
+                                q_segment_ids, kv_segment_ids, ("ds",))["ds"]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_dbias: no kernel for {q.device}")
+    b, h, sq, _ = q.shape
+    ds = torch.empty((b, h, sq, k.shape[2]), dtype=torch.float32, device=q.device)
+    _launch_bwd(2, "flash_attention_bwd_dbias", q, k, v, do, (ds,), lse, delta, bias, causal,
+                sm_scale, q_segment_ids, kv_segment_ids)
+    flash_attention_bwd_dbias.launches += 1
+    return ds
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dbias.launches = 0
+
+
+def _flash_backward(q, k, v, out, lse, do, *, causal, sm_scale, q_segment_ids=None,
+                    kv_segment_ids=None, dlse=None, bias=None, need_dbias=False):
+    """``(dq, dk, dv[, dbias])`` through kernels #7, #8 (and #9), or their
+    plain versions on the CPU. ``do`` may arrive as any view (a summed loss
+    hands back a broadcast one): rows that the kernels cannot read are made
+    contiguous first."""
+    if do.device.type != "cpu" and not _rows_ok(do):
+        do = do.contiguous()
+    delta = _delta(out, do, dlse)
+    kw = dict(causal=causal, sm_scale=sm_scale, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, bias, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias, **kw)
+    if not need_dbias:
+        return dq, dk, dv
+    ds = flash_attention_bwd_dbias(q, k, v, do, lse, delta, bias, **kw)
+    return dq, dk, dv, _reduce_dbias(ds, bias)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Kernel #6 forward. The blockwise backward (the TPU kernels
-    ``_bwd_dq_kernel``, ``_bwd_dkv_kernel`` and ``_bwd_dbias_kernel``) is not
-    ported yet: it is the LM-training slice of ROADMAP.md (queue B, #7-#9)."""
+    """Kernel #6 forward; kernels #7 and #8 backward, and #9 only when the
+    bias is differentiated (the TPU's symbolic-zeros test)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, sm_scale, q_segment_ids, kv_segment_ids):
-        return flash_attention_forward(q, k, v, bias, causal=causal, sm_scale=sm_scale,
-                                       q_segment_ids=q_segment_ids,
-                                       kv_segment_ids=kv_segment_ids)
+        out, lse = flash_attention_forward(q, k, v, bias, causal=causal, sm_scale=sm_scale,
+                                           return_lse=True, q_segment_ids=q_segment_ids,
+                                           kv_segment_ids=kv_segment_ids)
+        ctx.save_for_backward(q, k, v, out, lse, bias, q_segment_ids, kv_segment_ids)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "flash_attention has no backward yet: kernels #7-#9 (the blockwise dq, "
-            "dk/dv and dbias kernels) come with the LM-training slice (ROADMAP.md, queue B)"
-        )
+        q, k, v, out, lse, bias, qseg, kvseg = ctx.saved_tensors
+        need_dbias = bias is not None and ctx.needs_input_grad[3]
+        grads = _flash_backward(q, k, v, out, lse, g, causal=ctx.causal, sm_scale=ctx.sm_scale,
+                                q_segment_ids=qseg, kv_segment_ids=kvseg, bias=bias,
+                                need_dbias=need_dbias)
+        dbias = grads[3] if need_dbias else None
+        return grads[0], grads[1], grads[2], dbias, None, None, None, None
 
 
 def flash_attention(q, k, v, bias=None, causal: bool = False, sm_scale: Optional[float] = None,
                     q_segment_ids=None, kv_segment_ids=None) -> torch.Tensor:
-    """Fused attention as an autograd Function: kernel #6 forward; its
-    backward raises until the LM-training slice ports #7-#9."""
+    """Differentiable fused attention: kernel #6 forward, kernels #7-#9
+    backward."""
     return _FlashAttention.apply(q, k, v, bias, causal, sm_scale, q_segment_ids,
                                  kv_segment_ids)
 
 
+class _FlashAttentionLse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        out, lse = flash_attention_forward(q, k, v, causal=causal, sm_scale=sm_scale,
+                                           return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        # rows that saw no key carry lse -inf and output 0: their lse
+        # cotangent must not reach delta
+        g_lse = torch.where(torch.isfinite(lse), g_lse, 0.0)
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, g_out, causal=ctx.causal,
+                                     sm_scale=ctx.sm_scale, dlse=g_lse)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_lse(q, k, v, causal: bool = False, sm_scale: Optional[float] = None):
+    """``(out, lse2)``, ``lse2`` ``(B, H, Sq)`` the log2-space logsumexp of
+    the scaled scores, differentiable in both (the lse cotangent folds into
+    the backward's delta): the block of ring attention, whose partial
+    results merge in lse space. Rows with no visible key give lse2 = -inf and
+    out = 0."""
+    return _FlashAttentionLse.apply(q, k, v, causal, sm_scale)
+
+
 def reset_launch_counts() -> None:
     flash_attention_forward.launches = 0
+    flash_attention_bwd_dq.launches = 0
+    flash_attention_bwd_dkv.launches = 0
+    flash_attention_bwd_dbias.launches = 0

@@ -119,13 +119,6 @@ def test_rows_that_see_no_key():
     np.testing.assert_allclose(got[:, :, 32:], want[:, :, 32:], atol=ATOL_F32)
 
 
-def test_flash_backward_names_the_training_slice():
-    q = torch.randn(1, 1, 8, 32, requires_grad=True)
-    out = tfa.flash_attention(q, q.detach(), q.detach(), None, True)
-    with pytest.raises(NotImplementedError, match="#7-#9"):
-        out.sum().backward()
-
-
 # The dispatch: plain math below the port's threshold (JAX's XLA path on the
 # CPU), the flash wrapper from it up; bool key-padding masks become segment
 # ids, other masks a bias. fp32 throughout.

@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
-entry points (model constructors, servers, trainer, LM engine) refuse to run without CUDA unless
-asked for the CPU, and on CPU tensors no kernel is launched, forward or
-backward."""
+entry points (model constructors, servers, trainer, LM engine, LM training
+recipe) refuse to run without CUDA unless asked for the CPU, and on CPU
+tensors no kernel is launched, forward or backward."""
 
 import ast
 import pkgutil
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import multimodal_tpu_torch
+from multimodal_tpu_torch.examples.long_context import train as lm_train
 from multimodal_tpu_torch.examples.long_context.model import long_context_lm
 from multimodal_tpu_torch.models.clip import model as clip_model
 from multimodal_tpu_torch.models.clip.image_encoder import CLIPViTEncoder
@@ -78,6 +79,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     lm = long_context_lm(device="cpu", dtype=torch.float32, **TINY_LM)
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(lm, n_slots=2, max_len=1024, cache_dtype="int8")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_train.main(["--seq-len", "64", "--n-layer", "1", "--d-model", "64", "--n-head", "2",
+                       "--vocab-size", "64", "--steps", "1"])
 
 
 def test_cpu_tensors_launch_no_kernel():
@@ -113,3 +117,26 @@ def test_cpu_tensors_launch_no_kernel():
     assert fe.fused_mlp_bwd.launches == 0
     assert fa.flash_attention_forward.launches == 0
     assert qa.quantized_cache_attention.launches == 0
+
+
+def test_cpu_lm_training_launches_no_kernel():
+    """A packed LM train step on the CPU (remat, flash attention with
+    segment ids, a differentiated bias too): the backward runs the plain
+    versions of #7-#9."""
+    fa.reset_launch_counts()
+    fe.reset_launch_counts()
+    model, trainer = lm_train.main([
+        "--device", "cpu", "--packed-docs", "synthetic", "--seq-len", "64", "--batch-size", "2",
+        "--n-layer", "1", "--d-model", "64", "--n-head", "2", "--vocab-size", "64",
+        "--steps", "2"])
+    assert trainer.step == 2 and all(np.isfinite(r["loss"]) for r in trainer.logger.records)
+    q = torch.randn(1, 2, attn.FLASH_MIN_SEQ, 32, requires_grad=True)
+    bias = torch.zeros(1, 2, 1, attn.FLASH_MIN_SEQ, requires_grad=True)
+    fa.flash_attention(q, q, q, bias, True).sum().backward()
+    out, lse = fa.flash_attention_lse(q, q, q, True)
+    (out.sum() + lse.sum()).backward()
+    assert bias.grad is not None and q.grad is not None
+    for counter in (fa.flash_attention_forward, fa.flash_attention_bwd_dq,
+                    fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dbias, fe.fused_mlp,
+                    fe.fused_mlp_bwd):
+        assert counter.launches == 0
