@@ -24,10 +24,10 @@ in order (any failure exits non-zero):
    weights from a seed, the port's ``Trainer`` with AdamW (weight decay
    1e-4, as ``optax.adamw(1e-4)``). The gradients of 8 pairs are held
    against an fp32 step of the same weights on the CPU (concatenated
-   cosine >= 0.99); then 2 warm-up steps and 10 timed steps, which must show
-   24 launches of each of the four kernels a step and finite losses;
-   items/s, ms a step, peak memory and one step's device time by kernel
-   group;
+   cosine >= 0.99; its MLP backward is #4, 24 launches); then 2 warm-up
+   steps and 10 timed steps, which must show 24 launches a step of #1, #2,
+   #3 and #5 (``fused_mlp_bwd_acc``; #4 none) and finite losses; items/s,
+   ms a step, peak memory and one step's device time by kernel group;
 5. CLIP ViT-L/14's image tower (S = 257, past the fused kernels) at batch 8
    on the card against fp32 on the CPU (cosine >= 0.999);
 6. long-context LM serving at bench.py's serving width and depth (12
@@ -48,13 +48,28 @@ in order (any failure exits non-zero):
    clipping + AdamW) through ``build_trainer`` and ``Trainer.fit``: the
    gradients of one packed row (1 x 1024 tokens, segment ids on) held
    against an fp32 step of the same weights on the CPU (concatenated cosine
-   >= 0.99); 2 warm-up and 5 timed steps on synthetic windows of batch 8 x
-   8192, whose counters must show, a step, 24 launches of #6 (forward and
-   remat recompute), 12 of #7, 12 of #8, 0 of #9, 24 of #3 and 12 of #4, and
-   finite losses; tokens/s, ms a step, peak memory and one step's device
-   time by kernel group; then the recipe's ``main`` with ``--packed-docs
-   synthetic --steps 2 --bf16`` (batch 8 x 8192), finite losses;
-8. a ``kernels`` JSON line, the card line, and the result line
+   >= 0.99; its MLP backward is #4, 12 launches); 2 warm-up and 5 timed
+   steps on synthetic windows of batch 8 x 8192, whose counters must show,
+   a step, 24 launches of #6 (forward and remat recompute), 12 of #7, 12 of
+   #8, 0 of #9, 24 of #3 and 12 of #5 (#4 none), and finite losses;
+   tokens/s, ms a step, peak memory and one step's device time by kernel
+   group; then the recipe's ``main`` with ``--packed-docs synthetic --steps
+   2 --bf16`` (batch 8 x 8192), finite losses;
+8. FLAVA pretraining at the recipe's defaults
+   (``examples/flava/pretrain.py``, ``base``: 12 image, 12 text and 6
+   multimodal layers, width 768, ffn 3072, image 224/16, text 77, vocab
+   30522, fp32 parameters, bf16 compute, AdamW with the warmup-cosine
+   schedule, random weights from a seed) through ``build_trainer_and_state``
+   and ``Trainer.fit`` on the recipe's synthetic batches: the gradients of 2
+   pairs held against an fp32 step of the same weights on the CPU
+   (concatenated cosine >= 0.99; #3 and #4 54 launches each, no attention
+   kernel: the towers ask for attention probabilities); 2 warm-up and 5
+   timed steps at batch 64, whose counters must show 54 launches a step of
+   #3 and of #5 (image and text towers twice, the multimodal encoder once)
+   and none of #4, #1, #2 or #6, and finite losses; items/s, ms a step,
+   peak memory and one step's device time by kernel group; then the
+   recipe's ``main`` (batch 64, 2 steps), finite losses;
+9. a ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 also checks the flash attention forward (#6) at the prefill shape
@@ -69,10 +84,15 @@ variants, bf16 and fp32, with the lse cotangent through
 ``flash_attention_lse``, each element to its row's scale; and times #7, #8
 and #9 at the LM training shape (8, 12, 8192, 64) bf16 causal beside their
 bound, the plain version and the SDPA backward (for #9 with a
-differentiable float mask, whose gradient is ds). ``--kernels-only`` stops
-after phase 2 and prints no result line; ``--planted-faults`` only builds
-copies of #7-#9 with known faults (``PLANTED_FAULTS``) and shows that the
-checks catch each one.
+differentiable float mask, whose gradient is ds). It checks the MLP
+backward with weight gradients (#5) against its plain version at every
+activation, the CLIP, FLAVA and LM train steps' shapes, bf16 and fp32
+(dx to #4's bar, the fp32 dW1, dW2 and db1 to their own scale, two
+launches bitwise equal), and times it beside its bound, the library's
+recompute VJP and the route it replaces (#4 plus the library's dW
+products). ``--kernels-only`` stops after phase 2 and prints no result
+line; ``--planted-faults`` only builds copies of #7-#9 and #5 with known
+faults (``PLANTED_FAULTS``) and shows that the checks catch each one.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -294,12 +314,17 @@ def attention_bwd_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen):
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
-def mlp_bwd_case(fe, name, rows, din, dff, dout, act, dtype, gen):
+def _mlp_bwd_inputs(rows, din, dff, dout, dtype, gen):
     x = torch.randn(rows, din, device="cuda", generator=gen).to(dtype)
     g = (torch.randn(rows, dout, device="cuda", generator=gen) * 0.1).to(dtype)
     w1t = (torch.randn(dff, din, device="cuda", generator=gen) * din ** -0.5).to(dtype)
     b1 = (torch.randn(dff, device="cuda", generator=gen) * 0.02).to(dtype)
     w2t = (torch.randn(dout, dff, device="cuda", generator=gen) * dff ** -0.5).to(dtype)
+    return x, g, w1t, b1, w2t
+
+
+def mlp_bwd_case(fe, name, rows, din, dff, dout, act, dtype, gen):
+    x, g, w1t, b1, w2t = _mlp_bwd_inputs(rows, din, dff, dout, dtype, gen)
     b2 = torch.zeros(dout, device="cuda", dtype=dtype)
     w1, w2 = w1t.t(), w2t.t()
     outs = fe.fused_mlp_bwd(x, g, w1, b1, w2, act)
@@ -327,6 +352,106 @@ def mlp_bwd_case(fe, name, rows, din, dff, dout, act, dtype, gen):
                 max_abs_err_dx_da_h=errs, tol_dx_da_h=tols,
                 ok=all(e <= t for e, t in zip(errs, tols)), ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by)
+
+
+# Bars of row_relative_error (each element's terms included) for the fp32
+# dW1, dW2 and db1 of kernel #5, keyed on the input dtype. bf16: 2^-6, as
+# for #6: da and h are rounded to bf16 before the dW products, and an fp32
+# value summed in another order can land on the other side of a tie. fp32:
+# nothing is rounded to bf16, only the order of the sums over the rows
+# differs. Where a weight gradient's terms cancel (random data: an element
+# of dW1 is a sum of thousands of terms of either sign), 2^-8 of its terms
+# join its scale, as for the flash backward.
+ROW_RELATIVE_BAR_ACC = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -15}
+
+
+def mlp_bwd_acc_case(fe, name, rows, din, dff, dout, act, dtype, gen, timing=True):
+    """Kernel #5 against its plain version: dx to #4's bar, dW1, dW2 and db1
+    to their own scale (``ROW_RELATIVE_BAR_ACC``); two launches bitwise
+    equal; with ``timing``, its time beside its bound, the plain version,
+    the library's recompute VJP (autograd through F.linear, the activation
+    and F.linear, every gradient) and the route it replaces (#4 plus its two
+    library dW products and the db1 sum)."""
+    x, g, w1t, b1, w2t = _mlp_bwd_inputs(rows, din, dff, dout, dtype, gen)
+    w1, w2 = w1t.t(), w2t.t()
+    outs = fe.fused_mlp_bwd_acc(x, g, w1, b1, w2, act)
+    again = fe.fused_mlp_bwd_acc(x, g, w1, b1, w2, act)
+    refs = fe.mlp_bwd_acc_plain(x, g, w1, b1, w2, act)
+    torch.cuda.synchronize()
+    deterministic = all(torch.equal(a, b) for a, b in zip(outs, again))
+    # each dW element's terms: |x|^T |da_c|, |h_c|^T |g|; db1's: sum of |da|
+    z = x.float() @ w1.float() + b1.float()
+    h, dact = fe._act_and_grad(act, z)
+    da = (g.float() @ w2.float().t()) * dact
+    terms = (x.float().abs().t() @ da.to(dtype).float().abs(),
+             h.to(dtype).float().abs().t() @ g.float().abs(), da.abs().sum(0))
+    del z, h, dact, da
+    dx_err = (outs[0].float() - refs[0].float()).abs().max().item()
+    dx_tol = tolerance(dtype, refs[0])
+    rel = {n: row_relative_error(o, r, t)
+           for n, o, r, t in zip(("dw1", "dw2", "db1"), outs[1:], refs[1:], terms)}
+    bar = ROW_RELATIVE_BAR_ACC[dtype]
+    ok = dx_err <= dx_tol and all(v <= bar for v in rel.values()) and deterministic
+    row = dict(kernel="fused_mlp_bwd_acc", case=name, shape=[rows, din, dff, dout],
+               activation=act, dtype=str(dtype).replace("torch.", ""),
+               chunks=fe._acc_chunks(rows, dff), max_abs_err=dx_err, tol=dx_tol,
+               rel_err=rel, rel_bar=bar, deterministic=deterministic, ok=bool(ok))
+    del outs, again, refs, terms
+    if not timing:
+        return row
+    kernel_ms = time_ms(lambda: fe.fused_mlp_bwd_acc(x, g, w1, b1, w2, act), 1)
+    reps = reps_for(kernel_ms)
+    kernel_ms = time_ms(lambda: fe.fused_mlp_bwd_acc(x, g, w1, b1, w2, act), reps)
+    plain_ms = time_ms(lambda: fe.mlp_bwd_acc_plain(x, g, w1, b1, w2, act), reps)
+
+    def staged():  # the route #5 replaces: _MLP.backward's #4 branch
+        dx, da, h = fe.fused_mlp_bwd(x, g, w1, b1, w2, act)
+        return (dx, torch.matmul(da.t(), x), torch.matmul(g.t(), h),
+                da.sum(0, dtype=torch.float32))
+
+    staged_ms = time_ms(staged, reps)
+    lib_act = fe._ACTIVATIONS[act]
+    leaves = [t.detach().requires_grad_() for t in (x, w1t, b1, w2t)]
+    out = F.linear(lib_act(F.linear(leaves[0], leaves[1], leaves[2])), leaves[3])
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), reps)
+    del out, leaves
+    es = x.element_size()
+    nbytes = ((2 * x.numel() + g.numel() + w1.numel() + b1.numel() + w2.numel()) * es
+              + 4 * (w1.numel() + w2.numel() + b1.numel()))
+    flops = 2.0 * rows * dff * (3 * din + 2 * dout)  # z, g W2^T, dx, dW1, dW2
+    bms, by = bound_ms(nbytes, flops, dtype)
+    row.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms, staged_ms=staged_ms,
+               bound_ms=bms, bound_by=by)
+    return row
+
+
+# Kernel #5's shapes: every activation at 1,000 rows (a ragged last tile),
+# then the train steps' MLPs: CLIP ViT-B/32 vision and text at batch 256,
+# FLAVA's image, text and multimodal MLPs at batch 64, the LM at 8 x 8192.
+ACC_CASES = [(f"ragged_1000_{act}", 1000, 768, 3072, 768, act, False)
+             for act in ("quick_gelu", "gelu", "gelu_exact", "relu", "silu")] + [
+    ("clip_vision", TRAIN_BATCH * 50, 768, 3072, 768, "quick_gelu", True),
+    ("clip_text", TRAIN_BATCH * 77, 512, 2048, 512, "quick_gelu", True),
+    ("flava_image", 64 * 197, 768, 3072, 768, "gelu_exact", True),
+    ("flava_text", 64 * 77, 768, 3072, 768, "gelu_exact", True),
+    ("flava_mm", 64 * 275, 768, 3072, 768, "gelu_exact", True),
+    ("lm_train", 8 * 8192, 768, 3072, 768, "gelu_exact", True),
+]
+
+
+def check_acc_kernel(fe, dtypes=(torch.bfloat16, torch.float32), timing=True):
+    """Kernel #5 at ``ACC_CASES`` in each dtype; the train steps' shapes are
+    timed in bf16, the dtype they run in."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for dtype in dtypes:
+        for name, r, din, dff, dout, act, timed in ACC_CASES:
+            row = mlp_bwd_acc_case(fe, name, r, din, dff, dout, act, dtype, gen,
+                                   timing=timing and timed and dtype == torch.bfloat16)
+            print("kernel_check " + json.dumps(row), flush=True)
+            rows.append(row)
+            torch.cuda.empty_cache()
+    return rows
 
 
 def _segments(b, s, gen):
@@ -754,6 +879,10 @@ def check_kernels(fe):
         cases.append(mlp_case(fe, "lm_prefill", 8 * 2048, 768, 3072, 768, "gelu_exact", dtype,
                               gen))
         cases.append(mlp_case(fe, "lm_decode", 33, 768, 3072, 768, "gelu_exact", dtype, gen))
+        # FLAVA's MLPs (exact GELU) at batch 64: image, text and multimodal rows
+        for tower, seq in FLAVA_SEQS:
+            cases.append(mlp_case(fe, f"flava_{tower}", FLAVA_BATCH * seq, 768, 3072, 768,
+                                  "gelu_exact", dtype, gen))
         tb = TRAIN_BATCH
         cases.append(attention_bwd_case(fe, "vision", tb, 50, 768, 12, False, dtype, False, gen))
         cases.append(attention_bwd_case(fe, "text", tb, 77, 512, 8, True, dtype, False, gen))
@@ -766,36 +895,66 @@ def check_kernels(fe):
         cases.append(mlp_bwd_case(fe, "text", tb * 77, 512, 2048, 512, "quick_gelu", dtype, gen))
         for act in ("quick_gelu", "gelu", "gelu_exact", "relu", "silu"):
             cases.append(mlp_bwd_case(fe, f"small_{act}", 300, 256, 512, 192, act, dtype, gen))
+        # FLAVA's gradient check at 2 pairs, #4's side of the predicate
+        for tower, seq in FLAVA_SEQS:
+            cases.append(mlp_bwd_case(fe, f"flava_grad_{tower}", 2 * seq, 768, 3072, 768,
+                                      "gelu_exact", dtype, gen))
     print("kernel_check tolerance: " + " ".join(tolerance.__doc__.split()), flush=True)
     for c in cases:
         print("kernel_check " + json.dumps(c), flush=True)
     return cases
 
 
-# Faults planted in copies of the backward kernels' source (under build/,
-# never in the checkout's sources): (kernel function, text, replacement).
+# Faults planted in copies of the kernels' sources (under build/, never in
+# the checkout's sources): (source, the kernel function's signature, text,
+# replacement).
 PLANTED_FAULTS = {
     "dkv: one key past the causal diagonal": (
-        "flash_bwd_dkv_mma_kernel", "visible(a, b, i, j)",
+        "flash_attention_bwd.cu", "flash_bwd_dkv_mma_kernel(Args a)", "visible(a, b, i, j)",
         "(visible(a, b, i, j) || (a.causal && j == i + 1 + off && (!a.qseg || "
         "a.qseg[b * a.qseg_b + i] == a.kvseg[b * a.kvseg_b + j])))"),
     "dkv: the ragged last query tile dropped": (
-        "flash_bwd_dkv_mma_kernel", "const int nq = (a.Sq + QT - 1) / QT;",
-        "const int nq = a.Sq / QT;"),
+        "flash_attention_bwd.cu", "flash_bwd_dkv_mma_kernel(Args a)",
+        "const int nq = (a.Sq + QT - 1) / QT;", "const int nq = a.Sq / QT;"),
     "dq: delta left out": (
-        "flash_bwd_dq_mma_kernel", "p * (dp[nt][e] - delta[e >> 1])", "p * dp[nt][e]"),
+        "flash_attention_bwd.cu", "flash_bwd_dq_mma_kernel(Args a)",
+        "p * (dp[nt][e] - delta[e >> 1])", "p * dp[nt][e]"),
+    "acc: the first row chunk's partial left out of the sum": (
+        "fused_mlp_bwd_acc.cu", "sum_chunks_kernel(const float*",
+        "for (int c = 0; c < chunks; ++c)", "for (int c = 1; c < chunks; ++c)"),
+    "acc: the last 16 rows of every tile left out of dW": (
+        "fused_mlp_bwd_acc.cu", "fused_mlp_bwd_acc_kernel(const T*",
+        "for (int kk = 0; kk < BM; kk += 16)", "for (int kk = 0; kk < BM - 16; kk += 16)"),
+    "acc: act' left out of da": (
+        "fused_mlp_bwd_acc.cu", "fused_mlp_bwd_acc_kernel(const T*",
+        "float dav = sm.dhs[row * ZP + col] * dv;", "float dav = sm.dhs[row * ZP + col];"),
+}
+# For each patched source: the sources its copy builds (its wrappers bind
+# their symbols) and the bf16 checks that run against it.
+PLANTED_FAULT_CHECKS = {
+    "flash_attention_bwd.cu": (
+        ("flash_attention_fwd.cu", "flash_attention_bwd.cu"),
+        "from multimodal_tpu_torch.ops import flash_attention as fa; "
+        "cs.check_bwd_kernels(fa, (torch.bfloat16,))"),
+    "fused_mlp_bwd_acc.cu": (
+        ("fused_qkv_attention.cu", "fused_qkv_attention_bwd.cu", "fused_mlp.cu",
+         "fused_mlp_bwd.cu", "fused_mlp_bwd_acc.cu"),
+        "from multimodal_tpu_torch.ops import fused_encoder as fe; "
+        "cs.check_acc_kernel(fe, (torch.bfloat16,), timing=False)"),
 }
 
 
 def planted_faults() -> None:
-    """Each fault of PLANTED_FAULTS in a copy of the package (only the flash
-    kernels' sources, so the copy builds quickly) whose bf16 #7-#9 cases run
-    in a process of their own: a fault that no case catches fails the run."""
+    """Each fault of PLANTED_FAULTS in a copy of the package (only the
+    sources its checks need, so the copy builds quickly) whose bf16 checks
+    of that kernel (#7-#9 or #5) run in a process of their own: a fault that
+    no case catches fails the run."""
     import shutil
     from pathlib import Path
 
     root = Path(__file__).resolve().parent
-    for n, (name, (kernel, old, new)) in enumerate(PLANTED_FAULTS.items()):
+    for n, (name, (source, signature, old, new)) in enumerate(PLANTED_FAULTS.items()):
+        keep, check = PLANTED_FAULT_CHECKS[source]
         copy = root / "build" / "planted_faults" / str(n)
         shutil.rmtree(copy, ignore_errors=True)
         shutil.copytree(root / "multimodal_tpu_torch", copy / "multimodal_tpu_torch",
@@ -803,21 +962,19 @@ def planted_faults() -> None:
         shutil.copy(root / "chip_smoke.py", copy / "chip_smoke.py")
         csrc = copy / "multimodal_tpu_torch" / "csrc"
         for src in csrc.glob("*.cu"):
-            if src.name not in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
+            if src.name not in keep:
                 src.unlink()
-        cu = csrc / "flash_attention_bwd.cu"
+        cu = csrc / source
         text = cu.read_text()
-        start = text.index(f"{kernel}(Args a)")
+        start = text.index(signature)
         end = text.index("\n}\n", start)
         if text[start:end].count(old) != 1:
-            fail(f"planted fault {name!r}: {old!r} is not once in {kernel}")
+            fail(f"planted fault {name!r}: {old!r} is not once in {signature}")
         cu.write_text(text[:start] + text[start:end].replace(old, new) + text[end:])
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c", "import torch, chip_smoke as cs; "
-             "from multimodal_tpu_torch.ops import flash_attention as fa; "
-             "cs.check_bwd_kernels(fa, (torch.bfloat16,))"],
-            cwd=copy, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.run([sys.executable, "-c", "import torch, chip_smoke as cs; " + check],
+                              cwd=copy, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
         checked = [json.loads(line[len("kernel_check "):]) for line in proc.stdout.splitlines()
                    if line.startswith("kernel_check {")]
         caught = [c for c in checked if not c["ok"]]
@@ -1168,6 +1325,8 @@ def kernel_group(name: str) -> str:
         return "fused_qkv_attention_bwd"
     if "qkv_attention" in name:
         return "fused_qkv_attention"
+    if "fused_mlp_bwd_acc" in name or "sum_chunks_kernel" in name:  # #5's three kernels
+        return "fused_mlp_bwd_acc"
     if "fused_mlp_bwd_kernel" in name:
         return "fused_mlp_bwd"
     if "fused_mlp_kernel" in name:
@@ -1246,6 +1405,12 @@ def clip_loss_fn(dtype):
     return loss_fn
 
 
+def mlp_bwd_launches(fe):
+    """Launches of the two MLP backward kernels since the last reset."""
+    return {"fused_mlp_bwd": fe.fused_mlp_bwd.launches,
+            "fused_mlp_bwd_acc": fe.fused_mlp_bwd_acc.launches}
+
+
 def grad_cosines(model, batch):
     """Cosines of the card's bf16 gradients against an fp32 step of the
     same weights on the CPU through the plain versions: the concatenated
@@ -1289,12 +1454,18 @@ def train(fe, card):
     small = (torch.from_numpy(rng.integers(0, 256, size=(8, 256, 256, 3), dtype=np.uint8)),
              torch.from_numpy(token_ids(rng, 8)))
     t0 = time.perf_counter()
+    fe.reset_launch_counts()
     cos, (worst_cos, worst_name), loss_card, loss_cpu = grad_cosines(model, small)
+    check_launches = mlp_bwd_launches(fe)
     print(f"train: gradient cosine vs fp32 CPU at 8 pairs: {cos:.6f} (bar 0.99); lowest "
           f"tensor {worst_name} {worst_cos:.6f}; loss card {loss_card:.6f} cpu {loss_cpu:.6f} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({time.perf_counter() - t0:.1f} s); MLP backward launches {check_launches}",
+          flush=True)
     if not cos >= 0.99:
         fail(f"gradient cosine {cos} < 0.99 against fp32 on the CPU")
+    # 8 pairs are 400 and 616 rows a tower: #4's side of the predicate
+    if check_launches != {"fused_mlp_bwd": 24, "fused_mlp_bwd_acc": 0}:
+        fail(f"MLP backward launches in the 8-pair gradient check: {check_launches}")
 
     warmup, steps = 2, 10
     batches = [(rng.integers(0, 256, size=(TRAIN_BATCH, 256, 256, 3), dtype=np.uint8),
@@ -1318,16 +1489,16 @@ def train(fe, card):
     dt = time.perf_counter() - t0
     launches = {"fused_qkv_attention": fe.fused_qkv_attention.launches,
                 "fused_qkv_attention_bwd": fe.fused_qkv_attention_bwd.launches,
-                "fused_mlp": fe.fused_mlp.launches,
-                "fused_mlp_bwd": fe.fused_mlp_bwd.launches}
+                "fused_mlp": fe.fused_mlp.launches, **mlp_bwd_launches(fe)}
     peak = torch.cuda.max_memory_allocated()
     losses = [r["loss"] for r in trainer.logger.records if "loss" in r]
-    want = 24 * steps
-    print(f"train: launches {launches}, want {want} each (24 a step: 12 layers x 2 towers)",
-          flush=True)
+    # 24 a step (12 layers x 2 towers); batch 256 is #5's side of the predicate
+    want = {k: 24 * steps for k in launches}
+    want["fused_mlp_bwd"] = 0
+    print(f"train: launches {launches}, want {want}", flush=True)
     for k, v in launches.items():
-        if v != want:
-            fail(f"{k} launched {v} times in {steps} train steps, want {want}")
+        if v != want[k]:
+            fail(f"{k} launched {v} times in {steps} train steps, want {want[k]}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite loss: {losses}")
     rate = TRAIN_BATCH * steps / dt
@@ -1336,6 +1507,7 @@ def train(fe, card):
           f"{[round(x, 5) for x in losses]} on {card}", flush=True)
     breakdown = profile_step(lambda: trainer.fit(model, batches[-1:], 1), "train")
     print("train: device time of one step by kernel group " + json.dumps(breakdown), flush=True)
+    launches["fused_mlp_bwd_grad_check"] = check_launches["fused_mlp_bwd"]
     return launches, cos, rate, dt / steps * 1e3, peak
 
 
@@ -1400,14 +1572,20 @@ def lm_train(fe, fa, card):
     packed = {k: v[row:row + 1] for k, v in packed.items()}
     n_docs = int(packed["segment_ids"].max())
     t0 = time.perf_counter()
+    fe.reset_launch_counts()
     cos, (worst_cos, worst_name), loss_card, loss_cpu = lm_grad_cosine(model, trainer, packed)
+    check_launches = mlp_bwd_launches(fe)
     print(f"lm train: gradient cosine vs fp32 CPU, one packed row of 1024 tokens ({n_docs} "
           f"documents, segment ids on), {LM_TRAIN['n_layer']} layers: {cos:.6f} (bar 0.99); "
           f"lowest tensor "
           f"{worst_name} {worst_cos:.6f}; loss card {loss_card:.6f} cpu {loss_cpu:.6f} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"({time.perf_counter() - t0:.1f} s); MLP backward launches {check_launches}",
+          flush=True)
     if not cos >= 0.99:
         fail(f"LM gradient cosine {cos} < 0.99 against fp32 on the CPU")
+    # one packed row is 1,024 rows: #4's side of the predicate
+    if check_launches != {"fused_mlp_bwd": LM_TRAIN["n_layer"], "fused_mlp_bwd_acc": 0}:
+        fail(f"MLP backward launches in the LM gradient check: {check_launches}")
 
     warmup, steps = 2, 5
     stream = lt.synthetic_tokens(LM_TRAIN["vocab_size"], LM_TRAIN_BATCH * LM_TRAIN_SEQ * 64)
@@ -1427,12 +1605,14 @@ def lm_train(fe, fa, card):
                 "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
                 "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
                 "flash_attention_bwd_dbias": fa.flash_attention_bwd_dbias.launches,
-                "fused_mlp": fe.fused_mlp.launches, "fused_mlp_bwd": fe.fused_mlp_bwd.launches}
+                "fused_mlp": fe.fused_mlp.launches, **mlp_bwd_launches(fe)}
     layers = LM_TRAIN["n_layer"]
-    # forward and remat recompute: 2 a layer; backward: 1; #9 only for a differentiated bias
+    # forward and remat recompute: 2 a layer; backward: 1; #9 only for a
+    # differentiated bias; 65,536 rows are #5's side of the predicate
     want = {"flash_attention": 2 * layers * steps, "flash_attention_bwd_dq": layers * steps,
             "flash_attention_bwd_dkv": layers * steps, "flash_attention_bwd_dbias": 0,
-            "fused_mlp": 2 * layers * steps, "fused_mlp_bwd": layers * steps}
+            "fused_mlp": 2 * layers * steps, "fused_mlp_bwd": 0,
+            "fused_mlp_bwd_acc": layers * steps}
     print(f"lm train: launches {launches}, want {want} ({steps} steps, {layers} layers)",
           flush=True)
     for k, v in launches.items():
@@ -1468,6 +1648,158 @@ def lm_train(fe, fa, card):
     result["cli_packed_losses"] = cli_losses
     del model, trainer
     torch.cuda.empty_cache()
+    launches["fused_mlp_bwd_grad_check"] = check_launches["fused_mlp_bwd"]
+    return launches, result
+
+
+# --------------------------------------------------------------------------
+# phase 8: FLAVA pretraining (kernels #3, #5 and #4)
+# --------------------------------------------------------------------------
+
+FLAVA_BATCH = 64
+FLAVA_SEQS = (("image", 197), ("text", 77), ("mm", 275))  # rows a pair of each tower's MLP
+FLAVA_MLPS = 12 * 2 + 12 * 2 + 6  # image and text towers twice a step, multimodal once
+
+
+def flava_cfg(batch: int, steps: int, bf16: bool = True):
+    """The recipe's config at its defaults (``base``: image 224/16, text 77,
+    vocab 30522) at ``batch``; ``steps`` sets the schedule's length."""
+    from multimodal_tpu_torch.examples.flava import pretrain as fp
+    from multimodal_tpu_torch.utils.config import build_config
+
+    return build_config(None, [f"data.batch_size={batch}", f"train.steps={steps}",
+                               f"model.bf16={bf16}", "train.log_interval=100"],
+                        defaults=fp.DEFAULTS)
+
+
+def flava_grad_cosine(model, batch):
+    """Cosine of the card's gradients (bf16 compute) against an fp32 step of
+    the same weights on the CPU through the plain versions, both through the
+    recipe's loss: the concatenated gradient's, and the lowest single
+    tensor's with its name. Parameters the batch does not reach have no
+    gradient on either side."""
+    from multimodal_tpu_torch.examples.flava import pretrain as fp
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = fp.loss_fn(model, {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    loss.backward()
+    ref = fp.build_model(flava_cfg(2, 1, bf16=False), device="cpu")
+    ref.load_state_dict({k: v.detach().float().cpu() for k, v in model.state_dict().items()})
+    ref_loss, _ = fp.loss_fn(ref, {k: torch.from_numpy(v) for k, v in batch.items()})
+    ref_loss.backward()
+    ref_grads = dict(ref.named_parameters())
+    dots = sq_a = sq_b = 0.0
+    worst = (2.0, "")
+    for name, p in model.named_parameters():
+        if (p.grad is None) != (ref_grads[name].grad is None):
+            fail(f"FLAVA gradient of {name}: present on one side only")
+        if p.grad is None:
+            continue
+        a = p.grad.double().cpu().flatten()
+        b = ref_grads[name].grad.double().flatten()
+        dots += float(a @ b)
+        sq_a += float(a @ a)
+        sq_b += float(b @ b)
+        if a.any() or b.any():  # a head the batch reaches only through `sum() * 0` has none
+            worst = min(worst, (float(a @ b) / max(float(a.norm() * b.norm()), 1e-300), name))
+    model.zero_grad(set_to_none=True)
+    return dots / math.sqrt(sq_a * sq_b), worst, loss.item(), ref_loss.item()
+
+
+def flava_train(fe, fa, card):
+    """The FLAVA recipe at ``base`` (12 image, 12 text and 6 multimodal
+    layers, width 768, ffn 3072, fp32 parameters, bf16 compute, the recipe's
+    AdamW and schedule) through ``build_trainer_and_state`` and
+    ``Trainer.fit`` on the recipe's synthetic batches at batch 64: the
+    gradients of 2 pairs against fp32 on the CPU, then 2 warm-up and 5
+    timed steps; then the recipe's ``main``."""
+    from multimodal_tpu_torch.examples.flava import pretrain as fp
+
+    warmup, steps = 2, 5
+    cfg = flava_cfg(FLAVA_BATCH, warmup + steps)
+    t0 = time.perf_counter()
+    model = fp.build_model(cfg, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer, model = fp.build_trainer_and_state(cfg, model=model)
+    print(f"flava: built FLAVAForPreTraining base ({n_params / 1e6:.1f}M parameters, fp32, "
+          f"bf16 compute) in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def counts():
+        return {"fused_qkv_attention": fe.fused_qkv_attention.launches,
+                "fused_qkv_attention_bwd": fe.fused_qkv_attention_bwd.launches,
+                "fused_mlp": fe.fused_mlp.launches, **mlp_bwd_launches(fe),
+                "flash_attention": fa.flash_attention_forward.launches}
+
+    small = next(fp.synthetic_batches(flava_cfg(2, 1)))
+    t0 = time.perf_counter()
+    fe.reset_launch_counts()
+    fa.reset_launch_counts()
+    cos, (worst_cos, worst_name), loss_card, loss_cpu = flava_grad_cosine(model, small)
+    check_launches = counts()
+    print(f"flava: gradient cosine vs fp32 CPU at 2 pairs: {cos:.6f} (bar 0.99); lowest tensor "
+          f"{worst_name} {worst_cos:.6f}; loss card {loss_card:.6f} cpu {loss_cpu:.6f} "
+          f"({time.perf_counter() - t0:.1f} s); launches {check_launches}", flush=True)
+    if not cos >= 0.99:
+        fail(f"FLAVA gradient cosine {cos} < 0.99 against fp32 on the CPU")
+    # 2 pairs are 394, 154 and 550 rows: #4's side of the predicate; the
+    # towers ask for attention probabilities, so no fused or flash attention
+    want = dict.fromkeys(check_launches, 0)
+    want.update(fused_mlp=FLAVA_MLPS, fused_mlp_bwd=FLAVA_MLPS)
+    if check_launches != want:
+        fail(f"FLAVA gradient check launches {check_launches}, want {want}")
+
+    data = fp.synthetic_batches(cfg)
+    batches = [next(data) for _ in range(warmup + steps + 1)]
+    trainer.fit(model, batches[:warmup], warmup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fe.reset_launch_counts()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(model, batches[warmup:warmup + steps], steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(fused_mlp=FLAVA_MLPS * steps, fused_mlp_bwd_acc=FLAVA_MLPS * steps)
+    print(f"flava: launches {launches}, want {want} ({steps} steps, {FLAVA_MLPS} MLPs a step)",
+          flush=True)
+    if launches != want:
+        fail(f"FLAVA train launches {launches}, want {want}")
+    records = trainer.logger.records[-steps:]
+    names = ("loss", "itm_loss", "mmm_text_loss", "mmm_image_loss", "global_contrastive_loss")
+    if (len(records) != steps or any(r["nonfinite_skipped"] for r in records)
+            or not all(math.isfinite(r[k]) for r in records for k in names)):
+        fail(f"FLAVA train losses {records}")
+    losses = [r["loss"] for r in records]
+    result = {"items_per_s": FLAVA_BATCH * steps / dt, "ms_per_step": dt / steps * 1e3,
+              "peak_gib": peak / 2 ** 30, "losses": losses,
+              "last_step": {k: records[-1][k] for k in names}, "grad_cosine": cos,
+              "grad_cosine_lowest": [worst_name, worst_cos]}
+    print(f"flava: {result['items_per_s']:.1f} items/s, {result['ms_per_step']:.1f} ms a step "
+          f"at batch {FLAVA_BATCH} (host batches, prefetched), peak memory "
+          f"{result['peak_gib']:.2f} GiB, losses {[round(x, 5) for x in losses]}, last step "
+          f"{json.dumps(result['last_step'])} on {card}", flush=True)
+    breakdown = profile_step(lambda: trainer.fit(model, batches[-1:], 1), "flava")
+    print("flava: device time of one step by kernel group " + json.dumps(breakdown),
+          flush=True)
+    result["profile"] = breakdown
+    del model, trainer, batches, data
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model, trainer = fp.main([f"data.batch_size={FLAVA_BATCH}", "train.steps=2"])
+    torch.cuda.synchronize()
+    cli_losses = [r["loss"] for r in trainer.logger.records]
+    print(f"flava: main(data.batch_size={FLAVA_BATCH} train.steps=2): losses "
+          f"{[round(x, 5) for x in cli_losses]} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if len(cli_losses) != 2 or not all(math.isfinite(x) for x in cli_losses):
+        fail(f"the FLAVA CLI run's losses {cli_losses}")
+    result["cli_losses"] = cli_losses
+    del model, trainer
+    torch.cuda.empty_cache()
+    launches["fused_mlp_bwd_grad_check"] = check_launches["fused_mlp_bwd"]
     return launches, result
 
 
@@ -1504,7 +1836,8 @@ def main() -> None:
                     or line.startswith("==")):
                 print("  " + line.strip(), flush=True)
 
-    cases = check_kernels(fe) + check_new_kernels(fa, qa, kv) + check_bwd_kernels(fa)
+    cases = (check_kernels(fe) + check_acc_kernel(fe) + check_new_kernels(fa, qa, kv)
+             + check_bwd_kernels(fa))
     bwd_rows = flash_bwd_timing(fa)
     cases += bwd_rows
     bad = [c for c in cases if not c["ok"]]
@@ -1523,6 +1856,27 @@ def main() -> None:
     vit_cos = vit_l14_check(card)
     lm_launches, lm = lm_serve(fe, fa, qa, card)
     train_launches, lm_tr = lm_train(fe, fa, card)
+    flava_launches, flava = flava_train(fe, fa, card)
+
+    # every path's launch counts, each read just after the path ran with the
+    # counts set to 0 just before it; a kernel's `launches` is its count on
+    # its main path, the path whose shapes its head case (below) checks and
+    # times
+    paths = {"serve": serve_launches, "train": launches, "lm": lm_launches,
+             "lm_train": train_launches, "flava": flava_launches,
+             "train_grad_check": {"fused_mlp_bwd": launches["fused_mlp_bwd_grad_check"]},
+             "lm_train_grad_check": {"fused_mlp_bwd": train_launches["fused_mlp_bwd_grad_check"]},
+             "flava_grad_check": {"fused_mlp_bwd": flava_launches["fused_mlp_bwd_grad_check"]}}
+    main_path = {"fused_qkv_attention": "serve", "fused_qkv_attention_bwd": "train",
+                 "fused_mlp": "flava", "fused_mlp_bwd": "flava_grad_check",
+                 "fused_mlp_bwd_acc": "flava", "flash_attention": "lm",
+                 "quantized_cache_attention": "lm", "flash_attention_bwd_dq": "lm_train",
+                 "flash_attention_bwd_dkv": "lm_train", "flash_attention_bwd_dbias": "lm_train"}
+
+    def path_launches(name):
+        out = {"launches": paths[main_path[name]][name]}
+        out.update({f"launches_{p}": c[name] for p, c in paths.items() if name in c})
+        return out
 
     kernels = []
     for name, source, replaces, head_case in (
@@ -1531,9 +1885,11 @@ def main() -> None:
         ("fused_qkv_attention_bwd", "multimodal_tpu_torch/csrc/fused_qkv_attention_bwd.cu",
          "multimodal_tpu/ops/fused_encoder.py:317", "vision"),
         ("fused_mlp", "multimodal_tpu_torch/csrc/fused_mlp.cu",
-         "multimodal_tpu/ops/fused_encoder.py:500", "vision"),
+         "multimodal_tpu/ops/fused_encoder.py:500", "flava_image"),
         ("fused_mlp_bwd", "multimodal_tpu_torch/csrc/fused_mlp_bwd.cu",
-         "multimodal_tpu/ops/fused_encoder.py:603", "vision"),
+         "multimodal_tpu/ops/fused_encoder.py:603", "flava_grad_image"),
+        ("fused_mlp_bwd_acc", "multimodal_tpu_torch/csrc/fused_mlp_bwd_acc.cu",
+         "multimodal_tpu/ops/fused_encoder.py:706", "flava_image"),
         ("flash_attention", "multimodal_tpu_torch/csrc/flash_attention_fwd.cu",
          "multimodal_tpu/ops/flash_attention.py:336", "prefill"),
         ("quantized_cache_attention", "multimodal_tpu_torch/csrc/quantized_cache_attention.cu",
@@ -1543,21 +1899,18 @@ def main() -> None:
         head = next(c for c in mine if c["case"] == head_case and c["dtype"] == "bfloat16")
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name] if name in launches else lm_launches[name],
+            **path_launches(name),
             "max_abs_err": head["max_abs_err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "passed": all(c["ok"] for c in mine),
         }
-        if name in serve_launches:
-            entry["launches_serve"] = serve_launches[name]
-        if name in lm_launches:
-            entry["launches_lm"] = lm_launches[name]
-        if name in train_launches:
-            entry["launches_train"] = train_launches[name]
+        if "staged_ms" in head:
+            entry["staged_ms"] = head["staged_ms"]  # the route #5 replaces: #4 + library dW
         entry["cases"] = [{k: c[k] for k in ("case", "dtype", "max_abs_err", "rel_err", "tol",
-                                             "ms", "plain_ms", "library_ms", "bound_ms",
-                                             "bound_by") if k in c}
+                                             "ms", "plain_ms", "library_ms", "staged_ms",
+                                             "bound_ms", "bound_by", "deterministic")
+                           if k in c}
                           for c in mine]
         kernels.append(entry)
     bwd_checks = [c for c in cases if c["kernel"] == "flash_attention_bwd"]
@@ -1566,7 +1919,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": "multimodal_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"multimodal_tpu/ops/flash_attention.py:{line}",
-            "launches": train_launches[name], "launches_train": train_launches[name],
+            **path_launches(name),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
@@ -1583,7 +1936,9 @@ def main() -> None:
           f"ms a tick, TTFT p50 {lm['ttft_p50_s']:.3f} s, peak {lm['peak_gib']:.2f} GiB, logit "
           f"cosine {lm['min_cosine']:.6f}; LM training {lm_tr['tokens_per_s']:.1f} tokens/s, "
           f"{lm_tr['ms_per_step']:.1f} ms a step, peak {lm_tr['peak_gib']:.2f} GiB, gradient "
-          f"cosine {lm_tr['grad_cosine']:.6f}; build {build_s:.1f} s", flush=True)
+          f"cosine {lm_tr['grad_cosine']:.6f}; FLAVA pretraining {flava['items_per_s']:.1f} "
+          f"items/s, {flava['ms_per_step']:.1f} ms a step, peak {flava['peak_gib']:.2f} GiB, "
+          f"gradient cosine {flava['grad_cosine']:.6f}; build {build_s:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,9 +26,10 @@
 // 64 x 768 fp32 dx accumulator in registers. It walks Dff in chunks of 64.
 // For each chunk it streams, through one two-stage cp.async pipeline, first
 // the (x, W1^T) slices of z = x . W1[:, chunk] (K = Din) and then the
-// (g, W2^T) slices of g . W2[chunk, :]^T (K = Dout), both into 16 x 16
-// warp tiles that share one fragment layout, so bias, act, act' and the
-// product da = dh * act' are elementwise in registers. h and da go out to
+// (g, W2^T) slices of g . W2[chunk, :]^T (K = Dout), both into one 16 x 16
+// warp-tile accumulator; z is parked in fp32 shared memory between the two
+// (each thread its own fragment), so bias, act, act' and the product
+// da = dh * act' are elementwise in each thread. h and da go out to
 // device memory and da into shared memory; then dx += da . W1^T[chunk, :]
 // against the W1^T chunk, whose copy ran under the two products. So every
 // product runs once per row, nothing is reduced across blocks, and no fp32
@@ -43,13 +44,16 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "mlp_bwd_common.cuh"
 
 namespace {
 
+using mm::act_and_grad;
 using mm::cp_async_commit;
 using mm::cp_async_wait;
 using mm::from_f;
+using mm::load_tile_async;
+using mm::Mma;
 using mm::to_f;
 
 constexpr int BM = 64;  // rows per block
@@ -60,6 +64,7 @@ constexpr int kThreads = 512;
 // staggers them across banks for ldmatrix.
 constexpr int SLP = BK + 8;  // stage tiles
 constexpr int DAP = BF + 8;  // da chunk
+constexpr int ZSP = BF + 8;  // fp32 z chunk: float2 stores of a fragment row hit 32 banks
 
 // NJ: 8-column mma tiles a warp owns in dx; the block's dx tile is
 // BN = 64 * NJ columns wide (8 warps across).
@@ -68,135 +73,18 @@ struct Smem {
   T a[2][BM * SLP];              // x or g slice, two stages         (BM x BK)
   T b[2][64 * SLP];              // W1^T [f][k] or W2^T [o][f] slice  (64 x 64)
   T das[BM * DAP];               // da chunk                         (BM x BF)
+  float zs[BM * ZSP];            // z chunk, fp32, without b1        (BM x BF)
   T w1c[BF * (64 * NJ + 8)];     // W1^T chunk [f][d]                (BF x BN)
 };
 
-// (act(z), act'(z)) in fp32: the analytic forms of `_act_and_grad`. Codes
-// match `_ACT_CODES` in ops/fused_encoder.py.
-template <int ACT>
-__device__ __forceinline__ void act_and_grad(float z, float& h, float& d) {
-  if (ACT == 0) {  // quick_gelu
-    const float s = 1.f / (1.f + expf(-1.702f * z));
-    h = z * s;
-    d = s * (1.f + 1.702f * z * (1.f - s));
-  } else if (ACT == 1) {  // gelu, tanh form
-    const float c = 0.7978845608028654f;
-    const float t = tanhf(c * (z + 0.044715f * z * z * z));
-    const float du = c * (1.f + 3.f * 0.044715f * z * z);
-    h = 0.5f * z * (1.f + t);
-    d = 0.5f * (1.f + t) + 0.5f * z * (1.f - t * t) * du;
-  } else if (ACT == 2) {  // gelu_exact
-    const float e = erff(z * 0.7071067811865476f);
-    const float pdf = expf(-0.5f * z * z) * 0.3989422804014327f;
-    h = 0.5f * z * (1.f + e);
-    d = 0.5f * (1.f + e) + z * pdf;
-  } else if (ACT == 3) {  // relu
-    h = fmaxf(z, 0.f);
-    d = z > 0.f ? 1.f : 0.f;
-  } else {  // silu
-    const float s = 1.f / (1.f + expf(-z));
-    h = z * s;
-    d = s * (1.f + z * (1.f - s));
-  }
-}
-
-// Warp-level 16x8x16 products on tiles in shared memory. A is 16 x 16
-// row-major [m][k] (pitch lda). B is 16 x 8, stored [n][k] (`load_b`) or
-// [k][n] (`load_b2_t`, two adjacent 8-column tiles at once). The
-// accumulator follows the mma.m16n8 layout: with g = lane / 4 and
-// t = lane % 4, c[0], c[1] are (g, 2t), (g, 2t + 1) and c[2], c[3] the same
-// columns of row g + 8.
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  struct A { uint32_t r[4]; };
-  struct B { uint32_t r[2]; };
-  static __device__ __forceinline__ void load_a(A& a, const __nv_bfloat16* p, int lda) {
-    const int lane = threadIdx.x & 31;
-    mm::ldsm_x4(a.r, p + (lane & 15) * lda + (lane >> 4) * 8);
-  }
-  static __device__ __forceinline__ void load_b(B& b, const __nv_bfloat16* p, int ldb) {
-    const int lane = threadIdx.x & 31;
-    mm::ldsm_x2(b.r, p + (lane & 7) * ldb + ((lane >> 3) & 1) * 8);
-  }
-  static __device__ __forceinline__ void load_b2_t(B& b0, B& b1, const __nv_bfloat16* p,
-                                                   int ldb) {
-    const int lane = threadIdx.x & 31;
-    uint32_t r[4];
-    mm::ldsm_x4_trans(r, p + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldb + (lane >> 4) * 8);
-    b0.r[0] = r[0];
-    b0.r[1] = r[1];
-    b1.r[0] = r[2];
-    b1.r[1] = r[3];
-  }
-  static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) {
-    mm::mma_bf16(c, a.r, b.r[0], b.r[1]);
-  }
-};
-
-template <>
-struct Mma<float> {
-  struct A { const float* p; int ld; };
-  struct B { const float* p; int ldk; int ldn; };  // element (k, n) at p[k * ldk + n * ldn]
-  static __device__ __forceinline__ void load_a(A& a, const float* p, int lda) {
-    a.p = p;
-    a.ld = lda;
-  }
-  static __device__ __forceinline__ void load_b(B& b, const float* p, int ldb) {
-    b.p = p;
-    b.ldk = 1;
-    b.ldn = ldb;
-  }
-  static __device__ __forceinline__ void load_b2_t(B& b0, B& b1, const float* p, int ldb) {
-    b0.p = p;
-    b0.ldk = ldb;
-    b0.ldn = 1;
-    b1.p = p + 8;
-    b1.ldk = ldb;
-    b1.ldn = 1;
-  }
-  static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) {
-    const int lane = threadIdx.x & 31;
-    const float* a0 = a.p + (lane >> 2) * a.ld;
-    const float* a1 = a0 + 8 * a.ld;
-    const float* b0 = b.p + 2 * (lane & 3) * b.ldn;
-    const float* b1 = b0 + b.ldn;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const float x0 = a0[k], x1 = a1[k];
-      const float y0 = b0[k * b.ldk], y1 = b1[k * b.ldk];
-      c[0] = fmaf(x0, y0, c[0]);
-      c[1] = fmaf(x0, y1, c[1]);
-      c[2] = fmaf(x1, y0, c[2]);
-      c[3] = fmaf(x1, y1, c[3]);
-    }
-  }
-};
-
-// Start copying a ROWS x COLS tile at (r0, c0) of a row-major matrix with
-// leading dimension ld into shared memory (pitch `pitch`), 16 bytes per
-// thread and step, with cp.async; rows >= rmax and columns >= cmax are
-// zero-filled without being read.
-template <typename T, int ROWS, int COLS>
-__device__ __forceinline__ void load_tile_async(T* s, int pitch, const T* g, int ld, int r0,
-                                                int c0, int rmax, int cmax) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CV = COLS / VEC;
-  for (int idx = threadIdx.x; idx < ROWS * CV; idx += kThreads) {
-    const int r = idx / CV;
-    const int c = (idx - r * CV) * VEC;
-    const bool in = r0 + r < rmax && c0 + c < cmax;
-    mm::cp_async16(s + r * pitch + c, in ? g + (size_t)(r0 + r) * ld + c0 + c : g, in ? 16 : 0);
-  }
-}
-
-template <typename T, int ACT, int NJ>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ w1,
-                     const T* __restrict__ b1, const T* __restrict__ w2, T* __restrict__ dx,
-                     T* __restrict__ da, T* __restrict__ h, int R, int Din, int Dff, int Dout) {
+// The kernel's body. HDA: h and da are written (kernel #4); without it only
+// dx is (kernel #5's dx pass), and the stores are compiled out.
+template <typename T, int ACT, int NJ, bool HDA>
+__device__ __forceinline__ void mlp_bwd_body(const T* __restrict__ x, const T* __restrict__ g,
+                                             const T* __restrict__ w1, const T* __restrict__ b1,
+                                             const T* __restrict__ w2, T* __restrict__ dx,
+                                             T* __restrict__ da, T* __restrict__ h, int R,
+                                             int Din, int Dff, int Dout) {
   using M = Mma<T>;
   constexpr int BN = 64 * NJ;
   constexpr int WP = BN + 8;  // pitch of the W1^T chunk
@@ -209,7 +97,8 @@ fused_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* 
   const int t4 = lane & 3;
   const int n0 = blockIdx.x * BN;  // dx column tile
   const int m0 = blockIdx.y * BM;  // row tile
-  const bool writes_hda = blockIdx.x == 0;  // one column tile writes h and da
+  // one column tile writes h and da
+  const bool writes_hda = HDA && blockIdx.x == 0;
 
   // First two products: a warp owns 16 rows x 16 columns of the chunk.
   const int cr = (warp >> 2) * 16;
@@ -233,26 +122,29 @@ fused_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* 
   // slice s >= nk1: g[:, o0..] and W2^T[o0.., f0..] ([k][n]).
   auto load_slice = [&](int s, int st, int f0) {
     if (s < nk1) {
-      load_tile_async<T, BM, BK>(sm.a[st], SLP, x, Din, m0, s * BK, R, Din);
-      load_tile_async<T, BF, BK>(sm.b[st], SLP, w1, Din, f0, s * BK, Dff, Din);
+      load_tile_async<T, BM, BK, kThreads>(sm.a[st], SLP, x, Din, m0, s * BK, R, Din);
+      load_tile_async<T, BF, BK, kThreads>(sm.b[st], SLP, w1, Din, f0, s * BK, Dff, Din);
     } else {
       const int o0 = (s - nk1) * BK;
-      load_tile_async<T, BM, BK>(sm.a[st], SLP, g, Dout, m0, o0, R, Dout);
-      load_tile_async<T, BK, BF>(sm.b[st], SLP, w2, Dff, o0, f0, Dout, Dff);
+      load_tile_async<T, BM, BK, kThreads>(sm.a[st], SLP, g, Dout, m0, o0, R, Dout);
+      load_tile_async<T, BK, BF, kThreads>(sm.b[st], SLP, w2, Dff, o0, f0, Dout, Dff);
     }
     cp_async_commit();
   };
 
   for (int f0 = 0; f0 < Dff; f0 += BF) {
-    float z[2][4], dh[2][4];
+    // One accumulator serves both products: z, parked in shared memory when
+    // its last slice is in, then dh. Each thread reads back only what it
+    // parked, so the park needs no barrier; it frees 8 registers for dx's.
+    float c[2][4];
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) z[j][e] = dh[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
 
     // The W1^T chunk of the third product does not depend on the first
     // two: its copy runs under them.
-    load_tile_async<T, BF, BN>(sm.w1c, WP, w1, Din, f0, n0, Dff, Din);
+    load_tile_async<T, BF, BN, kThreads>(sm.w1c, WP, w1, Din, f0, n0, Dff, Din);
     cp_async_commit();
     load_slice(0, 0, f0);
     for (int s = 0; s < ns; ++s) {
@@ -273,7 +165,7 @@ fused_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* 
           for (int j = 0; j < 2; ++j) {
             typename M::B bf;
             M::load_b(bf, sm.b[st] + (cc + 8 * j) * SLP + kk, SLP);
-            M::mma(z[j], a, bf);
+            M::mma(c[j], a, bf);
           }
         }
       } else {  // dh += g . W2[chunk, :]^T
@@ -283,11 +175,23 @@ fused_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* 
           M::load_a(a, sm.a[st] + cr * SLP + kk, SLP);
           typename M::B b0, b1;
           M::load_b2_t(b0, b1, sm.b[st] + kk * SLP + cc, SLP);
-          M::mma(dh[0], a, b0);
-          M::mma(dh[1], a, b1);
+          M::mma(c[0], a, b0);
+          M::mma(c[1], a, b1);
         }
       }
       __syncthreads();  // stage st is refilled by the next step's copy
+      if (s == nk1 - 1) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const int row = cr + gq + (e >> 1) * 8;
+            const int col = cc + 8 * j + 2 * t4;
+            *reinterpret_cast<float2*>(&sm.zs[row * ZSP + col]) =
+                make_float2(c[j][e], c[j][e + 1]);
+            c[j][e] = c[j][e + 1] = 0.f;
+          }
+      }
     }
 
     // fp32 bias, act and act'; h and da rounded to T.
@@ -298,8 +202,8 @@ fused_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* 
         const int row = cr + gq + (e >> 1) * 8;
         const int col = cc + 8 * j + 2 * t4 + (e & 1);
         float hv, dv;
-        act_and_grad<ACT>(z[j][e] + to_f(b1[f0 + col]), hv, dv);
-        const T dav = from_f<T>(dh[j][e] * dv);
+        act_and_grad<ACT>(sm.zs[row * ZSP + col] + to_f(b1[f0 + col]), hv, dv);
+        const T dav = from_f<T>(c[j][e] * dv);
         sm.das[row * DAP + col] = dav;
         if (writes_hda && m0 + row < R) {
           const size_t o = (size_t)(m0 + row) * Dff + f0 + col;
@@ -343,39 +247,76 @@ fused_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* 
 }
 
 template <typename T, int ACT, int NJ>
-cudaError_t launch(const void* x, const void* g, const void* w1, const void* b1, const void* w2,
-                   void* dx, void* da, void* h, int R, int Din, int Dff, int Dout,
-                   cudaStream_t stream) {
-  auto kernel = fused_mlp_bwd_kernel<T, ACT, NJ>;
+__global__ void __launch_bounds__(kThreads, 1)
+fused_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ w1,
+                     const T* __restrict__ b1, const T* __restrict__ w2, T* __restrict__ dx,
+                     T* __restrict__ da, T* __restrict__ h, int R, int Din, int Dff, int Dout) {
+  mlp_bwd_body<T, ACT, NJ, true>(x, g, w1, b1, w2, dx, da, h, R, Din, Dff, Dout);
+}
+
+// Kernel #5's dx pass (csrc/fused_mlp_bwd_acc.cu): the same body without
+// the h and da stores, under a name of its own, so that a profile files its
+// time under #5.
+template <typename T, int ACT, int NJ>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_mlp_bwd_acc_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                            const T* __restrict__ w1, const T* __restrict__ b1,
+                            const T* __restrict__ w2, T* __restrict__ dx, int R, int Din,
+                            int Dff, int Dout) {
+  mlp_bwd_body<T, ACT, NJ, false>(x, g, w1, b1, w2, dx, nullptr, nullptr, R, Din, Dff, Dout);
+}
+
+// Launches `kernel`, one of the two above at dx tile width 64 * NJ, on a
+// grid of dx column tiles by 64-row tiles.
+template <typename T, int NJ, typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int R, int Din, cudaStream_t stream, Args... args) {
   const size_t smem = sizeof(Smem<T, NJ>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Din + 64 * NJ - 1) / (64 * NJ), (R + BM - 1) / BM);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<const T*>(w2), static_cast<T*>(dx),
-      static_cast<T*>(da), static_cast<T*>(h), R, Din, Dff, Dout);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-// dx tile width: bf16 covers Din up to 768 with one block per 64 rows, so
-// the first two products run once per row; a narrower Din takes the
-// narrowest tile that covers it, a wider one splits into 768-column tiles.
-// fp32 keeps 256 columns (NJ = 4): its W1^T chunk would not fit shared
-// memory at 768.
+// dx tile width of kernel #4: bf16 covers Din up to 768 with one block per
+// 64 rows, so the first two products run once per row; a narrower Din takes
+// the narrowest tile that covers it, a wider one splits into 768-column
+// tiles. fp32 keeps 256 columns (NJ = 4): its W1^T chunk would not fit
+// shared memory at 768. At 768 columns the 96 fp32 dx accumulators of a
+// thread leave too few of the 128 registers it has at 512 threads, and the
+// kernel spills. Kernel #5's dx pass (h == nullptr) stays at the tiles that
+// do not spill, up to 512 columns: a wider Din takes 384-column tiles, each
+// of which re-runs the first two products.
 template <typename T, int ACT>
 cudaError_t launch_tile(const void* x, const void* g, const void* w1, const void* b1,
                         const void* w2, void* dx, void* da, void* h, int R, int Din, int Dff,
                         int Dout, cudaStream_t st) {
+  const T *xt = static_cast<const T*>(x), *gt = static_cast<const T*>(g);
+  const T *w1t = static_cast<const T*>(w1), *b1t = static_cast<const T*>(b1);
+  const T* w2t = static_cast<const T*>(w2);
+  T *dxt = static_cast<T*>(dx), *dat = static_cast<T*>(da), *ht = static_cast<T*>(h);
+#define MM_HDA(NJ)                                                                       \
+  launch<T, NJ>(fused_mlp_bwd_kernel<T, ACT, NJ>, R, Din, st, xt, gt, w1t, b1t, w2t, dxt, \
+                dat, ht, R, Din, Dff, Dout)
+#define MM_DX(NJ)                                                                     \
+  launch<T, NJ>(fused_mlp_bwd_acc_dx_kernel<T, ACT, NJ>, R, Din, st, xt, gt, w1t, b1t, \
+                w2t, dxt, R, Din, Dff, Dout)
   if constexpr (sizeof(T) == 4) {
-    return launch<T, ACT, 4>(x, g, w1, b1, w2, dx, da, h, R, Din, Dff, Dout, st);
+    return h == nullptr ? MM_DX(4) : MM_HDA(4);
   } else {
-    if (Din <= 256) return launch<T, ACT, 4>(x, g, w1, b1, w2, dx, da, h, R, Din, Dff, Dout, st);
-    if (Din <= 384) return launch<T, ACT, 6>(x, g, w1, b1, w2, dx, da, h, R, Din, Dff, Dout, st);
-    if (Din <= 512) return launch<T, ACT, 8>(x, g, w1, b1, w2, dx, da, h, R, Din, Dff, Dout, st);
-    return launch<T, ACT, 12>(x, g, w1, b1, w2, dx, da, h, R, Din, Dff, Dout, st);
+    if (h == nullptr) {
+      if (Din <= 256) return MM_DX(4);
+      if (Din <= 512) return Din <= 384 ? MM_DX(6) : MM_DX(8);
+      return MM_DX(6);
+    }
+    if (Din <= 256) return MM_HDA(4);
+    if (Din <= 384) return MM_HDA(6);
+    if (Din <= 512) return MM_HDA(8);
+    return MM_HDA(12);
   }
+#undef MM_HDA
+#undef MM_DX
 }
 
 template <typename T>
@@ -399,9 +340,10 @@ extern "C" {
 // x (R, Din), g (R, Dout), b1 (Dff), dx (R, Din), da and h (R, Dff)
 // row-major; w1 and w2 are W1^T (Dff, Din) and W2^T (Dout, Dff) row-major.
 // All contiguous, 16-byte aligned and of `dtype` (0 = fp32, 1 = bf16);
-// `act` is an activation code. Needs Din, Dff and Dout to be multiples of
-// 64. Launches on `stream`, allocates nothing and returns
-// cudaGetLastError() of the launch.
+// `act` is an activation code. da and h may both be null: then only dx is
+// written, by kernel #5's dx pass (`fused_mlp_bwd_acc_dx_kernel`). Needs
+// Din, Dff and Dout to be multiples of 64. Launches on `stream`, allocates
+// nothing and returns cudaGetLastError() of the launch.
 int mm_fused_mlp_bwd(const void* x, const void* g, const void* w1, const void* b1,
                      const void* w2, void* dx, void* da, void* h, int R, int Din, int Dff,
                      int Dout, int act, int dtype, void* stream) {

@@ -1,7 +1,13 @@
-"""Multi-head attention with separate q/k/v projections and a KV cache.
+"""Multi-head attention: self-attention off one fused QKV projection, and
+attention with separate q/k/v projections and a KV cache.
 
 Counterpart of ``multimodal_tpu/modules/layers/multi_head_attention.py``
-(``MultiHeadAttentionWithCache`` and its helpers). The cache is an explicit
+(``MultiHeadSelfAttention``, ``MultiHeadAttentionWithCache`` and their
+helpers). ``MultiHeadSelfAttention`` takes the fused attention kernel
+(``ops/fused_encoder.py:fused_qkv_attention``, kernel #1, with a key-padding
+mask on its key-bias lane) on the JAX layer's condition: no probabilities
+asked for, no attention dropout, and a shape the kernel takes; else the
+split-head path of ``ops/attention.py``. The cache is an explicit
 ``(k, v)`` pair handed in and returned by the caller. Given
 ``cache_index``, it is a preallocated fixed-size buffer that the new keys
 and values are written into in place (a decode tick writes one position of
@@ -20,6 +26,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from multimodal_tpu_torch.ops.attention import scaled_dot_product_attention
+from multimodal_tpu_torch.ops.fused_encoder import (
+    fused_attention_supported,
+    fused_qkv_attention,
+    key_padding_bias,
+)
 from multimodal_tpu_torch.ops.kv_cache import QuantizedKV, quantize_kv
 from multimodal_tpu_torch.ops.quantized_attention import (
     quantized_cache_attention,
@@ -92,6 +103,63 @@ def _write_fixed_cache(past_key_value, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache_k, cache_v
 
 
+def dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``lin`` on ``x`` in the compute dtype ``dt``, its weights cast at use."""
+    return F.linear(x.to(dt), lin.weight.to(dt), None if lin.bias is None else lin.bias.to(dt))
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """Self-attention with a single fused QKV projection (``input_proj``,
+    laid out ``[q | k | v]``) and ``output_proj``. Weights are cast at use to
+    the compute dtype, the dtype of ``query``. Context parallelism is not
+    ported (ROADMAP.md, queue A4)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 cp_axis_name: Optional[str] = None):
+        super().__init__()
+        if cp_axis_name is not None:
+            raise NotImplementedError(
+                "context-parallel attention is not ported yet (ROADMAP.md, queue A4)")
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.input_proj = nn.Linear(embed_dim, 3 * embed_dim)
+        self.output_proj = nn.Linear(embed_dim, embed_dim)
+
+    def forward(
+        self,
+        query: torch.Tensor,
+        attn_mask: Optional[torch.Tensor] = None,
+        is_causal: bool = False,
+        return_attn_weights: bool = False,
+        deterministic: bool = True,
+    ):
+        """``attn_mask``: boolean (True = attend) or additive float,
+        broadcastable to ``(b, h, s, s)``. Returns the output, and with
+        ``return_attn_weights`` also the fp32 ``(b, h, s, s)`` softmax
+        probabilities."""
+        dt = query.dtype
+        qkv = dense(self.input_proj, query, dt)
+        rate = self.dropout if not deterministic else 0.0
+        if (not return_attn_weights and rate == 0.0 and query.dim() == 3
+                and fused_attention_supported(query.shape[1], self.embed_dim, self.num_heads)):
+            key_bias = None
+            if attn_mask is not None:
+                key_bias = key_padding_bias(attn_mask, query.shape[0], query.shape[1])
+            if attn_mask is None or key_bias is not None:
+                attn = fused_qkv_attention(qkv, self.num_heads, is_causal, None, key_bias)
+                return dense(self.output_proj, attn, dt)
+
+        q, k, v = (_split_heads(t, self.num_heads) for t in qkv.chunk(3, dim=-1))
+        mask, bias = _mask_or_bias(attn_mask)
+        attn = scaled_dot_product_attention(q, k, v, mask=mask, bias=bias, is_causal=is_causal,
+                                            dropout_rate=rate, return_probs=return_attn_weights)
+        if return_attn_weights:
+            attn, probs = attn
+            return dense(self.output_proj, _merge_heads(attn), dt), probs
+        return dense(self.output_proj, _merge_heads(attn), dt)
+
+
 class MultiHeadAttentionWithCache(nn.Module):
     """Self- or cross-attention with separate q/k/v projections and KV cache.
 
@@ -122,10 +190,6 @@ class MultiHeadAttentionWithCache(nn.Module):
         self.v_proj = nn.Linear(dim_kv, kv_heads * head_dim, bias=add_bias)
         self.output_proj = nn.Linear(dim_q, dim_q, bias=add_bias)
 
-    @staticmethod
-    def _dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-        return F.linear(x.to(dt), lin.weight.to(dt), None if lin.bias is None else lin.bias.to(dt))
-
     def forward(
         self,
         query: torch.Tensor,
@@ -149,9 +213,9 @@ class MultiHeadAttentionWithCache(nn.Module):
             raise ValueError("segment_ids are a training-shape feature (no KV cache)")
         dt = query.dtype
         kv_heads = self.num_kv_heads
-        q = _split_heads(self._dense(self.q_proj, query, dt), self.num_heads)
-        k = _split_heads(self._dense(self.k_proj, key, dt), kv_heads)
-        v = _split_heads(self._dense(self.v_proj, value, dt), kv_heads)
+        q = _split_heads(dense(self.q_proj, query, dt), self.num_heads)
+        k = _split_heads(dense(self.k_proj, key, dt), kv_heads)
+        v = _split_heads(dense(self.v_proj, value, dt), kv_heads)
         if rope_positions is not None:
             # q and the NEW k rows by their own positions; cached rows were
             # rotated when they were written
@@ -178,7 +242,7 @@ class MultiHeadAttentionWithCache(nn.Module):
                 k = torch.cat([past_key_value[0], k], dim=2)
                 v = torch.cat([past_key_value[1], v], dim=2)
         if quantized_attn is not None:
-            out = self._dense(self.output_proj, _merge_heads(quantized_attn), dt)
+            out = dense(self.output_proj, _merge_heads(quantized_attn), dt)
             return MHAWithCacheOutput(out, cache_out) if use_cache else out
 
         kv_present = (k, v)  # before the GQA broadcast: what a fresh cache stores
@@ -189,7 +253,7 @@ class MultiHeadAttentionWithCache(nn.Module):
         mask, bias = _mask_or_bias(attn_mask)
         attn = scaled_dot_product_attention(q, k, v, mask=mask, bias=bias, is_causal=is_causal,
                                             dropout_rate=rate, segment_ids=segment_ids)
-        out = self._dense(self.output_proj, _merge_heads(attn), dt)
+        out = dense(self.output_proj, _merge_heads(attn), dt)
         if use_cache:
             return MHAWithCacheOutput(out, cache_out if cache_out is not None else kv_present)
         return out

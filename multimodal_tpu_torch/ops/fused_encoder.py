@@ -17,7 +17,8 @@ Both are ``torch.autograd.Function``s, as the JAX functions are
 ``custom_vjp``s: the forward saves its inputs only, and the backward
 recomputes what it needs. On a CUDA tensor each wrapper launches its
 hand-written kernel (forward ``csrc/fused_qkv_attention.cu`` and
-``csrc/fused_mlp.cu``, backward ``csrc/fused_qkv_attention_bwd.cu`` and
+``csrc/fused_mlp.cu``, backward ``csrc/fused_qkv_attention_bwd.cu`` and,
+for the MLP by a rule on shapes, ``csrc/fused_mlp_bwd_acc.cu`` or
 ``csrc/fused_mlp_bwd.cu``) or raises; it never falls back. On a CPU tensor
 it runs the plain PyTorch version, which follows the TPU kernel body's
 arithmetic (where it rounds to the compute type and where it stays in
@@ -82,6 +83,9 @@ def _kernels() -> ctypes.CDLL:
         lib.mm_fused_mlp_bwd.argtypes = [
             _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _V]
         lib.mm_fused_mlp_bwd.restype = _I
+        lib.mm_fused_mlp_bwd_acc.argtypes = [
+            _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I, _V]
+        lib.mm_fused_mlp_bwd_acc.restype = _I
         _lib = lib
     return _lib
 
@@ -118,6 +122,47 @@ def fused_attention_supported(seq: int, embed_dim: int, num_heads: int) -> bool:
 def fused_mlp_available(in_dim: int, hidden_dim: int, out_dim: int) -> bool:
     """Shape predicate of the MLP kernels: every width a multiple of 64."""
     return in_dim % 64 == 0 and hidden_dim % 64 == 0 and out_dim % 64 == 0
+
+
+_ACC_MAX_WIDTH = 768  # Din and Dout the dW kernel's register accumulators cover
+_ACC_SLICE = 16       # Dff columns of one dW block
+_SM_COUNT = 132       # streaming multiprocessors of an H100 SXM
+
+
+def _acc_chunks(rows: int, dff: int) -> int:
+    """Row chunks of the dW pass of kernel #5: enough blocks, (Dff / 16) x
+    chunks, for two waves over an H100's SMs (a block fills an SM's shared
+    memory), at most one per 64 rows. Each chunk is one fp32 partial of
+    dW1, dW2 and db1."""
+    tiles = max(1, -(-rows // 64))
+    return max(1, min(tiles, -(-2 * _SM_COUNT // (dff // _ACC_SLICE))))
+
+
+def fused_mlp_bwd_acc_supported(rows: int, din: int, dff: int, dout: int,
+                                dtype: torch.dtype) -> bool:
+    """Whether the MLP backward takes kernel #5 (``fused_mlp_bwd_acc``, dW
+    summed by the kernel) rather than kernel #4 (``fused_mlp_bwd``) plus the
+    library's dW products.
+
+    #5 needs the fused MLP's widths, with Din and Dout at most 768 (its dW
+    accumulators stay in registers). It writes ``_acc_chunks`` fp32 partials
+    of dW1, dW2 and db1; #4's route instead writes the ``(rows, Dff)`` ``da``
+    and ``h`` in the compute type and reads them back for the dW products.
+    #5 is taken where its fp32 partials are no more bytes than those two:
+    at many rows (the timed train steps: CLIP at batch 256, the LM at 8 x
+    8192, FLAVA at batch 64), and not at few rows (the small-batch gradient
+    checks). A rule on shapes alone, so the CPU makes the same choice as
+    the card.
+
+    The byte count is a proxy, and the measurements on an H100 refute it
+    as a guide to speed: at every shape where it picks #5, this #5 takes
+    2-3x the time of #4 plus the library's dW products (``PERF.md``). It
+    keeps the JAX package's order, #5 first where its workspace is small,
+    so that #5 runs on the train steps; a faster #5 is queued work."""
+    if not fused_mlp_available(din, dff, dout) or max(din, dout) > _ACC_MAX_WIDTH:
+        return False
+    partials = 4 * _acc_chunks(rows, dff) * (din * dff + dff * dout + dff)
+    return partials <= 2 * rows * dff * dtype.itemsize
 
 
 def fused_attention_bwd_supported(seq: int, embed_dim: int, num_heads: int,
@@ -343,6 +388,29 @@ fused_qkv_attention.launches = 0
 fused_qkv_attention_bwd.launches = 0
 
 
+def key_padding_bias(attn_mask: torch.Tensor, batch: int, seq: int) -> Optional[torch.Tensor]:
+    """A broadcast key-padding mask, bool (True = attend) or additive float
+    ``(b|1, 1, 1, S)`` as BERT-style towers build it, as the ``(B, S)`` fp32
+    key-bias lane of ``fused_qkv_attention`` (masked keys at -1e30). None
+    for a mask the kernel cannot express (per-query structure, per-head
+    bias): the caller then keeps the split-head path. The bias is data and
+    carries no gradient."""
+    if (attn_mask.dim() != 4 or attn_mask.shape[1] != 1 or attn_mask.shape[2] != 1
+            or attn_mask.shape[3] != seq):
+        return None
+    if attn_mask.dtype == torch.bool:
+        kb = torch.where(attn_mask[:, 0, 0, :], 0.0, -1e30).to(torch.float32)
+    elif attn_mask.is_floating_point():
+        kb = attn_mask[:, 0, 0, :].to(torch.float32)
+    else:
+        return None
+    if kb.shape[0] == 1 and batch > 1:
+        kb = kb.expand(batch, seq)
+    elif kb.shape[0] != batch:
+        return None
+    return kb.detach().contiguous()
+
+
 # --------------------------------------------------------------------------
 # fused MLP
 # --------------------------------------------------------------------------
@@ -392,6 +460,24 @@ def mlp_bwd_plain(x, g, w1, b1, w2, activation: str = "gelu"):
     da = ((g.float() @ w2.float().t()) * dact).to(x.dtype)
     dx = da.float() @ w1.float().t()
     return dx.to(x.dtype), da, h.to(x.dtype)
+
+
+def mlp_bwd_acc_plain(x, g, w1, b1, w2, activation: str = "gelu"):
+    """Plain PyTorch version of kernel #5 (the TPU kernel's
+    ``_mlp_bwd_acc_kernel``), on ``x`` ``(rows, Din)`` and ``g``
+    ``(rows, Dout)``: ``z = x W1 + b1`` and ``da = (g W2^T) act'(z)`` in
+    fp32; ``dx = T(da) W1^T`` in the compute type T; in fp32 over all rows
+    ``dW1 = x^T T(da)``, ``dW2 = T(act(z))^T g`` and ``db1`` the sum of the
+    unrounded ``da`` (kernel #4's route sums the rounded one). Returns
+    ``(dx, dw1, dw2, db1)``."""
+    z = x.float() @ w1.float() + b1.float()
+    h, dact = _act_and_grad(activation, z)
+    da = (g.float() @ w2.float().t()) * dact
+    da_c = da.to(x.dtype).float()
+    dx = (da_c @ w1.float().t()).to(x.dtype)
+    dw1 = x.float().t() @ da_c
+    dw2 = h.to(x.dtype).float().t() @ g.float()
+    return dx, dw1, dw2, da.sum(0)
 
 
 def _check_mlp(name: str, x, w1, b1, w2, b2, activation: str) -> None:
@@ -468,11 +554,56 @@ def fused_mlp_bwd(x, g, w1, b1, w2, activation: str = "gelu"):
     return dx, da, h
 
 
+def fused_mlp_bwd_acc(x, g, w1, b1, w2, activation: str = "gelu"):
+    """The MLP backward with its weight gradients on ``x`` ``(rows, Din)``
+    and the output gradient ``g`` ``(rows, Dout)``: ``(dx, dw1, dw2, db1)``,
+    ``dx`` in the compute type, the others fp32. ``dw1`` ``(Din, Dff)`` and
+    ``dw2`` ``(Dff, Dout)`` are views whose ``.t()`` is contiguous. Kernel
+    #5 on CUDA (its dx pass, dW pass and, with more than one row chunk, the
+    chunks' fixed-order sum: one launch counted), its plain version on the
+    CPU."""
+    if activation not in _ACT_CODES:
+        raise ValueError(f"fused_mlp_bwd_acc: unknown activation {activation!r}")
+    if x.device.type == "cpu":
+        return mlp_bwd_acc_plain(x, g, w1, b1, w2, activation)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_bwd_acc: no kernel for {x.device}")
+    _check_mlp("fused_mlp_bwd_acc", x, w1, b1, w2, None, activation)
+    rows, din = x.shape
+    dff, dout = w2.shape
+    if max(din, dout) > _ACC_MAX_WIDTH:
+        raise ValueError(f"fused_mlp_bwd_acc: no kernel for Din={din}, Dout={dout} "
+                         f"(at most {_ACC_MAX_WIDTH})")
+    if g.shape != (rows, dout):
+        raise ValueError(f"fused_mlp_bwd_acc: g must be {(rows, dout)}, got {tuple(g.shape)}")
+    _check_cuda("fused_mlp_bwd_acc", x.device, x.dtype, g)
+    n1, n2 = dff * din, dout * dff
+    out = torch.empty(n1 + n2 + dff, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    if rows == 0:
+        out.zero_()
+    else:
+        chunks = _acc_chunks(rows, dff)
+        part = out if chunks == 1 else torch.empty(
+            chunks * out.numel(), dtype=torch.float32, device=x.device)
+        err = _kernels().mm_fused_mlp_bwd_acc(
+            x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            dx.data_ptr(), part.data_ptr(), out.data_ptr(), rows, din, dff, dout, chunks,
+            _ACT_CODES[activation], _DTYPE_CODES[x.dtype], _build.stream_of(x),
+        )
+        _build.raise_on(err, "fused_mlp_bwd_acc")
+        fused_mlp_bwd_acc.launches += 1
+    return (dx, out[:n1].view(dff, din).t(), out[n1:n1 + n2].view(dout, dff).t(),
+            out[n1 + n2:])
+
+
 class _MLP(torch.autograd.Function):
-    """Kernel #3 forward, kernel #4 backward (``_mlp_fwd`` / ``_mlp_bwd``'s
-    staged branch): the weight and bias gradients are plain large products
-    and sums over ``da``, ``h`` and ``g`` outside the kernel, fp32
-    accumulation, each returned in its input's dtype and shape."""
+    """Kernel #3 forward; the backward follows ``_mlp_bwd``'s order: kernel
+    #5 where ``fused_mlp_bwd_acc_supported`` holds (dW and db from the
+    kernel), else kernel #4 with the weight and bias gradients as plain
+    large products and sums over ``da``, ``h`` and ``g`` outside the
+    kernel. fp32 accumulation; each gradient is returned in its input's
+    dtype and shape."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, activation):
@@ -486,6 +617,11 @@ class _MLP(torch.autograd.Function):
         x, w1, b1, w2 = ctx.saved_tensors
         x2 = x.reshape(-1, x.shape[-1])
         g2 = g.reshape(-1, g.shape[-1]).contiguous()
+        db2 = g2.sum(0, dtype=torch.float32).to(ctx.b2_dtype)
+        if fused_mlp_bwd_acc_supported(x2.shape[0], *w1.shape, w2.shape[1], x.dtype):
+            dx, dw1, dw2, db1 = fused_mlp_bwd_acc(x2, g2, w1, b1, w2, ctx.activation)
+            return (dx.reshape(x.shape), dw1.to(w1.dtype), db1.to(b1.dtype),
+                    dw2.to(w2.dtype), db2, None)
         dx, da, h = fused_mlp_bwd(x2, g2, w1, b1, w2, ctx.activation)
         # (Dff, Din) and (Dout, Dff) products, handed back as the (Din, Dff)
         # and (Dff, Dout) views: nn.Linear's weights get contiguous grads.
@@ -493,7 +629,6 @@ class _MLP(torch.autograd.Function):
         dw2 = torch.matmul(g2.t(), h).t() if ctx.needs_input_grad[3] else None
         # fp32 accumulation without an fp32 copy of the (rows, Dff) da
         db1 = da.sum(0, dtype=torch.float32).to(b1.dtype)
-        db2 = g2.sum(0, dtype=torch.float32).to(ctx.b2_dtype)
         return dx.reshape(x.shape), dw1, db1, dw2, db2, None
 
 
@@ -510,6 +645,7 @@ def fused_mlp(x, w1, b1, w2, b2, activation: str = "gelu") -> torch.Tensor:
 
 fused_mlp.launches = 0
 fused_mlp_bwd.launches = 0
+fused_mlp_bwd_acc.launches = 0
 
 
 def reset_launch_counts() -> None:
@@ -517,3 +653,4 @@ def reset_launch_counts() -> None:
     fused_qkv_attention_bwd.launches = 0
     fused_mlp.launches = 0
     fused_mlp_bwd.launches = 0
+    fused_mlp_bwd_acc.launches = 0

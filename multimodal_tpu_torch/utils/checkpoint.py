@@ -4,8 +4,9 @@
 (numpy arrays) into this package's ``state_dict``. It is the inverse of
 ``multimodal_tpu/utils/checkpoint.py:clip_params_from_torch``.
 ``long_context_lm_state_dict_from_jax`` does the same for the JAX
-``LongContextLM`` (``multimodal_tpu/examples/long_context/model.py``).
-Layouts:
+``LongContextLM`` (``multimodal_tpu/examples/long_context/model.py``), and
+``flava_state_dict_from_jax`` for ``FLAVAForPreTraining``
+(``multimodal_tpu/models/flava/model.py``). Layouts:
 
 - ``nn.Dense`` kernels are ``(in, out)``; ``nn.Linear`` weights ``(out, in)``;
 - the patch conv is HWIO in JAX and OIHW in torch;
@@ -20,7 +21,8 @@ the tests hold the port's gradients against ``jax.grad``'s that way.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import re
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -109,3 +111,38 @@ def long_context_lm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tens
     sd.update(_fp32_layernorm(dec["final_layer_norm"], "decoder.final_layer_norm"))
     sd.update(_linear(p["lm_head"], "lm_head"))
     return sd
+
+
+def state_dict_from_jax_tree(tree: Mapping, skip=()) -> Dict[str, torch.Tensor]:
+    """A JAX parameter tree (leaves as numpy arrays) -> the ``state_dict`` of
+    the port's module that carries the JAX module's names: the map is by
+    path. ``layer_<i>`` is ``layers.<i>``, the ``LayerNorm_0`` level of
+    ``Fp32LayerNorm`` goes, ``kernel`` / ``scale`` / ``embedding`` become
+    ``weight`` (dense kernels transposed, convolution kernels HWIO -> OIHW).
+    Top-level entries named in ``skip`` are left out."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, path: List[str]) -> None:
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, path + [key])
+                continue
+            a = np.asarray(value)
+            if key == "kernel":
+                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            name = "weight" if key in ("kernel", "scale", "embedding") else key
+            parts = [re.sub(r"^layer_(\d+)$", r"layers.\1", k) for k in path
+                     if k != "LayerNorm_0"]
+            sd[".".join(parts + [name])] = _t(a)
+
+    walk({k: v for k, v in tree.items() if k not in skip}, [])
+    return sd
+
+
+def flava_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``FLAVAForPreTraining`` variables (``{"params": ...}`` or the
+    bare tree, leaves as numpy arrays) -> this package's
+    ``FLAVAForPreTraining`` ``state_dict`` (``state_dict_from_jax_tree``).
+    The dVAE ``image_codebook`` is skipped: it is not ported."""
+    p = params["params"] if "params" in params else params
+    return state_dict_from_jax_tree(p, skip=("image_codebook",))

@@ -1,0 +1,308 @@
+"""FLAVA pretraining in the port (``multimodal_tpu_torch/models/flava``,
+``modules/losses/flava.py``, ``examples/flava/pretrain.py``) held against
+the JAX package.
+
+A small ``FLAVAForPreTraining`` (2 layers a tower, hidden 128, ffn 256, 2
+heads, image 32 with patch 8, text 16, batch 2: widths the fused MLP takes,
+so its #4 route runs) is initialised in JAX, carried into the port by
+``flava_state_dict_from_jax``, and fed the JAX recipe's synthetic batch:
+every loss term and every parameter gradient against ``jax.grad``. Beside
+it: the recipe's batches, schedule and AdamW against the JAX recipe's and
+optax, ``main`` on the CPU, the refusals, the MLM collator and the config
+parser.
+"""
+
+import math
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+import yaml
+
+from multimodal_tpu.examples.flava import pretrain as jrec
+from multimodal_tpu.models.flava.model import flava_model_for_pretraining as j_flava
+from multimodal_tpu.training.mlm_collator import MLMCollator as JCollator
+from multimodal_tpu.utils import config as jconfig
+from multimodal_tpu_torch.examples.flava import pretrain as trec
+from multimodal_tpu_torch.models.flava.model import flava_model_for_pretraining
+from multimodal_tpu_torch.training.mlm_collator import MLMCollator
+from multimodal_tpu_torch.utils import config as tconfig
+from multimodal_tpu_torch.utils.checkpoint import flava_state_dict_from_jax
+
+SMALL = dict(
+    image_hidden_size=128, image_num_hidden_layers=2, image_num_attention_heads=2,
+    image_intermediate_size=256, text_hidden_size=128, text_num_hidden_layers=2,
+    text_num_attention_heads=2, text_intermediate_size=256, multimodal_hidden_size=128,
+    multimodal_num_hidden_layers=2, multimodal_num_attention_heads=2,
+    multimodal_intermediate_size=256, text_and_image_proj_size=96, max_position_embeddings=32,
+)
+DEBUG_YAML = os.path.join(os.path.dirname(trec.__file__), "configs", "debug.yaml")
+LOSSES = ["itm_loss", "mmm_text_loss", "mmm_image_loss", "global_contrastive_loss"]
+
+
+def _cfg(**data):
+    d = jrec.DEFAULTS
+    return {"model": dict(d["model"], image_size=32, patch_size=8, vocab_size=1000, bf16=False,
+                          overrides=SMALL),
+            "data": dict(d["data"], batch_size=2, text_len=16, **data),
+            "train": dict(d["train"])}
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX model's parameters, its losses and gradients on one batch
+    (with and without an image patch mask), and the port's model with those
+    weights."""
+    batch = next(jrec.synthetic_batches(_cfg()))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jm = j_flava(vocab_size=1000, image_size=32, patch_size=8, **SMALL)
+    # the recipe's init: the patch mask creates the image mask token
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0),
+                              image_patches_mask=jnp.zeros((2, 4, 4), jnp.int32), **jb)
+
+    def loss(p, extra):
+        out = jm.apply(p, **jb, **extra)
+        return out.losses.total(), {k: v for k, v in out.losses._asdict().items()
+                                    if v is not None}
+
+    (total, parts), grads = jax.value_and_grad(loss, has_aux=True)(params, {})
+    mask = (np.random.RandomState(3).rand(2, 4, 4) < 0.4).astype(np.int32)
+    masked_total, masked_parts = jax.jit(loss)(params, {"image_patches_mask": jnp.asarray(mask)})
+    tm = flava_model_for_pretraining(device="cpu", dtype=torch.float32, vocab_size=1000,
+                                     image_size=32, patch_size=8, **SMALL)
+    tm.load_state_dict(flava_state_dict_from_jax(_np(params)), strict=True)
+    return dict(batch=batch, params=_np(params), grads=_np(grads),
+                losses={**_np(parts), "total": np.asarray(total)},
+                masked_losses={**_np(masked_parts), "total": np.asarray(masked_total)},
+                mask=mask, model=tm)
+
+
+@pytest.fixture(scope="module")
+def port_step(ref):
+    """The port's losses and gradients on the same batch."""
+    model = ref["model"]
+    model.zero_grad(set_to_none=True)
+    total, aux = trec.loss_fn(model, {k: torch.from_numpy(v) for k, v in ref["batch"].items()})
+    total.backward()
+    return dict(losses={**{k: v.numpy() for k, v in aux.items()},
+                        "total": total.detach().numpy()},
+                grads={n: p.grad for n, p in model.named_parameters()})
+
+
+def test_flava_state_dict_from_jax(ref):
+    """Every port parameter from the JAX tree, by path; dense kernels
+    transposed, the patch conv HWIO -> OIHW; the dVAE codebook left out."""
+    sd = flava_state_dict_from_jax(ref["params"])
+    model_sd = ref["model"].state_dict()
+    assert set(sd) == set(model_sd)
+    assert not any("codebook" in k for k in sd)
+    for k, v in sd.items():
+        assert v.shape == model_sd[k].shape, k
+    p = ref["params"]["params"]
+    emb = p["model"]["image_encoder"]["embeddings"]
+    np.testing.assert_array_equal(
+        sd["model.image_encoder.embeddings.patch_projection.weight"].numpy(),
+        emb["patch_projection"]["kernel"].transpose(3, 2, 0, 1))
+    layer = p["model"]["text_encoder"]["encoder"]["layer_1"]
+    np.testing.assert_array_equal(
+        sd["model.text_encoder.encoder.layers.1.feedforward.hidden_0.weight"].numpy(),
+        layer["feedforward"]["hidden_0"]["kernel"].T)
+    np.testing.assert_array_equal(
+        sd["model.text_encoder.encoder.layers.1.attention_layernorm.weight"].numpy(),
+        layer["attention_layernorm"]["LayerNorm_0"]["scale"])
+
+
+@pytest.mark.parametrize("name", LOSSES + ["total"])
+def test_flava_losses_match_jax(name, ref, port_step):
+    """The terms the synthetic batch has (no MIM labels, and MLM gives way
+    to MMM with a multimodal pass): fp32, sums in another order."""
+    assert set(port_step["losses"]) == set(LOSSES) | {"total"}
+    np.testing.assert_allclose(port_step["losses"][name], ref["losses"][name], atol=2e-5)
+
+
+@pytest.mark.parametrize("name", LOSSES + ["total"])
+def test_flava_losses_with_image_mask_match_jax(name, ref):
+    """With an image patch mask the masked image pass takes the mask token,
+    and the multimodal losses see it."""
+    model = ref["model"]
+    batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
+    with torch.no_grad():
+        out = model(**batch, image_patches_mask=torch.from_numpy(ref["mask"]))
+    got = out.losses.total() if name == "total" else getattr(out.losses, name)
+    np.testing.assert_allclose(got.numpy(), ref["masked_losses"][name], atol=2e-5)
+
+
+GROUPS = ["model.image_encoder.", "model.text_encoder.", "model.mm_encoder.",
+          "model.", "loss."]
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_flava_gradients_match_jax(group, ref, port_step):
+    """Every parameter's gradient against ``jax.grad`` of the same total,
+    each to 1e-4 of its own tensor's scale (fp32; the unused heads and the
+    unused mask token get none in the port and zeros in JAX)."""
+    want = flava_state_dict_from_jax(ref["grads"])
+    others = [g for g in GROUPS if g != group and g.startswith(group)]
+    names = [n for n in want if n.startswith(group) and not any(n.startswith(o) for o in others)]
+    assert names
+    for n in names:
+        w = want[n].numpy()
+        g = port_step["grads"][n]
+        if g is None:
+            assert not w.any(), n
+            continue
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-4 * max(np.abs(w).max(), 1e-3),
+                                   err_msg=n)
+
+
+def test_flava_unused_heads_get_no_gradient(port_step):
+    """Exactly the parameters the synthetic batch does not reach get no
+    gradient: the MLM and MIM heads (the multimodal pass takes their
+    place), the towers' poolers and the image mask token."""
+    unused = ("loss.mlm_loss.", "loss.mim_loss.", "model.image_encoder.pooler.",
+              "model.text_encoder.pooler.", "model.mm_encoder.pooler.",
+              "model.image_encoder.embeddings.mask_token")
+    none = {n for n, g in port_step["grads"].items() if g is None}
+    assert none == {n for n in port_step["grads"] if n.startswith(unused)}
+    assert all(any(n.startswith(u) for n in none) for u in unused)
+
+
+def test_two_image_passes_are_identical(ref):
+    """Without a patch mask the unmasked and masked image passes see the
+    same input: the port runs both, as the JAX package writes it."""
+    model = ref["model"].model
+    image = torch.from_numpy(ref["batch"]["image"])
+    text = torch.from_numpy(ref["batch"]["text"])
+    with torch.no_grad():
+        out = model(image=image, text=text, text_masked=text)
+    assert torch.equal(out.image.last_hidden_state, out.image_masked.last_hidden_state)
+    assert len(out.image_masked.hidden_states) == 3 and len(out.image_masked.attentions) == 2
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_synthetic_batches_match_jax(seed):
+    cfg = _cfg(seed=seed)
+    for want, got in zip(jrec.synthetic_batches(cfg), trec.synthetic_batches(cfg)):
+        assert set(want) == set(got)
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        if seed == 7:
+            break
+        seed = 7  # three batches of seed 0, one of seed 7
+
+
+@pytest.mark.parametrize("warmup,steps", [(2, 10), (3, 5), (2, 2), (0, 4)])
+def test_schedule_matches_optax(warmup, steps):
+    decay = max(steps, warmup + 1)
+    want = optax.warmup_cosine_decay_schedule(0.0, 1e-3, warmup, decay)
+    got = trec.warmup_cosine_decay_schedule(0.0, 1e-3, warmup, decay)
+    for n in range(decay + 3):
+        # optax evaluates the schedule in float32: a few fp32 units of the peak
+        assert math.isclose(got(n), float(want(n)), rel_tol=1e-6, abs_tol=1e-3 * 2.0 ** -20), n
+
+
+def test_adamw_matches_optax_over_five_steps():
+    """``ScheduledAdamW`` against ``optax.adamw(schedule, weight_decay=0.1)``
+    on the same gradients: the rate of update n is the schedule at n."""
+    r = np.random.RandomState(12)
+    shapes = [(5, 3), (7,), ()]
+    params = [np.asarray(r.randn(*s), np.float32) for s in shapes]
+    grads = [[np.asarray(r.randn(*s), np.float32) for s in shapes] for _ in range(5)]
+    schedule = optax.warmup_cosine_decay_schedule(0.0, 1e-2, 2, 5)
+    tx = optax.adamw(schedule, weight_decay=0.1)
+    jp = [jnp.asarray(p) for p in params]
+    state = tx.init(jp)
+    tp = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
+    opt = trec.ScheduledAdamW(tp, trec.warmup_cosine_decay_schedule(0.0, 1e-2, 2, 5),
+                              weight_decay=0.1)
+    for g in grads:
+        upd, state = tx.update([jnp.asarray(x) for x in g], state, jp)
+        jp = optax.apply_updates(jp, upd)
+        for p, x in zip(tp, g):
+            p.grad = torch.from_numpy(x)
+        opt.step()
+        for a, b in zip(tp, jp):
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=1e-6)
+
+
+def test_main_debug_config_on_cpu(capsys):
+    """The recipe's ``main`` with the debug config for 2 steps on the CPU."""
+    model, trainer = trec.main(["--device", "cpu", "--config", DEBUG_YAML, "train.steps=2"])
+    records = trainer.logger.records
+    assert [r["step"] for r in records] == [1, 2]
+    for r in records:
+        for k in LOSSES + ["loss"]:
+            assert math.isfinite(r[k]), (k, r)
+        assert r["nonfinite_skipped"] == 0.0
+    assert "finished at step 2" in capsys.readouterr().out
+    assert next(model.parameters()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("override,queue", [
+    ("data.path=/data/cc3m", "A3"),
+    ("data.imagenet_path=/data/imagenet", "slice 6"),
+    ("data.coco_path=/data/coco", "slice 6"),
+    ("train.eval_every=5", "slice 6"),
+    ("train.pure_bf16=true", "A3"),
+    ("model.size=base-moe-8e", "A4"),
+    ("train.ep=2", "A4"),
+    ("train.checkpoint_dir=/tmp/ckpt", "A8"),
+])
+def test_recipe_refusals(override, queue):
+    cfg = tconfig.build_config(DEBUG_YAML, [override], defaults=trec.DEFAULTS)
+    with pytest.raises(NotImplementedError, match=queue):
+        trec.build_trainer_and_state(cfg, device="cpu")
+
+
+def test_codebook_batches_refused(ref):
+    batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
+    with pytest.raises(NotImplementedError, match="A3"):
+        ref["model"](**batch, image_for_codebook=torch.zeros(2, 32, 32, 3))
+
+
+def test_recipe_needs_cuda_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the refusal on a machine without CUDA")
+    cfg = tconfig.build_config(DEBUG_YAML, [], defaults=trec.DEFAULTS)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trec.build_trainer_and_state(cfg)
+
+
+@pytest.mark.parametrize("whole_word", [False, True])
+def test_mlm_collator_matches_jax(whole_word):
+    ids = np.random.RandomState(13).randint(0, 400, (4, 40))
+    kw = dict(vocab_size=400, mask_token_id=103, special_token_ids=(0, 101, 102),
+              ignore_index=-1, whole_word_mask=whole_word, subword_prefix_ids=(5, 6, 7, 8))
+    want = JCollator(rng=np.random.RandomState(5), **kw)
+    got = MLMCollator(rng=np.random.RandomState(5), **kw)
+    for _ in range(3):
+        for a, b in zip(got(ids), want(ids)):
+            np.testing.assert_array_equal(a, b)
+
+
+SCALARS = ["1", "-3", "0", "1.0", "5.0e-4", ".5", "1_000", "3.", "true", "False", "yes", "off",
+           "null", "~", "", "abc", '"abc"', "'x y'", "[1, 2, a]", "[]", "{}",
+           "{a: 1, b: [1, 2]}", "base", "900m", "1.8b", "1e-3", "-1.5e3", ".inf"]
+
+
+@pytest.mark.parametrize("raw", SCALARS)
+def test_dotlist_scalars_parse_as_yaml(raw):
+    assert tconfig.parse_scalar(raw) == yaml.safe_load(raw)
+
+
+def test_build_config_matches_jax():
+    overrides = ["model.size=900m", "train.lr=5e-4", "train.steps=3", "data.batch_size=4",
+                 "model.overrides.image_num_hidden_layers=1", "train.log_dir=null"]
+    want = jconfig.build_config(DEBUG_YAML, overrides, defaults=jrec.DEFAULTS)
+    got = tconfig.build_config(DEBUG_YAML, overrides, defaults=trec.DEFAULTS)
+    assert got == want
+    assert trec.DEFAULTS == jrec.DEFAULTS

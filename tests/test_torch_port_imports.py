@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
-entry points (model constructors, servers, trainer, LM engine, LM training
-recipe) refuse to run without CUDA unless asked for the CPU, and on CPU
-tensors no kernel is launched, forward or backward."""
+entry points (model constructors, servers, trainer, LM engine, LM and FLAVA
+training recipes) refuse to run without CUDA unless asked for the CPU, and
+on CPU tensors no kernel is launched, forward or backward."""
 
 import ast
 import pkgutil
@@ -14,11 +14,13 @@ import pytest
 import torch
 
 import multimodal_tpu_torch
+from multimodal_tpu_torch.examples.flava import pretrain as flava_pretrain
 from multimodal_tpu_torch.examples.long_context import train as lm_train
 from multimodal_tpu_torch.examples.long_context.model import long_context_lm
 from multimodal_tpu_torch.models.clip import model as clip_model
 from multimodal_tpu_torch.models.clip.image_encoder import CLIPViTEncoder
 from multimodal_tpu_torch.models.clip.text_encoder import CLIPTextEncoder
+from multimodal_tpu_torch.models.flava.model import flava_model, flava_model_for_pretraining
 from multimodal_tpu_torch.ops import attention as attn
 from multimodal_tpu_torch.ops import flash_attention as fa
 from multimodal_tpu_torch.ops import fused_encoder as fe
@@ -139,4 +141,37 @@ def test_cpu_lm_training_launches_no_kernel():
     for counter in (fa.flash_attention_forward, fa.flash_attention_bwd_dq,
                     fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dbias, fe.fused_mlp,
                     fe.fused_mlp_bwd):
+        assert counter.launches == 0
+
+
+FLAVA_TINY = ["model.image_size=32", "model.patch_size=8", "model.vocab_size=300",
+              "data.batch_size=4", "data.text_len=8"] + [
+    f"model.overrides.{k}={v}" for k, v in dict(
+        image_hidden_size=64, image_num_hidden_layers=1, image_num_attention_heads=2,
+        image_intermediate_size=128, text_hidden_size=64, text_num_hidden_layers=1,
+        text_num_attention_heads=2, text_intermediate_size=128, multimodal_hidden_size=64,
+        multimodal_num_hidden_layers=1, multimodal_num_attention_heads=2,
+        multimodal_intermediate_size=128, text_and_image_proj_size=32,
+        max_position_embeddings=16).items()]
+
+
+def test_flava_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flava_model(image_size=32, patch_size=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flava_model_for_pretraining(image_size=32, patch_size=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flava_pretrain.main(FLAVA_TINY + ["train.steps=1"])
+
+
+def test_cpu_flava_training_launches_no_kernel():
+    """Two FLAVA pretraining steps on the CPU at widths the fused kernels
+    take: the plain versions of #3 and of the MLP backward run, no kernel."""
+    fe.reset_launch_counts()
+    fa.reset_launch_counts()
+    model, trainer = flava_pretrain.main(["--device", "cpu", *FLAVA_TINY, "train.steps=2"])
+    assert trainer.step == 2 and all(np.isfinite(r["loss"]) for r in trainer.logger.records)
+    for counter in (fe.fused_qkv_attention, fe.fused_qkv_attention_bwd, fe.fused_mlp,
+                    fe.fused_mlp_bwd, fe.fused_mlp_bwd_acc, fa.flash_attention_forward):
         assert counter.launches == 0
