@@ -10,8 +10,11 @@ in order (any failure exits non-zero):
    ViT-B/32 shapes (both towers; batch 512 for the forward kernels, the
    train step's 256 for the backward ones) in bf16 and fp32, plus every
    MLP activation, head width 96 and the attention key-bias lane at small
-   shapes: max abs error against its tolerance, and the kernel's, the
-   plain version's and one library call's times beside the card's bound;
+   shapes, and the attention backward (#2) past S = 128: ViT-B/16's S = 197
+   at batch 256, S = 256 at head width 64 and S = 181 at 128 (the
+   forward's largest there): max abs error against its tolerance, and the
+   kernel's, the plain version's and one library call's times beside the
+   card's bound;
 3. CLIP ViT-B/32 embedding serving at full width and depth, random weights
    from a seed: an image server (uint8 256x256 -> preprocess ->
    encode_image) and a text server (token ids -> encode_text) answer
@@ -27,7 +30,9 @@ in order (any failure exits non-zero):
    cosine >= 0.99; its MLP backward is #4, 24 launches); then 2 warm-up
    steps and 10 timed steps, which must show 24 launches a step of #1, #2,
    #3 and #5 (``fused_mlp_bwd_acc``; #4 none) and finite losses; items/s,
-   ms a step, peak memory and one step's device time by kernel group;
+   ms a step, peak memory and one step's device time by kernel group; then
+   CLIP ViT-B/16's gradients at 2 pairs (vision S = 197, #2 past S = 128)
+   against fp32 on the CPU (cosine >= 0.99, 24 launches of #2);
 5. CLIP ViT-L/14's image tower (S = 257, past the fused kernels) at batch 8
    on the card against fp32 on the CPU (cosine >= 0.999);
 6. long-context LM serving at bench.py's serving width and depth (12
@@ -88,11 +93,14 @@ differentiable float mask, whose gradient is ds). It checks the MLP
 backward with weight gradients (#5) against its plain version at every
 activation, the CLIP, FLAVA and LM train steps' shapes, bf16 and fp32
 (dx to #4's bar, the fp32 dW1, dW2 and db1 to their own scale, two
-launches bitwise equal), and times it beside its bound, the library's
-recompute VJP and the route it replaces (#4 plus the library's dW
-products). ``--kernels-only`` stops after phase 2 and prints no result
-line; ``--planted-faults`` only builds copies of #7-#9 and #5 with known
-faults (``PLANTED_FAULTS``) and shows that the checks catch each one.
+launches bitwise equal), and times it, and each of its stages (z/dh, dx,
+dW, sum, from the profiler), beside its bound, the library's recompute VJP
+and the route it replaces (#4 plus the library's dW products); and times
+#5 against that route at 1,024 to 4,096 rows (the numbers
+``fused_mlp_bwd_acc_supported``'s threshold is set from).
+``--kernels-only`` stops after phase 2 and prints no result line;
+``--planted-faults`` only builds copies of #7-#9 and #5 with known faults
+(``PLANTED_FAULTS``) and shows that the checks catch each one.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -288,6 +296,8 @@ def attention_bwd_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen):
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     tol = tolerance(dtype, ref)
+    # a key masked by the bias is seen by no query: its dk and dv are exactly 0
+    masked_zero = kb is None or bool((out[..., d:][kb < -1e29] == 0).all())
     kernel_ms = time_ms(lambda: fe.fused_qkv_attention_bwd(qkv, g, h, causal, None, kb), 1)
     reps = reps_for(kernel_ms)
     kernel_ms = time_ms(lambda: fe.fused_qkv_attention_bwd(qkv, g, h, causal, None, kb), reps)
@@ -310,7 +320,8 @@ def attention_bwd_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen):
     bms, by = bound_ms(nbytes, flops, dtype)
     return dict(kernel="fused_qkv_attention_bwd", case=name, shape=[b, s, 3 * d], heads=h,
                 causal=causal, key_bias=key_bias, dtype=str(dtype).replace("torch.", ""),
-                max_abs_err=err, tol=tol, ok=bool(err <= tol), ms=kernel_ms,
+                max_abs_err=err, tol=tol, masked_keys_zero=masked_zero,
+                ok=bool(err <= tol and masked_zero), ms=kernel_ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
@@ -394,7 +405,7 @@ def mlp_bwd_acc_case(fe, name, rows, din, dff, dout, act, dtype, gen, timing=Tru
     ok = dx_err <= dx_tol and all(v <= bar for v in rel.values()) and deterministic
     row = dict(kernel="fused_mlp_bwd_acc", case=name, shape=[rows, din, dff, dout],
                activation=act, dtype=str(dtype).replace("torch.", ""),
-               chunks=fe._acc_chunks(rows, dff), max_abs_err=dx_err, tol=dx_tol,
+               splits=fe._acc_splits(rows, din, dff, dout), max_abs_err=dx_err, tol=dx_tol,
                rel_err=rel, rel_bar=bar, deterministic=deterministic, ok=bool(ok))
     del outs, again, refs, terms
     if not timing:
@@ -402,6 +413,7 @@ def mlp_bwd_acc_case(fe, name, rows, din, dff, dout, act, dtype, gen, timing=Tru
     kernel_ms = time_ms(lambda: fe.fused_mlp_bwd_acc(x, g, w1, b1, w2, act), 1)
     reps = reps_for(kernel_ms)
     kernel_ms = time_ms(lambda: fe.fused_mlp_bwd_acc(x, g, w1, b1, w2, act), reps)
+    stage_ms = acc_stage_ms(fe, x, g, w1, b1, w2, act)
     plain_ms = time_ms(lambda: fe.mlp_bwd_acc_plain(x, g, w1, b1, w2, act), reps)
 
     def staged():  # the route #5 replaces: _MLP.backward's #4 branch
@@ -420,9 +432,54 @@ def mlp_bwd_acc_case(fe, name, rows, din, dff, dout, act, dtype, gen, timing=Tru
               + 4 * (w1.numel() + w2.numel() + b1.numel()))
     flops = 2.0 * rows * dff * (3 * din + 2 * dout)  # z, g W2^T, dx, dW1, dW2
     bms, by = bound_ms(nbytes, flops, dtype)
-    row.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms, staged_ms=staged_ms,
-               bound_ms=bms, bound_by=by)
+    row.update(ms=kernel_ms, stage_ms=stage_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               staged_ms=staged_ms, bound_ms=bms, bound_by=by)
     return row
+
+
+ACC_STAGES = (("zdh", "fused_mlp_bwd_acc_zdh"), ("dx", "fused_mlp_bwd_acc_dx"),
+              ("dw", "fused_mlp_bwd_acc_dw"), ("sum", "fused_mlp_bwd_acc_sum"))
+
+
+def acc_stage_ms(fe, x, g, w1, b1, w2, act, reps=5):
+    """Device time of each of #5's stages a call (z/dh with its epilogue, dx,
+    dW, the fixed-order sum), from torch.profiler over ``reps`` calls;
+    'not measured' when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fe.fused_mlp_bwd_acc(x, g, w1, b1, w2, act)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        for stage, kernel in ACC_STAGES:
+            if kernel in e.key and us:
+                out[stage] = out.get(stage, 0.0) + us / 1e3 / reps
+    return out or "not measured"
+
+
+def acc_threshold(fe, rows=(1024, 2048, 3072, 4096), din=768, dff=3072, dout=768):
+    """#5 against the route it replaces (#4 plus the library's dW products
+    and the db1 sum) at the row counts around ``fused_mlp_bwd_acc_supported``'s
+    threshold, bf16, exact GELU: the numbers ``_ACC_MIN_ROWS`` is set from."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for r in rows:
+        x, g, w1t, b1, w2t = _mlp_bwd_inputs(r, din, dff, dout, torch.bfloat16, gen)
+        w1, w2 = w1t.t(), w2t.t()
+
+        def staged():
+            dx, da, h = fe.fused_mlp_bwd(x, g, w1, b1, w2, "gelu_exact")
+            return (dx, torch.matmul(da.t(), x), torch.matmul(g.t(), h),
+                    da.sum(0, dtype=torch.float32))
+
+        acc = lambda: fe.fused_mlp_bwd_acc(x, g, w1, b1, w2, "gelu_exact")  # noqa: E731
+        ms = [time_ms(f, 20) for f in (staged, acc, acc, staged)]  # in turns
+        out[r] = {"staged_ms": (ms[0] + ms[3]) / 2, "acc_ms": (ms[1] + ms[2]) / 2}
+    return out
 
 
 # Kernel #5's shapes: every activation at 1,000 rows (a ragged last tile),
@@ -891,6 +948,14 @@ def check_kernels(fe):
                                         gen))
         cases.append(attention_bwd_case(fe, "head_width_96", 8, 50, 384, 4, True, dtype, False,
                                         gen))
+        # past S = 128: ViT-B/16's vision tower at the train batch, S = 256 at
+        # head width 64 and S = 181 at 128 (the forward's largest there),
+        # each with the masks
+        cases.append(attention_bwd_case(fe, "vit_b16", tb, 197, 768, 12, False, dtype, False,
+                                        gen))
+        cases.append(attention_bwd_case(fe, "seq_256", 8, 256, 768, 12, True, dtype, True, gen))
+        cases.append(attention_bwd_case(fe, "head_width_128_seq_181", 8, 181, 512, 4, True,
+                                        dtype, True, gen))
         cases.append(mlp_bwd_case(fe, "vision", tb * 50, 768, 3072, 768, "quick_gelu", dtype, gen))
         cases.append(mlp_bwd_case(fe, "text", tb * 77, 512, 2048, 512, "quick_gelu", dtype, gen))
         for act in ("quick_gelu", "gelu", "gelu_exact", "relu", "silu"):
@@ -919,15 +984,16 @@ PLANTED_FAULTS = {
     "dq: delta left out": (
         "flash_attention_bwd.cu", "flash_bwd_dq_mma_kernel(Args a)",
         "p * (dp[nt][e] - delta[e >> 1])", "p * dp[nt][e]"),
-    "acc: the first row chunk's partial left out of the sum": (
-        "fused_mlp_bwd_acc.cu", "sum_chunks_kernel(const float*",
-        "for (int c = 0; c < chunks; ++c)", "for (int c = 1; c < chunks; ++c)"),
-    "acc: the last 16 rows of every tile left out of dW": (
-        "fused_mlp_bwd_acc.cu", "fused_mlp_bwd_acc_kernel(const T*",
-        "for (int kk = 0; kk < BM; kk += 16)", "for (int kk = 0; kk < BM - 16; kk += 16)"),
+    "acc: the first row run's dW partial left out of the sum": (
+        "fused_mlp_bwd_acc.cu", "fused_mlp_bwd_acc_sum_kernel(const float*",
+        "for (int c = 0; c < splits; ++c)", "for (int c = 1; c < splits; ++c)"),
+    "acc: the last 16 rows of every k-block left out of dW": (
+        "fused_mlp_bwd_acc.cu", "fused_mlp_bwd_acc_dw_kernel(const __grid_constant__",
+        "for (int kk = 0; kk < BK / 16; ++kk) wg::mma_step<wg::MN, wg::MN>",
+        "for (int kk = 0; kk < BK / 16 - 1; ++kk) wg::mma_step<wg::MN, wg::MN>"),
     "acc: act' left out of da": (
-        "fused_mlp_bwd_acc.cu", "fused_mlp_bwd_acc_kernel(const T*",
-        "float dav = sm.dhs[row * ZP + col] * dv;", "float dav = sm.dhs[row * ZP + col];"),
+        "fused_mlp_bwd_acc.cu", "fused_mlp_bwd_acc_zdh_kernel(const __grid_constant__",
+        "const float da0 = dh[4 * j + 2 * hf] * d0;", "const float da0 = dh[4 * j + 2 * hf];"),
 }
 # For each patched source: the sources its copy builds (its wrappers bind
 # their symbols) and the bf16 checks that run against it.
@@ -1325,7 +1391,7 @@ def kernel_group(name: str) -> str:
         return "fused_qkv_attention_bwd"
     if "qkv_attention" in name:
         return "fused_qkv_attention"
-    if "fused_mlp_bwd_acc" in name or "sum_chunks_kernel" in name:  # #5's three kernels
+    if "fused_mlp_bwd_acc" in name:  # #5's four stages
         return "fused_mlp_bwd_acc"
     if "fused_mlp_bwd_kernel" in name:
         return "fused_mlp_bwd"
@@ -1411,17 +1477,19 @@ def mlp_bwd_launches(fe):
             "fused_mlp_bwd_acc": fe.fused_mlp_bwd_acc.launches}
 
 
-def grad_cosines(model, batch):
+def grad_cosines(model, batch, build=None):
     """Cosines of the card's bf16 gradients against an fp32 step of the
-    same weights on the CPU through the plain versions: the concatenated
-    gradient's, and the lowest single tensor's with its name."""
+    same weights (a model from ``build``, CLIP ViT-B/32 by default) on the
+    CPU through the plain versions: the concatenated gradient's, and the
+    lowest single tensor's with its name."""
     from multimodal_tpu_torch.models.clip.model import clip_vit_b32
 
+    build = build or clip_vit_b32
     model.zero_grad(set_to_none=True)
     loss, _ = clip_loss_fn(torch.bfloat16)(model, tuple(t.cuda() for t in batch))
     loss.backward()
     loss = loss.detach()
-    ref = clip_vit_b32(device="cpu", dtype=torch.float32)
+    ref = build(device="cpu", dtype=torch.float32)
     ref.load_state_dict({k: v.detach().float().cpu() for k, v in model.state_dict().items()})
     ref_loss, _ = clip_loss_fn(torch.float32)(ref, batch)
     ref_loss.backward()
@@ -1509,6 +1577,36 @@ def train(fe, card):
     print("train: device time of one step by kernel group " + json.dumps(breakdown), flush=True)
     launches["fused_mlp_bwd_grad_check"] = check_launches["fused_mlp_bwd"]
     return launches, cos, rate, dt / steps * 1e3, peak
+
+
+def vit_b16_grad_check(fe, card):
+    """CLIP ViT-B/16's gradients (vision S = 197: kernel #2 past S = 128) at
+    2 pairs, fp32 parameters and bf16 compute on the card, against fp32 on
+    the CPU: concatenated cosine >= 0.99 with #2 launched."""
+    from multimodal_tpu_torch.models.clip.model import clip_vit_b16
+
+    model = clip_vit_b16(dtype=torch.bfloat16, param_dtype=torch.float32, seed=0).train()
+    rng = np.random.default_rng(4)
+    pairs = (torch.from_numpy(rng.integers(0, 256, size=(2, 256, 256, 3), dtype=np.uint8)),
+             torch.from_numpy(token_ids(rng, 2)))
+    t0 = time.perf_counter()
+    fe.reset_launch_counts()
+    cos, (worst_cos, worst_name), loss_card, loss_cpu = grad_cosines(model, pairs, clip_vit_b16)
+    launches = {"fused_qkv_attention": fe.fused_qkv_attention.launches,
+                "fused_qkv_attention_bwd": fe.fused_qkv_attention_bwd.launches}
+    print(f"vit_b16: gradient cosine vs fp32 CPU at 2 pairs: {cos:.6f} (bar 0.99); lowest "
+          f"tensor {worst_name} {worst_cos:.6f}; loss card {loss_card:.6f} cpu {loss_cpu:.6f} "
+          f"({time.perf_counter() - t0:.1f} s); attention launches {launches} on {card}",
+          flush=True)
+    if not cos >= 0.99:
+        fail(f"ViT-B/16 gradient cosine {cos} < 0.99 against fp32 on the CPU")
+    # 12 layers x 2 towers; the vision tower's 12 at S = 197
+    if launches["fused_qkv_attention_bwd"] != 24:
+        fail(f"ViT-B/16 gradient check: #2 launched {launches['fused_qkv_attention_bwd']} "
+             "times, want 24")
+    del model
+    torch.cuda.empty_cache()
+    return launches, cos
 
 
 # --------------------------------------------------------------------------
@@ -1847,12 +1945,16 @@ def main() -> None:
     threshold = flash_threshold(fa, attn, torch.Generator(device="cuda").manual_seed(2))
     print(f"threshold: flash vs the plain path, (8, 12, S, 64) bf16 causal: {json.dumps(threshold)}"
           f"; FLASH_MIN_SEQ = {attn.FLASH_MIN_SEQ}", flush=True)
+    acc_rows = acc_threshold(fe)
+    print(f"threshold: #5 vs #4 + library dW, (rows, 768, 3072, 768) bf16 exact GELU: "
+          f"{json.dumps(acc_rows)}; _ACC_MIN_ROWS = {fe._ACC_MIN_ROWS}", flush=True)
     if "--kernels-only" in sys.argv[1:]:
         print("kernels only: every case within tolerance; no result line", flush=True)
         return
 
     serve_launches, min_cos, device_rate, served_rate = serve(fe, card)
     launches, grad_cos, train_rate, step_ms, peak = train(fe, card)
+    b16_launches, b16_cos = vit_b16_grad_check(fe, card)
     vit_cos = vit_l14_check(card)
     lm_launches, lm = lm_serve(fe, fa, qa, card)
     train_launches, lm_tr = lm_train(fe, fa, card)
@@ -1865,6 +1967,7 @@ def main() -> None:
     paths = {"serve": serve_launches, "train": launches, "lm": lm_launches,
              "lm_train": train_launches, "flava": flava_launches,
              "train_grad_check": {"fused_mlp_bwd": launches["fused_mlp_bwd_grad_check"]},
+             "vit_b16_grad_check": b16_launches,
              "lm_train_grad_check": {"fused_mlp_bwd": train_launches["fused_mlp_bwd_grad_check"]},
              "flava_grad_check": {"fused_mlp_bwd": flava_launches["fused_mlp_bwd_grad_check"]}}
     main_path = {"fused_qkv_attention": "serve", "fused_qkv_attention_bwd": "train",
@@ -1908,7 +2011,8 @@ def main() -> None:
         if "staged_ms" in head:
             entry["staged_ms"] = head["staged_ms"]  # the route #5 replaces: #4 + library dW
         entry["cases"] = [{k: c[k] for k in ("case", "dtype", "max_abs_err", "rel_err", "tol",
-                                             "ms", "plain_ms", "library_ms", "staged_ms",
+                                             "ms", "stage_ms", "plain_ms", "library_ms",
+                                             "staged_ms",
                                              "bound_ms", "bound_by", "deterministic")
                            if k in c}
                           for c in mine]
@@ -1931,8 +2035,8 @@ def main() -> None:
     print(f"summary: serve min cosine {min_cos:.6f}, {device_rate:.1f} pairs/s device, "
           f"{served_rate:.1f} pairs/s served; train gradient cosine {grad_cos:.6f}, "
           f"{train_rate:.1f} items/s, {step_ms:.1f} ms a step, peak {peak / 2**30:.2f} GiB; "
-          f"ViT-L/14 cosine {vit_cos:.6f}; LM serving {lm['prefill_tokens_per_s']:.1f} prefill "
-          f"tokens/s, {lm['decode_tokens_per_s']:.1f} decode tokens/s, {lm['ms_per_tick']:.2f} "
+          f"ViT-B/16 gradient cosine {b16_cos:.6f}; ViT-L/14 cosine {vit_cos:.6f}; LM serving "
+          f"{lm['prefill_tokens_per_s']:.1f} prefill tokens/s, {lm['decode_tokens_per_s']:.1f} decode tokens/s, {lm['ms_per_tick']:.2f} "
           f"ms a tick, TTFT p50 {lm['ttft_p50_s']:.3f} s, peak {lm['peak_gib']:.2f} GiB, logit "
           f"cosine {lm['min_cosine']:.6f}; LM training {lm_tr['tokens_per_s']:.1f} tokens/s, "
           f"{lm_tr['ms_per_step']:.1f} ms a step, peak {lm_tr['peak_gib']:.2f} GiB, gradient "

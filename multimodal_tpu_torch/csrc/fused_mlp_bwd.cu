@@ -77,14 +77,11 @@ struct Smem {
   T w1c[BF * (64 * NJ + 8)];     // W1^T chunk [f][d]                (BF x BN)
 };
 
-// The kernel's body. HDA: h and da are written (kernel #4); without it only
-// dx is (kernel #5's dx pass), and the stores are compiled out.
-template <typename T, int ACT, int NJ, bool HDA>
-__device__ __forceinline__ void mlp_bwd_body(const T* __restrict__ x, const T* __restrict__ g,
-                                             const T* __restrict__ w1, const T* __restrict__ b1,
-                                             const T* __restrict__ w2, T* __restrict__ dx,
-                                             T* __restrict__ da, T* __restrict__ h, int R,
-                                             int Din, int Dff, int Dout) {
+template <typename T, int ACT, int NJ>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ w1,
+                     const T* __restrict__ b1, const T* __restrict__ w2, T* __restrict__ dx,
+                     T* __restrict__ da, T* __restrict__ h, int R, int Din, int Dff, int Dout) {
   using M = Mma<T>;
   constexpr int BN = 64 * NJ;
   constexpr int WP = BN + 8;  // pitch of the W1^T chunk
@@ -97,8 +94,7 @@ __device__ __forceinline__ void mlp_bwd_body(const T* __restrict__ x, const T* _
   const int t4 = lane & 3;
   const int n0 = blockIdx.x * BN;  // dx column tile
   const int m0 = blockIdx.y * BM;  // row tile
-  // one column tile writes h and da
-  const bool writes_hda = HDA && blockIdx.x == 0;
+  const bool writes_hda = blockIdx.x == 0;  // one column tile writes h and da
 
   // First two products: a warp owns 16 rows x 16 columns of the chunk.
   const int cr = (warp >> 2) * 16;
@@ -246,48 +242,28 @@ __device__ __forceinline__ void mlp_bwd_body(const T* __restrict__ x, const T* _
       }
 }
 
+// Launches the kernel at dx tile width 64 * NJ on a grid of dx column
+// tiles by 64-row tiles.
 template <typename T, int ACT, int NJ>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_mlp_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ w1,
-                     const T* __restrict__ b1, const T* __restrict__ w2, T* __restrict__ dx,
-                     T* __restrict__ da, T* __restrict__ h, int R, int Din, int Dff, int Dout) {
-  mlp_bwd_body<T, ACT, NJ, true>(x, g, w1, b1, w2, dx, da, h, R, Din, Dff, Dout);
-}
-
-// Kernel #5's dx pass (csrc/fused_mlp_bwd_acc.cu): the same body without
-// the h and da stores, under a name of its own, so that a profile files its
-// time under #5.
-template <typename T, int ACT, int NJ>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_mlp_bwd_acc_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                            const T* __restrict__ w1, const T* __restrict__ b1,
-                            const T* __restrict__ w2, T* __restrict__ dx, int R, int Din,
-                            int Dff, int Dout) {
-  mlp_bwd_body<T, ACT, NJ, false>(x, g, w1, b1, w2, dx, nullptr, nullptr, R, Din, Dff, Dout);
-}
-
-// Launches `kernel`, one of the two above at dx tile width 64 * NJ, on a
-// grid of dx column tiles by 64-row tiles.
-template <typename T, int NJ, typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int R, int Din, cudaStream_t stream, Args... args) {
+cudaError_t launch(const T* x, const T* g, const T* w1, const T* b1, const T* w2, T* dx, T* da,
+                   T* h, int R, int Din, int Dff, int Dout, cudaStream_t stream) {
+  auto kernel = fused_mlp_bwd_kernel<T, ACT, NJ>;
   const size_t smem = sizeof(Smem<T, NJ>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Din + 64 * NJ - 1) / (64 * NJ), (R + BM - 1) / BM);
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, kThreads, smem, stream>>>(x, g, w1, b1, w2, dx, da, h, R, Din, Dff, Dout);
   return cudaGetLastError();
 }
 
-// dx tile width of kernel #4: bf16 covers Din up to 768 with one block per
-// 64 rows, so the first two products run once per row; a narrower Din takes
-// the narrowest tile that covers it, a wider one splits into 768-column
-// tiles. fp32 keeps 256 columns (NJ = 4): its W1^T chunk would not fit
-// shared memory at 768. At 768 columns the 96 fp32 dx accumulators of a
-// thread leave too few of the 128 registers it has at 512 threads, and the
-// kernel spills. Kernel #5's dx pass (h == nullptr) stays at the tiles that
-// do not spill, up to 512 columns: a wider Din takes 384-column tiles, each
-// of which re-runs the first two products.
+// dx tile width: bf16 covers Din up to 768 with one block per 64 rows, so
+// the first two products run once per row; a narrower Din takes the
+// narrowest tile that covers it, a wider one splits into 768-column tiles.
+// fp32 keeps 256 columns (NJ = 4): its W1^T chunk would not fit shared
+// memory at 768. At 768 columns the 96 fp32 dx accumulators of a thread
+// leave too few of the 128 registers it has at 512 threads, and the kernel
+// spills.
 template <typename T, int ACT>
 cudaError_t launch_tile(const void* x, const void* g, const void* w1, const void* b1,
                         const void* w2, void* dx, void* da, void* h, int R, int Din, int Dff,
@@ -296,27 +272,16 @@ cudaError_t launch_tile(const void* x, const void* g, const void* w1, const void
   const T *w1t = static_cast<const T*>(w1), *b1t = static_cast<const T*>(b1);
   const T* w2t = static_cast<const T*>(w2);
   T *dxt = static_cast<T*>(dx), *dat = static_cast<T*>(da), *ht = static_cast<T*>(h);
-#define MM_HDA(NJ)                                                                       \
-  launch<T, NJ>(fused_mlp_bwd_kernel<T, ACT, NJ>, R, Din, st, xt, gt, w1t, b1t, w2t, dxt, \
-                dat, ht, R, Din, Dff, Dout)
-#define MM_DX(NJ)                                                                     \
-  launch<T, NJ>(fused_mlp_bwd_acc_dx_kernel<T, ACT, NJ>, R, Din, st, xt, gt, w1t, b1t, \
-                w2t, dxt, R, Din, Dff, Dout)
+#define MM_TILE(NJ) launch<T, ACT, NJ>(xt, gt, w1t, b1t, w2t, dxt, dat, ht, R, Din, Dff, Dout, st)
   if constexpr (sizeof(T) == 4) {
-    return h == nullptr ? MM_DX(4) : MM_HDA(4);
+    return MM_TILE(4);
   } else {
-    if (h == nullptr) {
-      if (Din <= 256) return MM_DX(4);
-      if (Din <= 512) return Din <= 384 ? MM_DX(6) : MM_DX(8);
-      return MM_DX(6);
-    }
-    if (Din <= 256) return MM_HDA(4);
-    if (Din <= 384) return MM_HDA(6);
-    if (Din <= 512) return MM_HDA(8);
-    return MM_HDA(12);
+    if (Din <= 256) return MM_TILE(4);
+    if (Din <= 384) return MM_TILE(6);
+    if (Din <= 512) return MM_TILE(8);
+    return MM_TILE(12);
   }
-#undef MM_HDA
-#undef MM_DX
+#undef MM_TILE
 }
 
 template <typename T>
@@ -340,9 +305,8 @@ extern "C" {
 // x (R, Din), g (R, Dout), b1 (Dff), dx (R, Din), da and h (R, Dff)
 // row-major; w1 and w2 are W1^T (Dff, Din) and W2^T (Dout, Dff) row-major.
 // All contiguous, 16-byte aligned and of `dtype` (0 = fp32, 1 = bf16);
-// `act` is an activation code. da and h may both be null: then only dx is
-// written, by kernel #5's dx pass (`fused_mlp_bwd_acc_dx_kernel`). Needs
-// Din, Dff and Dout to be multiples of 64. Launches on `stream`, allocates
+// `act` is an activation code. Needs Din, Dff and Dout to be multiples of
+// 64. Launches on `stream`, allocates
 // nothing and returns cudaGetLastError() of the launch.
 int mm_fused_mlp_bwd(const void* x, const void* g, const void* w1, const void* b1,
                      const void* w2, void* dx, void* da, void* h, int R, int Din, int Dff,

@@ -22,32 +22,43 @@
 // (b, h), a few GFLOP, far below the card's balance point.
 //
 // Design: one block per (head, batch row), as the forward, so the head's q,
-// k, v and g are read from device memory once, straight from the fused
-// layouts (row strides 3D and D, no split copy). Two phases:
+// k, v and g are read straight from the fused layouts (row strides 3D and
+// D, no split copy). Two phases:
 //   1. warps own query rows: recompute the whole score row (exact softmax,
-//      S <= 256, no online rescaling), dp, the row sum and ds in fp32;
-//      write T(p) and T(ds) rows into shared memory; dq of the row is a sum
-//      over its own keys, so it is finished and written here;
-//   2. after a block barrier, warps own key rows: dv and dk sum over query
-//      rows, which are columns of the shared T(p) and T(ds) matrices, so no
-//      reduction across warps or blocks is needed.
+//      S <= 256, no online rescaling), dp, the row sum and ds in fp32; dq
+//      of the row is a sum over its own keys, so it is finished and written
+//      here;
+//   2. warps own key rows: dv and dk sum over the query rows.
 // Masked keys (causal, or a -1e30 key bias) get exp() == 0 exactly, hence
 // p = ds = 0 and dk = dv = 0 for a key no query sees.
 //
-// bf16 at head width 64 and S <= 128 (CLIP, ViT-B, BERT-base) runs on the
-// tensor cores: q, k, v, g staged in bf16 with cp.async; a warp per 16-row
-// tile; q . k^T and g . v^T are `mma.sync` m16n8k16 products with the score
-// and dp tiles in registers; the ds tiles, rounded, are re-used in
-// registers as the A fragment of dq = ds . k; in phase 2 the T(p) and
-// T(ds) tiles are read transposed with `ldmatrix.trans` as the A fragments
-// of dv = p^T . g and dk = ds^T . q. Shared memory holds the two S x S bf16
-// matrices, which is what caps this path at S <= 128.
+// bf16 at head width 64 and S <= 128 (CLIP, ViT-B/32, BERT-base) runs on
+// the tensor cores: q, k, v, g staged in bf16 with cp.async; a warp per
+// 16-row tile; q . k^T and g . v^T are `mma.sync` m16n8k16 products with
+// the score and dp tiles in registers; the ds tiles, rounded, are re-used in
+// registers as the A fragment of dq = ds . k. Phase 1 leaves the T(p) and
+// T(ds) matrices in shared memory, and phase 2 reads their tiles transposed
+// with `ldmatrix.trans` as the A fragments of dv = p^T . g and
+// dk = ds^T . q. The two S x S bf16 matrices are what caps this path at
+// S <= 128. Past it, up to S = 256 (ViT-B/16's 197), a second tensor-core
+// kernel keeps only q, k, v and g of the head (147 KB at S = 256) and, per
+// query row, the softmax's max, sum and rowsum(dp p): pass 1 sweeps the key
+// groups three times (max; sum and rowsum; ds and dq), each time
+// recomputing the score and dp tiles, and pass 2 recomputes the transposed
+// tiles for its key rows from those statistics, as a flash-attention
+// backward does, so no S x S matrix is ever stored.
 //
-// fp32, and bf16 at other widths or longer rows, run on the FP32 pipes:
-// K and V staged transposed in fp32 (odd pitch: conflict-free whether a
-// lane walks keys or columns), q and g row-major, the T(p) and T(ds)
-// matrices in fp32. Its shared-memory footprint (the wrapper's predicate,
-// `fused_attention_bwd_supported`, uses the same formula) bounds S.
+// Every other shape the forward takes (S <= 256, head width up to 128, fp32
+// or bf16) runs on the FP32 pipes with no S x S matrix in shared memory:
+// phase 1 stages K and V transposed in fp32 (odd pitch: conflict-free
+// whether a lane walks keys or columns) and keeps, per query row, only the
+// softmax's max, sum and rowsum(dp p) (3 floats); phase 2 stages Q and G
+// transposed in their place and, for each key row, recomputes that key's
+// column of scores and dp from them: p and ds come out bitwise as in phase
+// 1 (the same fp32 sums in the same order). Shared memory is two head-sized
+// matrices, the statistics and each warp's rows, 226 KB at most (head width
+// 128, S = 181, the forward's limit there), so the backward takes exactly
+// the forward's shapes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,10 +87,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Shared memory, in floats, of the FP32-pipe path at sequence length `s`
-// and head width `dh`.
+// and head width `dh`: two transposed head matrices, three statistics per
+// query row, and each warp's two rows of width dh and two of width s.
 __host__ __device__ inline int smem_floats(int s, int dh) {
-  const int kp = ((s + 31) / 32) * 32 + 1;
-  return 2 * dh * kp + 2 * s * dh + 2 * s * s;
+  const int sp = ((s + 31) / 32) * 32;
+  return 2 * dh * (sp + 1) + 3 * sp + kWarps * (2 * dh + 2 * sp);
 }
 
 // NT: 32-key chunks per score row (S <= 32 * NT).
@@ -90,13 +102,19 @@ qkv_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
                          const float* __restrict__ key_bias, T* __restrict__ dqkv, int S, int D,
                          int Dh, float scale, int causal) {
   extern __shared__ __align__(16) float smem[];
-  const int kp = ((S + 31) / 32) * 32 + 1;  // odd pitch of the transposed K and V
-  float* kt = smem;                         // [Dh][kp]  K^T of this head
-  float* vt = kt + Dh * kp;                 // [Dh][kp]  V^T
-  float* qs = vt + Dh * kp;                 // [S][Dh]   q
-  float* gs = qs + S * Dh;                  // [S][Dh]   g
-  float* pb = gs + S * Dh;                  // [S][S]    T(p), as float
-  float* dsb = pb + S * S;                  // [S][S]    T(ds), as float
+  const int sp = ((S + 31) / 32) * 32;
+  const int kp = sp + 1;                  // odd pitch of the transposed matrices
+  float* at = smem;                       // [Dh][kp]  K^T, then Q^T
+  float* bt = at + Dh * kp;               // [Dh][kp]  V^T, then G^T
+  float* row_m = bt + Dh * kp;            // [sp]      per query row: the max score
+  float* row_l = row_m + sp;              //           the softmax's sum
+  float* row_rs = row_l + sp;             //           rowsum(dp * p)
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* ra = row_rs + sp + warp * (2 * Dh + 2 * sp);  // [Dh] the warp's q or k row
+  float* rb = ra + Dh;                                 // [Dh] its g or v row
+  float* w0 = rb + Dh;                                 // [sp] T(ds), then T(p)
+  float* w1 = w0 + sp;                                 // [sp] T(ds) in phase 2
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -104,43 +122,39 @@ qkv_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
   const T* base = qkv + (size_t)b * S * d3 + h * Dh;
   const T* gbase = g + (size_t)b * S * D + h * Dh;
   T* obase = dqkv + (size_t)b * S * d3 + h * Dh;
-
-  // Stage the head; padded keys (S <= j < kp - 1) read as zero.
-  for (int idx = threadIdx.x; idx < (kp - 1) * Dh; idx += blockDim.x) {
-    const int j = idx / Dh;
-    const int c = idx - j * Dh;
-    float kv = 0.f, vv = 0.f;
-    if (j < S) {
-      const T* row = base + (size_t)j * d3;
-      qs[j * Dh + c] = to_f(row[c]);
-      kv = to_f(row[D + c]);
-      vv = to_f(row[2 * D + c]);
-      gs[j * Dh + c] = to_f(gbase[(size_t)j * D + c]);
-    }
-    kt[c * kp + j] = kv;
-    vt[c * kp + j] = vv;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const float* kb = key_bias ? key_bias + (size_t)b * S : nullptr;
 
-  // Phase 1: a warp owns query rows.
+  // Stage x^T and y^T of the head ([Dh][kp]); padded rows read as zero.
+  auto stage = [&](const T* x, int ldx, const T* y, int ldy) {
+    for (int idx = threadIdx.x; idx < sp * Dh; idx += blockDim.x) {
+      const int j = idx / Dh;
+      const int c = idx - j * Dh;
+      const bool in = j < S;
+      at[c * kp + j] = in ? to_f(x[(size_t)j * ldx + c]) : 0.f;
+      bt[c * kp + j] = in ? to_f(y[(size_t)j * ldy + c]) : 0.f;
+    }
+  };
+
+  // Phase 1: a warp owns query rows; K^T and V^T staged.
+  stage(base + D, d3, base + 2 * D, d3);
+  __syncthreads();
   for (int i = warp; i < S; i += kWarps) {
+    for (int c = lane; c < Dh; c += 32) {
+      ra[c] = to_f(base[(size_t)i * d3 + c]);
+      rb[c] = to_f(gbase[(size_t)i * D + c]);
+    }
+    __syncwarp();
     const int jend = causal ? i + 1 : S;  // keys row i can see
     float sc[NT], dp[NT];
 #pragma unroll
     for (int t = 0; t < NT; ++t) sc[t] = dp[t] = 0.f;
-    const float* qrow = qs + i * Dh;
-    const float* grow = gs + i * Dh;
     for (int c = 0; c < Dh; ++c) {
-      const float qc = qrow[c], gc = grow[c];
+      const float qc = ra[c], gc = rb[c];
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
         if (32 * t < jend) {
-          sc[t] = fmaf(qc, kt[c * kp + 32 * t + lane], sc[t]);
-          dp[t] = fmaf(gc, vt[c * kp + 32 * t + lane], dp[t]);
+          sc[t] = fmaf(qc, at[c * kp + 32 * t + lane], sc[t]);
+          dp[t] = fmaf(gc, bt[c * kp + 32 * t + lane], dp[t]);
         }
       }
     }
@@ -175,15 +189,15 @@ qkv_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
       rs = fmaf(sc[t], dp[t], rs);
     }
     rs = warp_sum(rs);
-    float* prow = pb + i * S;
-    float* dsrow = dsb + i * S;
+    if (lane == 0) {
+      row_m[i] = m;
+      row_l[i] = l;
+      row_rs[i] = rs;
+    }
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       const int j = 32 * t + lane;
-      if (j < S) {
-        prow[j] = to_f(from_f<T>(sc[t]));
-        dsrow[j] = to_f(from_f<T>(sc[t] * (dp[t] - rs) * scale));
-      }
+      if (j < S) w0[j] = to_f(from_f<T>(sc[t] * (dp[t] - rs) * scale));
     }
     __syncwarp();
 
@@ -191,11 +205,11 @@ qkv_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) acc[cc] = 0.f;
     for (int j = 0; j < jend; ++j) {
-      const float d = dsrow[j];
+      const float d = w0[j];
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc) {
         const int c = 32 * cc + lane;
-        if (c < Dh) acc[cc] = fmaf(d, kt[c * kp + j], acc[cc]);
+        if (c < Dh) acc[cc] = fmaf(d, at[c * kp + j], acc[cc]);
       }
     }
     T* orow = obase + (size_t)i * d3;
@@ -204,23 +218,64 @@ qkv_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
       const int c = 32 * cc + lane;
       if (c < Dh) orow[c] = from_f<T>(acc[cc]);
     }
+    __syncwarp();  // ra, rb and w0 are rewritten by the next row
   }
   __syncthreads();
 
-  // Phase 2: a warp owns key rows; dv and dk sum over the query rows.
+  // Phase 2: a warp owns key rows; Q^T and G^T staged in K^T's and V^T's
+  // place. Key j's column of scores and dp over the queries that see it
+  // gives p and ds as phase 1 had them; dv and dk sum over those queries.
+  stage(base, d3, gbase, D);
+  __syncthreads();
   for (int j = warp; j < S; j += kWarps) {
+    for (int c = lane; c < Dh; c += 32) {
+      ra[c] = to_f(base[(size_t)j * d3 + D + c]);
+      rb[c] = to_f(base[(size_t)j * d3 + 2 * D + c]);
+    }
+    __syncwarp();
+    const int istart = causal ? j : 0;  // queries that can see key j
+    float sc[NT], dp[NT];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) sc[t] = dp[t] = 0.f;
+    for (int c = 0; c < Dh; ++c) {
+      const float kc = ra[c], vc = rb[c];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        if (32 * t + 31 >= istart && 32 * t < S) {
+          sc[t] = fmaf(kc, at[c * kp + 32 * t + lane], sc[t]);
+          dp[t] = fmaf(vc, bt[c * kp + 32 * t + lane], dp[t]);
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int i = 32 * t + lane;
+      if (i < S) {
+        float p = 0.f, ds = 0.f;
+        if (i >= istart) {
+          float s = sc[t] * scale;
+          if (kb) s += kb[j];
+          p = expf(s - row_m[i]) / row_l[i];
+          ds = p * (dp[t] - row_rs[i]) * scale;
+        }
+        w0[i] = to_f(from_f<T>(p));
+        w1[i] = to_f(from_f<T>(ds));
+      }
+    }
+    __syncwarp();
+
     float dv[NC], dk[NC];
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) dv[cc] = dk[cc] = 0.f;
-    for (int i = causal ? j : 0; i < S; ++i) {
-      const float p = pb[i * S + j];
-      const float d = dsb[i * S + j];
+    for (int i = istart; i < S; ++i) {
+      const float p = w0[i];
+      const float d = w1[i];
 #pragma unroll
       for (int cc = 0; cc < NC; ++cc) {
         const int c = 32 * cc + lane;
         if (c < Dh) {
-          dv[cc] = fmaf(p, gs[i * Dh + c], dv[cc]);
-          dk[cc] = fmaf(d, qs[i * Dh + c], dk[cc]);
+          dv[cc] = fmaf(p, bt[c * kp + i], dv[cc]);
+          dk[cc] = fmaf(d, at[c * kp + i], dk[cc]);
         }
       }
     }
@@ -233,6 +288,7 @@ qkv_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
         orow[2 * D + c] = from_f<T>(dv[cc]);
       }
     }
+    __syncwarp();  // ra, rb, w0 and w1 are rewritten by the next key
   }
 }
 
@@ -533,6 +589,273 @@ cudaError_t dispatch_mma(const void* qkv, const void* g, const void* key_bias, v
   return launch_mma<8>(qkv, g, key_bias, dqkv, B, S, D, H, scale, causal, st);
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core path for 128 < S <= 256: bf16 at head width 64, no S x S
+// matrix in shared memory.
+// ---------------------------------------------------------------------------
+
+// c = the 16 x 16 tile (rows [ra, ra + 16) of `as`) . (rows [rb, rb + 16) of
+// `bs`)^T over the head width, both [row][kPitch] bf16 in shared memory, as
+// two m16n8 fragments (columns 0-7 and 8-15).
+__device__ __forceinline__ void tile16(float (&c)[2][4], const __nv_bfloat16* as, int ra,
+                                       const __nv_bfloat16* bs, int rb) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < kHd; kd += 16) {
+    uint32_t a[4], bk[4];
+    mm::ldsm_x4(a, as + (ra + (lane & 15)) * kPitch + kd + (lane >> 4) * 8);
+    mm::ldsm_x4(bk, bs + (rb + (lane & 7) + ((lane >> 4) << 3)) * kPitch + kd +
+                        ((lane >> 3) & 1) * 8);
+    mm::mma_bf16(c[0], a, bk[0], bk[1]);
+    mm::mma_bf16(c[1], a, bk[2], bk[3]);
+  }
+}
+
+// o (16 x 64) += T(c) (16 x 16, two m16n8 fragments rounded to bf16 as an A
+// fragment) . rows [r0, r0 + 16) of `bs` (16 x 64), read transposed.
+__device__ __forceinline__ void tile_times(float (&o)[kHd / 8][4], const float (&c)[2][4],
+                                           const __nv_bfloat16* bs, int r0) {
+  const int lane = threadIdx.x & 31;
+  uint32_t a[4];
+  a[0] = mm::pack_bf16(c[0][0], c[0][1]);
+  a[1] = mm::pack_bf16(c[0][2], c[0][3]);
+  a[2] = mm::pack_bf16(c[1][0], c[1][1]);
+  a[3] = mm::pack_bf16(c[1][2], c[1][3]);
+#pragma unroll
+  for (int dt = 0; dt < kHd / 8; dt += 2) {
+    uint32_t b[4];
+    mm::ldsm_x4_trans(b, bs + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitch + 8 * dt +
+                             (lane >> 4) * 8);
+    mm::mma_bf16(o[dt], a, b[0], b[1]);
+    mm::mma_bf16(o[dt + 1], a, b[2], b[3]);
+  }
+}
+
+// One warp per 16-row group (S <= 16 * KG). Pass 1, warps own query rows:
+// three sweeps over the key groups, each product recomputed from q, k, v
+// and g in shared memory: the row max; the softmax's sum and rowsum(dp p);
+// then p, ds and dq = T(ds) . k. A row's max, sum and rowsum go to shared
+// memory. Pass 2, warps own key rows: for each query group, the key rows'
+// s^T and dp^T tiles give p^T and ds^T from those statistics, and
+// dv += T(p)^T . g, dk += T(ds)^T . q sum in registers.
+template <int KG>
+__global__ void __launch_bounds__(KG * 32)
+qkv_attention_bwd_mma_long_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                  const __nv_bfloat16* __restrict__ g,
+                                  const float* __restrict__ key_bias,
+                                  __nv_bfloat16* __restrict__ dqkv, int S, int D, float scale,
+                                  int causal) {
+  constexpr int SP = 16 * KG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [SP][kPitch]
+  __nv_bfloat16* ks = qs + SP * kPitch;                            // [SP][kPitch]
+  __nv_bfloat16* vs = ks + SP * kPitch;                            // [SP][kPitch]
+  __nv_bfloat16* gs = vs + SP * kPitch;                            // [SP][kPitch]
+  float* kbias = reinterpret_cast<float*>(gs + SP * kPitch);       // [SP]
+  float* row_m = kbias + SP;                                       // [SP] per query row
+  float* row_l = row_m + SP;
+  float* row_rs = row_l + SP;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int d3 = 3 * D;
+  const __nv_bfloat16* base = qkv + (size_t)b * S * d3 + h * kHd;
+  const __nv_bfloat16* gbase = g + (size_t)b * S * D + h * kHd;
+  __nv_bfloat16* obase = dqkv + (size_t)b * S * d3 + h * kHd;
+
+  // Stage q, k, v and g (16 bytes a copy); padded rows are zero.
+  for (int idx = threadIdx.x; idx < 4 * SP * 8; idx += blockDim.x) {
+    const int part = idx / (SP * 8);
+    const int rem = idx - part * SP * 8;
+    const int j = rem >> 3;
+    const int c = (rem & 7) * 8;
+    const bool in = j < S;
+    const __nv_bfloat16* src =
+        part < 3 ? base + (size_t)j * d3 + part * D + c : gbase + (size_t)j * D + c;
+    mm::cp_async16(qs + (part * SP + j) * kPitch + c, in ? src : base, in ? 16 : 0);
+  }
+  mm::cp_async_commit();
+  // Key bias, with padded keys at -inf: they get probability 0.
+  for (int j = threadIdx.x; j < SP; j += blockDim.x)
+    kbias[j] = j < S ? (key_bias ? key_bias[(size_t)b * S + j] : 0.f) : -INFINITY;
+  mm::cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int t4 = lane & 3;
+
+  // Pass 1: warp `warp` owns query rows m0 .. m0 + 15.
+  {
+    const int m0 = 16 * warp;
+    const int r0 = m0 + gq;
+    const int r1 = r0 + 8;
+    // key groups past the tile's last row are masked for all of its rows
+    const int kg_end = causal ? warp + 1 : KG;
+    // the scaled, biased and masked scores of key group j
+    auto scores = [&](float (&sc)[2][4], int j) {
+      tile16(sc, qs, m0, ks, 16 * j);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 16 * j + 8 * nt + 2 * t4 + (e & 1);
+          float s = sc[nt][e] * scale + kbias[key];
+          if (causal && key > (e < 2 ? r0 : r1)) s = -1e30f;
+          sc[nt][e] = s;
+        }
+    };
+    // a row's values sit in the 4 lanes of a quad
+    auto quad_max = [](float v) {
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    };
+    auto quad_sum = [](float v) {
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      return v + __shfl_xor_sync(0xffffffffu, v, 2);
+    };
+    float sc[2][4], dp[2][4];
+    float mx[2] = {-INFINITY, -INFINITY};
+    for (int j = 0; j < kg_end; ++j) {
+      scores(sc, j);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+    }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+    float sum[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+    for (int j = 0; j < kg_end; ++j) {
+      scores(sc, j);
+      tile16(dp, gs, m0, vs, 16 * j);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(sc[nt][e] - mx[e >> 1]);
+          sum[e >> 1] += p;
+          rs[e >> 1] = fmaf(p, dp[nt][e], rs[e >> 1]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] = quad_sum(sum[i]);
+      rs[i] = quad_sum(rs[i]) / sum[i];  // rowsum(dp * p)
+    }
+    float o[kHd / 8][4];
+#pragma unroll
+    for (int dt = 0; dt < kHd / 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+    for (int j = 0; j < kg_end; ++j) {
+      scores(sc, j);
+      tile16(dp, gs, m0, vs, 16 * j);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(sc[nt][e] - mx[e >> 1]) / sum[e >> 1];
+          dp[nt][e] = p * (dp[nt][e] - rs[e >> 1]) * scale;  // ds
+        }
+      tile_times(o, dp, ks, 16 * j);  // dq += T(ds) . k
+    }
+#pragma unroll
+    for (int dt = 0; dt < kHd / 8; ++dt) {
+      const int col = 8 * dt + 2 * t4;
+      if (r0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(obase + (size_t)r0 * d3 + col) =
+            __floats2bfloat162_rn(o[dt][0], o[dt][1]);
+      if (r1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(obase + (size_t)r1 * d3 + col) =
+            __floats2bfloat162_rn(o[dt][2], o[dt][3]);
+    }
+    if (t4 == 0) {
+      row_m[r0] = mx[0];
+      row_l[r0] = sum[0];
+      row_rs[r0] = rs[0];
+      row_m[r1] = mx[1];
+      row_l[r1] = sum[1];
+      row_rs[r1] = rs[1];
+    }
+  }
+  __syncthreads();
+
+  // Pass 2: warp `warp` owns keys j0 .. j0 + 15; dv and dk sum over the
+  // query groups that can see them.
+  {
+    const int j0 = 16 * warp;
+    const int k0 = j0 + gq;
+    const int k1 = k0 + 8;
+    const float kb[2] = {kbias[k0], kbias[k1]};
+    float dv[kHd / 8][4], dk[kHd / 8][4];
+#pragma unroll
+    for (int dt = 0; dt < kHd / 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv[dt][e] = dk[dt][e] = 0.f;
+    for (int it = causal ? warp : 0; it < KG; ++it) {
+      const int i0 = 16 * it;
+      float st[2][4], dpt[2][4];
+      tile16(st, ks, j0, qs, i0);   // s^T: keys x queries
+      tile16(dpt, vs, j0, gs, i0);  // dp^T
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = i0 + 8 * nt + 2 * t4 + (e & 1);
+          const int key = e < 2 ? k0 : k1;
+          float p = 0.f, ds = 0.f;
+          if (q < S && !(causal && key > q)) {
+            p = expf(st[nt][e] * scale + kb[e >> 1] - row_m[q]) / row_l[q];
+            ds = p * (dpt[nt][e] - row_rs[q]) * scale;
+          }
+          st[nt][e] = p;
+          dpt[nt][e] = ds;
+        }
+      tile_times(dv, st, gs, i0);   // dv += T(p)^T . g
+      tile_times(dk, dpt, qs, i0);  // dk += T(ds)^T . q
+    }
+#pragma unroll
+    for (int dt = 0; dt < kHd / 8; ++dt) {
+      const int col = 8 * dt + 2 * t4;
+      if (k0 < S) {
+        __nv_bfloat16* row = obase + (size_t)k0 * d3 + col;
+        *reinterpret_cast<__nv_bfloat162*>(row + D) = __floats2bfloat162_rn(dk[dt][0], dk[dt][1]);
+        *reinterpret_cast<__nv_bfloat162*>(row + 2 * D) =
+            __floats2bfloat162_rn(dv[dt][0], dv[dt][1]);
+      }
+      if (k1 < S) {
+        __nv_bfloat16* row = obase + (size_t)k1 * d3 + col;
+        *reinterpret_cast<__nv_bfloat162*>(row + D) = __floats2bfloat162_rn(dk[dt][2], dk[dt][3]);
+        *reinterpret_cast<__nv_bfloat162*>(row + 2 * D) =
+            __floats2bfloat162_rn(dv[dt][2], dv[dt][3]);
+      }
+    }
+  }
+}
+
+template <int KG>
+cudaError_t launch_mma_long(const void* qkv, const void* g, const void* key_bias, void* dqkv,
+                            int B, int S, int D, int H, float scale, int causal,
+                            cudaStream_t stream) {
+  constexpr int SP = 16 * KG;
+  const size_t smem = sizeof(__nv_bfloat16) * 4 * SP * kPitch + sizeof(float) * 4 * SP;
+  auto kernel = qkv_attention_bwd_mma_long_kernel<KG>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(H, B), KG * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const float*>(key_bias), static_cast<__nv_bfloat16*>(dqkv), S, D, scale,
+      causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -540,16 +863,20 @@ extern "C" {
 // qkv and dqkv: (B, S, 3D); g: (B, S, D); all of `dtype` (0 = fp32,
 // 1 = bf16), contiguous, 16-byte aligned; key_bias: (B, S) fp32 or null.
 // Needs the shape to pass `fused_attention_bwd_supported` (ops/
-// fused_encoder.py). Launches on `stream`, allocates nothing and returns
-// cudaGetLastError() of the launch.
+// fused_encoder.py), which is the forward's domain. Launches on `stream`,
+// allocates nothing and returns cudaGetLastError() of the launch.
 int mm_qkv_attention_bwd(const void* qkv, const void* g, const void* key_bias, void* dqkv, int B,
                          int S, int D, int H, float scale, int causal, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || S > 256 || H <= 0 || D % H != 0 || (D / H) % 8 != 0 ||
       D / H > 128 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D / H == kHd && S <= 128)
-    return (int)dispatch_mma(qkv, g, key_bias, dqkv, B, S, D, H, scale, causal, st);
+  if (dtype == 1 && D / H == kHd) {
+    if (S <= 128) return (int)dispatch_mma(qkv, g, key_bias, dqkv, B, S, D, H, scale, causal, st);
+    if (S <= 208)  // ViT-B/16's 197
+      return (int)launch_mma_long<13>(qkv, g, key_bias, dqkv, B, S, D, H, scale, causal, st);
+    return (int)launch_mma_long<16>(qkv, g, key_bias, dqkv, B, S, D, H, scale, causal, st);
+  }
   if (dtype == 0) return (int)dispatch<float>(qkv, g, key_bias, dqkv, B, S, D, H, scale, causal, st);
   return (int)dispatch<__nv_bfloat16>(qkv, g, key_bias, dqkv, B, S, D, H, scale, causal, st);
 }

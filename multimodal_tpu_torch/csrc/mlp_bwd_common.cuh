@@ -1,7 +1,7 @@
-// Pieces shared by the two MLP backward kernels (csrc/fused_mlp_bwd.cu and
-// csrc/fused_mlp_bwd_acc.cu): the activations with their derivatives, the
-// warp-level 16x8x16 products in bf16 (tensor cores) and fp32 (FP32 pipes)
-// behind one fragment interface, and the cp.async tile copy.
+// Pieces of the MLP backward kernels: the activations with their
+// derivatives (csrc/fused_mlp_bwd.cu and csrc/fused_mlp_bwd_acc.cu), and for
+// the first the warp-level 16x8x16 products in bf16 (tensor cores) and fp32
+// (FP32 pipes) behind one fragment interface, and the cp.async tile copy.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -18,12 +18,12 @@ Both are ``torch.autograd.Function``s, as the JAX functions are
 recomputes what it needs. On a CUDA tensor each wrapper launches its
 hand-written kernel (forward ``csrc/fused_qkv_attention.cu`` and
 ``csrc/fused_mlp.cu``, backward ``csrc/fused_qkv_attention_bwd.cu`` and,
-for the MLP by a rule on shapes, ``csrc/fused_mlp_bwd_acc.cu`` or
-``csrc/fused_mlp_bwd.cu``) or raises; it never falls back. On a CPU tensor
-it runs the plain PyTorch version, which follows the TPU kernel body's
-arithmetic (where it rounds to the compute type and where it stays in
-fp32). Each kernel wrapper counts its launches in its ``launches``
-attribute.
+for the MLP by a rule on shapes, ``csrc/fused_mlp_bwd_acc.cu`` (on the GEMM
+core of ``csrc/wgmma_gemm.cuh``) or ``csrc/fused_mlp_bwd.cu``) or raises;
+it never falls back. On a CPU tensor it runs the plain PyTorch version,
+which follows the TPU kernel body's arithmetic (where it rounds to the
+compute type and where it stays in fp32). Each kernel wrapper counts its
+launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -84,7 +84,7 @@ def _kernels() -> ctypes.CDLL:
             _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _V]
         lib.mm_fused_mlp_bwd.restype = _I
         lib.mm_fused_mlp_bwd_acc.argtypes = [
-            _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I, _V]
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I, _V]
         lib.mm_fused_mlp_bwd_acc.restype = _I
         _lib = lib
     return _lib
@@ -97,14 +97,6 @@ def _attention_smem_bytes(seq: int, head_dim: int) -> int:
     warps, rows = 8, 4
     return 4 * (head_dim * (sp + 1) + seq * head_dim
                 + warps * rows * head_dim + warps * sp * rows)
-
-
-def _attention_bwd_smem_bytes(seq: int, head_dim: int) -> int:
-    """Mirror of ``smem_floats`` in csrc/fused_qkv_attention_bwd.cu (the
-    FP32-pipe path): K^T and V^T, q and g, and the rounded p and ds
-    matrices of one head, all in fp32."""
-    kp = -(-seq // 32) * 32 + 1
-    return 4 * (2 * head_dim * kp + 2 * seq * head_dim + 2 * seq * seq)
 
 
 def fused_attention_supported(seq: int, embed_dim: int, num_heads: int) -> bool:
@@ -124,59 +116,51 @@ def fused_mlp_available(in_dim: int, hidden_dim: int, out_dim: int) -> bool:
     return in_dim % 64 == 0 and hidden_dim % 64 == 0 and out_dim % 64 == 0
 
 
-_ACC_MAX_WIDTH = 768  # Din and Dout the dW kernel's register accumulators cover
-_ACC_SLICE = 16       # Dff columns of one dW block
-_SM_COUNT = 132       # streaming multiprocessors of an H100 SXM
+_SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
+_ACC_TILE = 128  # rows and columns of an output tile of kernel #5's products
+# Rows from which the MLP backward takes kernel #5: set from the card's
+# measurement of #5 against #4 plus the library's dW products (PERF.md).
+_ACC_MIN_ROWS = 1025
 
 
-def _acc_chunks(rows: int, dff: int) -> int:
-    """Row chunks of the dW pass of kernel #5: enough blocks, (Dff / 16) x
-    chunks, for two waves over an H100's SMs (a block fills an SM's shared
-    memory), at most one per 64 rows. Each chunk is one fp32 partial of
-    dW1, dW2 and db1."""
-    tiles = max(1, -(-rows // 64))
-    return max(1, min(tiles, -(-2 * _SM_COUNT // (dff // _ACC_SLICE))))
+def _acc_splits(rows: int, din: int, dff: int, dout: int) -> int:
+    """Row runs of kernel #5's weight-gradient products (one launch over the
+    128 x 128 tiles of dW1^T and dW2^T, each tile once per run): the count
+    in 2..4 whose blocks fill the H100's SMs in the fewest waves per run
+    (the smallest on a tie), and never more runs than 64-row k-blocks. Each
+    run writes an fp32 partial that a fixed-order pass sums."""
+    t = -(-dff // _ACC_TILE)
+    tiles = t * -(-din // _ACC_TILE) + -(-dout // _ACC_TILE) * t
+    best = min(range(2, 5), key=lambda s: -(-tiles * s // _SM_COUNT) / s)
+    return max(1, min(best, -(-rows // 64)))
 
 
-def fused_mlp_bwd_acc_supported(rows: int, din: int, dff: int, dout: int,
-                                dtype: torch.dtype) -> bool:
+def fused_mlp_bwd_acc_supported(rows: int, din: int, dff: int, dout: int) -> bool:
     """Whether the MLP backward takes kernel #5 (``fused_mlp_bwd_acc``, dW
     summed by the kernel) rather than kernel #4 (``fused_mlp_bwd``) plus the
-    library's dW products.
+    library's dW products: the fused MLP's widths and at least
+    ``_ACC_MIN_ROWS`` rows. A rule on shapes alone, so the CPU makes the
+    same choice as the card.
 
-    #5 needs the fused MLP's widths, with Din and Dout at most 768 (its dW
-    accumulators stay in registers). It writes ``_acc_chunks`` fp32 partials
-    of dW1, dW2 and db1; #4's route instead writes the ``(rows, Dff)`` ``da``
-    and ``h`` in the compute type and reads them back for the dW products.
-    #5 is taken where its fp32 partials are no more bytes than those two:
-    at many rows (the timed train steps: CLIP at batch 256, the LM at 8 x
-    8192, FLAVA at batch 64), and not at few rows (the small-batch gradient
-    checks). A rule on shapes alone, so the CPU makes the same choice as
-    the card.
-
-    The byte count is a proxy, and the measurements on an H100 refute it
-    as a guide to speed: at every shape where it picks #5, this #5 takes
-    2-3x the time of #4 plus the library's dW products (``PERF.md``). It
-    keeps the JAX package's order, #5 first where its workspace is small,
-    so that #5 runs on the train steps; a faster #5 is queued work."""
-    if not fused_mlp_available(din, dff, dout) or max(din, dout) > _ACC_MAX_WIDTH:
-        return False
-    partials = 4 * _acc_chunks(rows, dff) * (din * dff + dff * dout + dff)
-    return partials <= 2 * rows * dff * dtype.itemsize
+    #5 writes the ``(rows, Dff)`` da and h once and runs each of the
+    function's five products once, as tiled Hopper GEMMs. The threshold
+    comes from the card (``chip_smoke.py``'s ``acc_threshold``, 768 -> 3072
+    -> 768 in bf16, ``PERF.md`` §6): #5 beats #4 plus the library's dW
+    products at every row count timed, 1,024 to 4,096 (0.195 against 1.466
+    ms at 1,024), so the rule takes #5 from the lowest count that still
+    keeps the small-batch gradient checks (at most 1,024 rows) on #4, and
+    every timed train step (4,928 rows and more) on #5."""
+    return fused_mlp_available(din, dff, dout) and rows >= _ACC_MIN_ROWS
 
 
 def fused_attention_bwd_supported(seq: int, embed_dim: int, num_heads: int,
                                   dtype: torch.dtype) -> bool:
-    """Shape predicate of the attention backward kernel. bf16 at head width
-    64 and ``seq <= 128`` takes the tensor-core path (its two S x S bf16
-    matrices fit shared memory); every other shape the forward admits runs
-    on the FP32 pipes when that path's block fits shared memory."""
-    if not fused_attention_supported(seq, embed_dim, num_heads):
-        return False
-    dh = embed_dim // num_heads
-    if dtype == torch.bfloat16 and dh == 64 and seq <= 128:
-        return True
-    return _attention_bwd_smem_bytes(seq, dh) <= _SMEM_LIMIT
+    """Shape predicate of the attention backward kernel: the forward's
+    domain, in either dtype. bf16 at head width 64 runs on the tensor cores
+    (one kernel up to ``seq`` 128, another to 256); every other shape runs
+    on the FP32 pipes. Neither keeps an S x S matrix in shared memory past
+    ``seq`` 128, and each fits wherever the forward's block does."""
+    return fused_attention_supported(seq, embed_dim, num_heads)
 
 
 def _check_cuda(name: str, device: torch.device, dtype: torch.dtype,
@@ -323,11 +307,6 @@ def fused_qkv_attention_bwd(
     _check_attention("fused_qkv_attention_bwd", qkv, num_heads, key_bias)
     b, s, three_d = qkv.shape
     d = three_d // 3
-    if not fused_attention_bwd_supported(s, d, num_heads, qkv.dtype):
-        raise ValueError(
-            f"fused_qkv_attention_bwd: no kernel for seq={s}, embed_dim={d}, "
-            f"num_heads={num_heads} in {qkv.dtype} (shared memory)"
-        )
     if g.shape != (b, s, d):
         raise ValueError(f"fused_qkv_attention_bwd: g must be {(b, s, d)}, got {tuple(g.shape)}")
     _check_cuda("fused_qkv_attention_bwd", qkv.device, qkv.dtype, g)
@@ -559,9 +538,12 @@ def fused_mlp_bwd_acc(x, g, w1, b1, w2, activation: str = "gelu"):
     and the output gradient ``g`` ``(rows, Dout)``: ``(dx, dw1, dw2, db1)``,
     ``dx`` in the compute type, the others fp32. ``dw1`` ``(Din, Dff)`` and
     ``dw2`` ``(Dff, Dout)`` are views whose ``.t()`` is contiguous. Kernel
-    #5 on CUDA (its dx pass, dW pass and, with more than one row chunk, the
-    chunks' fixed-order sum: one launch counted), its plain version on the
-    CPU."""
+    #5 on CUDA (its z/dh, dx and dW stages and the fixed-order sum: one
+    launch counted), its plain version on the CPU.
+
+    On CUDA it allocates a workspace: da_c and h_c, ``2 x (rows, Dff)`` of
+    the compute type (805 MB in bf16 at the LM step's 65,536 rows of Dff
+    3072), and the fp32 partials of the dW runs and of db1."""
     if activation not in _ACT_CODES:
         raise ValueError(f"fused_mlp_bwd_acc: unknown activation {activation!r}")
     if x.device.type == "cpu":
@@ -571,9 +553,6 @@ def fused_mlp_bwd_acc(x, g, w1, b1, w2, activation: str = "gelu"):
     _check_mlp("fused_mlp_bwd_acc", x, w1, b1, w2, None, activation)
     rows, din = x.shape
     dff, dout = w2.shape
-    if max(din, dout) > _ACC_MAX_WIDTH:
-        raise ValueError(f"fused_mlp_bwd_acc: no kernel for Din={din}, Dout={dout} "
-                         f"(at most {_ACC_MAX_WIDTH})")
     if g.shape != (rows, dout):
         raise ValueError(f"fused_mlp_bwd_acc: g must be {(rows, dout)}, got {tuple(g.shape)}")
     _check_cuda("fused_mlp_bwd_acc", x.device, x.dtype, g)
@@ -583,13 +562,14 @@ def fused_mlp_bwd_acc(x, g, w1, b1, w2, activation: str = "gelu"):
     if rows == 0:
         out.zero_()
     else:
-        chunks = _acc_chunks(rows, dff)
-        part = out if chunks == 1 else torch.empty(
-            chunks * out.numel(), dtype=torch.float32, device=x.device)
+        splits = _acc_splits(rows, din, dff, dout)
+        dah = torch.empty((2, rows, dff), dtype=x.dtype, device=x.device)
+        part = torch.empty((splits * (n1 + n2) if splits > 1 else 0)
+                           + -(-rows // _ACC_TILE) * dff, dtype=torch.float32, device=x.device)
         err = _kernels().mm_fused_mlp_bwd_acc(
             x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            dx.data_ptr(), part.data_ptr(), out.data_ptr(), rows, din, dff, dout, chunks,
-            _ACT_CODES[activation], _DTYPE_CODES[x.dtype], _build.stream_of(x),
+            dx.data_ptr(), dah.data_ptr(), part.data_ptr(), out.data_ptr(), rows, din, dff,
+            dout, splits, _ACT_CODES[activation], _DTYPE_CODES[x.dtype], _build.stream_of(x),
         )
         _build.raise_on(err, "fused_mlp_bwd_acc")
         fused_mlp_bwd_acc.launches += 1
@@ -618,7 +598,7 @@ class _MLP(torch.autograd.Function):
         x2 = x.reshape(-1, x.shape[-1])
         g2 = g.reshape(-1, g.shape[-1]).contiguous()
         db2 = g2.sum(0, dtype=torch.float32).to(ctx.b2_dtype)
-        if fused_mlp_bwd_acc_supported(x2.shape[0], *w1.shape, w2.shape[1], x.dtype):
+        if fused_mlp_bwd_acc_supported(x2.shape[0], *w1.shape, w2.shape[1]):
             dx, dw1, dw2, db1 = fused_mlp_bwd_acc(x2, g2, w1, b1, w2, ctx.activation)
             return (dx.reshape(x.shape), dw1.to(w1.dtype), db1.to(b1.dtype),
                     dw2.to(w2.dtype), db2, None)

@@ -47,6 +47,7 @@ ATTN_CASES = [
     (2, 25, 128, 2, False, 0.5, False),    # sm_scale
     (2, 20, 128, 2, False, None, True),    # key-bias lane
     (2, 20, 128, 2, True, None, True),     # key-bias lane, causal
+    (1, 197, 128, 2, False, None, False),  # ViT-B/16's S, past the tensor-core path's 128
 ]
 
 
@@ -68,6 +69,21 @@ def test_attention_bwd_plain_matches_jax(b, s, d, h, causal, scale, kb):
     assert got.shape == (b, s, 3 * d)
     np.testing.assert_allclose(got, want_kernel, atol=ATTN_ATOL)
     np.testing.assert_allclose(got, want_xla, atol=ATTN_ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_bwd_masked_keys_get_zero_grad(causal):
+    """A key the bias masks (-1e30) is seen by no query: its dk and dv are
+    exactly 0, the property the card's kernels are held to as well."""
+    r = np.random.RandomState(7)
+    qkv = torch.from_numpy(r.randn(2, 197, 3 * 128).astype(np.float32))
+    g = torch.from_numpy(r.randn(2, 197, 128).astype(np.float32))
+    bias = torch.from_numpy(_key_bias(r, 2, 197))
+    dkv = tfe.qkv_attention_bwd_plain(qkv, g, 2, causal, None, bias)[..., 128:]
+    masked = bias < -1e29
+    assert masked.any()
+    assert (dkv[masked] == 0).all()
+    assert (dkv[~masked] != 0).any()
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -188,13 +204,25 @@ def test_mlp_function_grad_matches_plain_autograd(act):
 @pytest.mark.parametrize(
     "seq,width,heads,dtype,ok",
     [(50, 768, 12, torch.bfloat16, True), (77, 512, 8, torch.bfloat16, True),
-     (128, 768, 12, torch.bfloat16, True), (197, 768, 12, torch.bfloat16, False),
+     (128, 768, 12, torch.bfloat16, True), (197, 768, 12, torch.bfloat16, True),
      (77, 512, 8, torch.float32, True), (50, 384, 4, torch.float32, True),
-     (77, 512, 4, torch.float32, True), (128, 768, 12, torch.float32, False),
+     (77, 512, 4, torch.float32, True), (128, 768, 12, torch.float32, True),
      (257, 1024, 16, torch.bfloat16, False)],
 )
 def test_attention_bwd_shape_predicate(seq, width, heads, dtype, ok):
-    """The backward admits CLIP's S=50 / 77 in bf16 and fp32, bf16 at head
-    width 64 up to S=128 (tensor-core path), and other shapes while the
-    FP32-pipe path's block fits shared memory."""
+    """The backward admits CLIP's S=50 / 77 in bf16 and fp32, ViT-B/16's
+    S=197, and every other shape the forward takes, up to S=256."""
     assert tfe.fused_attention_bwd_supported(seq, width, heads, dtype) is ok
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("head_dim", [8, 48, 64, 96, 100, 128, 136])
+def test_attention_bwd_domain_is_forward_domain(head_dim, dtype):
+    """The backward takes exactly the forward's shapes: at every S up to
+    past 256 and 1, 2 or 3 heads of this width (and a width that does not
+    split into heads), in either dtype."""
+    for heads in (1, 2, 3):
+        for width in (head_dim * heads, head_dim * heads + 1):
+            for seq in range(1, 262):
+                assert (tfe.fused_attention_bwd_supported(seq, width, heads, dtype)
+                        == tfe.fused_attention_supported(seq, width, heads)), (seq, width, heads)

@@ -101,7 +101,7 @@ def test_mlp_function_grads_match_jax_both_routes(rows, acc, act, monkeypatch):
     monkeypatch.setenv("MMTPU_FORCE_FUSED_ENCODER", "1")
     monkeypatch.setenv("MMTPU_FUSED_MLP_BWD", "1")
     x, g, w1, b1, w2, b2 = _inputs(24, rows=rows)
-    assert tfe.fused_mlp_bwd_acc_supported(rows, 128, 256, 128, torch.float32) is acc
+    assert tfe.fused_mlp_bwd_acc_supported(rows, 128, 256, 128) is acc
     got = _port_mlp_grads(x, g, w1, b1, w2, b2, act)
     _, vjp = jax.vjp(lambda *a: jfe.fused_mlp(*a, act), *map(jnp.asarray, (x, w1, b1, w2, b2)))
     want = vjp(jnp.asarray(g))
@@ -131,28 +131,45 @@ def test_mlp_function_acc_route_matches_plain_autograd():
 
 
 @pytest.mark.parametrize(
-    "rows,din,dff,dout,dtype,ok",
+    "rows,din,dff,dout,ok",
     [
-        (256 * 50, 768, 3072, 768, torch.bfloat16, True),    # CLIP vision, batch 256
-        (256 * 77, 512, 2048, 512, torch.bfloat16, True),    # CLIP text, batch 256
-        (8 * 8192, 768, 3072, 768, torch.bfloat16, True),    # LM train, 8 x 8192
-        (64 * 197, 768, 3072, 768, torch.bfloat16, True),    # FLAVA image, batch 64
-        (64 * 77, 768, 3072, 768, torch.bfloat16, True),     # FLAVA text, batch 64
-        (64 * 275, 768, 3072, 768, torch.bfloat16, True),    # FLAVA multimodal, batch 64
-        (8 * 50, 768, 3072, 768, torch.bfloat16, False),     # CLIP gradient check, 8 pairs
-        (8 * 77, 512, 2048, 512, torch.bfloat16, False),
-        (1024, 768, 3072, 768, torch.bfloat16, False),       # LM gradient check, 1 row
-        (2 * 197, 768, 3072, 768, torch.bfloat16, False),    # FLAVA gradient check, batch 2
-        (64 * 197, 1024, 4096, 1024, torch.bfloat16, False),  # wider than 768
-        (64 * 197, 768, 3072, 768, torch.float32, True),
-        (1000, 768, 3072, 768, torch.float32, False),
-        (64 * 197, 96, 3072, 768, torch.bfloat16, False),    # not a fused MLP width
+        (256 * 50, 768, 3072, 768, True),    # CLIP vision, batch 256
+        (256 * 77, 512, 2048, 512, True),    # CLIP text, batch 256
+        (8 * 8192, 768, 3072, 768, True),    # LM train, 8 x 8192
+        (64 * 197, 768, 3072, 768, True),    # FLAVA image, batch 64
+        (64 * 77, 768, 3072, 768, True),     # FLAVA text, batch 64
+        (64 * 275, 768, 3072, 768, True),    # FLAVA multimodal, batch 64
+        (8 * 50, 768, 3072, 768, False),     # CLIP gradient check, 8 pairs
+        (8 * 77, 512, 2048, 512, False),
+        (1024, 768, 3072, 768, False),       # LM gradient check, 1 row
+        (2 * 197, 768, 3072, 768, False),    # FLAVA gradient check, batch 2
+        (64 * 197, 1024, 4096, 1024, True),  # wider than 768: the GEMMs take any width
+        (tfe._ACC_MIN_ROWS, 768, 3072, 768, True),       # the threshold
+        (tfe._ACC_MIN_ROWS - 1, 768, 3072, 768, False),
+        (64 * 197, 96, 3072, 768, False),    # not a fused MLP width
     ],
 )
-def test_acc_predicate_choice(rows, din, dff, dout, dtype, ok):
-    """#5 on the timed train steps' shapes, #4 at the small-batch gradient
-    checks' and past the register accumulators' widths."""
-    assert tfe.fused_mlp_bwd_acc_supported(rows, din, dff, dout, dtype) is ok
+def test_acc_predicate_choice(rows, din, dff, dout, ok):
+    """#5 on the timed train steps' shapes, at any fused MLP width; #4 at
+    the small-batch gradient checks'. The rule reads shapes only."""
+    assert tfe.fused_mlp_bwd_acc_supported(rows, din, dff, dout) is ok
+
+
+@pytest.mark.parametrize(
+    "rows,din,dff,dout,splits",
+    [
+        (64 * 197, 768, 3072, 768, 4),   # 288 tiles: 9 waves of 132 for 4 runs
+        (8 * 8192, 768, 3072, 768, 4),
+        (256 * 77, 512, 2048, 512, 2),   # 128 tiles: one wave a run
+        (1000, 768, 3072, 768, 4),
+        (100, 768, 3072, 768, 2),        # two 64-row k-blocks
+        (64, 768, 3072, 768, 1),         # one k-block: one run
+    ],
+)
+def test_acc_splits(rows, din, dff, dout, splits):
+    """The dW products' row runs: 2-4, the fewest waves of the card's SMs
+    per run, never more runs than 64-row k-blocks."""
+    assert tfe._acc_splits(rows, din, dff, dout) == splits
 
 
 def test_acc_wrapper_refuses_other_devices():
