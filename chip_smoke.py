@@ -77,8 +77,13 @@ in order (any failure exits non-zero):
 9. a ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
-Phase 2 also checks the flash attention forward (#6) at the prefill shape
-(8, 12, 2048, 64) causal and its masking variants, and the int8-cache decode
+Phase 2 checks the MLP forward (#3) at the CLIP, LM (prefill, train step,
+decode tick) and FLAVA shapes, every activation at small widths and 48 to
+512 rows, bf16 and fp32, each output element held to its own row's scale
+(``row_relative_error``), and a second launch into output and workspace
+filled with NaN bitwise equal to the first. It also checks
+the flash attention forward (#6) at the prefill shape (8, 12, 2048, 64)
+causal and its masking variants, and the int8-cache decode
 attention (#10) at the decode shape (33 x 12 heads, 4096 positions) and its
 verify-window and GQA variants, each output element held to its own row's
 scale (``row_relative_error``), and times #6 against the plain path at
@@ -99,8 +104,11 @@ and the route it replaces (#4 plus the library's dW products); and times
 #5 against that route at 1,024 to 4,096 rows (the numbers
 ``fused_mlp_bwd_acc_supported``'s threshold is set from).
 ``--kernels-only`` stops after phase 2 and prints no result line;
-``--planted-faults`` only builds copies of #7-#9 and #5 with known faults
-(``PLANTED_FAULTS``) and shows that the checks catch each one.
+``--planted-faults`` only builds copies of #7-#9, #5 and #3 with known
+faults (``PLANTED_FAULTS``) and shows that the checks catch each one;
+``--ab PARENT`` only times #3, #5 and the LM serving tick of the tree at
+PARENT (the parent commit unpacked with ``git archive``) and of this
+checkout, in turns, each in a process of its own.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -254,33 +262,101 @@ def attention_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen):
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
-def mlp_case(fe, name, rows, din, dff, dout, act, dtype, gen):
+# Bars of row_relative_error for kernel #3. bf16: 2^-6, two units in the
+# last place of the element (kernel and plain version each round h and the
+# output once, and an fp32 sum taken in another order can land on the other
+# side of a tie). fp32: nothing is rounded to bf16, only the order of the
+# sums (up to 3072 terms) differs.
+ROW_RELATIVE_BAR_MLP = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -15}
+MLP_STAGES = (("h", "fused_mlp_fwd_h"), ("o", "fused_mlp_fwd_o"))
+
+
+def _mlp_inputs(rows, din, dff, dout, dtype, gen):
     x = torch.randn(rows, din, device="cuda", generator=gen).to(dtype)
     w1t = (torch.randn(dff, din, device="cuda", generator=gen) * din ** -0.5).to(dtype)
     b1 = (torch.randn(dff, device="cuda", generator=gen) * 0.02).to(dtype)
     w2t = (torch.randn(dout, dff, device="cuda", generator=gen) * dff ** -0.5).to(dtype)
     b2 = (torch.randn(dout, device="cuda", generator=gen) * 0.02).to(dtype)
+    return x, w1t, b1, w2t, b2
+
+
+def mlp_case(fe, name, rows, din, dff, dout, act, dtype, gen, timing=True):
+    """Kernel #3 against its plain version, each output element to its row's
+    scale (``row_relative_error``, ``ROW_RELATIVE_BAR_MLP``), and a second
+    launch into an output and a workspace filled with NaN bitwise equal to
+    the first: repeatable, and no element of either left unwritten. With
+    ``timing``, its time (and its stages' device time) beside its bound, the
+    plain version and linear-act-linear."""
+    x, w1t, b1, w2t, b2 = _mlp_inputs(rows, din, dff, dout, dtype, gen)
     w1, w2 = w1t.t(), w2t.t()  # (Din, Dff), (Dff, Dout) column-major, as nn.Linear holds them
     lib_act = fe._ACTIVATIONS[act]
+    run = lambda: fe.fused_mlp(x, w1, b1, w2, b2, act)  # noqa: E731
     with torch.inference_mode():
-        out = fe.fused_mlp(x, w1, b1, w2, b2, act)
         ref = fe.mlp_plain(x, w1, b1, w2, b2, act)
+        out = run()
+        # the same launch into NaN: an element of the output, or a row of h
+        # between the two stages, that the kernel does not write shows as NaN
+        # rather than as what the caching allocator's block held before
+        again = torch.full_like(out, math.nan)
+        ws_shape = fe._mlp_fwd_workspace(rows, dff, dtype)
+        ws = None if ws_shape is None else torch.full(ws_shape, math.nan, dtype=dtype,
+                                                      device=x.device)
+        fe._mlp_fwd_launch(x, w1, b1, w2, b2, act, again, ws)
         torch.cuda.synchronize()
+        deterministic = torch.equal(out, again)
+        rel = row_relative_error(out, ref)
         err = (out.float() - ref.float()).abs().max().item()
-        tol = tolerance(dtype, ref)
-        kernel_ms = time_ms(lambda: fe.fused_mlp(x, w1, b1, w2, b2, act), 1)
+        del again, ws
+        bar = ROW_RELATIVE_BAR_MLP[dtype]
+        row = dict(kernel="fused_mlp", case=name, shape=[rows, din, dff, dout], activation=act,
+                   dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+                   rel_err={"out": rel}, tol=bar, deterministic=deterministic,
+                   ok=bool(deterministic and rel <= bar))
+        if not timing:
+            return row
+        kernel_ms = time_ms(run, 1)
         reps = reps_for(kernel_ms)
-        kernel_ms = time_ms(lambda: fe.fused_mlp(x, w1, b1, w2, b2, act), reps)
+        kernel_ms = time_ms(run, reps)
         plain_ms = time_ms(lambda: fe.mlp_plain(x, w1, b1, w2, b2, act), reps)
         lib_ms = time_ms(lambda: F.linear(lib_act(F.linear(x, w1t, b1)), w2t, b2), reps)
+        stages = stage_ms(run, MLP_STAGES)
     es = x.element_size()
-    nbytes = (x.numel() + w1.numel() + b1.numel() + w2.numel() + b2.numel() + out.numel()) * es
+    nbytes = (x.numel() + w1.numel() + b1.numel() + w2.numel() + b2.numel() + rows * dout) * es
     flops = 2.0 * rows * (din * dff + dff * dout)
     bms, by = bound_ms(nbytes, flops, dtype)
-    return dict(kernel="fused_mlp", case=name, shape=[rows, din, dff, dout], activation=act,
-                dtype=str(dtype).replace("torch.", ""), max_abs_err=err, tol=tol,
-                ok=bool(err <= tol), ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bms, bound_by=by)
+    row.update(ms=kernel_ms, stage_ms=stages, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bms, bound_by=by,
+               tflops=flops / kernel_ms / 1e9, gbps=nbytes / kernel_ms / 1e6)
+    return row
+
+
+def check_mlp_kernel(fe, dtypes=(torch.bfloat16, torch.float32), timing=True):
+    """Kernel #3 at the paths' shapes in each dtype: CLIP ViT-B/32 serving
+    (batch 512), every activation at small widths (Dout 192 leaves a ragged
+    column tile), the LM's prefill call, train step and decode tick, the
+    few rows between those two (48 to 512), and FLAVA's three MLPs at batch
+    64."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = [("vision", BATCH * 50, 768, 3072, 768, "quick_gelu"),
+              ("text", BATCH * 77, 512, 2048, 512, "quick_gelu")]
+    shapes += [(f"small_{act}", 300, 256, 512, 192, act)
+               for act in ("quick_gelu", "gelu", "gelu_exact", "relu", "silu")]
+    # the LM's MLP (exact GELU): a prefill call of 8 x 2048 rows, a train
+    # step's 8 x 8192, a decode tick of 33, and few rows in between
+    shapes += [(name, r, 768, 3072, 768, "gelu_exact") for name, r in (
+        ("lm_prefill", 8 * 2048), ("lm_train", 8 * 8192), ("lm_decode", 33),
+        ("rows_48", 48), ("rows_64", 64), ("rows_128", 128), ("rows_256", 256),
+        ("rows_512", 512))]
+    shapes += [(f"flava_{tower}", FLAVA_BATCH * seq, 768, 3072, 768, "gelu_exact")
+               for tower, seq in FLAVA_SEQS]
+    rows = []
+    for dtype in dtypes:
+        for shape in shapes:
+            row = mlp_case(fe, *shape, dtype, gen, timing=timing)
+            print("kernel_check " + json.dumps(row), flush=True)
+            rows.append(row)
+            torch.cuda.empty_cache()
+    return rows
 
 
 def attention_bwd_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen):
@@ -413,7 +489,7 @@ def mlp_bwd_acc_case(fe, name, rows, din, dff, dout, act, dtype, gen, timing=Tru
     kernel_ms = time_ms(lambda: fe.fused_mlp_bwd_acc(x, g, w1, b1, w2, act), 1)
     reps = reps_for(kernel_ms)
     kernel_ms = time_ms(lambda: fe.fused_mlp_bwd_acc(x, g, w1, b1, w2, act), reps)
-    stage_ms = acc_stage_ms(fe, x, g, w1, b1, w2, act)
+    stages = stage_ms(lambda: fe.fused_mlp_bwd_acc(x, g, w1, b1, w2, act), ACC_STAGES)
     plain_ms = time_ms(lambda: fe.mlp_bwd_acc_plain(x, g, w1, b1, w2, act), reps)
 
     def staged():  # the route #5 replaces: _MLP.backward's #4 branch
@@ -432,7 +508,7 @@ def mlp_bwd_acc_case(fe, name, rows, din, dff, dout, act, dtype, gen, timing=Tru
               + 4 * (w1.numel() + w2.numel() + b1.numel()))
     flops = 2.0 * rows * dff * (3 * din + 2 * dout)  # z, g W2^T, dx, dW1, dW2
     bms, by = bound_ms(nbytes, flops, dtype)
-    row.update(ms=kernel_ms, stage_ms=stage_ms, plain_ms=plain_ms, library_ms=lib_ms,
+    row.update(ms=kernel_ms, stage_ms=stages, plain_ms=plain_ms, library_ms=lib_ms,
                staged_ms=staged_ms, bound_ms=bms, bound_by=by)
     return row
 
@@ -441,21 +517,21 @@ ACC_STAGES = (("zdh", "fused_mlp_bwd_acc_zdh"), ("dx", "fused_mlp_bwd_acc_dx"),
               ("dw", "fused_mlp_bwd_acc_dw"), ("sum", "fused_mlp_bwd_acc_sum"))
 
 
-def acc_stage_ms(fe, x, g, w1, b1, w2, act, reps=5):
-    """Device time of each of #5's stages a call (z/dh with its epilogue, dx,
-    dW, the fixed-order sum), from torch.profiler over ``reps`` calls;
-    'not measured' when the profiler sees no device time."""
+def stage_ms(fn, stages, reps=5):
+    """Device time a call of ``fn`` of each of a kernel's stages (``stages``:
+    (stage, a text of its kernels' names)), from torch.profiler over
+    ``reps`` calls; 'not measured' when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            fe.fused_mlp_bwd_acc(x, g, w1, b1, w2, act)
+            fn()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        for stage, kernel in ACC_STAGES:
+        for stage, kernel in stages:
             if kernel in e.key and us:
                 out[stage] = out.get(stage, 0.0) + us / 1e3 / reps
     return out or "not measured"
@@ -928,18 +1004,6 @@ def check_kernels(fe):
         cases.append(attention_case(fe, "key_bias", 8, 40, 256, 4, False, dtype, True, gen))
         cases.append(attention_case(fe, "key_bias_causal", 8, 77, 256, 4, True, dtype, True, gen))
         cases.append(attention_case(fe, "head_width_96", 8, 50, 384, 4, True, dtype, False, gen))
-        cases.append(mlp_case(fe, "vision", BATCH * 50, 768, 3072, 768, "quick_gelu", dtype, gen))
-        cases.append(mlp_case(fe, "text", BATCH * 77, 512, 2048, 512, "quick_gelu", dtype, gen))
-        for act in ("quick_gelu", "gelu", "gelu_exact", "relu", "silu"):
-            cases.append(mlp_case(fe, f"small_{act}", 300, 256, 512, 192, act, dtype, gen))
-        # the LM's MLP (exact GELU): a prefill call of 8 x 2048 rows, a decode tick of 33
-        cases.append(mlp_case(fe, "lm_prefill", 8 * 2048, 768, 3072, 768, "gelu_exact", dtype,
-                              gen))
-        cases.append(mlp_case(fe, "lm_decode", 33, 768, 3072, 768, "gelu_exact", dtype, gen))
-        # FLAVA's MLPs (exact GELU) at batch 64: image, text and multimodal rows
-        for tower, seq in FLAVA_SEQS:
-            cases.append(mlp_case(fe, f"flava_{tower}", FLAVA_BATCH * seq, 768, 3072, 768,
-                                  "gelu_exact", dtype, gen))
         tb = TRAIN_BATCH
         cases.append(attention_bwd_case(fe, "vision", tb, 50, 768, 12, False, dtype, False, gen))
         cases.append(attention_bwd_case(fe, "text", tb, 77, 512, 8, True, dtype, False, gen))
@@ -994,6 +1058,17 @@ PLANTED_FAULTS = {
     "acc: act' left out of da": (
         "fused_mlp_bwd_acc.cu", "fused_mlp_bwd_acc_zdh_kernel(const __grid_constant__",
         "const float da0 = dh[4 * j + 2 * hf] * d0;", "const float da0 = dh[4 * j + 2 * hf];"),
+    "mlp: b1 left out of stage H's epilogue": (
+        "fused_mlp.cu", "gemm_tiles(const GemmParams& p)",
+        "const float bias0 = to_f(p.bias[c]), bias1 = to_f(p.bias[c + 1]);",
+        "const float bias0 = ACT < 0 ? to_f(p.bias[c]) : 0.f, "
+        "bias1 = ACT < 0 ? to_f(p.bias[c + 1]) : 0.f;"),
+    "mlp: stage H's last ragged row tile of h not stored": (
+        "fused_mlp.cu", "gemm_tiles(const GemmParams& p)", "if (r < p.R)",
+        "if (r < (ACT >= 0 ? p.R / BM * BM : p.R))"),
+    "mlp: stage O's last ragged row tile of the output not stored": (
+        "fused_mlp.cu", "gemm_tiles(const GemmParams& p)", "if (r < p.R)",
+        "if (r < (ACT < 0 ? p.R / BM * BM : p.R))"),
 }
 # For each patched source: the sources its copy builds (its wrappers bind
 # their symbols) and the bf16 checks that run against it.
@@ -1007,13 +1082,18 @@ PLANTED_FAULT_CHECKS = {
          "fused_mlp_bwd.cu", "fused_mlp_bwd_acc.cu"),
         "from multimodal_tpu_torch.ops import fused_encoder as fe; "
         "cs.check_acc_kernel(fe, (torch.bfloat16,), timing=False)"),
+    "fused_mlp.cu": (
+        ("fused_qkv_attention.cu", "fused_qkv_attention_bwd.cu", "fused_mlp.cu",
+         "fused_mlp_bwd.cu", "fused_mlp_bwd_acc.cu"),
+        "from multimodal_tpu_torch.ops import fused_encoder as fe; "
+        "cs.check_mlp_kernel(fe, (torch.bfloat16,), timing=False)"),
 }
 
 
 def planted_faults() -> None:
     """Each fault of PLANTED_FAULTS in a copy of the package (only the
     sources its checks need, so the copy builds quickly) whose bf16 checks
-    of that kernel (#7-#9 or #5) run in a process of their own: a fault that
+    of that kernel (#7-#9, #5 or #3) run in a process of their own: a fault that
     no case catches fails the run."""
     import shutil
     from pathlib import Path
@@ -1046,13 +1126,121 @@ def planted_faults() -> None:
         caught = [c for c in checked if not c["ok"]]
         print(f"planted fault {name!r}: {len(caught)} of {len(checked)} bf16 cases fail "
               f"({time.perf_counter() - t0:.0f} s): " + json.dumps(
-                  {c["case"]: {k: round(v, 4) for k, v in c["rel_err"].items()}
+                  {c["case"]: {**{k: round(v, 4) for k, v in c["rel_err"].items()},
+                               **({} if c.get("deterministic", True)
+                                  else {"relaunch": "differs"})}
                    for c in caught}), flush=True)
         if proc.returncode != 0 or not checked:
             fail(f"planted fault {name!r}: the check did not run\n{proc.stdout[-3000:]}")
         if not caught:
             fail(f"planted fault {name!r}: no case caught it")
         shutil.rmtree(copy, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# --ab: kernel #3 (and #5, which shares its launch helpers) and the LM
+# serving tick, this checkout against another tree
+# --------------------------------------------------------------------------
+
+# The main paths' shapes of #3 and of #5, bf16.
+AB_MLP = [("flava_image", 64 * 197, 768, 3072, 768, "gelu_exact"),
+          ("flava_text", 64 * 77, 768, 3072, 768, "gelu_exact"),
+          ("flava_mm", 64 * 275, 768, 3072, 768, "gelu_exact"),
+          ("clip_vision", BATCH * 50, 768, 3072, 768, "quick_gelu"),
+          ("clip_text", BATCH * 77, 512, 2048, 512, "quick_gelu"),
+          ("lm_prefill", 8 * 2048, 768, 3072, 768, "gelu_exact"),
+          ("lm_train", 8 * 8192, 768, 3072, 768, "gelu_exact"),
+          ("lm_decode", 33, 768, 3072, 768, "gelu_exact")]
+AB_ACC = [("flava_image", 64 * 197, 768, 3072, 768, "gelu_exact"),
+          ("clip_vision", TRAIN_BATCH * 50, 768, 3072, 768, "quick_gelu"),
+          ("lm_train", 8 * 8192, 768, 3072, 768, "gelu_exact")]
+
+
+def ab_side() -> None:
+    """One process of --ab, run with a tree of the repo first on sys.path:
+    ms of that tree's #5 at AB_ACC's shapes and of its #3 at AB_MLP's (with
+    each stage's, from the profiler, where its kernels have this checkout's
+    names, and the host's time a call at the decode tick's rows), and the
+    LM serving phase's ms a tick on the host clock and on the device.
+    Prints one ``ab`` JSON line."""
+    from multimodal_tpu_torch.ops import fused_encoder as fe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    with torch.inference_mode():
+        # #5 first: its times then do not depend on what #3's version left
+        # in the allocator and the caches
+        for name, rows, din, dff, dout, act in AB_ACC:
+            x, g, w1t, b1, w2t = _mlp_bwd_inputs(rows, din, dff, dout, torch.bfloat16, gen)
+            fn = lambda: fe.fused_mlp_bwd_acc(x, g, w1t.t(), b1, w2t.t(), act)  # noqa: E731
+            out[f"acc_{name}"] = time_ms(fn, reps_for(time_ms(fn, 1)))
+            torch.cuda.empty_cache()
+        for name, rows, din, dff, dout, act in AB_MLP:
+            x, w1t, b1, w2t, b2 = _mlp_inputs(rows, din, dff, dout, torch.bfloat16, gen)
+            fn = lambda: fe.fused_mlp(x, w1t.t(), b1, w2t.t(), b2, act)  # noqa: E731
+            out[f"mlp_{name}"] = time_ms(fn, reps_for(time_ms(fn, 1)))
+            out[f"mlp_{name}_stages"] = stage_ms(fn, MLP_STAGES)
+            if rows == 33:  # the host's cost of one call at the decode tick's rows
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fn()
+                out[f"mlp_{name}_host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+                torch.cuda.synchronize()
+    from multimodal_tpu_torch.ops import flash_attention as fa
+    from multimodal_tpu_torch.ops import quantized_attention as qa
+
+    _, res = lm_serve(fe, fa, qa, card_line())
+    out["lm_ms_per_tick"] = res["ms_per_tick"]
+    out["lm_device_ms_per_tick"] = res.get("device_ms_per_tick", "not measured")
+    print("ab " + json.dumps(out), flush=True)
+
+
+def ab(parent: str) -> None:
+    """--ab PARENT: #3, #5 and the LM serving tick of another tree of the
+    repo (PARENT: the parent commit, unpacked with git archive) and of this
+    checkout, each side a process of its own, in turns: parent, checkout,
+    checkout, parent, twice. The trees' kernels build in parallel first."""
+    from pathlib import Path
+
+    trees = {"parent": Path(parent).resolve(), "change": Path(__file__).resolve().parent}
+
+    def run(name, code):
+        return [sys.executable, "-c", f"import sys; sys.path.insert(0, {str(trees[name])!r}); "
+                + code]
+
+    t0 = time.perf_counter()
+    procs = {n: subprocess.Popen(run(n, "from multimodal_tpu_torch.ops import _build; "
+                                        "_build.build()"),
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for n in trees}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"--ab: the {name} tree's kernels did not build\n{log[-3000:]}")
+    print(f"ab: built {len(trees)} trees in {time.perf_counter() - t0:.1f} s", flush=True)
+    results = {n: [] for n in trees}
+    me = str(Path(__file__).resolve())
+    for name in ("parent", "change", "change", "parent") * 2:
+        proc = subprocess.run(
+            run(name, "import importlib.util as u; "
+                      f"s = u.spec_from_file_location('ab_side', {me!r}); "
+                      "m = u.module_from_spec(s); s.loader.exec_module(m); "
+                      "m.ab_side()"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        lines = [line for line in proc.stdout.splitlines() if line.startswith("ab {")]
+        if proc.returncode or not lines:
+            fail(f"--ab: the {name} side failed\n{proc.stdout[-3000:]}")
+        results[name].append(json.loads(lines[-1][3:]))
+        print(f"ab {name}: {lines[-1][3:]}", flush=True)
+        for line in proc.stdout.splitlines():
+            if line.startswith("lm decode: top host ops"):
+                print(f"ab {name} {line}", flush=True)
+    first = results["change"][0]
+    summary = {k: {n: [r.get(k) for r in rs] for n, rs in results.items()}
+               for k, v in first.items() if isinstance(v, float)}
+    print("ab summary (each side's runs in order): " + json.dumps(summary), flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -1374,6 +1562,8 @@ def lm_serve(fe, fa, qa, card):
     print("lm: device time of one decode call (16 ticks x 33 rows at position 2100) by kernel "
           "group " + json.dumps(decode_groups), flush=True)
     result.update(min_cosine=worst, prefill_profile=prefill_groups, decode_profile=decode_groups)
+    if isinstance(decode_groups, dict):  # device time against the host clock's ms a tick
+        result["device_ms_per_tick"] = decode_groups["total_device_ms"] / engine.decode_steps
     return launches, result
 
 
@@ -1395,7 +1585,7 @@ def kernel_group(name: str) -> str:
         return "fused_mlp_bwd_acc"
     if "fused_mlp_bwd_kernel" in name:
         return "fused_mlp_bwd"
-    if "fused_mlp_kernel" in name:
+    if "fused_mlp_kernel" in name or "fused_mlp_fwd_" in name:  # #3: fp32; bf16's stages
         return "fused_mlp"
     if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma")):
         return "library_gemm"
@@ -1919,6 +2109,10 @@ def main() -> None:
     card = card_line()
     print(f"device: {card} | {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    if "--ab" in sys.argv[1:]:
+        ab(sys.argv[sys.argv.index("--ab") + 1])
+        print("ab: done; no result line", flush=True)
+        return
     if "--planted-faults" in sys.argv[1:]:
         planted_faults()
         print("planted faults: each failed at least one case; no result line", flush=True)
@@ -1934,8 +2128,8 @@ def main() -> None:
                     or line.startswith("==")):
                 print("  " + line.strip(), flush=True)
 
-    cases = (check_kernels(fe) + check_acc_kernel(fe) + check_new_kernels(fa, qa, kv)
-             + check_bwd_kernels(fa))
+    cases = (check_kernels(fe) + check_mlp_kernel(fe) + check_acc_kernel(fe)
+             + check_new_kernels(fa, qa, kv) + check_bwd_kernels(fa))
     bwd_rows = flash_bwd_timing(fa)
     cases += bwd_rows
     bad = [c for c in cases if not c["ok"]]
@@ -2011,8 +2205,8 @@ def main() -> None:
         if "staged_ms" in head:
             entry["staged_ms"] = head["staged_ms"]  # the route #5 replaces: #4 + library dW
         entry["cases"] = [{k: c[k] for k in ("case", "dtype", "max_abs_err", "rel_err", "tol",
-                                             "ms", "stage_ms", "plain_ms", "library_ms",
-                                             "staged_ms",
+                                             "ms", "stage_ms",
+                                             "plain_ms", "library_ms", "staged_ms", "tflops",
                                              "bound_ms", "bound_by", "deterministic")
                            if k in c}
                           for c in mine]
@@ -2036,8 +2230,10 @@ def main() -> None:
           f"{served_rate:.1f} pairs/s served; train gradient cosine {grad_cos:.6f}, "
           f"{train_rate:.1f} items/s, {step_ms:.1f} ms a step, peak {peak / 2**30:.2f} GiB; "
           f"ViT-B/16 gradient cosine {b16_cos:.6f}; ViT-L/14 cosine {vit_cos:.6f}; LM serving "
-          f"{lm['prefill_tokens_per_s']:.1f} prefill tokens/s, {lm['decode_tokens_per_s']:.1f} decode tokens/s, {lm['ms_per_tick']:.2f} "
-          f"ms a tick, TTFT p50 {lm['ttft_p50_s']:.3f} s, peak {lm['peak_gib']:.2f} GiB, logit "
+          f"{lm['prefill_tokens_per_s']:.1f} prefill tokens/s, "
+          f"{lm['decode_tokens_per_s']:.1f} decode tokens/s, {lm['ms_per_tick']:.2f} ms a tick "
+          f"(device {lm.get('device_ms_per_tick', float('nan')):.2f}), TTFT p50 "
+          f"{lm['ttft_p50_s']:.3f} s, peak {lm['peak_gib']:.2f} GiB, logit "
           f"cosine {lm['min_cosine']:.6f}; LM training {lm_tr['tokens_per_s']:.1f} tokens/s, "
           f"{lm_tr['ms_per_step']:.1f} ms a step, peak {lm_tr['peak_gib']:.2f} GiB, gradient "
           f"cosine {lm_tr['grad_cosine']:.6f}; FLAVA pretraining {flava['items_per_s']:.1f} "

@@ -473,24 +473,6 @@ __global__ void fused_mlp_bwd_acc_sum_kernel(const float* __restrict__ part,
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// Blocks of a persistent launch: `per_sm` a multiprocessor, no more than
-// there are items.
-int persistent_grid(int items, int per_sm) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 132;
-  }
-  return items < per_sm * sms ? items : per_sm * sms;
-}
-
 template <int ACT>
 cudaError_t launch_bf16(const void* x, const void* g, const void* w1, const void* b1,
                         const void* w2, void* dx, void* dah, float* part, float* out, int R,
@@ -517,9 +499,10 @@ cudaError_t launch_bf16(const void* x, const void* g, const void* w1, const void
   zp.Din = Din;
   zp.Dff = Dff;
   zp.Dout = Dout;
-  if ((err = allow_smem(fused_mlp_bwd_acc_zdh_kernel<ACT>, kZdhSmem)) != cudaSuccess) return err;
-  fused_mlp_bwd_acc_zdh_kernel<ACT>
-      <<<persistent_grid((Dff + BN - 1) / BN * row_tiles, 1), wg::kThreads, kZdhSmem, st>>>(zp);
+  if ((err = wg::allow_smem(fused_mlp_bwd_acc_zdh_kernel<ACT>, kZdhSmem)) != cudaSuccess)
+    return err;
+  fused_mlp_bwd_acc_zdh_kernel<ACT><<<wg::persistent_grid((Dff + BN - 1) / BN * row_tiles, 1),
+                                      wg::kThreads, kZdhSmem, st>>>(zp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   DxParams xp;
@@ -529,8 +512,8 @@ cudaError_t launch_bf16(const void* x, const void* g, const void* w1, const void
   xp.R = R;
   xp.Din = Din;
   xp.Dff = Dff;
-  if ((err = allow_smem(fused_mlp_bwd_acc_dx_kernel, kSmem)) != cudaSuccess) return err;
-  fused_mlp_bwd_acc_dx_kernel<<<persistent_grid((Din + BN - 1) / BN * row_tiles, 2),
+  if ((err = wg::allow_smem(fused_mlp_bwd_acc_dx_kernel, kSmem)) != cudaSuccess) return err;
+  fused_mlp_bwd_acc_dx_kernel<<<wg::persistent_grid((Din + BN - 1) / BN * row_tiles, 2),
                                 wg::kThreads, kSmem, st>>>(xp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
@@ -553,8 +536,8 @@ cudaError_t launch_bf16(const void* x, const void* g, const void* w1, const void
   wp.tiles2_n = (Dff + BN - 1) / BN;
   wp.tiles1 = (Dff + BM - 1) / BM * wp.tiles1_n;
   wp.tiles = wp.tiles1 + (Dout + BM - 1) / BM * wp.tiles2_n;
-  if ((err = allow_smem(fused_mlp_bwd_acc_dw_kernel, kSmem)) != cudaSuccess) return err;
-  fused_mlp_bwd_acc_dw_kernel<<<persistent_grid(wp.tiles * splits, 2), wg::kThreads, kSmem,
+  if ((err = wg::allow_smem(fused_mlp_bwd_acc_dw_kernel, kSmem)) != cudaSuccess) return err;
+  fused_mlp_bwd_acc_dw_kernel<<<wg::persistent_grid(wp.tiles * splits, 2), wg::kThreads, kSmem,
                                 st>>>(wp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 

@@ -98,6 +98,29 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rows, int co
 }
 
 // ---------------------------------------------------------------------------
+// Host: launch helpers
+// ---------------------------------------------------------------------------
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only so).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Blocks of a persistent launch: `per_sm` a multiprocessor, no more than
+// there are items.
+inline int persistent_grid(int items, int per_sm) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return items < per_sm * sms ? items : per_sm * sms;
+}
+
+// ---------------------------------------------------------------------------
 // Device: barriers, copies, products
 // ---------------------------------------------------------------------------
 

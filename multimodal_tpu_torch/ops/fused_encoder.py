@@ -1,6 +1,5 @@
 """Fused encoder-block kernels: attention off the fused QKV projection, and
-the two-layer MLP with its intermediate kept on chip, each with its
-backward.
+the two-layer MLP, each with its backward.
 
 Counterpart of ``multimodal_tpu/ops/fused_encoder.py``. Each function here
 takes the JAX function's layouts:
@@ -17,7 +16,8 @@ Both are ``torch.autograd.Function``s, as the JAX functions are
 ``custom_vjp``s: the forward saves its inputs only, and the backward
 recomputes what it needs. On a CUDA tensor each wrapper launches its
 hand-written kernel (forward ``csrc/fused_qkv_attention.cu`` and
-``csrc/fused_mlp.cu``, backward ``csrc/fused_qkv_attention_bwd.cu`` and,
+``csrc/fused_mlp.cu`` (two GEMMs on the core of ``csrc/wgmma_gemm.cuh``),
+backward ``csrc/fused_qkv_attention_bwd.cu`` and,
 for the MLP by a rule on shapes, ``csrc/fused_mlp_bwd_acc.cu`` (on the GEMM
 core of ``csrc/wgmma_gemm.cuh``) or ``csrc/fused_mlp_bwd.cu``) or raises;
 it never falls back. On a CPU tensor it runs the plain PyTorch version,
@@ -78,7 +78,7 @@ def _kernels() -> ctypes.CDLL:
             _V, _V, _V, _V, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
         lib.mm_qkv_attention_bwd.restype = _I
         lib.mm_fused_mlp.argtypes = [
-            _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _V]
+            _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _V]
         lib.mm_fused_mlp.restype = _I
         lib.mm_fused_mlp_bwd.argtypes = [
             _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _V]
@@ -477,6 +477,13 @@ def _check_mlp(name: str, x, w1, b1, w2, b2, activation: str) -> None:
                 *(() if b2 is None else (b2,)))
 
 
+def _mlp_fwd_workspace(rows: int, dff: int, dtype: torch.dtype):
+    """Shape of kernel #3's workspace for ``rows`` rows of ``dtype``: in
+    bf16 h, ``(rows, Dff)`` of bf16, between its two GEMMs; fp32 has one
+    kernel and none (None)."""
+    return (rows, dff) if dtype == torch.bfloat16 else None
+
+
 def _mlp_fwd(x, w1, b1, w2, b2, activation: str) -> torch.Tensor:
     """Kernel #3 on CUDA, its plain version on the CPU."""
     if activation not in _ACT_CODES:
@@ -486,20 +493,32 @@ def _mlp_fwd(x, w1, b1, w2, b2, activation: str) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp: no kernel for {x.device}")
     _check_mlp("fused_mlp", x, w1, b1, w2, b2, activation)
-    din, dff = w1.shape
-    dout = w2.shape[-1]
     rows = math.prod(x.shape[:-1])
-    out = torch.empty((*x.shape[:-1], dout), dtype=x.dtype, device=x.device)
+    out = torch.empty((*x.shape[:-1], w2.shape[-1]), dtype=x.dtype, device=x.device)
     if rows == 0:
         return out
-    err = _kernels().mm_fused_mlp(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), rows, din, dff, dout, _ACT_CODES[activation],
-        _DTYPE_CODES[x.dtype], _build.stream_of(x),
-    )
-    _build.raise_on(err, "fused_mlp")
+    ws_shape = _mlp_fwd_workspace(rows, w1.shape[1], x.dtype)
+    # a fresh workspace each call (from the caching allocator), never a
+    # buffer kept between calls: a recomputed forward (remat) gets its own
+    ws = None if ws_shape is None else torch.empty(ws_shape, dtype=x.dtype, device=x.device)
+    _mlp_fwd_launch(x, w1, b1, w2, b2, activation, out, ws)
     fused_mlp.launches += 1
     return out
+
+
+def _mlp_fwd_launch(x, w1, b1, w2, b2, activation: str, out, ws) -> None:
+    """Launches kernel #3 into ``out`` with ``ws`` as its workspace
+    (``_mlp_fwd_workspace``'s shape, or None), on operands that
+    ``_check_mlp`` accepted and at least one row. ``_mlp_fwd`` calls it with
+    fresh tensors; a check may pass its own, filled with NaN, so that an
+    element the kernel leaves unwritten shows."""
+    din, dff = w1.shape
+    err = _kernels().mm_fused_mlp(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), None if ws is None else ws.data_ptr(), math.prod(x.shape[:-1]), din,
+        dff, w2.shape[-1], _ACT_CODES[activation], _DTYPE_CODES[x.dtype], _build.stream_of(x),
+    )
+    _build.raise_on(err, "fused_mlp")
 
 
 def fused_mlp_bwd(x, g, w1, b1, w2, activation: str = "gelu"):
@@ -613,13 +632,12 @@ class _MLP(torch.autograd.Function):
 
 
 def fused_mlp(x, w1, b1, w2, b2, activation: str = "gelu") -> torch.Tensor:
-    """``act(x @ w1 + b1) @ w2 + b2`` with the ``(rows, Dff)`` intermediate
-    kept on chip, differentiable in every operand. All operands share the
-    compute dtype; ``x`` is ``(..., Din)``, ``w1`` ``(Din, Dff)``, ``w2``
-    ``(Dff, Dout)``. ``activation`` is one of quick_gelu, gelu (tanh form),
-    gelu_exact, relu and silu. On CUDA the weights must be column-major
-    (``w1.t()`` and ``w2.t()`` contiguous), as ``nn.Linear`` weights
-    transposed are."""
+    """``act(x @ w1 + b1) @ w2 + b2``, differentiable in every operand. All
+    operands share the compute dtype; ``x`` is ``(..., Din)``, ``w1``
+    ``(Din, Dff)``, ``w2`` ``(Dff, Dout)``. ``activation`` is one of
+    quick_gelu, gelu (tanh form), gelu_exact, relu and silu. On CUDA the
+    weights must be column-major (``w1.t()`` and ``w2.t()`` contiguous), as
+    ``nn.Linear`` weights transposed are."""
     return _MLP.apply(x, w1, b1, w2, b2, activation)
 
 
