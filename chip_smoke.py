@@ -55,8 +55,9 @@ in order (any failure exits non-zero):
    against an fp32 step of the same weights on the CPU (concatenated cosine
    >= 0.99; its MLP backward is #4, 12 launches); 2 warm-up and 5 timed
    steps on synthetic windows of batch 8 x 8192, whose counters must show,
-   a step, 24 launches of #6 (forward and remat recompute), 12 of #7, 12 of
-   #8, 0 of #9, 24 of #3 and 12 of #5 (#4 none), and finite losses;
+   a step, 24 launches of #6 (forward and remat recompute), 12 of the
+   backward (#7 + #8 as one call), 0 of #9, 24 of #3 and 12 of #5 (#4
+   none), and finite losses;
    tokens/s, ms a step, peak memory and one step's device time by kernel
    group; then the recipe's ``main`` with ``--packed-docs synthetic --steps
    2 --bf16`` (batch 8 x 8192), finite losses;
@@ -88,10 +89,12 @@ attention (#10) at the decode shape (33 x 12 heads, 4096 positions) and its
 verify-window and GQA variants, each output element held to its own row's
 scale (``row_relative_error``), and times #6 against the plain path at
 S = 32 to 1024 (the numbers ``ops/attention.py:FLASH_MIN_SEQ`` is set
-from). It checks the flash attention backward (#7 dq, #8 dk/dv, #9 the bias
-gradient) against the plain backward at the prefill shape causal and #6's
-variants, bf16 and fp32, with the lse cotangent through
-``flash_attention_lse``, each element to its row's scale; and times #7, #8
+from). It checks the flash attention backward (``flash_attention_bwd``:
+#7 dq and #8 dk/dv as one call; #9 the bias gradient) against the plain
+backward at the prefill shape causal and #6's variants, bf16 and fp32, with
+the lse cotangent through ``flash_attention_lse``, each element to its
+row's scale, and launches it again into outputs and a dq workspace filled
+with NaN (dk and dv bitwise equal, dq within its bar); and times the call
 and #9 at the LM training shape (8, 12, 8192, 64) bf16 causal beside their
 bound, the plain version and the SDPA backward (for #9 with a
 differentiable float mask, whose gradient is ds). It checks the MLP
@@ -104,9 +107,10 @@ and the route it replaces (#4 plus the library's dW products); and times
 #5 against that route at 1,024 to 4,096 rows (the numbers
 ``fused_mlp_bwd_acc_supported``'s threshold is set from).
 ``--kernels-only`` stops after phase 2 and prints no result line;
-``--planted-faults`` only builds copies of #7-#9, #5 and #3 with known
-faults (``PLANTED_FAULTS``) and shows that the checks catch each one;
-``--ab PARENT`` only times #3, #5 and the LM serving tick of the tree at
+``--planted-faults`` only builds copies of the backward, #5 and #3 with
+known faults (``PLANTED_FAULTS``) and shows that the checks catch each one;
+``--ab PARENT`` only times #3, #5, the flash attention backward at the LM
+training shape and the LM serving tick of the tree at
 PARENT (the parent commit unpacked with ``git archive``) and of this
 checkout, in turns, each in a process of its own.
 
@@ -828,12 +832,18 @@ def bwd_terms(fa, q, k, v, out, do, lse, dlse, bias, causal, seg, parts):
 
 def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
                    segments=False, dbias=False, lse_cot=False):
-    """Kernels #7, #8 (and #9 with ``dbias``) against the plain backward on
-    the same inputs, each output element to its row's scale; with
-    ``lse_cot`` through ``flash_attention_lse``'s autograd with both
-    cotangents."""
+    """``flash_attention_bwd`` (#7 + #8 as one call; and #9 with ``dbias``)
+    against the plain backward on the same inputs, each output element to
+    its row's scale; with ``lse_cot`` through ``flash_attention_lse``'s
+    autograd with both cotangents. Without it the call is launched again
+    through ``_flash_bwd_launch`` into dq, dk, dv and a dq workspace filled
+    with NaN first: dk and dv must come back bitwise equal to the first
+    call's (no element left unwritten, no workspace read before its
+    zero-fill), dq within its bar (its sum over key blocks has no fixed
+    order on the one-pass route)."""
     q, k, v, do, bias, seg = _bwd_inputs(b, h, sq, sk, d, dtype, gen, bias_kind, segments)
     kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    relaunch = {}
     if lse_cot:
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         out, lse = fa.flash_attention_lse(qg, kg, vg, causal)
@@ -851,8 +861,15 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
         with torch.no_grad():
             out, lse = fa.flash_attention_forward(q, k, v, bias, return_lse=True, **kw)
             delta = fa._delta(out, do, None)
-            got = {"dq": fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, bias, **kw)}
-            got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias, **kw)
+            got = dict(zip(("dq", "dk", "dv"),
+                           fa.flash_attention_bwd(q, k, v, do, lse, delta, bias, **kw)))
+            again = [fa._grad_like(t).fill_(math.nan) for t in (q, k, v)]
+            ws = fa._dq_workspace(q)
+            acc = None if ws is None else torch.full(ws, math.nan, device="cuda")
+            fa._flash_bwd_launch(q, k, v, do, lse, delta, bias, *again, acc, sm_scale=None, **kw)
+            relaunch["dq"] = again[0]
+            relaunch["same"] = all(torch.equal(x, got[n]) for x, n in zip(again[1:], ("dk", "dv")))
+            del again, acc
             parts = ("dq", "dk", "dv")
             if dbias:
                 got["ds"] = fa.flash_attention_bwd_dbias(q, k, v, do, lse, delta, bias, **kw)
@@ -864,15 +881,22 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
     rel, no_terms = bwd_readings(got, ref, terms)
     err = {n: (got[n].float() - ref[n].float()).abs().max().item() for n in got}
     tol = {n: ROW_RELATIVE_BAR_BWD[got[n].dtype] for n in got}
+    ok = all(rel[n] <= tol[n] for n in rel)
+    extra = {}
+    if relaunch:
+        rel_dq = row_relative_error(relaunch["dq"], ref["dq"], terms["dq"])
+        extra = dict(deterministic=relaunch["same"], relaunch_dq_rel_err=rel_dq)
+        ok = ok and relaunch["same"] and rel_dq <= tol["dq"]
     return dict(kernel="flash_attention_bwd", case=name, shape=[b, h, sq, sk, d], causal=causal,
                 bias=bias_kind, segments=segments, dbias=dbias, lse_cotangent=lse_cot,
                 dtype=str(dtype).replace("torch.", ""), rel_err=rel, max_abs_err=err, tol=tol,
-                rel_err_no_terms=no_terms, ok=all(rel[n] <= tol[n] for n in rel))
+                rel_err_no_terms=no_terms, **extra, ok=ok)
 
 
 def check_bwd_kernels(fa, dtypes=(torch.bfloat16, torch.float32)):
-    """The cases of kernels #7-#9: the LM prefill shape causal and #6's
-    variants."""
+    """The cases of the backward (#7 + #8 as one call, #9): the LM prefill
+    shape causal and #6's variants; head widths 32, 96 and 128 take the
+    other routes."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = []
     for dtype in dtypes:
@@ -904,12 +928,16 @@ def check_bwd_kernels(fa, dtypes=(torch.bfloat16, torch.float32)):
 
 
 def flash_bwd_timing(fa, b=8, h=12, s=8192, d=64):
-    """#7, #8 and #9 at the LM training shape, bf16 causal (#9 with an
-    ALiBi-style (1, H, 1, S) bias, the case that differentiates one): each
-    held against the plain backward (run a batch row at a time: its (S, S)
-    fp32 matrices of all 8 rows would not fit) and timed beside the plain
-    version, the SDPA backward (dq, dk and dv in one call, timed only) and
-    the card's bound. The library time of #9 is the SDPA backward with a
+    """``flash_attention_bwd`` (#7 + #8 as one call: zero-fill, the one-pass
+    kernel and dq's conversion) and #9 at the LM training shape, bf16 causal
+    (#9 with an ALiBi-style (1, H, 1, S) bias, the case that differentiates
+    one): each held against the plain backward (run a batch row at a time:
+    its (S, S) fp32 matrices of all 8 rows would not fit) and timed beside
+    the plain version, the SDPA backward (dq, dk and dv in one call, timed
+    only) and the card's bound. The bound of the call counts the five
+    products that the function needs (s, dp, dv, dk, dq: 10 d FLOPs a
+    visible pair), and bytes as q, k, v, do, lse and delta read once and dq,
+    dk, dv written once. The library time of #9 is the SDPA backward with a
     differentiable float mask (ALiBi plus the causal -inf), on the
     memory-efficient backend: it returns the mask's gradient, the full
     (B, H, S, S) ds summed to the mask's shape, with dq, dk and dv."""
@@ -923,15 +951,14 @@ def flash_bwd_timing(fa, b=8, h=12, s=8192, d=64):
     io = 4 * q.numel() * es + 2 * b * h * s * 4  # q, k, v, do, lse, delta
     rows = []
     with torch.no_grad():
-        for name, bias in (("dq", None), ("dkv", None), ("dbias", alibi)):
+        for name, bias in (("flash_attention_bwd", None), ("flash_attention_bwd_dbias", alibi)):
             out, lse = fa.flash_attention_forward(q, k, v, bias, causal=True, return_lse=True)
             delta = fa._delta(out, do, None)
             args = (q, k, v, do, lse, delta, bias)
-            fn = {"dq": fa.flash_attention_bwd_dq, "dkv": fa.flash_attention_bwd_dkv,
-                  "dbias": fa.flash_attention_bwd_dbias}[name]
-            parts = {"dq": ("dq",), "dkv": ("dk", "dv"), "dbias": ("ds",)}[name]
+            fn = getattr(fa, name)
+            parts = ("dq", "dk", "dv") if name == "flash_attention_bwd" else ("ds",)
             got = fn(*args, causal=True)
-            got = dict(zip(parts, got if name == "dkv" else (got,)))
+            got = dict(zip(parts, got if len(parts) > 1 else (got,)))
             tol = {n: ROW_RELATIVE_BAR_BWD[got[n].dtype] for n in parts}
             rel, err = {n: 0.0 for n in parts}, {n: 0.0 for n in parts}
             no_terms = {n: [0.0, 0.0] for n in parts}
@@ -956,18 +983,16 @@ def flash_bwd_timing(fa, b=8, h=12, s=8192, d=64):
             kernel_ms = time_ms(lambda: fn(*args, causal=True), 1, warmup=1)
             kernel_ms = time_ms(lambda: fn(*args, causal=True), reps_for(kernel_ms), warmup=1)
             plain_ms = time_ms(lambda: [plain(i) for i in range(b)], 2, warmup=1)
-            if name == "dq":
-                flops, nbytes = 6.0 * d * pairs, io + q.numel() * es
-            elif name == "dkv":
-                flops, nbytes = 8.0 * d * pairs, io + 2 * k.numel() * es
+            if name == "flash_attention_bwd":
+                flops, nbytes = 10.0 * d * pairs, io + 3 * q.numel() * es
             else:
                 flops, nbytes = 4.0 * d * pairs, io + alibi.numel() * 4 + b * h * s * s * 4
             bms, by = bound_ms(nbytes, flops, dtype)
-            rows.append(dict(kernel=f"flash_attention_bwd_{name}", case="train",
-                             shape=[b, h, s, s, d], causal=True, dtype="bfloat16",
-                             rel_err=rel, max_abs_err=max(err.values()), tol=tol,
-                             rel_err_no_terms=no_terms, ok=all(rel[n] <= tol[n] for n in rel),
-                             ms=kernel_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            rows.append(dict(kernel=name, case="train", shape=[b, h, s, s, d], causal=True,
+                             dtype="bfloat16", rel_err=rel, max_abs_err=max(err.values()),
+                             max_abs_err_by_part=err, tol=tol, rel_err_no_terms=no_terms,
+                             ok=all(rel[n] <= tol[n] for n in rel), ms=kernel_ms,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                              tflops=flops / kernel_ms / 1e9))
             del out, lse, delta, args
             torch.cuda.empty_cache()
@@ -1038,16 +1063,24 @@ def check_kernels(fe):
 # the checkout's sources): (source, the kernel function's signature, text,
 # replacement).
 PLANTED_FAULTS = {
-    "dkv: one key past the causal diagonal": (
-        "flash_attention_bwd.cu", "flash_bwd_dkv_mma_kernel(Args a)", "visible(a, b, i, j)",
+    "bwd: one key past the causal diagonal": (
+        "flash_attention_bwd.cu", "flash_bwd_wgmma_kernel(const __grid_constant__",
+        "visible(a, b, i, j)",
         "(visible(a, b, i, j) || (a.causal && j == i + 1 + off && (!a.qseg || "
         "a.qseg[b * a.qseg_b + i] == a.kvseg[b * a.kvseg_b + j])))"),
-    "dkv: the ragged last query tile dropped": (
-        "flash_attention_bwd.cu", "flash_bwd_dkv_mma_kernel(Args a)",
-        "const int nq = (a.Sq + QT - 1) / QT;", "const int nq = a.Sq / QT;"),
-    "dq: delta left out": (
-        "flash_attention_bwd.cu", "flash_bwd_dq_mma_kernel(Args a)",
-        "p * (dp[nt][e] - delta[e >> 1])", "p * dp[nt][e]"),
+    "bwd: the ragged last query tile dropped": (
+        "flash_attention_bwd.cu", "flash_bwd_wgmma_kernel(const __grid_constant__",
+        "const int nq = (a.Sq + kWgTile - 1) / kWgTile;", "const int nq = a.Sq / kWgTile;"),
+    "bwd: delta left out of ds": (
+        "flash_attention_bwd.cu", "flash_bwd_wgmma_kernel(const __grid_constant__",
+        "pe * (dpt[4 * n + e] - ((e & 1) ? d2.y : d2.x))", "pe * dpt[4 * n + e]"),
+    "bwd: key block 0's dq part not added": (
+        "flash_attention_bwd.cu", "void add_dq_part(const float (&dq)[16]",
+        "if (issuer) wg::tma_reduce_add_3d(",
+        "if (issuer && blockIdx.x != 0) wg::tma_reduce_add_3d("),
+    "bwd: the dq workspace not zero-filled": (
+        "flash_attention_bwd.cu", "cudaError_t launch_wgmma(",
+        "cudaMemsetAsync(ws, 0, bytes, st)", "cudaSuccess"),
     "acc: the first row run's dW partial left out of the sum": (
         "fused_mlp_bwd_acc.cu", "fused_mlp_bwd_acc_sum_kernel(const float*",
         "for (int c = 0; c < splits; ++c)", "for (int c = 1; c < splits; ++c)"),
@@ -1093,7 +1126,7 @@ PLANTED_FAULT_CHECKS = {
 def planted_faults() -> None:
     """Each fault of PLANTED_FAULTS in a copy of the package (only the
     sources its checks need, so the copy builds quickly) whose bf16 checks
-    of that kernel (#7-#9, #5 or #3) run in a process of their own: a fault that
+    of that kernel (the backward, #5 or #3) run in a process of their own: a fault that
     no case catches fails the run."""
     import shutil
     from pathlib import Path
@@ -1138,8 +1171,9 @@ def planted_faults() -> None:
 
 
 # --------------------------------------------------------------------------
-# --ab: kernel #3 (and #5, which shares its launch helpers) and the LM
-# serving tick, this checkout against another tree
+# --ab: kernel #3 (and #5, which shares its launch helpers), the flash
+# attention backward and the LM serving tick, this checkout against another
+# tree
 # --------------------------------------------------------------------------
 
 # The main paths' shapes of #3 and of #5, bf16.
@@ -1160,9 +1194,12 @@ def ab_side() -> None:
     """One process of --ab, run with a tree of the repo first on sys.path:
     ms of that tree's #5 at AB_ACC's shapes and of its #3 at AB_MLP's (with
     each stage's, from the profiler, where its kernels have this checkout's
-    names, and the host's time a call at the decode tick's rows), and the
-    LM serving phase's ms a tick on the host clock and on the device.
-    Prints one ``ab`` JSON line."""
+    names, and the host's time a call at the decode tick's rows), of its
+    flash attention backward (``_flash_backward``: delta, dq, dk and dv) at
+    the LM training shape (8, 12, 8192, 64) bf16 causal, and the LM serving
+    phase's ms a tick on the host clock and on the device. Prints one
+    ``ab`` JSON line."""
+    from multimodal_tpu_torch.ops import flash_attention as fa
     from multimodal_tpu_torch.ops import fused_encoder as fe
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1188,7 +1225,13 @@ def ab_side() -> None:
                     fn()
                 out[f"mlp_{name}_host_us"] = (time.perf_counter() - t0) / 200 * 1e6
                 torch.cuda.synchronize()
-    from multimodal_tpu_torch.ops import flash_attention as fa
+        q, k, v, do, _, _ = _bwd_inputs(8, 12, 8192, 8192, 64, torch.bfloat16, gen, None, False)
+        o, lse = fa.flash_attention_forward(q, k, v, causal=True, return_lse=True)
+        fn = lambda: fa._flash_backward(q, k, v, o, lse, do, causal=True,  # noqa: E731
+                                        sm_scale=None)
+        out["flash_backward_train"] = time_ms(fn, reps_for(time_ms(fn, 1)))
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
     from multimodal_tpu_torch.ops import quantized_attention as qa
 
     _, res = lm_serve(fe, fa, qa, card_line())
@@ -1198,9 +1241,9 @@ def ab_side() -> None:
 
 
 def ab(parent: str) -> None:
-    """--ab PARENT: #3, #5 and the LM serving tick of another tree of the
-    repo (PARENT: the parent commit, unpacked with git archive) and of this
-    checkout, each side a process of its own, in turns: parent, checkout,
+    """--ab PARENT: #3, #5, the flash backward and the LM serving tick of
+    another tree of the repo (PARENT: the parent commit, unpacked with git
+    archive) and of this checkout, each side a process of its own, in turns: parent, checkout,
     checkout, parent, twice. The trees' kernels build in parallel first."""
     from pathlib import Path
 
@@ -1571,10 +1614,8 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in name:
         return "flash_attention"
-    if "flash_bwd_dkv" in name:
-        return "flash_attention_bwd_dkv"
-    if "flash_bwd_dq" in name:
-        return "flash_attention_bwd_dbias" if "true" in name else "flash_attention_bwd_dq"
+    if "flash_bwd" in name:  # #9 is the dq body's kDbias = true instance
+        return "flash_attention_bwd_dbias" if "true" in name else "flash_attention_bwd"
     if "quantized_cache_attention" in name:
         return "quantized_cache_attention"
     if "qkv_attention_bwd" in name:
@@ -1890,15 +1931,14 @@ def lm_train(fe, fa, card):
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = {"flash_attention": fa.flash_attention_forward.launches,
-                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
-                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
+                "flash_attention_bwd": fa.flash_attention_bwd.launches,
                 "flash_attention_bwd_dbias": fa.flash_attention_bwd_dbias.launches,
                 "fused_mlp": fe.fused_mlp.launches, **mlp_bwd_launches(fe)}
     layers = LM_TRAIN["n_layer"]
     # forward and remat recompute: 2 a layer; backward: 1; #9 only for a
     # differentiated bias; 65,536 rows are #5's side of the predicate
-    want = {"flash_attention": 2 * layers * steps, "flash_attention_bwd_dq": layers * steps,
-            "flash_attention_bwd_dkv": layers * steps, "flash_attention_bwd_dbias": 0,
+    want = {"flash_attention": 2 * layers * steps, "flash_attention_bwd": layers * steps,
+            "flash_attention_bwd_dbias": 0,
             "fused_mlp": 2 * layers * steps, "fused_mlp_bwd": 0,
             "fused_mlp_bwd_acc": layers * steps}
     print(f"lm train: launches {launches}, want {want} ({steps} steps, {layers} layers)",
@@ -2125,7 +2165,7 @@ def main() -> None:
     if _build.build_log:
         for line in _build.build_log.splitlines():
             if ("registers" in line or "spill" in line or "entry function" in line
-                    or line.startswith("==")):
+                    or "C75" in line or line.startswith("==")):  # C75xx: wgmma serialized
                 print("  " + line.strip(), flush=True)
 
     cases = (check_kernels(fe) + check_mlp_kernel(fe) + check_acc_kernel(fe)
@@ -2167,8 +2207,8 @@ def main() -> None:
     main_path = {"fused_qkv_attention": "serve", "fused_qkv_attention_bwd": "train",
                  "fused_mlp": "flava", "fused_mlp_bwd": "flava_grad_check",
                  "fused_mlp_bwd_acc": "flava", "flash_attention": "lm",
-                 "quantized_cache_attention": "lm", "flash_attention_bwd_dq": "lm_train",
-                 "flash_attention_bwd_dkv": "lm_train", "flash_attention_bwd_dbias": "lm_train"}
+                 "quantized_cache_attention": "lm", "flash_attention_bwd": "lm_train",
+                 "flash_attention_bwd_dbias": "lm_train"}
 
     def path_launches(name):
         out = {"launches": paths[main_path[name]][name]}
@@ -2211,20 +2251,27 @@ def main() -> None:
                            if k in c}
                           for c in mine]
         kernels.append(entry)
-    bwd_checks = [c for c in cases if c["kernel"] == "flash_attention_bwd"]
-    for row, line, parts in zip(bwd_rows, (625, 650, 679), (("dq",), ("dk", "dv"), ("ds",))):
+    # one entry per pallas_call: :625 (dq) and :650 (dk, dv) both name the
+    # one call that replaces them, with its one time
+    bwd_checks = [c for c in cases
+                  if c["kernel"] == "flash_attention_bwd" and c["case"] != "train"]
+    fused_row, dbias_row = bwd_rows
+    for row, line, parts in ((fused_row, 625, ("dq",)), (fused_row, 650, ("dk", "dv")),
+                             (dbias_row, 679, ("ds",))):
         name = row["kernel"]
         kernels.append({
             "name": name, "route": "cuda", "source": "multimodal_tpu_torch/csrc/flash_attention_bwd.cu",
-            "replaces": f"multimodal_tpu/ops/flash_attention.py:{line}",
+            "replaces": f"multimodal_tpu/ops/flash_attention.py:{line}", "parts": list(parts),
             **path_launches(name),
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "max_abs_err": max(row["max_abs_err_by_part"][n] for n in parts),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "passed": row["ok"] and all(c["ok"] for c in bwd_checks),
             "cases": [{"case": c["case"], "dtype": c["dtype"],
                        "tol": {n: c["tol"][n] for n in parts},
-                       "rel_err": {n: c["rel_err"][n] for n in parts}}
+                       "rel_err": {n: c["rel_err"][n] for n in parts},
+                       **{k: c[k] for k in ("deterministic", "relaunch_dq_rel_err") if k in c}}
                       for c in bwd_checks if parts[0] in c["rel_err"]]})
     print(f"summary: serve min cosine {min_cos:.6f}, {device_rate:.1f} pairs/s device, "
           f"{served_rate:.1f} pairs/s served; train gradient cosine {grad_cos:.6f}, "

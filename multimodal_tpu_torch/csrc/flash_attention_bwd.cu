@@ -2,9 +2,10 @@
 // forward's log2-space lse), for Hopper.
 //
 // Replaces: multimodal_tpu/ops/flash_attention.py, `_flash_backward`'s three
-// kernel bodies: `_bwd_dq_kernel` (#7, here flash_bwd_dq_*_kernel),
-// `_bwd_dkv_kernel` (#8, flash_bwd_dkv_*_kernel) and `_bwd_dbias_kernel`
-// (#9, flash_bwd_dq_*_kernel<..., kDbias = true>).
+// kernel bodies: `_bwd_dq_kernel` (#7, its pallas_call at :625) and
+// `_bwd_dkv_kernel` (#8, :650), both here flash_bwd_wgmma_kernel in bf16 at
+// head width 64, and `_bwd_dbias_kernel` (#9, :679, here
+// flash_bwd_dq_mma_kernel<..., kDbias = true>).
 //
 // What they compute, per batch b and head h, for query row i (Sq rows) and
 // key j (Sk keys), with the forward's scores and visibility rules:
@@ -22,48 +23,74 @@
 // bias * log2(e) products), so p is the normalised probability.
 //
 // What bounds them on this card: operations. At the LM training shape
-// (8, 12, 8192, 64) bf16 causal there are 3.2e9 visible pairs; #7 does three
-// products over them (2 * 64 FLOPs each a pair: 1.24 TFLOP, 1.25 ms at
-// 989 TF/s) and #8 four (1.67 ms), against 4 * 8 * 12 * 8192 * 64 * 2 bytes
-// of q, k, v and do (0.02 ms at 3.35 TB/s). #9 writes the fp32 (Sq, Sk)
+// (8, 12, 8192, 64) bf16 causal there are 3.22e9 visible pairs, and the
+// function needs five products over them (s, dp, dv, dk, dq: 10 * 64 FLOPs
+// a pair, 2.06 TFLOP, 2.085 ms at 989 TF/s), against 0.7 GB of q, k, v, do,
+// dq, dk and dv (0.2 ms at 3.35 TB/s). The TPU's split into a dq kernel and
+// a dk/dv kernel computes s and dp in both, seven products (2.92 ms): no
+// split design can reach the library's backward. #9 writes the fp32 (Sq, Sk)
 // matrix and so is bound by bytes (25.8 GB, 7.7 ms at that shape).
 //
-// Design (bf16 at head width 32, 64 or 128; `mma.sync` m16n8k16, fragments
-// by `ldmatrix`, as the forward's tensor-core path):
-// - #7: one block of 4 warps per (64-query tile, head, batch); each warp owns
-//   16 query rows and keeps its scores, dp and its 16 x D fp32 dq accumulator
-//   in registers. The TPU's sequential key-grid axis is the loop over 64-key
-//   tiles inside the block, up to the last tile the query tile can see; K
-//   and V tiles are double-buffered by cp.async. q and do stay in shared
-//   memory (their fragments are re-read by ldmatrix a tile, which costs
-//   shared-memory bandwidth but keeps the registers for the accumulators).
-//   ds is reused in registers as the A fragment of ds . k (K by
-//   ldmatrix.trans).
-// - #8: one block of 4 warps per (64-key tile, head, batch), each warp 16
-//   keys with fp32 dk and dv accumulators in registers; the loop walks query
-//   tiles from the first one that can see the key tile (the causal offset
-//   Sk - Sq decides it), q, do, lse and delta staged in a two-stage cp.async
-//   buffer. The transposed products s^T = k q^T and dp^T = v do^T put keys on
-//   the rows, so p^T and ds^T are A fragments in registers for p^T . do and
-//   ds^T . q. Registers bound its occupancy: the two accumulators are
-//   2 * D / 2 fp32 a thread, and a first version that held p^T and dp^T for
-//   all 64 queries of a tile (64 registers more) used 207-218 registers at
-//   D = 64, so 2 blocks (8 warps) an SM. The 64-query tile is now consumed in
-//   two passes of 32 queries and the kernel bounded to 3 blocks an SM at
-//   D <= 64 (the ptxas report that chip_smoke.py prints shows registers and
-//   spills); PERF.md has both versions' times.
-// - #9: #7's block at a single key tile: grid x enumerates (query tile, key
-//   tile); each writes its ds tile in fp32, or zeros where the causal skip
-//   applies.
-// The per-element masks run only on tiles that cross the diagonal or an edge,
-// or carry a bias or segments, as in the forward.
+// Design, bf16 at head width 64 (flash_bwd_wgmma_kernel): one block of two
+// warpgroups per (128-key block, head, batch), 64 keys a warpgroup; blocks
+// of a head are numbered from key block 0, which under the causal mask sees
+// the most query tiles, so the longest start first. Thread 0 loads the
+// block's K and V once by TMA and streams q and do (64-query tiles, 64 x 64
+// boxes with the 128-byte swizzle) and the tile's lse and delta (bulk
+// copies of rows that a small kernel pads first: a row that sees no key or
+// lies past Sq gets lse +inf, so p = 0 there) through a ring of three
+// stages, two tiles ahead, each stage guarded by an mbarrier. A stage is
+// refilled after the per-tile named barrier of both warpgroups, which
+// follows their last reads of it. Each warpgroup keeps its K and V as
+// register A fragments and, per query tile (M = its 64 keys), runs the
+// five products on `wgmma` (csrc/wgmma_gemm.cuh):
+//   1. s^T = K q^T and 2. dp^T = V do^T, q and do from shared memory; then
+//   p^T and ds^T in fp32 in registers (the per-element masks only on tiles
+//   that cross the diagonal or an edge, or carry a bias or segments);
+//   3. dv += T(p^T) do and 4. dk += T(ds^T) q with A from registers: the
+//   accumulator layout, rounded and packed, is the A fragment;
+//   5. the block's part of dq = T(ds) K over its 128 keys: each warpgroup
+//   writes T(ds^T) once into shared memory in the swizzled layout (two
+//   buffers by tile parity), the warpgroups meet at a named barrier, and
+//   each computes 32 of dq's 64 columns from both halves (A = ds and B = K,
+//   both MN-major).
+// dv/dk of tile t, s/dp of t + 1 and dq of t are in flight together; a
+// tile starts by waiting for all of them, since ptxas serializes the
+// products (C7515) if ordinary instructions write their registers while
+// any is in flight. dq's part, 64 x 64 fp32, then goes through shared
+// memory to a TMA reduction (cp.reduce.async.bulk.tensor .add) into an
+// fp32 (B H, Sq, 64) workspace that the entry point zero-fills on the
+// stream first; a last kernel writes dq = T(scale * workspace). dk and dv
+// stay in registers across the block's query tiles and are written once.
+// The sum over key blocks into the workspace runs in no fixed order, so dq
+// is not bitwise repeatable from launch to launch (as with the library's
+// flash backward); dk and dv are each owned by one block and are. Rows
+// that see no key get dq = 0. There is no producer warp: a tenth warp
+// would put three warps on one of the SM's four sub-partitions and cap
+// every thread at 168 registers, and ptxas does not lift that cap after
+// `setmaxnreg`; two warpgroups get 246. At (8, 12, 8192, 64) bf16 causal
+// the call takes 5.84 ms against the 2.085 ms bound and the library's
+// 4.79 (H100 80GB HBM3, 700.00 W; PERF.md).
 //
-// fp32, and bf16 at other head widths, run on the FP32 pipes: #7 / #9 as a
-// block of 8 warps owning 32 query rows (4 a warp) over 32-key tiles (a lane
-// owns a key for the scores, 32-column slices of dq for ds . k, with ds
-// broadcast by shuffles); #8 as a block of 8 warps owning 32 keys over
-// 32-query tiles, mirrored. Tiles are staged transposed with an odd pitch.
-// wgmma, TMA and warp specialisation are later work.
+// Other routes, chosen by type and head width, never after a failure:
+// - bf16 at head width 32 or 128: `mma.sync` m16n8k16, fragments by
+//   `ldmatrix` (at 128 the dk and dv accumulators alone would take 128
+//   registers of a consumer thread). #7 is one block of 4 warps per
+//   (64-query tile, head, batch), each warp 16 query rows with its scores,
+//   dp and fp32 dq accumulator in registers, K and V tiles double-buffered
+//   by cp.async; #8 is one block of 4 warps per (64-key tile, head, batch),
+//   each warp 16 keys with fp32 dk and dv in registers, walking query tiles
+//   (two passes of 32 queries) from the first that can see its keys, with
+//   the transposed products s^T = k q^T and dp^T = v do^T, so that p^T and
+//   ds^T are A fragments in registers.
+// - #9 at every bf16 head width 32, 64, 128: #7's `mma.sync` block at a
+//   single key tile: grid x enumerates (query tile, key tile); each writes
+//   its ds tile in fp32, or zeros where the causal skip applies.
+// - fp32, and bf16 at other head widths: the FP32 pipes. #7 / #9 as a block
+//   of 8 warps owning 32 query rows (4 a warp) over 32-key tiles (a lane
+//   owns a key for the scores, 32-column slices of dq for ds . k, with ds
+//   broadcast by shuffles); #8 as a block of 8 warps owning 32 keys over
+//   32-query tiles, mirrored. Tiles are staged transposed with an odd pitch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +98,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -84,8 +112,8 @@ struct Args {
   const void* k;
   const void* v;
   const void* dout;
-  void* out0;  // dq (#7), dk (#8), dbias (#9)
-  void* out1;  // dv (#8)
+  void* out0;  // dq (#7), dk (#8 and the one-pass kernel), dbias (#9)
+  void* out1;  // dv (#8 and the one-pass kernel)
   long long qs[3], ks[3], vs[3], dos[3];  // batch, head, row strides in elements
   long long o0s[3], o1s[3];
   const float* bias;
@@ -144,7 +172,432 @@ __device__ __forceinline__ int first_query_tile(const Args& a, int k0, int tile)
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bf16 at head width 32, 64 or 128.
+// bf16 at head width 64: one pass over each key block, `wgmma` + TMA.
+// ---------------------------------------------------------------------------
+
+constexpr int kWgKeys = 128;  // keys a block owns: 64 a warpgroup
+constexpr int kWgTile = 64;   // queries a ring stage holds
+constexpr int kWgStages = 3;
+constexpr int kWgThreads = 256;  // two warpgroups; thread 0 issues the copies
+constexpr int kBox = 64 * 64 * 2;  // one 64 x 64 bf16 box
+
+// Shared memory, from a 1024-byte aligned base, in boxes: K (2), V (2),
+// q and do of each stage, T(ds^T) of both warpgroups in two buffers (4),
+// the fp32 dq part in two buffers (4: a 64 x 32 box a warpgroup), then
+// each stage's lse and delta (64 floats each) and the barriers.
+constexpr int kBoxK = 0;
+constexpr int kBoxV = 2;
+constexpr int kBoxQ = 4;
+constexpr int kBoxDo = kBoxQ + kWgStages;
+constexpr int kBoxDs = kBoxDo + kWgStages;
+constexpr int kBoxDq = kBoxDs + 4;
+constexpr int kBoxes = kBoxDq + 4;
+constexpr size_t kWgSmem =
+    1024 + (size_t)kBoxes * kBox + 2 * kWgStages * kWgTile * sizeof(float) +
+    (kWgStages + 1) * sizeof(uint64_t);
+
+struct WgParams {
+  CUtensorMap q, k, v, dout;  // (B, H, S, 64) bf16, 64 x 64 boxes
+  CUtensorMap dq_acc;         // (B H, Sq, 64) fp32, 64-row x 32-column boxes
+  const float* lse_pad;       // (B H, sq_pad): row_lse, +inf past Sq
+  const float* delta_pad;     // (B H, sq_pad): row_delta, 0 past Sq
+  int sq_pad;                 // Sq rounded up to the query tile
+  Args a;                     // out0 dk, out1 dv
+};
+
+// Shared-memory descriptors of 64-row boxes with the 128-byte swizzle (see
+// wg::operand_desc): K-major, k-step kk 32 bytes into the rows; MN-major,
+// k-step kk 16 rows (2048 bytes) on.
+__device__ __forceinline__ uint64_t desc_k(uint32_t box, int kk) {
+  return wg::desc(box + kk * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t box, int kk) {
+  return wg::desc(box + kk * 2048, kBox, 1024);
+}
+
+// Thread 0: the copies of query tile `it` of the block into its stage: q
+// and do (two boxes), lse and delta (256 bytes each), reported to full.
+__device__ __forceinline__ void load_tile(const WgParams& p, uint8_t* sm, float* lse_s,
+                                          float* delta_s, uint64_t* full, int it, int t_begin,
+                                          int h, int b, long long bh) {
+  const int s = it % kWgStages;
+  const int q0 = (t_begin + it) * kWgTile;
+  wg::bar_expect_tx(&full[s], 2 * kBox + 2 * kWgTile * sizeof(float));
+  wg::tma_box_4d(sm + (kBoxQ + s) * kBox, &p.q, &full[s], 0, q0, h, b);
+  wg::tma_box_4d(sm + (kBoxDo + s) * kBox, &p.dout, &full[s], 0, q0, h, b);
+  wg::bulk_copy(lse_s + s * kWgTile, p.lse_pad + bh * p.sq_pad + q0, kWgTile * sizeof(float),
+                &full[s]);
+  wg::bulk_copy(delta_s + s * kWgTile, p.delta_pad + bh * p.sq_pad + q0,
+                kWgTile * sizeof(float), &full[s]);
+}
+
+// Steps 1 and 2 of query tile `it` of a block: s^T = K q^T and dp^T =
+// V do^T (a warpgroup's 64 keys x 64 queries; K and V from registers, q and
+// do K-major), issued as one group once the tile's stage has landed. The
+// first k-step overwrites the accumulators (scale-d 0): no other
+// instruction may write registers of a product in flight, or ptxas
+// serializes the products.
+__device__ __forceinline__ void issue_sdp(float (&st)[32], float (&dpt)[32], uint8_t* sm,
+                                          uint64_t* full, int it, const uint32_t (&kf)[4][4],
+                                          const uint32_t (&vf)[4][4]) {
+  const int s = it % kWgStages;
+  wg::bar_wait(&full[s], (it / kWgStages) & 1);
+  __syncwarp();  // the warp leaves the poll together: `wgmma` is .aligned
+  const uint32_t q_box = wg::smem_u32(sm + (kBoxQ + s) * kBox);
+  const uint32_t do_box = wg::smem_u32(sm + (kBoxDo + s) * kBox);
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wg::mma_m64n64k16_rs<wg::K>(st, kf[kk], desc_k(q_box, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wg::mma_m64n64k16_rs<wg::K>(dpt, vf[kk], desc_k(do_box, kk), kk);
+  wg::wgmma_commit();
+}
+
+// A warpgroup's 64 x 64 box (128-byte rows, 128-byte swizzle) as the A
+// fragments of its four k-steps: f[kk][r] holds row 16 ww + g + 8 (r % 2),
+// columns 16 kk + 2 t4 + 8 (r / 2) and + 1.
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[4][4], const uint8_t* box) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int ww = (threadIdx.x / 32) % 4;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 16 * ww + g + 8 * (r & 1);
+      const int col = 16 * kk + 2 * t4 + 8 * (r >> 1);
+      f[kk][r] = *reinterpret_cast<const uint32_t*>(box + row * 128 +
+                                                    (((col >> 3) ^ g) << 4) + (col & 7) * 2);
+    }
+}
+
+// The dq part of query tile q0 (64 queries x warpgroup wgi's 32 columns)
+// from its accumulator into one of the warpgroup's fp32 boxes (query row r,
+// column c at 16-byte chunk c / 4 ^ (r % 8) of its 128-byte row), then
+// added into the workspace by TMA.
+__device__ __forceinline__ void add_dq_part(const float (&dq)[16], uint8_t* box,
+                                            const CUtensorMap* map, int wgi, int q0, int bh,
+                                            bool issuer) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int ww = (threadIdx.x / 32) % 4;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * ww + g + 8 * hh;
+      *reinterpret_cast<float2*>(box + r * 128 + (((2 * n + (t4 >> 1)) ^ g) << 4) +
+                                 8 * (t4 & 1)) = make_float2(dq[4 * n + 2 * hh],
+                                                             dq[4 * n + 2 * hh + 1]);
+    }
+  wg::fence_async_smem();
+  wg::named_sync(2 + wgi, 128);
+  if (issuer) wg::tma_reduce_add_3d(map, box, 32 * wgi, q0, bh);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_wgmma_kernel(const __grid_constant__ WgParams p) {
+  const Args& a = p.a;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                           ~uintptr_t(1023));
+  float* lse_s = reinterpret_cast<float*>(sm + kBoxes * kBox);  // [stage][64]
+  float* delta_s = lse_s + kWgStages * kWgTile;                  // [stage][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + kWgStages * kWgTile);
+  uint64_t* kv_bar = full + kWgStages;
+
+  const int kb = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long bh = (long long)b * a.H + h;
+  const int k0 = kb * kWgKeys;
+  const int nq = (a.Sq + kWgTile - 1) / kWgTile;
+  const int t_begin = first_query_tile(a, k0, kWgTile);
+  const int ntiles = nq - t_begin;  // >= 1: the block's first key is < Sk
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) wg::bar_init(&full[s], 1);
+    wg::bar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    wg::bar_expect_tx(kv_bar, 4 * kBox);
+    for (int j = 0; j < 2; ++j) {
+      wg::tma_box_4d(sm + (kBoxK + j) * kBox, &p.k, kv_bar, 0, k0 + 64 * j, h, b);
+      wg::tma_box_4d(sm + (kBoxV + j) * kBox, &p.v, kv_bar, 0, k0 + 64 * j, h, b);
+    }
+    for (int it = 0; it < 2 && it < ntiles; ++it)
+      load_tile(p, sm, lse_s, delta_s, full, it, t_begin, h, b, bh);
+  }
+
+  // Warpgroup wgi owns keys [k0w, k0w + 64); its accumulators' element
+  // 4 n + e is key row 16 ww + g + 8 (e / 2), column 8 n + 2 t4 + e % 2 (a
+  // query of the tile for s^T and dp^T, a head dimension for dk and dv).
+  const int lane = threadIdx.x & 31;
+  const int wgi = threadIdx.x / 128;
+  const int ww = (threadIdx.x / 32) % 4;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int k0w = k0 + 64 * wgi;
+  const int off = a.Sk - a.Sq;
+  const bool issuer = threadIdx.x % 128 == 0;
+
+  // Per query tile t a warpgroup waits for all its products, adds the dq
+  // part of t - 1 into the workspace, computes p^T and ds^T, issues
+  // dv/dk(t) and, once both warpgroups have stored ds^T(t), s/dp(t + 1)
+  // and the dq product of t: the three run together. No other instruction
+  // writes a product's registers while any product is in flight (ptxas
+  // would serialize them), and every product is issued on every tile (the
+  // last recomputes its own s/dp).
+  float st[32], dpt[32], dk[32], dv[32], dq[16];
+  uint32_t pa[4][4], da[4][4];  // live until the products that read them are done
+  uint32_t kf[4][4], vf[4][4];  // the warpgroup's K and V as A fragments
+#pragma unroll
+  for (int x = 0; x < 32; ++x) dk[x] = dv[x] = 0.f;
+#pragma unroll
+  for (int x = 0; x < 16; ++x) dq[x] = 0.f;
+  // the zeros are written here, not sunk into the first products' flight
+  wg::fence_acc(dk);
+  wg::fence_acc(dv);
+  wg::fence_acc(dq);
+  wg::bar_wait(kv_bar, 0);
+  load_a_frags(kf, sm + (kBoxK + wgi) * kBox);
+  load_a_frags(vf, sm + (kBoxV + wgi) * kBox);
+  issue_sdp(st, dpt, sm, full, 0, kf, vf);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % kWgStages;
+    const int q0 = (t_begin + it) * kWgTile;
+    const uint32_t q_box = wg::smem_u32(sm + (kBoxQ + s) * kBox);
+    const uint32_t do_box = wg::smem_u32(sm + (kBoxDo + s) * kBox);
+    uint8_t* ds_buf = sm + (kBoxDs + 2 * (it & 1)) * kBox;  // 128 keys x 64 queries
+    wg::wgmma_wait<0>();  // s/dp(t), dv/dk(t - 1) and dq(t - 1)
+    wg::fence_acc(st);
+    wg::fence_acc(dpt);
+    wg::fence_acc(dk);
+    wg::fence_acc(dv);
+    wg::fence_acc(dq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wg::fence_regs(pa[kk]);
+      wg::fence_regs(da[kk]);
+    }
+    if (it > 0)
+      add_dq_part(dq, sm + (kBoxDq + 2 * wgi + ((it + 1) & 1)) * kBox, &p.dq_acc, wgi,
+                  q0 - kWgTile, (int)bh, issuer);
+
+    // s2 = s * scale * log2(e) in place, the masks and the bias only on
+    // tiles that cross the diagonal or an edge or carry a bias or segments;
+    // then p^T and ds^T in fp32 in one straight pass, rounded and packed as
+    // A fragments: pa[kk] and da[kk] are the queries [16 kk, 16 kk + 16).
+    const bool whole = !a.bias && !a.qseg && q0 + kWgTile <= a.Sq && k0w + 64 <= a.Sk &&
+                       (!a.causal || k0w + 63 <= q0 + off);
+    if (whole) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) st[x] *= a.scale_log2;
+    } else {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = q0 + 8 * n + 2 * t4 + (e & 1);
+          const int j = k0w + 16 * ww + g + 8 * (e >> 1);
+          float s2 = st[4 * n + e] * a.scale_log2;
+          if (i < a.Sq && j < a.Sk && visible(a, b, i, j)) {
+            if (a.bias) s2 += bias_at(a, b, h, i, j);
+          } else {
+            s2 = -INFINITY;
+          }
+          st[4 * n + e] = s2;
+        }
+    }
+    const float* ls = lse_s + s * kWgTile;
+    const float* dls = delta_s + s * kWgTile;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * n + 2 * t4);
+      const float2 d2 = *reinterpret_cast<const float2*>(dls + 8 * n + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2f(st[4 * n + e] - ((e & 1) ? l2.y : l2.x));
+        st[4 * n + e] = pe;
+        dpt[4 * n + e] = pe * (dpt[4 * n + e] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = mm::pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+        da[kk][r] = mm::pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+      }
+
+    // T(ds^T) into this warpgroup's 64 rows of the buffer, 128-byte rows
+    // in the swizzle the descriptors read: query chunk n of key row r at
+    // 16-byte chunk n ^ (r % 8).
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 64 * wgi + 16 * ww + g + 8 * hh;
+        *reinterpret_cast<uint32_t*>(ds_buf + r * 128 + ((n ^ g) << 4) + 4 * t4) =
+            da[n >> 1][(n & 1) * 2 + hh];
+      }
+    wg::fence_async_smem();
+
+    // 3, 4: dv += T(p^T) do, dk += T(ds^T) q (B MN-major).
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::mma_m64n64k16_rs<wg::MN>(dv, pa[kk], desc_mn(do_box, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::mma_m64n64k16_rs<wg::MN>(dk, da[kk], desc_mn(q_box, kk), 1);
+    wg::wgmma_commit();
+
+    // Both warpgroups have stored T(ds^T)(t) and are done with the stage of
+    // t - 1, which takes tile t + 2; the dq box of t has been read by its
+    // last reduction.
+    if (issuer) wg::bulk_wait_read<1>();
+    wg::named_sync(1, kWgThreads);
+    if (threadIdx.x == 0 && it + 2 < ntiles)
+      load_tile(p, sm, lse_s, delta_s, full, it + 2, t_begin, h, b, bh);
+    __syncwarp();
+    issue_sdp(st, dpt, sm, full, it + 1 < ntiles ? it + 1 : it, kf, vf);
+
+    // 5: dq part (64 queries x this warpgroup's 32 columns) = T(ds) K over
+    // both warpgroups' keys.
+    const uint32_t ds_box = wg::smem_u32(ds_buf);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wg::mma_m64n32k16<wg::MN, wg::MN>(dq, desc_mn(ds_box, kk),
+                                        desc_mn(wg::smem_u32(sm + kBoxK * kBox) + 64 * wgi, kk),
+                                        kk);
+    wg::wgmma_commit();
+  }
+  wg::wgmma_wait<0>();
+  wg::fence_acc(st);
+  wg::fence_acc(dpt);
+  wg::fence_acc(dk);
+  wg::fence_acc(dv);
+  wg::fence_acc(dq);
+  const int last = ntiles - 1;
+  add_dq_part(dq, sm + (kBoxDq + 2 * wgi + (last & 1)) * kBox, &p.dq_acc, wgi,
+              (t_begin + last) * kWgTile, (int)bh, issuer);
+  if (issuer) wg::bulk_wait_all();
+
+  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.out0) + b * a.o0s[0] + h * a.o0s[1];
+  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.out1) + b * a.o1s[0] + h * a.o1s[1];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0w + 16 * ww + g + 8 * hh;
+    if (key >= a.Sk) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int c = 8 * n + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(dkg + key * a.o0s[2] + c) = __floats2bfloat162_rn(
+          dk[4 * n + 2 * hh] * a.scale, dk[4 * n + 2 * hh + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvg + key * a.o1s[2] + c) =
+          __floats2bfloat162_rn(dv[4 * n + 2 * hh], dv[4 * n + 2 * hh + 1]);
+    }
+  }
+}
+
+// The rows of lse and delta that the one-pass kernel copies a tile at a
+// time: row_lse (a row that sees no key, or past Sq, made +inf) and
+// row_delta (0 past Sq), each (B H, sq_pad).
+__global__ void flash_bwd_wgmma_rows_kernel(const Args a, float* lse_pad, float* delta_pad,
+                                            int sq_pad, long long n) {
+  for (long long x = blockIdx.x * (long long)blockDim.x + threadIdx.x; x < n;
+       x += (long long)gridDim.x * blockDim.x) {
+    const long long bh = x / sq_pad;
+    const int i = (int)(x - bh * sq_pad);
+    lse_pad[x] = row_lse(a, bh, i);
+    delta_pad[x] = row_delta(a, bh, i);
+  }
+}
+
+// dq = T(scale * workspace): the fp32 (B H, Sq, 64) sum into dq's strides,
+// four columns a thread.
+__global__ void flash_bwd_wgmma_dq_kernel(const float4* __restrict__ acc, __nv_bfloat16* dq,
+                                          long long s0, long long s1, long long s2, int H,
+                                          int Sq, float scale, long long n4) {
+  for (long long x = blockIdx.x * (long long)blockDim.x + threadIdx.x; x < n4;
+       x += (long long)gridDim.x * blockDim.x) {
+    const long long row = x / 16;
+    const int c = (int)(x % 16) * 4;
+    const long long bh = row / Sq;
+    const int i = (int)(row - bh * Sq);
+    const float4 f = acc[x];
+    __nv_bfloat162 lo = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(f.z * scale, f.w * scale);
+    uint2 w;
+    w.x = *reinterpret_cast<uint32_t*>(&lo);
+    w.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(dq + (bh / H) * s0 + (bh % H) * s1 + i * s2 + c) = w;
+  }
+}
+
+// A TMA map of a bf16 (B, H, S, 64) tensor at `base` with element strides
+// st (batch, head, row), 64 x 64 boxes (rows x head dimension).
+cudaError_t map_bhsd(CUtensorMap* map, const void* base, int B, int H, int S,
+                     const long long (&st)[3]) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  return wg::make_map_nd<4>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box);
+}
+
+unsigned grid_of(long long n) {
+  const long long blocks = (n + 255) / 256;
+  return (unsigned)(blocks < 65536 ? blocks : 65536);
+}
+
+// The zero-fill of dq's sum, the rows of lse and delta, the one-pass kernel
+// and dq's conversion, on `stream` in that order. ws: the (B H, Sq, 64)
+// sum, then the two (B H, sq_pad) rows.
+cudaError_t launch_wgmma(const Args& a, void* dq, const long long* dqs, void* ws,
+                         cudaStream_t st) {
+  static const cudaError_t smem_err = wg::allow_smem(flash_bwd_wgmma_kernel, kWgSmem);
+  if (smem_err != cudaSuccess) return smem_err;
+  WgParams p;
+  p.a = a;
+  cudaError_t err;
+  if ((err = map_bhsd(&p.q, a.q, a.B, a.H, a.Sq, a.qs)) != cudaSuccess) return err;
+  if ((err = map_bhsd(&p.k, a.k, a.B, a.H, a.Sk, a.ks)) != cudaSuccess) return err;
+  if ((err = map_bhsd(&p.v, a.v, a.B, a.H, a.Sk, a.vs)) != cudaSuccess) return err;
+  if ((err = map_bhsd(&p.dout, a.dout, a.B, a.H, a.Sq, a.dos)) != cudaSuccess) return err;
+  const long long rows = (long long)a.B * a.H * a.Sq;
+  const cuuint64_t dims[3] = {64, (cuuint64_t)a.Sq, (cuuint64_t)a.B * a.H};
+  const cuuint64_t strides[2] = {64 * sizeof(float), (cuuint64_t)a.Sq * 64 * sizeof(float)};
+  const cuuint32_t box[3] = {32, 64, 1};
+  if ((err = wg::make_map_nd<3>(&p.dq_acc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ws, dims, strides,
+                                box)) != cudaSuccess)
+    return err;
+  p.sq_pad = (a.Sq + kWgTile - 1) / kWgTile * kWgTile;
+  const long long pad_rows = (long long)a.B * a.H * p.sq_pad;
+  float* lse_pad = static_cast<float*>(ws) + rows * 64;
+  p.lse_pad = lse_pad;
+  p.delta_pad = lse_pad + pad_rows;
+  const size_t bytes = (size_t)rows * 64 * sizeof(float);
+  if ((err = cudaMemsetAsync(ws, 0, bytes, st)) != cudaSuccess) return err;
+  flash_bwd_wgmma_rows_kernel<<<grid_of(pad_rows), 256, 0, st>>>(a, lse_pad, lse_pad + pad_rows,
+                                                                 p.sq_pad, pad_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_bwd_wgmma_kernel<<<dim3((a.Sk + kWgKeys - 1) / kWgKeys, a.H, a.B), kWgThreads, kWgSmem,
+                           st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_bwd_wgmma_dq_kernel<<<grid_of(rows * 16), 256, 0, st>>>(
+      static_cast<const float4*>(ws), static_cast<__nv_bfloat16*>(dq), dqs[0], dqs[1], dqs[2],
+      a.H, a.Sq, a.scale, rows * 16);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// `mma.sync` path: #7 and #8 in bf16 at head width 32 or 128, #9 in bf16 at
+// 32, 64 or 128.
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;
@@ -367,7 +820,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_mma_kernel(Args a) {
 }
 
 // #8. QT: query rows a staged tile holds; QH: query columns of p^T and ds^T
-// held in registers at a time. minBlocks: 3 at D <= 64 (12 warps an SM, at
+// held in registers at a time. minBlocks: 3 at D = 32 (12 warps an SM, at
 // most 170 registers a thread), 2 at D = 128 (shared memory allows no more).
 template <int D, int QT, int QH>
 __global__ void __launch_bounds__(kWarps * 32, D <= 64 ? 3 : 2)
@@ -498,25 +951,27 @@ constexpr size_t dkv_smem() {
   return (2 * 64 + 4 * QT) * Pitch<D>::kP * sizeof(__nv_bfloat16) + 4 * QT * sizeof(float);
 }
 
-template <int D>
-cudaError_t launch_mma(int which, const Args& a, cudaStream_t stream) {
+template <int D, bool kDbias>
+cudaError_t launch_mma_dq(const Args& a, cudaStream_t stream) {
   const int nq = (a.Sq + kBQ - 1) / kBQ;
   const int nk = (a.Sk + kBK - 1) / kBK;
-  if (which == 1) {
-    auto kernel = flash_bwd_dkv_mma_kernel<D, 64, 32>;
-    const size_t smem = dkv_smem<D, 64>();
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3(nk, a.H, a.B), kWarps * 32, smem, stream>>>(a);
-    return cudaGetLastError();
-  }
-  auto kernel = which == 0 ? flash_bwd_dq_mma_kernel<D, false> : flash_bwd_dq_mma_kernel<D, true>;
+  auto kernel = flash_bwd_dq_mma_kernel<D, kDbias>;
   const size_t smem = dq_smem<D>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(which == 0 ? nq : nq * nk, a.H, a.B), kWarps * 32, smem, stream>>>(a);
+  kernel<<<dim3(kDbias ? nq * nk : nq, a.H, a.B), kWarps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_mma_dkv(const Args& a, cudaStream_t stream) {
+  auto kernel = flash_bwd_dkv_mma_kernel<D, 64, 32>;
+  const size_t smem = dkv_smem<D, 64>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.Sk + kBQ - 1) / kBQ, a.H, a.B), kWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -823,45 +1278,23 @@ cudaError_t dispatch_fp32(int which, const Args& a, int D, cudaStream_t stream) 
   return launch_fp32<T, 4>(which, a, D, stream);
 }
 
-}  // namespace
-
-extern "C" {
-
-// which: 0 = dq (#7; out0 dq), 1 = dk and dv (#8; out0 dk, out1 dv), 2 = the
-// full fp32 (B, H, Sq, Sk) bias gradient ds (#9; out0, contiguous).
-// q, do (B, H, Sq, D), k, v (B, H, Sk, D) and the bf16/fp32 outputs, all of
-// `dtype` (0 = fp32, 1 = bf16) with the last dimension contiguous; in_strides
-// holds the batch, head and row strides (in elements, 16-byte aligned rows)
-// of q, k, v and do, out_strides those of out0 and out1. bias: fp32 with
-// strides bias_strides (0 on broadcast dims) or null. qseg (B, Sq) / kvseg
-// (B, Sk) int32 with batch strides, both or neither. lse (log2 space) and
-// delta: (B, H, Sq) fp32 contiguous. Launches on `stream`, allocates
-// nothing, returns cudaGetLastError().
-int mm_flash_attention_bwd(int which, const void* q, const void* k, const void* v,
-                           const void* dout, void* out0, void* out1,
-                           const long long* in_strides, const long long* out_strides,
-                           const void* bias, const long long* bias_strides, const void* qseg,
-                           long long qseg_b, const void* kvseg, long long kvseg_b,
-                           const void* lse, const void* delta, int B, int H, int Sq, int Sk,
-                           int D, float sm_scale, int causal, int dtype, void* stream) {
-  if (which < 0 || which > 2 || B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || D <= 0 ||
-      D % 8 != 0 || D > 128 || (dtype != 0 && dtype != 1) ||
-      ((qseg == nullptr) != (kvseg == nullptr)) || (which == 1 && out1 == nullptr))
-    return (int)cudaErrorInvalidValue;
+Args make_args(const void* q, const void* k, const void* v, const void* dout,
+               const long long* in_strides, const void* bias, const long long* bias_strides,
+               const void* qseg, long long qseg_b, const void* kvseg, long long kvseg_b,
+               const void* lse, const void* delta, int B, int H, int Sq, int Sk, float sm_scale,
+               int causal) {
   Args a;
   a.q = q;
   a.k = k;
   a.v = v;
   a.dout = dout;
-  a.out0 = out0;
-  a.out1 = out1;
+  a.out0 = a.out1 = nullptr;
   for (int i = 0; i < 3; ++i) {
     a.qs[i] = in_strides[i];
     a.ks[i] = in_strides[3 + i];
     a.vs[i] = in_strides[6 + i];
     a.dos[i] = in_strides[9 + i];
-    a.o0s[i] = out_strides[i];
-    a.o1s[i] = out_strides[3 + i];
+    a.o0s[i] = a.o1s[i] = 0;
   }
   a.bias = static_cast<const float*>(bias);
   for (int i = 0; i < 4; ++i) a.bs[i] = bias ? bias_strides[i] : 0;
@@ -878,12 +1311,89 @@ int mm_flash_attention_bwd(int which, const void* q, const void* k, const void* 
   a.scale = sm_scale;
   a.scale_log2 = sm_scale * kLog2e;
   a.causal = causal;
+  return a;
+}
+
+bool shape_ok(int B, int H, int Sq, int Sk, int D, int dtype, const void* qseg,
+              const void* kvseg) {
+  return B > 0 && H > 0 && Sq > 0 && Sk > 0 && D > 0 && D % 8 == 0 && D <= 128 &&
+         (dtype == 0 || dtype == 1) && (qseg == nullptr) == (kvseg == nullptr);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, do (B, H, Sq, D), k, v (B, H, Sk, D), all of `dtype` (0 = fp32, 1 =
+// bf16) with the last dimension contiguous; in_strides holds the batch, head
+// and row strides (in elements, 16-byte aligned rows) of q, k, v and do.
+// bias: fp32 with strides bias_strides (0 on broadcast dims) or null. qseg
+// (B, Sq) / kvseg (B, Sk) int32 with batch strides, both or neither. lse
+// (log2 space) and delta: (B, H, Sq) fp32 contiguous. Each entry launches
+// on `stream`, allocates nothing and returns the first launch error.
+//
+// dq (#7), dk and dv (#8) of `dtype`, in the layouts of q, k and v with the
+// batch, head and row strides out_strides (dq's, dk's, dv's). bf16 at D = 64
+// takes dq_acc, a contiguous fp32 workspace, 16-byte aligned, of B H (64 Sq
+// + 2 sq_pad) floats (sq_pad: Sq rounded up to a multiple of 64): dq's sum
+// over key blocks, which this entry zero-fills first, and the rows of lse
+// and delta that the kernel copies; the other routes ignore it.
+int mm_flash_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
+                           void* dq, void* dk, void* dv, void* dq_acc,
+                           const long long* in_strides, const long long* out_strides,
+                           const void* bias, const long long* bias_strides, const void* qseg,
+                           long long qseg_b, const void* kvseg, long long kvseg_b,
+                           const void* lse, const void* delta, int B, int H, int Sq, int Sk,
+                           int D, float sm_scale, int causal, int dtype, void* stream) {
+  const bool one_pass = dtype == 1 && D == 64;
+  if (!shape_ok(B, H, Sq, Sk, D, dtype, qseg, kvseg) || (one_pass && dq_acc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(q, k, v, dout, in_strides, bias, bias_strides, qseg, qseg_b, kvseg,
+                     kvseg_b, lse, delta, B, H, Sq, Sk, sm_scale, causal);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_fp32<float>(which, a, D, st);
-  if (D == 32) return (int)launch_mma<32>(which, a, st);
-  if (D == 64) return (int)launch_mma<64>(which, a, st);
-  if (D == 128) return (int)launch_mma<128>(which, a, st);
-  return (int)dispatch_fp32<__nv_bfloat16>(which, a, D, st);
+  a.out0 = dk;
+  a.out1 = dv;
+  for (int i = 0; i < 3; ++i) {
+    a.o0s[i] = out_strides[3 + i];
+    a.o1s[i] = out_strides[6 + i];
+  }
+  if (one_pass) return (int)launch_wgmma(a, dq, out_strides, dq_acc, st);
+  cudaError_t err;
+  if (dtype == 0)
+    err = dispatch_fp32<float>(1, a, D, st);
+  else if (D == 32)
+    err = launch_mma_dkv<32>(a, st);
+  else if (D == 128)
+    err = launch_mma_dkv<128>(a, st);
+  else
+    err = dispatch_fp32<__nv_bfloat16>(1, a, D, st);
+  if (err != cudaSuccess) return (int)err;
+  a.out0 = dq;
+  a.out1 = nullptr;
+  for (int i = 0; i < 3; ++i) a.o0s[i] = out_strides[i];
+  if (dtype == 0) return (int)dispatch_fp32<float>(0, a, D, st);
+  if (D == 32) return (int)launch_mma_dq<32, false>(a, st);
+  if (D == 128) return (int)launch_mma_dq<128, false>(a, st);
+  return (int)dispatch_fp32<__nv_bfloat16>(0, a, D, st);
+}
+
+// #9: ds, the full fp32 (B, H, Sq, Sk) bias gradient, contiguous.
+int mm_flash_attention_bwd_dbias(const void* q, const void* k, const void* v, const void* dout,
+                                 void* ds, const long long* in_strides, const void* bias,
+                                 const long long* bias_strides, const void* qseg, long long qseg_b,
+                                 const void* kvseg, long long kvseg_b, const void* lse,
+                                 const void* delta, int B, int H, int Sq, int Sk, int D,
+                                 float sm_scale, int causal, int dtype, void* stream) {
+  if (!shape_ok(B, H, Sq, Sk, D, dtype, qseg, kvseg)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(q, k, v, dout, in_strides, bias, bias_strides, qseg, qseg_b, kvseg,
+                     kvseg_b, lse, delta, B, H, Sq, Sk, sm_scale, causal);
+  a.out0 = ds;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dispatch_fp32<float>(2, a, D, st);
+  if (D == 32) return (int)launch_mma_dq<32, true>(a, st);
+  if (D == 64) return (int)launch_mma_dq<64, true>(a, st);
+  if (D == 128) return (int)launch_mma_dq<128, true>(a, st);
+  return (int)dispatch_fp32<__nv_bfloat16>(2, a, D, st);
 }
 
 }  // extern "C"

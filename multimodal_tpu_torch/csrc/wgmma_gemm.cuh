@@ -27,6 +27,12 @@
 // operands of the weight gradients, which reduce over rows). `wgmma` takes
 // either for 16-bit types; the shared-memory descriptor and the transpose
 // bit say which.
+//
+// The header also carries what csrc/flash_attention_bwd.cu's one-pass
+// kernel needs beside the ring's barriers and descriptors: maps of strided
+// tensors of up to five dimensions, m64n64k16 and m64n32k16 products, the
+// form with A in registers, bulk copies, TMA reductions into global fp32,
+// and named barriers.
 
 #pragma once
 
@@ -79,22 +85,35 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A TMA map of a strided tensor of R dimensions, dims[0] the contiguous one:
+// `strides` are the other dimensions' strides in bytes (multiples of 16, in
+// any order), `box` the box's extent in each dimension, 128-byte swizzle
+// (box[0] times the element size at most 128 bytes). Boxes that reach past
+// a dimension read zeros there, and a reduction into the map skips those
+// elements.
+template <int R>
+inline cudaError_t make_map_nd(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                               const cuuint64_t (&dims)[R], const cuuint64_t (&strides)[R - 1],
+                               const cuuint32_t (&box)[R]) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  cuuint32_t elem[R];
+  for (int i = 0; i < R; ++i) elem[i] = 1;
+  const CUresult r = enc(map, type, R, const_cast<void*>(base), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // A TMA map of the row-major bf16 matrix (rows, cols) at `base` (16-byte
 // aligned, cols a multiple of 8), cut into 64 x 64 boxes with the 128-byte
 // swizzle. Boxes that reach past the matrix read zeros there. The same map
 // serves the matrix as a K-major or an MN-major operand.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int rows, int cols) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {64, 64};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return make_map_nd<2>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box);
 }
 
 // ---------------------------------------------------------------------------
@@ -218,9 +237,18 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keeps the compiler from moving accesses of an accumulator across the
 // asynchronous products that write it.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for registers that asynchronous products read as their A
+// operand: they stay live, unchanged, until the fence after the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // d (64 x 128, fp32) += A (64 x 16) . B (16 x 128), both from shared memory.
@@ -255,6 +283,133 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da, uint
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "n"(MA), "n"(MB), "r"(1));
+}
+
+// The flash attention backward's products. Each has the accumulator layout
+// above (d[4 j + e] at row 16 w + l / 4 + 8 (e / 2), column 8 j + 2 (l % 4)
+// + e % 2); `acc` = 0 overwrites d instead of adding to it.
+//
+// d (64 x 64) (+)= A (64 x 16) . B (16 x 64), both from shared memory.
+template <int MA, int MB>
+__device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc), "n"(MA), "n"(MB));
+}
+
+// d (64 x 64) (+)= A (64 x 16) . B (16 x 64), A from registers: the A
+// fragment of a warp's 16 rows is mma.sync m16n8k16's (a[0] rows l / 4,
+// columns 2 (l % 4) and + 1, a[1] the rows 8 further, a[2] and a[3] the
+// columns 8 further), so an accumulator of this layout, rounded and packed
+// two columns a register, is the A operand of the next product.
+template <int MB>
+__device__ __forceinline__ void mma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(MB));
+}
+
+// d (64 x 32) (+)= A (64 x 16) . B (16 x 32), both from shared memory.
+template <int MA, int MB>
+__device__ __forceinline__ void mma_m64n32k16(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc), "n"(MA), "n"(MB));
+}
+
+// One box of a 4-d map at coordinates (c0 along the contiguous axis, ...)
+// into `dst`, reported to `bar`.
+__device__ __forceinline__ void tma_box_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                           int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, reported to `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Adds the box at `src` (shared memory, written in the map's swizzled
+// layout and made visible by fence_async_smem) element by element into the
+// fp32 tensor of a 3-d map, as one bulk group of the calling thread.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group [%0, {%2, %3, %4}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until this thread's bulk groups have read their shared memory (all but
+// the newest N).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Until this thread's bulk groups have completed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Makes this thread's ordinary shared-memory stores visible to `wgmma` and
+// TMA (the async proxy); a barrier then orders them for the other threads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15) of `count` threads, whole warps.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // k-step kk of the warpgroup's product on the stage whose A and B start at

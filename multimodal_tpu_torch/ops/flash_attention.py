@@ -22,19 +22,22 @@ The backward (the TPU's ``_flash_backward``) recomputes the probabilities
 blockwise from ``q``, ``k`` and the forward's lse: ``p = exp2(s2 - lse)``
 (0 where a pair is not visible or the row's lse is ``-inf``), ``dp = do .
 v^T``, ``ds = p (dp - delta)`` with ``delta = rowsum(do * o)`` in fp32, then
-``dq = ds k scale`` (kernel #7), ``dk = ds^T q scale`` and ``dv = p^T do``
-(kernel #8), and, only when the caller differentiates the bias, ``ds``
-itself as the fp32 ``(B, H, Sq, Sk)`` bias gradient (kernel #9), summed
-back to the bias's shape. ``ds`` is rounded to the inputs' dtype before its
-products and ``p`` to ``do``'s before ``p^T do``; the sums are fp32.
+``dq = ds k scale``, ``dk = ds^T q scale`` and ``dv = p^T do`` (the TPU's
+kernels #7 and #8, here one call), and, only when the caller
+differentiates the bias, ``ds`` itself as the fp32 ``(B, H, Sq, Sk)`` bias
+gradient (kernel #9), summed back to the bias's shape. ``ds`` is rounded to
+the inputs' dtype before its products and ``p`` to ``do``'s before ``p^T
+do``; the sums are fp32.
 
 On a CUDA tensor each wrapper (``flash_attention_forward``,
-``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``,
-``flash_attention_bwd_dbias``) launches its kernel in
-``csrc/flash_attention_{fwd,bwd}.cu`` or raises, and counts its launches in
-its ``launches``; on a CPU tensor it runs its part of the plain versions
-(:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`), the same
-arithmetic a whole row at a time.
+``flash_attention_bwd``, ``flash_attention_bwd_dbias``) launches its
+kernels in ``csrc/flash_attention_{fwd,bwd}.cu`` or raises, and counts its
+calls in its ``launches``; on a CPU tensor it runs its part of the plain
+versions (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`),
+the same arithmetic a whole row at a time. In bf16 at head width 64
+``flash_attention_bwd`` is one pass over each key block that adds dq into
+an fp32 workspace, in no fixed order: its dq is not bitwise repeatable
+from call to call, its dk and dv are.
 """
 
 from __future__ import annotations
@@ -66,9 +69,13 @@ def _kernels() -> ctypes.CDLL:
             _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
         lib.mm_flash_attention_fwd.restype = _I
         lib.mm_flash_attention_bwd.argtypes = [
-            _I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _V, _L, _V, _V,
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _V, _L, _V, _V,
             _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
         lib.mm_flash_attention_bwd.restype = _I
+        lib.mm_flash_attention_bwd_dbias.argtypes = [
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _V, _L, _V, _V,
+            _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
+        lib.mm_flash_attention_bwd_dbias.restype = _I
         _lib = lib
     return _lib
 
@@ -280,19 +287,57 @@ def flash_attention_bwd_plain(
     return grads + (_reduce_dbias(parts["ds"], bias),) if need_dbias else grads
 
 
-def _launch_bwd(which: int, name: str, q, k, v, do, outs, lse, delta, bias, causal, sm_scale,
-                q_segment_ids, kv_segment_ids) -> None:
+def _dq_workspace(q: torch.Tensor):
+    """The shape of the fp32 workspace of the bf16 head-width-64 route, or
+    None on the other routes, which take none: dq's sum over key blocks,
+    ``(B, H, Sq, 64)``, then the rows of lse and delta that the kernel
+    copies a query tile at a time, ``(B, H, Sq_pad)`` each with ``Sq_pad``
+    Sq rounded up to a multiple of 64; flat."""
+    b, h, sq, d = q.shape
+    if q.dtype != torch.bfloat16 or d != 64:
+        return None
+    sq_pad = -(-sq // 64) * 64
+    return (b * h * (64 * sq + 2 * sq_pad),)
+
+
+def _check_bwd(name, q, k, v, do, lse, delta, bias, q_segment_ids, kv_segment_ids,
+               outs=None, dq_acc=None) -> None:
+    """Raises on what the backward's kernels cannot take: ``_check``'s
+    rules for q, k and v (the TMA maps of the one-pass route read rows,
+    heads and batches at 16-byte aligned strides); ``do`` of q's shape,
+    dtype and row alignment; contiguous fp32 ``lse`` and ``delta``; and,
+    given ``outs`` (dq, dk, dv), outputs of their inputs' shapes and dtype
+    with 16-byte aligned rows and, where the route sums dq in a workspace, a
+    contiguous fp32 ``dq_acc`` of :func:`_dq_workspace`'s shape."""
     _check(q, k, v, bias, q_segment_ids, kv_segment_ids, name)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"{name}: do must match q {tuple(q.shape)} {q.dtype}")
     if not _rows_ok(do):
         raise ValueError(f"{name}: rows of do must be contiguous and 16-byte aligned")
     b, h, sq, d = q.shape
-    sk = k.shape[2]
     for t in (lse, delta):
         if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name}: lse and delta must be contiguous fp32 {(b, h, sq)}")
-    scale = sm_scale if sm_scale is not None else d ** -0.5
+    if outs is None:
+        return
+    for out, like in zip(outs, (q, k, v)):
+        if out.shape != like.shape or out.dtype != like.dtype or out.device != q.device \
+                or not _rows_ok(out):
+            raise ValueError(f"{name}: outputs must be {tuple(like.shape)} {like.dtype} on "
+                             f"{q.device} with 16-byte aligned rows")
+    want = _dq_workspace(q)
+    if want is not None and (dq_acc is None or tuple(dq_acc.shape) != want
+                             or dq_acc.dtype != torch.float32 or not dq_acc.is_contiguous()
+                             or dq_acc.device != q.device or dq_acc.data_ptr() % 16):
+        raise ValueError(f"{name}: the dq workspace must be a contiguous, 16-byte aligned "
+                         f"fp32 {want} on {q.device}")
+
+
+def _bwd_args(q, k, v, do, lse, delta, bias, q_segment_ids, kv_segment_ids):
+    """The arguments that the backward's two C entry points share after
+    the inputs' pointers: their strides, the bias's, the segment ids'."""
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
     bias_ptr, bias_strides = None, None
     if bias is not None:
         bias = _as_4d_bias(bias)
@@ -302,17 +347,38 @@ def _launch_bwd(which: int, name: str, q, k, v, do, outs, lse, delta, bias, caus
     if q_segment_ids is not None:
         qseg = q_segment_ids.to(torch.int32).expand(b, sq).contiguous()
         kvseg = kv_segment_ids.to(torch.int32).expand(b, sk).contiguous()
-    out_strides = [st for t in outs for st in t.stride()[:3]]
-    out_strides += [0] * (6 - len(out_strides))
+    keep = (bias, qseg, kvseg)  # referenced by the caller until the launch is enqueued
+    strides = _build.int64s(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
+    return keep, strides, (bias_ptr, bias_strides,
+                           None if qseg is None else qseg.data_ptr(), sq,
+                           None if kvseg is None else kvseg.data_ptr(), sk,
+                           lse.data_ptr(), delta.data_ptr())
+
+
+def _scale(q, sm_scale) -> float:
+    return float(sm_scale if sm_scale is not None else q.shape[-1] ** -0.5)
+
+
+def _flash_bwd_launch(q, k, v, do, lse, delta, bias, dq, dk, dv, dq_acc, *, causal: bool,
+                      sm_scale: Optional[float], q_segment_ids=None,
+                      kv_segment_ids=None) -> None:
+    """Launches the backward's kernels into ``dq``, ``dk`` and ``dv`` (CUDA
+    tensors of q's, k's and v's shapes and dtype, any 16-byte aligned row
+    strides), with ``dq_acc`` the dq workspace where the route takes one
+    (:func:`_dq_workspace`; the launch zero-fills it), else None. Counts
+    nothing: :func:`flash_attention_bwd` is the counted entry point."""
+    name = "flash_attention_bwd"
+    _check_bwd(name, q, k, v, do, lse, delta, bias, q_segment_ids, kv_segment_ids,
+               (dq, dk, dv), dq_acc)
+    b, h, sq, d = q.shape
+    keep, strides, rest = _bwd_args(q, k, v, do, lse, delta, bias, q_segment_ids,
+                                    kv_segment_ids)
     err = _kernels().mm_flash_attention_bwd(
-        which, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), outs[0].data_ptr(),
-        outs[1].data_ptr() if len(outs) > 1 else None,
-        _build.int64s(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3]),
-        _build.int64s(*out_strides), bias_ptr, bias_strides,
-        None if qseg is None else qseg.data_ptr(), sq,
-        None if kvseg is None else kvseg.data_ptr(), sk,
-        lse.data_ptr(), delta.data_ptr(),
-        b, h, sq, sk, d, float(scale), int(causal), _DTYPE_CODES[q.dtype], _build.stream_of(q),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), None if dq_acc is None else dq_acc.data_ptr(), strides,
+        _build.int64s(*dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3]), *rest,
+        b, h, sq, k.shape[2], d, _scale(q, sm_scale), int(causal), _DTYPE_CODES[q.dtype],
+        _build.stream_of(q),
     )
     _build.raise_on(err, name)
 
@@ -324,41 +390,27 @@ def _grad_like(t: torch.Tensor) -> torch.Tensor:
     return torch.empty((b, s, h, d), dtype=t.dtype, device=t.device).transpose(1, 2)
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, bias=None, *, causal: bool = False,
-                           sm_scale: Optional[float] = None, q_segment_ids=None,
-                           kv_segment_ids=None) -> torch.Tensor:
-    """``dq`` ``(B, H, Sq, D)`` in q's dtype, storage ``(B, Sq, H, D)``:
-    kernel #7 on CUDA, the plain version's ``dq`` on the CPU. ``lse`` is the
-    forward's log2-space lse, ``delta`` :func:`_delta`'s rows, both
-    ``(B, H, Sq)`` fp32."""
-    if q.device.type == "cpu":
-        return _bwd_plain_parts(q, k, v, do, lse, delta, bias, causal, sm_scale,
-                                q_segment_ids, kv_segment_ids, ("dq",))["dq"]
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_dq: no kernel for {q.device}")
-    dq = _grad_like(q)
-    _launch_bwd(0, "flash_attention_bwd_dq", q, k, v, do, (dq,), lse, delta, bias, causal,
-                sm_scale, q_segment_ids, kv_segment_ids)
-    flash_attention_bwd_dq.launches += 1
-    return dq
-
-
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias=None, *, causal: bool = False,
-                            sm_scale: Optional[float] = None, q_segment_ids=None,
-                            kv_segment_ids=None):
-    """``(dk, dv)``, each ``(B, H, Sk, D)`` in k's dtype with storage
-    ``(B, Sk, H, D)``: kernel #8 on CUDA, the plain version's on the CPU."""
+def flash_attention_bwd(q, k, v, do, lse, delta, bias=None, *, causal: bool = False,
+                        sm_scale: Optional[float] = None, q_segment_ids=None,
+                        kv_segment_ids=None):
+    """``(dq, dk, dv)``, each of its input's shape and dtype with storage
+    ``(B, S, H, D)``: the TPU's kernels #7 and #8 as one call on CUDA, the
+    plain version's on the CPU. ``lse`` is the forward's log2-space lse,
+    ``delta`` :func:`_delta`'s rows, both ``(B, H, Sq)`` fp32."""
     if q.device.type == "cpu":
         parts = _bwd_plain_parts(q, k, v, do, lse, delta, bias, causal, sm_scale,
-                                 q_segment_ids, kv_segment_ids, ("dk", "dv"))
-        return parts["dk"], parts["dv"]
+                                 q_segment_ids, kv_segment_ids, ("dq", "dk", "dv"))
+        return parts["dq"], parts["dk"], parts["dv"]
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_dkv: no kernel for {q.device}")
-    dk, dv = _grad_like(k), _grad_like(v)
-    _launch_bwd(1, "flash_attention_bwd_dkv", q, k, v, do, (dk, dv), lse, delta, bias, causal,
-                sm_scale, q_segment_ids, kv_segment_ids)
-    flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+        raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
+    dq, dk, dv = _grad_like(q), _grad_like(k), _grad_like(v)
+    ws = _dq_workspace(q)
+    dq_acc = None if ws is None else torch.empty(ws, dtype=torch.float32, device=q.device)
+    _flash_bwd_launch(q, k, v, do, lse, delta, bias, dq, dk, dv, dq_acc, causal=causal,
+                      sm_scale=sm_scale, q_segment_ids=q_segment_ids,
+                      kv_segment_ids=kv_segment_ids)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 def flash_attention_bwd_dbias(q, k, v, do, lse, delta, bias, *, causal: bool = False,
@@ -372,23 +424,30 @@ def flash_attention_bwd_dbias(q, k, v, do, lse, delta, bias, *, causal: bool = F
                                 q_segment_ids, kv_segment_ids, ("ds",))["ds"]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_dbias: no kernel for {q.device}")
-    b, h, sq, _ = q.shape
+    name = "flash_attention_bwd_dbias"
+    _check_bwd(name, q, k, v, do, lse, delta, bias, q_segment_ids, kv_segment_ids)
+    b, h, sq, d = q.shape
     ds = torch.empty((b, h, sq, k.shape[2]), dtype=torch.float32, device=q.device)
-    _launch_bwd(2, "flash_attention_bwd_dbias", q, k, v, do, (ds,), lse, delta, bias, causal,
-                sm_scale, q_segment_ids, kv_segment_ids)
+    keep, strides, rest = _bwd_args(q, k, v, do, lse, delta, bias, q_segment_ids,
+                                    kv_segment_ids)
+    err = _kernels().mm_flash_attention_bwd_dbias(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), ds.data_ptr(), strides, *rest,
+        b, h, sq, k.shape[2], d, _scale(q, sm_scale), int(causal), _DTYPE_CODES[q.dtype],
+        _build.stream_of(q),
+    )
+    _build.raise_on(err, name)
     flash_attention_bwd_dbias.launches += 1
     return ds
 
 
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd.launches = 0
 flash_attention_bwd_dbias.launches = 0
 
 
 def _flash_backward(q, k, v, out, lse, do, *, causal, sm_scale, q_segment_ids=None,
                     kv_segment_ids=None, dlse=None, bias=None, need_dbias=False):
-    """``(dq, dk, dv[, dbias])`` through kernels #7, #8 (and #9), or their
-    plain versions on the CPU. ``do`` may arrive as any view (a summed loss
+    """``(dq, dk, dv[, dbias])`` through :func:`flash_attention_bwd` (and
+    kernel #9), or their plain versions on the CPU. ``do`` may arrive as any view (a summed loss
     hands back a broadcast one): rows that the kernels cannot read are made
     contiguous first."""
     if do.device.type != "cpu" and not _rows_ok(do):
@@ -396,8 +455,7 @@ def _flash_backward(q, k, v, out, lse, do, *, causal, sm_scale, q_segment_ids=No
     delta = _delta(out, do, dlse)
     kw = dict(causal=causal, sm_scale=sm_scale, q_segment_ids=q_segment_ids,
               kv_segment_ids=kv_segment_ids)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, bias, **kw)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, bias, **kw)
+    dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta, bias, **kw)
     if not need_dbias:
         return dq, dk, dv
     ds = flash_attention_bwd_dbias(q, k, v, do, lse, delta, bias, **kw)
@@ -405,8 +463,8 @@ def _flash_backward(q, k, v, out, lse, do, *, causal, sm_scale, q_segment_ids=No
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Kernel #6 forward; kernels #7 and #8 backward, and #9 only when the
-    bias is differentiated (the TPU's symbolic-zeros test)."""
+    """Kernel #6 forward; :func:`flash_attention_bwd` backward, and #9 only
+    when the bias is differentiated (the TPU's symbolic-zeros test)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, sm_scale, q_segment_ids, kv_segment_ids):
@@ -430,8 +488,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, bias=None, causal: bool = False, sm_scale: Optional[float] = None,
                     q_segment_ids=None, kv_segment_ids=None) -> torch.Tensor:
-    """Differentiable fused attention: kernel #6 forward, kernels #7-#9
-    backward."""
+    """Differentiable fused attention: kernel #6 forward,
+    :func:`flash_attention_bwd` (and #9) backward."""
     return _FlashAttention.apply(q, k, v, bias, causal, sm_scale, q_segment_ids,
                                  kv_segment_ids)
 
@@ -467,6 +525,5 @@ def flash_attention_lse(q, k, v, causal: bool = False, sm_scale: Optional[float]
 
 def reset_launch_counts() -> None:
     flash_attention_forward.launches = 0
-    flash_attention_bwd_dq.launches = 0
-    flash_attention_bwd_dkv.launches = 0
+    flash_attention_bwd.launches = 0
     flash_attention_bwd_dbias.launches = 0

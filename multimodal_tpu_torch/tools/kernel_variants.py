@@ -1,0 +1,141 @@
+"""Variants of the flash attention backward's one-pass kernel, measured on
+the card: each variant is a list of (text, replacement) edits applied to
+``csrc/flash_attention_bwd.cu`` in a copy of the package under
+``build/variants/<name>/``. The copies build in parallel; the report gives,
+for ``flash_bwd_wgmma_kernel``, ptxas's registers and spills, its C75xx
+notes (``wgmma`` serialized) and the highest register its SASS uses, and,
+with ``--time``, the ms of ``flash_attention_bwd`` at the LM training shape
+(8, 12, 8192, 64) bf16 causal by CUDA events, each variant in a process of
+its own, twice in turns, with the profiler's device ms by kernel.
+
+    python -m multimodal_tpu_torch.tools.kernel_variants [--time] [edits.json]
+
+``edits.json`` maps a variant's name to its edits; without it the variants
+are ``VARIANTS``: the source as it is, K and V read from shared memory in
+place of register fragments, ``exp2`` left out, the dq reduction left out,
+and four ring stages. A variant is for measuring only: its results are
+wrong where an edit leaves work out.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+SOURCE = "flash_attention_bwd.cu"
+KERNEL = "flash_bwd_wgmma_kernel"
+
+VARIANTS = {
+    "as_is": [],
+    "kv_from_shared_memory": [
+        ("wg::mma_m64n64k16_rs<wg::K>(st, kf[kk], desc_k(q_box, kk), kk);",
+         "wg::mma_m64n64k16<wg::K, wg::K>(st, desc_k(wg::smem_u32(sm + (kBoxK + threadIdx.x"
+         " / 128) * kBox), kk), desc_k(q_box, kk), kk);"),
+        ("wg::mma_m64n64k16_rs<wg::K>(dpt, vf[kk], desc_k(do_box, kk), kk);",
+         "wg::mma_m64n64k16<wg::K, wg::K>(dpt, desc_k(wg::smem_u32(sm + (kBoxV + threadIdx.x"
+         " / 128) * kBox), kk), desc_k(do_box, kk), kk);")],
+    "no_exp2": [("exp2f(st[4 * n + e] - ", "(st[4 * n + e] - ")],
+    "no_dq_reduction": [("if (issuer) wg::tma_reduce_add_3d(",
+                         "if (false) wg::tma_reduce_add_3d(")],
+    "four_stages": [("constexpr int kWgStages = 3;", "constexpr int kWgStages = 4;")],
+}
+
+TIME = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from torch.profiler import ProfilerActivity, profile
+from multimodal_tpu_torch.ops import flash_attention as fa
+gen = torch.Generator(device="cuda").manual_seed(8)
+q, k, v, do, _, _ = cs._bwd_inputs(8, 12, 8192, 8192, 64, torch.bfloat16, gen, None, False)
+with torch.no_grad():
+    out, lse = fa.flash_attention_forward(q, k, v, causal=True, return_lse=True)
+    delta = fa._delta(out, do, None)
+    fn = lambda: fa.flash_attention_bwd(q, k, v, do, lse, delta, causal=True)
+    ms = [cs.time_ms(fn, 10, warmup=2) for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+kernels = {e.key[:60]: round(getattr(e, "device_time_total", 0) / 3 / 1e3, 4)
+           for e in prof.key_averages() if getattr(e, "device_time_total", 0)}
+print("variant_time " + json.dumps({"ms": ms, "device_ms": kernels, "card": cs.card_line()}))
+"""
+
+
+def make_copy(name: str, edits) -> Path:
+    """The package and chip_smoke.py under build/variants/<name>, the
+    backward's source edited, the sources its wrapper binds kept."""
+    copy = ROOT / "build" / "variants" / name
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(ROOT / "multimodal_tpu_torch", copy / "multimodal_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", copy / "chip_smoke.py")
+    csrc = copy / "multimodal_tpu_torch" / "csrc"
+    for src in csrc.glob("*.cu"):
+        if src.name not in ("flash_attention_fwd.cu", SOURCE):
+            src.unlink()
+    text = (csrc / SOURCE).read_text()
+    for old, new in edits:
+        if old not in text:
+            raise ValueError(f"variant {name}: {old!r} is not in {SOURCE}")
+        text = text.replace(old, new)
+    (csrc / SOURCE).write_text(text)
+    return copy
+
+
+def build_report(copy: Path) -> dict:
+    """Builds the copy; ptxas's lines for KERNEL and its SASS's highest
+    register."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); "
+         "from multimodal_tpu_torch.ops import _build; print(_build.build()); "
+         "print(_build.build_log)"], cwd=copy, capture_output=True, text=True)
+    if proc.returncode:
+        return {"built": False, "log": proc.stdout[-2000:] + proc.stderr[-2000:]}
+    lines = proc.stdout.splitlines()
+    at = [i for i, line in enumerate(lines) if KERNEL in line and "Compiling" in line]
+    report = {"built": True,
+              "ptxas": [line.strip() for line in lines[at[0] + 1:at[0] + 4]
+                        if "Function properties" not in line] if at else [],
+              "notes": sorted({m.group(1) for m in re.finditer(r"\((C75\d\d)\)[^\n]*" + KERNEL,
+                                                               proc.stdout)})}
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lines[0]], capture_output=True, text=True).stdout
+    body = [f for f in re.split(r"\n\s+Function : ", sass) if KERNEL in f.split("\n", 1)[0]]
+    if body:
+        report["highest_register"] = max(int(r) for r in re.findall(r"\bR(\d+)\b", body[0]))
+    return report
+
+
+def main(argv) -> None:
+    time_it = "--time" in argv
+    files = [a for a in argv if not a.startswith("--")]
+    variants = json.loads(Path(files[0]).read_text()) if files else VARIANTS
+    copies = {name: make_copy(name, edits) for name, edits in variants.items()}
+    with ThreadPoolExecutor(len(copies)) as ex:
+        reports = dict(zip(copies, ex.map(build_report, copies.values())))
+    for name, report in reports.items():
+        print(f"variant_build {name} " + json.dumps(report), flush=True)
+    if not time_it:
+        return
+    for turn in range(2):
+        for name, copy in copies.items():
+            if not reports[name]["built"]:
+                continue
+            proc = subprocess.run([sys.executable, "-c", TIME], cwd=copy, capture_output=True,
+                                  text=True)
+            line = [x for x in proc.stdout.splitlines() if x.startswith("variant_time ")]
+            print(f"variant_time {name} turn {turn} "
+                  + (line[-1][len("variant_time "):] if line else proc.stderr[-1500:]),
+                  flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
