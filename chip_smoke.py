@@ -28,8 +28,10 @@ in order (any failure exits non-zero):
    1e-4, as ``optax.adamw(1e-4)``). The gradients of 8 pairs are held
    against an fp32 step of the same weights on the CPU (concatenated
    cosine >= 0.99; its MLP backward is #4, 24 launches); then 2 warm-up
-   steps and 10 timed steps, which must show 24 launches a step of #1, #2,
-   #3 and #5 (``fused_mlp_bwd_acc``; #4 none) and finite losses; items/s,
+   steps and 10 timed steps, which must show 24 launches a step of #1, #2
+   and #3, and 24 of the MLP backward (#4 for the vision tower's 12,800
+   rows, #5 for the text tower's 19,712, by ``fused_mlp_bwd_acc_supported``)
+   and finite losses; items/s,
    ms a step, peak memory and one step's device time by kernel group; then
    CLIP ViT-B/16's gradients at 2 pairs (vision S = 197, #2 past S = 128)
    against fp32 on the CPU (cosine >= 0.99, 24 launches of #2);
@@ -71,8 +73,10 @@ in order (any failure exits non-zero):
    (concatenated cosine >= 0.99; #3 and #4 54 launches each, no attention
    kernel: the towers ask for attention probabilities); 2 warm-up and 5
    timed steps at batch 64, whose counters must show 54 launches a step of
-   #3 and of #5 (image and text towers twice, the multimodal encoder once)
-   and none of #4, #1, #2 or #6, and finite losses; items/s, ms a step,
+   #3 (image and text towers twice, the multimodal encoder once) and of the
+   MLP backward by the predicate (#4 for the towers' 12,608 and 4,928 rows,
+   48; #5 for the multimodal encoder's 17,600, 6) and none of #1, #2 or #6,
+   and finite losses; items/s, ms a step,
    peak memory and one step's device time by kernel group; then the
    recipe's ``main`` (batch 64, 2 steps), finite losses;
 9. a ``kernels`` JSON line, the card line, and the result line
@@ -82,9 +86,16 @@ Phase 2 checks the MLP forward (#3) at the CLIP, LM (prefill, train step,
 decode tick) and FLAVA shapes, every activation at small widths and 48 to
 512 rows, bf16 and fp32, each output element held to its own row's scale
 (``row_relative_error``), and a second launch into output and workspace
-filled with NaN bitwise equal to the first. It also checks
-the flash attention forward (#6) at the prefill shape (8, 12, 2048, 64)
-causal and its masking variants, and the int8-cache decode
+filled with NaN bitwise equal to the first. It checks the MLP backward
+without weight gradients (#4) at CLIP's train step and the gradient
+checks' rows (FLAVA's 154-550, the LM's 1,024: dx split over Dff) and
+every activation, relaunched into NaN-filled outputs and workspace,
+bitwise equal. It also checks the flash attention forward (#6) at the
+prefill shape (8, 12, 2048, 64) causal, a train step's (8, 12, 8192, 64)
+with lse, with and without segment ids, the 128-query tile's edges (Sq
+127, 129, 191) and its masking variants, each relaunched into an output
+and lse filled with NaN, bitwise equal, and times the prefill and train
+shapes against SDPA; and the int8-cache decode
 attention (#10) at the decode shape (33 x 12 heads, 4096 positions) and its
 verify-window and GQA variants, each output element held to its own row's
 scale (``row_relative_error``), and times #6 against the plain path at
@@ -104,13 +115,15 @@ activation, the CLIP, FLAVA and LM train steps' shapes, bf16 and fp32
 launches bitwise equal), and times it, and each of its stages (z/dh, dx,
 dW, sum, from the profiler), beside its bound, the library's recompute VJP
 and the route it replaces (#4 plus the library's dW products); and times
-#5 against that route at 1,024 to 4,096 rows (the numbers
-``fused_mlp_bwd_acc_supported``'s threshold is set from).
+#5 against that route at 256 to 16,384 rows (the numbers
+``fused_mlp_bwd_acc_supported``'s threshold is set from; the train phases'
+expected launches of #4 and #5 follow that predicate).
 ``--kernels-only`` stops after phase 2 and prints no result line;
-``--planted-faults`` only builds copies of the backward, #5 and #3 with
-known faults (``PLANTED_FAULTS``) and shows that the checks catch each one;
-``--ab PARENT`` only times #3, #5, the flash attention backward at the LM
-training shape and the LM serving tick of the tree at
+``--planted-faults`` only builds copies of #6, the flash backward, #4, #5
+and #3 with known faults (``PLANTED_FAULTS``) and shows that the checks
+catch each one; ``--ab PARENT`` only times #3-#6 at their paths' shapes,
+the flash attention backward at the LM training shape and the LM serving
+tick of the tree at
 PARENT (the parent commit unpacked with ``git archive``) and of this
 checkout, in turns, each in a process of its own.
 
@@ -414,18 +427,44 @@ def _mlp_bwd_inputs(rows, din, dff, dout, dtype, gen):
     return x, g, w1t, b1, w2t
 
 
-def mlp_bwd_case(fe, name, rows, din, dff, dout, act, dtype, gen):
+MLP_BWD_STAGES = (("zdh", "fused_mlp_bwd_zdh"), ("dx", "fused_mlp_bwd_dx_kernel"),
+                  ("sum", "fused_mlp_bwd_dx_sum"))
+
+
+def mlp_bwd_case(fe, name, rows, din, dff, dout, act, dtype, gen, timing=True):
+    """Kernel #4 against its plain version (dx, da and h each to its own
+    tolerance), and a second launch into outputs and a workspace filled
+    with NaN bitwise equal to the first; with ``timing``, its time (and its
+    stages', from the profiler) beside its bound, the plain version and the
+    library's recompute VJP."""
     x, g, w1t, b1, w2t = _mlp_bwd_inputs(rows, din, dff, dout, dtype, gen)
     b2 = torch.zeros(dout, device="cuda", dtype=dtype)
     w1, w2 = w1t.t(), w2t.t()
     outs = fe.fused_mlp_bwd(x, g, w1, b1, w2, act)
     refs = fe.mlp_bwd_plain(x, g, w1, b1, w2, act)
+    # the same launch into NaN: an element of dx, da or h, or of a dx
+    # partial, that the kernel does not write shows as NaN
+    again = [torch.full_like(o, math.nan) for o in outs]
+    ws = fe._mlp_bwd_workspace(rows, din, dff, dtype)
+    part = None if ws is None else torch.full(ws, math.nan, device="cuda")
+    fe._mlp_bwd_launch(x, g, w1, b1, w2, act, *again, part)
     torch.cuda.synchronize()
+    deterministic = all(torch.equal(o, a) for o, a in zip(outs, again))
+    del again, part
     errs = [(o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs)]
     tols = [tolerance(dtype, r) for r in refs]
+    worst = max(range(3), key=lambda i: errs[i] / tols[i])  # each output has its own tolerance
+    row = dict(kernel="fused_mlp_bwd", case=name, shape=[rows, din, dff, dout], activation=act,
+               dtype=str(dtype).replace("torch.", ""),
+               splits=1 if ws is None else ws[0], max_abs_err=errs[worst], tol=tols[worst],
+               max_abs_err_dx_da_h=errs, tol_dx_da_h=tols, deterministic=deterministic,
+               ok=deterministic and all(e <= t for e, t in zip(errs, tols)))
+    if not timing:
+        return row
     kernel_ms = time_ms(lambda: fe.fused_mlp_bwd(x, g, w1, b1, w2, act), 1)
     reps = reps_for(kernel_ms)
     kernel_ms = time_ms(lambda: fe.fused_mlp_bwd(x, g, w1, b1, w2, act), reps)
+    stages = stage_ms(lambda: fe.fused_mlp_bwd(x, g, w1, b1, w2, act), MLP_BWD_STAGES)
     plain_ms = time_ms(lambda: fe.mlp_bwd_plain(x, g, w1, b1, w2, act), reps)
     lib_act = fe._ACTIVATIONS[act]
     xg = x.detach().requires_grad_()
@@ -437,12 +476,35 @@ def mlp_bwd_case(fe, name, rows, din, dff, dout, act, dtype, gen):
               + sum(o.numel() for o in outs)) * es
     flops = 2.0 * rows * dff * (2 * din + dout)
     bms, by = bound_ms(nbytes, flops, dtype)
-    worst = max(range(3), key=lambda i: errs[i] / tols[i])  # each output has its own tolerance
-    return dict(kernel="fused_mlp_bwd", case=name, shape=[rows, din, dff, dout], activation=act,
-                dtype=str(dtype).replace("torch.", ""), max_abs_err=errs[worst], tol=tols[worst],
-                max_abs_err_dx_da_h=errs, tol_dx_da_h=tols,
-                ok=all(e <= t for e, t in zip(errs, tols)), ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    row.update(ms=kernel_ms, stage_ms=stages, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bms, bound_by=by)
+    return row
+
+
+def check_mlp_bwd_kernel(fe, dtypes=(torch.bfloat16, torch.float32), timing=True):
+    """Kernel #4 in each dtype at CLIP ViT-B/32's train-step MLPs (batch
+    256), every activation at small widths (Dout 192: a ragged column tile;
+    Dff 512: dx in two runs), and the gradient checks' rows: FLAVA's at 2
+    pairs and the LM's packed row."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tb = TRAIN_BATCH
+    shapes = [("vision", tb * 50, 768, 3072, 768, "quick_gelu"),
+              ("text", tb * 77, 512, 2048, 512, "quick_gelu")]
+    shapes += [(f"small_{act}", 300, 256, 512, 192, act)
+               for act in ("quick_gelu", "gelu", "gelu_exact", "relu", "silu")]
+    # FLAVA's gradient check at 2 pairs, #4's side of the predicate, and the
+    # LM's at one packed row of 1,024 tokens
+    shapes += [(f"flava_grad_{tower}", 2 * seq, 768, 3072, 768, "gelu_exact")
+               for tower, seq in FLAVA_SEQS]
+    shapes.append(("lm_grad", 1024, 768, 3072, 768, "gelu_exact"))
+    rows = []
+    for dtype in dtypes:
+        for shape in shapes:
+            row = mlp_bwd_case(fe, *shape, dtype, gen, timing=timing)
+            print("kernel_check " + json.dumps(row), flush=True)
+            rows.append(row)
+            torch.cuda.empty_cache()
+    return rows
 
 
 # Bars of row_relative_error (each element's terms included) for the fp32
@@ -541,7 +603,8 @@ def stage_ms(fn, stages, reps=5):
     return out or "not measured"
 
 
-def acc_threshold(fe, rows=(1024, 2048, 3072, 4096), din=768, dff=3072, dout=768):
+def acc_threshold(fe, rows=(256, 512, 1024, 2048, 4096, 8192, 16384), din=768, dff=3072,
+                  dout=768):
     """#5 against the route it replaces (#4 plus the library's dW products
     and the db1 sum) at the row counts around ``fused_mlp_bwd_acc_supported``'s
     threshold, bf16, exact GELU: the numbers ``_ACC_MIN_ROWS`` is set from."""
@@ -599,10 +662,14 @@ def _segments(b, s, gen):
 
 
 def flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
-               segments=False, lse=False):
-    """Kernel #6 against its plain version; the library call is SDPA with
-    the same visibility and bias as an explicit mask (``is_causal`` where it
-    is the square causal mask, since SDPA's causal is top-left aligned)."""
+               segments=False, lse=False, timing=True):
+    """Kernel #6 against its plain version (a batch row at a time where the
+    (Sq, Sk) fp32 matrices of all rows would not fit), and a second launch
+    into an output and lse filled with NaN bitwise equal to the first; with
+    ``timing``, its time beside its bound, the plain version and the library
+    call, SDPA with the same visibility and bias as an explicit mask
+    (``is_causal`` where it is the square causal mask, since SDPA's causal
+    is top-left aligned)."""
     q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen).to(dtype)
                for s in (sq, sk, sk))
     bias = None
@@ -615,21 +682,47 @@ def flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
     if segments:
         qseg = kvseg = _segments(b, sq, gen)
     kw = dict(causal=causal, return_lse=lse, q_segment_ids=qseg, kv_segment_ids=kvseg)
+    rows = b if b * h * sq * sk <= 2 ** 30 else 1  # batch rows of one plain call
+
+    def plain(i):
+        cut = (lambda x: x if x is None or x.shape[0] == 1 else x[i:i + rows])  # noqa: E731
+        return fa.flash_attention_plain(
+            q[i:i + rows], k[i:i + rows], v[i:i + rows], cut(bias), causal=causal,
+            return_lse=lse, q_segment_ids=cut(qseg), kv_segment_ids=cut(kvseg))
+
     with torch.inference_mode():
         got = fa.flash_attention_forward(q, k, v, bias, **kw)
-        ref = fa.flash_attention_plain(q, k, v, bias, **kw)
+        out, got_lse = (got[0], got[1]) if lse else (got, None)
+        again = fa._grad_like(q).fill_(math.nan)
+        again_lse = None if got_lse is None else torch.full_like(got_lse, math.nan)
+        fa._flash_fwd_launch(q, k, v, bias, again, again_lse, causal=causal, sm_scale=None,
+                             q_segment_ids=qseg, kv_segment_ids=kvseg)
         torch.cuda.synchronize()
-        out, ref_out = (got[0], ref[0]) if lse else (got, ref)
-        err = (out.float() - ref_out.float()).abs().max().item()
-        rel_err = row_relative_error(out, ref_out)
+        deterministic = torch.equal(out, again) and (
+            got_lse is None or torch.equal(got_lse, again_lse))
+        del again, again_lse
+        err = rel_err = 0.0
+        lse_ok, lse_err = True, None
+        for i in range(0, b, rows):
+            ref = plain(i)
+            ref_out = ref[0] if lse else ref
+            err = max(err, (out[i:i + rows].float() - ref_out.float()).abs().max().item())
+            rel_err = max(rel_err, row_relative_error(out[i:i + rows], ref_out))
+            if lse:
+                fin = torch.isfinite(ref[1])
+                e = (got_lse[i:i + rows][fin] - ref[1][fin]).abs().max().item()
+                lse_err = e if lse_err is None else max(lse_err, e)
+                lse_ok = lse_ok and e <= 1e-4 * max(1.0, ref[1][fin].abs().max().item()) and bool(
+                    torch.equal(torch.isfinite(got_lse[i:i + rows]), fin))
+            del ref, ref_out
         tol = ROW_RELATIVE_BAR["flash_attention", dtype]
-        ok = rel_err <= tol
-        lse_err = None
-        if lse:
-            fin = torch.isfinite(ref[1])
-            lse_err = (got[1][fin] - ref[1][fin]).abs().max().item()
-            ok = ok and lse_err <= 1e-4 * max(1.0, ref[1][fin].abs().max().item()) and bool(
-                torch.equal(torch.isfinite(got[1]), fin))
+        row = dict(kernel="flash_attention", case=name, shape=[b, h, sq, sk, d], causal=causal,
+                   bias=bias_kind, segments=segments, lse=lse,
+                   dtype=str(dtype).replace("torch.", ""), max_abs_err=err, rel_err=rel_err,
+                   tol=tol, lse_err=lse_err, deterministic=deterministic,
+                   ok=bool(rel_err <= tol and lse_ok and deterministic))
+        if not timing:
+            return row
         visible = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
         if causal:
             visible = visible.tril(sk - sq)
@@ -643,15 +736,17 @@ def flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
             if bias is not None:
                 lib_mask = lib_mask + bias
             lib_mask = lib_mask.to(dtype)
+        del visible
         lib_causal = causal and lib_mask is None
-        call = lambda: fa.flash_attention_forward(q, k, v, bias, **kw)
+        call = lambda: fa.flash_attention_forward(q, k, v, bias, **kw)  # noqa: E731
         kernel_ms = time_ms(call, 1)
         reps = reps_for(kernel_ms)
         kernel_ms = time_ms(call, reps)
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, bias, **kw),
-                           max(3, reps // 4))
+        plain_ms = time_ms(lambda: [plain(i) for i in range(0, b, rows)],
+                           max(1, reps // 4) if rows == b else 1, warmup=1)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=lib_mask, is_causal=lib_causal), reps)
+        del lib_mask
     es = q.element_size()
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * es
     nbytes += 0 if bias is None else bias.numel() * 4
@@ -659,11 +754,9 @@ def flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
     nbytes += 0 if not lse else b * h * sq * 4
     flops = 4.0 * d * pairs  # q.k and p.v over the visible (query, key) pairs
     bms, by = bound_ms(nbytes, flops, dtype)
-    return dict(kernel="flash_attention", case=name, shape=[b, h, sq, sk, d], causal=causal,
-                bias=bias_kind, segments=segments, lse=lse,
-                dtype=str(dtype).replace("torch.", ""), max_abs_err=err, rel_err=rel_err,
-                tol=tol, lse_err=lse_err, ok=bool(ok), ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bms, bound_by=by)
+    row.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+               tflops=flops / kernel_ms / 1e9)
+    return row
 
 
 def decode_mask(b, s, length, gen, lo=600, hi=3200):
@@ -733,34 +826,60 @@ def flash_threshold(fa, attn, gen, heads=12, d=64, batch=8):
     return rows
 
 
-def check_new_kernels(fa, qa, kv):
-    """The cases of kernels #6 and #10 (LM prefill and decode shapes)."""
+# Kernel #6's cases: the LM prefill call, a train step's call (with and
+# without packed documents), Sq != Sk, the masks, the 128-query tile's edges
+# (Sq 127, 129, 191) and the other routes (bias, head widths 32 and 128).
+FLASH_CASES = [
+    ("prefill", 8, 12, 2048, 2048, 64, True, {}),
+    ("train", 8, 12, 8192, 8192, 64, True, {"lse": True}),
+    ("train_segment_ids", 8, 12, 8192, 8192, 64, True, {"lse": True, "segments": True}),
+    ("sq512_sk2048", 8, 12, 512, 2048, 64, True, {}),
+    ("non_causal", 4, 12, 1024, 1024, 64, False, {}),
+    ("segment_ids", 4, 12, 1024, 1024, 64, True, {"segments": True}),
+    ("bias_1h1k", 4, 12, 1024, 1024, 64, True, {"bias_kind": "1h1k"}),
+    ("bias_b1qk", 4, 12, 1024, 1024, 64, False, {"bias_kind": "b1qk"}),
+    ("lse", 4, 12, 1024, 1024, 64, True, {"lse": True}),
+    ("ragged_1000", 4, 12, 1000, 1000, 64, True, {"lse": True}),
+    ("sq127", 4, 12, 127, 127, 64, True, {"lse": True}),
+    ("sq129_segment_ids", 4, 12, 129, 129, 64, True, {"lse": True, "segments": True}),
+    ("sq191_sk300", 4, 12, 191, 300, 64, True, {"lse": True}),
+    ("sq191_non_causal", 4, 12, 191, 191, 64, False, {}),
+    ("head_width_32", 4, 12, 1024, 1024, 32, True, {}),
+    ("head_width_128", 4, 12, 1024, 1024, 128, True, {}),
+]
+
+
+def check_flash_fwd_kernel(fa, dtypes=(torch.bfloat16, torch.float32), timing=True):
+    """Kernel #6 at ``FLASH_CASES`` in each dtype (the train step's shapes
+    in bf16 only, the dtype it runs in)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = []
-    for dtype in (torch.bfloat16, torch.float32):
-        cases.append(flash_case(fa, "prefill", 8, 12, 2048, 2048, 64, True, dtype, gen))
-        cases.append(flash_case(fa, "sq512_sk2048", 8, 12, 512, 2048, 64, True, dtype, gen))
-        cases.append(flash_case(fa, "non_causal", 4, 12, 1024, 1024, 64, False, dtype, gen))
-        cases.append(flash_case(fa, "segment_ids", 4, 12, 1024, 1024, 64, True, dtype, gen,
-                                segments=True))
-        cases.append(flash_case(fa, "bias_1h1k", 4, 12, 1024, 1024, 64, True, dtype, gen,
-                                bias_kind="1h1k"))
-        cases.append(flash_case(fa, "bias_b1qk", 4, 12, 1024, 1024, 64, False, dtype, gen,
-                                bias_kind="b1qk"))
-        cases.append(flash_case(fa, "lse", 4, 12, 1024, 1024, 64, True, dtype, gen, lse=True))
-        cases.append(flash_case(fa, "ragged_1000", 4, 12, 1000, 1000, 64, True, dtype, gen,
-                                lse=True))
-        cases.append(flash_case(fa, "head_width_32", 4, 12, 1024, 1024, 32, True, dtype, gen))
-        cases.append(flash_case(fa, "head_width_128", 4, 12, 1024, 1024, 128, True, dtype, gen))
-        cases.append(qca_case(qa, kv, "decode", 33, 12, 12, 1, 4096, 64, dtype, gen))
-        cases.append(qca_case(qa, kv, "verify_window", 8, 12, 12, 5, 4096, 64, dtype, gen))
-        cases.append(qca_case(qa, kv, "gqa_group4", 8, 12, 3, 2, 4096, 64, dtype, gen))
-        cases.append(qca_case(qa, kv, "head_width_128", 8, 8, 8, 1, 2048, 128, dtype, gen))
+    rows = []
+    for dtype in dtypes:
+        for name, b, h, sq, sk, d, causal, kw in FLASH_CASES:
+            if name.startswith("train") and dtype != torch.bfloat16:
+                continue
+            row = flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, timing=timing, **kw)
+            print("kernel_check " + json.dumps(row), flush=True)
+            rows.append(row)
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_new_kernels(fa, qa, kv):
+    """The cases of kernels #6 and #10 (LM prefill, train and decode
+    shapes)."""
     print("kernel_check tolerance #6, #10: row_relative_error (the largest |got - ref| / "
           "(|ref| + rms of ref's row)) within " + json.dumps(
               {f"{k}/{str(d).replace('torch.', '')}": v for (k, d), v in ROW_RELATIVE_BAR.items()}),
           flush=True)
-    for c in cases:
+    cases = check_flash_fwd_kernel(fa)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append(qca_case(qa, kv, "decode", 33, 12, 12, 1, 4096, 64, dtype, gen))
+        cases.append(qca_case(qa, kv, "verify_window", 8, 12, 12, 5, 4096, 64, dtype, gen))
+        cases.append(qca_case(qa, kv, "gqa_group4", 8, 12, 3, 2, 4096, 64, dtype, gen))
+        cases.append(qca_case(qa, kv, "head_width_128", 8, 8, 8, 1, 2048, 128, dtype, gen))
+    for c in cases[-8:]:
         print("kernel_check " + json.dumps(c), flush=True)
     return cases
 
@@ -1045,18 +1164,10 @@ def check_kernels(fe):
         cases.append(attention_bwd_case(fe, "seq_256", 8, 256, 768, 12, True, dtype, True, gen))
         cases.append(attention_bwd_case(fe, "head_width_128_seq_181", 8, 181, 512, 4, True,
                                         dtype, True, gen))
-        cases.append(mlp_bwd_case(fe, "vision", tb * 50, 768, 3072, 768, "quick_gelu", dtype, gen))
-        cases.append(mlp_bwd_case(fe, "text", tb * 77, 512, 2048, 512, "quick_gelu", dtype, gen))
-        for act in ("quick_gelu", "gelu", "gelu_exact", "relu", "silu"):
-            cases.append(mlp_bwd_case(fe, f"small_{act}", 300, 256, 512, 192, act, dtype, gen))
-        # FLAVA's gradient check at 2 pairs, #4's side of the predicate
-        for tower, seq in FLAVA_SEQS:
-            cases.append(mlp_bwd_case(fe, f"flava_grad_{tower}", 2 * seq, 768, 3072, 768,
-                                      "gelu_exact", dtype, gen))
     print("kernel_check tolerance: " + " ".join(tolerance.__doc__.split()), flush=True)
     for c in cases:
         print("kernel_check " + json.dumps(c), flush=True)
-    return cases
+    return cases + check_mlp_bwd_kernel(fe)
 
 
 # Faults planted in copies of the kernels' sources (under build/, never in
@@ -1089,8 +1200,25 @@ PLANTED_FAULTS = {
         "for (int kk = 0; kk < BK / 16; ++kk) wg::mma_step<wg::MN, wg::MN>",
         "for (int kk = 0; kk < BK / 16 - 1; ++kk) wg::mma_step<wg::MN, wg::MN>"),
     "acc: act' left out of da": (
-        "fused_mlp_bwd_acc.cu", "fused_mlp_bwd_acc_zdh_kernel(const __grid_constant__",
+        "mlp_bwd_common.cuh", "void zdh_stage(const ZdhParams& p",
         "const float da0 = dh[4 * j + 2 * hf] * d0;", "const float da0 = dh[4 * j + 2 * hf];"),
+    "mlp_bwd: act' left out of da's odd columns": (
+        "mlp_bwd_common.cuh", "void zdh_stage(const ZdhParams& p",
+        "const float da1 = dh[4 * j + 2 * hf + 1] * d1;",
+        "const float da1 = dh[4 * j + 2 * hf + 1];"),
+    "mlp_bwd: the first Dff run left out of dx's sum": (
+        "fused_mlp_bwd.cu", "fused_mlp_bwd_dx_sum_kernel(const float4*",
+        "for (int r = 0; r < splits; ++r)", "for (int r = 1; r < splits; ++r)"),
+    "fwd: one key past the causal diagonal": (
+        "flash_attention_fwd.cu", "void mask_tile(float (&s)[64]",
+        "(!a.causal || key <= r0 + 8 * hh + off)", "(!a.causal || key <= r0 + 8 * hh + 1 + off)"),
+    "fwd: the ragged last query tile not stored": (
+        "flash_attention_fwd.cu", "flash_fwd_wgmma_kernel(const __grid_constant__",
+        "if (i >= a.Sq) continue;", "if (i >= a.Sq / kWgRows * kWgRows) continue;"),
+    "fwd: alpha left out of the O rescale": (
+        "flash_attention_fwd.cu", "void flash_tile(const WgParams& p",
+        "for (int x = 0; x < 32; ++x) o[x] *= alpha[(x >> 1) & 1];",
+        "for (int x = 0; x < 32; ++x) o[x] *= 1.f;"),
     "mlp: b1 left out of stage H's epilogue": (
         "fused_mlp.cu", "gemm_tiles(const GemmParams& p)",
         "const float bias0 = to_f(p.bias[c]), bias1 = to_f(p.bias[c + 1]);",
@@ -1104,30 +1232,51 @@ PLANTED_FAULTS = {
         "if (r < (ACT < 0 ? p.R / BM * BM : p.R))"),
 }
 # For each patched source: the sources its copy builds (its wrappers bind
-# their symbols) and the bf16 checks that run against it.
+# their symbols) and the bf16 checks that run against it. The MLP backward's
+# shared stages (mlp_bwd_common.cuh) run under both #4's checks and #5's.
+_MLP_SOURCES = ("fused_qkv_attention.cu", "fused_qkv_attention_bwd.cu", "fused_mlp.cu",
+                "fused_mlp_bwd.cu", "fused_mlp_bwd_acc.cu")
 PLANTED_FAULT_CHECKS = {
+    "flash_attention_fwd.cu": (
+        ("flash_attention_fwd.cu", "flash_attention_bwd.cu"),
+        "from multimodal_tpu_torch.ops import flash_attention as fa; "
+        "cs.check_flash_fwd_kernel(fa, (torch.bfloat16,), timing=False)"),
+    "fused_mlp_bwd.cu": (
+        _MLP_SOURCES,
+        "from multimodal_tpu_torch.ops import fused_encoder as fe; "
+        "cs.check_mlp_bwd_kernel(fe, (torch.bfloat16,), timing=False)"),
+    "mlp_bwd_common.cuh": (
+        _MLP_SOURCES,
+        "from multimodal_tpu_torch.ops import fused_encoder as fe; "
+        "cs.check_mlp_bwd_kernel(fe, (torch.bfloat16,), timing=False); "
+        "cs.check_acc_kernel(fe, (torch.bfloat16,), timing=False)"),
     "flash_attention_bwd.cu": (
         ("flash_attention_fwd.cu", "flash_attention_bwd.cu"),
         "from multimodal_tpu_torch.ops import flash_attention as fa; "
         "cs.check_bwd_kernels(fa, (torch.bfloat16,))"),
     "fused_mlp_bwd_acc.cu": (
-        ("fused_qkv_attention.cu", "fused_qkv_attention_bwd.cu", "fused_mlp.cu",
-         "fused_mlp_bwd.cu", "fused_mlp_bwd_acc.cu"),
+        _MLP_SOURCES,
         "from multimodal_tpu_torch.ops import fused_encoder as fe; "
         "cs.check_acc_kernel(fe, (torch.bfloat16,), timing=False)"),
     "fused_mlp.cu": (
-        ("fused_qkv_attention.cu", "fused_qkv_attention_bwd.cu", "fused_mlp.cu",
-         "fused_mlp_bwd.cu", "fused_mlp_bwd_acc.cu"),
+        _MLP_SOURCES,
         "from multimodal_tpu_torch.ops import fused_encoder as fe; "
         "cs.check_mlp_kernel(fe, (torch.bfloat16,), timing=False)"),
 }
 
 
+def fault_readings(case) -> dict:
+    """A failed case's readings: its relative errors by output, or its max
+    abs error where the case has none (#4)."""
+    rel = case.get("rel_err", {"max_abs_err": case["max_abs_err"]})
+    return rel if isinstance(rel, dict) else {"out": rel}
+
+
 def planted_faults() -> None:
     """Each fault of PLANTED_FAULTS in a copy of the package (only the
     sources its checks need, so the copy builds quickly) whose bf16 checks
-    of that kernel (the backward, #5 or #3) run in a process of their own: a fault that
-    no case catches fails the run."""
+    of that kernel (#6, the flash backward, #4, #5 or #3) run in a process
+    of their own: a fault that no case catches fails the run."""
     import shutil
     from pathlib import Path
 
@@ -1159,9 +1308,9 @@ def planted_faults() -> None:
         caught = [c for c in checked if not c["ok"]]
         print(f"planted fault {name!r}: {len(caught)} of {len(checked)} bf16 cases fail "
               f"({time.perf_counter() - t0:.0f} s): " + json.dumps(
-                  {c["case"]: {**{k: round(v, 4) for k, v in c["rel_err"].items()},
-                               **({} if c.get("deterministic", True)
-                                  else {"relaunch": "differs"})}
+                  {f"{c['kernel']}/{c['case']}": {
+                      **{k: round(v, 4) for k, v in fault_readings(c).items()},
+                      **({} if c.get("deterministic", True) else {"relaunch": "differs"})}
                    for c in caught}), flush=True)
         if proc.returncode != 0 or not checked:
             fail(f"planted fault {name!r}: the check did not run\n{proc.stdout[-3000:]}")
@@ -1171,9 +1320,8 @@ def planted_faults() -> None:
 
 
 # --------------------------------------------------------------------------
-# --ab: kernel #3 (and #5, which shares its launch helpers), the flash
-# attention backward and the LM serving tick, this checkout against another
-# tree
+# --ab: kernels #3, #4, #5 and #6, the flash attention backward and the LM
+# serving tick, this checkout against another tree
 # --------------------------------------------------------------------------
 
 # The main paths' shapes of #3 and of #5, bf16.
@@ -1194,8 +1342,10 @@ def ab_side() -> None:
     """One process of --ab, run with a tree of the repo first on sys.path:
     ms of that tree's #5 at AB_ACC's shapes and of its #3 at AB_MLP's (with
     each stage's, from the profiler, where its kernels have this checkout's
-    names, and the host's time a call at the decode tick's rows), of its
-    flash attention backward (``_flash_backward``: delta, dq, dk and dv) at
+    names, and the host's time a call at the decode tick's rows), of its #4
+    at FLAVA's gradient check's 394 image rows and CLIP's 12,800 vision
+    rows, of its #6 at the LM's prefill and train shapes (8, 12, 2048 and
+    8192, 64) bf16 causal, of its flash attention backward (``_flash_backward``: delta, dq, dk and dv) at
     the LM training shape (8, 12, 8192, 64) bf16 causal, and the LM serving
     phase's ms a tick on the host clock and on the device. Prints one
     ``ab`` JSON line."""
@@ -1225,6 +1375,22 @@ def ab_side() -> None:
                     fn()
                 out[f"mlp_{name}_host_us"] = (time.perf_counter() - t0) / 200 * 1e6
                 torch.cuda.synchronize()
+        # #4 at FLAVA's gradient check's image rows and CLIP's vision MLP
+        for name, rows, act in (("flava_grad_image", 2 * 197, "gelu_exact"),
+                                ("clip_vision", TRAIN_BATCH * 50, "quick_gelu")):
+            x, g, w1t, b1, w2t = _mlp_bwd_inputs(rows, 768, 3072, 768, torch.bfloat16, gen)
+            fn = lambda: fe.fused_mlp_bwd(x, g, w1t.t(), b1, w2t.t(), act)  # noqa: E731
+            out[f"mlp_bwd_{name}"] = time_ms(fn, reps_for(time_ms(fn, 1)))
+            torch.cuda.empty_cache()
+        # #6 at the LM's prefill call and a train step's call (with lse)
+        for name, s in (("prefill", 2048), ("train", 8192)):
+            q, k, v = (torch.randn(8, 12, s, 64, device="cuda", generator=gen)
+                       .to(torch.bfloat16) for _ in range(3))
+            fn = lambda: fa.flash_attention_forward(  # noqa: E731
+                q, k, v, causal=True, return_lse=name == "train")
+            out[f"flash_fwd_{name}"] = time_ms(fn, reps_for(time_ms(fn, 1)))
+            del q, k, v
+            torch.cuda.empty_cache()
         q, k, v, do, _, _ = _bwd_inputs(8, 12, 8192, 8192, 64, torch.bfloat16, gen, None, False)
         o, lse = fa.flash_attention_forward(q, k, v, causal=True, return_lse=True)
         fn = lambda: fa._flash_backward(q, k, v, o, lse, do, causal=True,  # noqa: E731
@@ -1241,7 +1407,7 @@ def ab_side() -> None:
 
 
 def ab(parent: str) -> None:
-    """--ab PARENT: #3, #5, the flash backward and the LM serving tick of
+    """--ab PARENT: #3-#6, the flash backward and the LM serving tick of
     another tree of the repo (PARENT: the parent commit, unpacked with git
     archive) and of this checkout, each side a process of its own, in turns: parent, checkout,
     checkout, parent, twice. The trees' kernels build in parallel first."""
@@ -1624,7 +1790,7 @@ def kernel_group(name: str) -> str:
         return "fused_qkv_attention"
     if "fused_mlp_bwd_acc" in name:  # #5's four stages
         return "fused_mlp_bwd_acc"
-    if "fused_mlp_bwd_kernel" in name:
+    if "fused_mlp_bwd_" in name:  # #4's stages
         return "fused_mlp_bwd"
     if "fused_mlp_kernel" in name or "fused_mlp_fwd_" in name:  # #3: fp32; bf16's stages
         return "fused_mlp"
@@ -1708,6 +1874,17 @@ def mlp_bwd_launches(fe):
             "fused_mlp_bwd_acc": fe.fused_mlp_bwd_acc.launches}
 
 
+def mlp_bwd_routes(fe, mlps):
+    """The launches of #4 and #5 that MLP backwards make, each taking the
+    route ``fused_mlp_bwd_acc_supported`` gives its shape: ``mlps`` holds
+    (rows, Din, Dff, Dout, count)."""
+    out = {"fused_mlp_bwd": 0, "fused_mlp_bwd_acc": 0}
+    for rows, din, dff, dout, count in mlps:
+        acc = fe.fused_mlp_bwd_acc_supported(rows, din, dff, dout)
+        out["fused_mlp_bwd_acc" if acc else "fused_mlp_bwd"] += count
+    return out
+
+
 def grad_cosines(model, batch, build=None):
     """Cosines of the card's bf16 gradients against an fp32 step of the
     same weights (a model from ``build``, CLIP ViT-B/32 by default) on the
@@ -1762,9 +1939,11 @@ def train(fe, card):
           flush=True)
     if not cos >= 0.99:
         fail(f"gradient cosine {cos} < 0.99 against fp32 on the CPU")
-    # 8 pairs are 400 and 616 rows a tower: #4's side of the predicate
-    if check_launches != {"fused_mlp_bwd": 24, "fused_mlp_bwd_acc": 0}:
-        fail(f"MLP backward launches in the 8-pair gradient check: {check_launches}")
+    # 8 pairs are 400 and 616 rows a tower, 12 layers each
+    want = mlp_bwd_routes(fe, ((8 * 50, 768, 3072, 768, 12), (8 * 77, 512, 2048, 512, 12)))
+    if check_launches != want:
+        fail(f"MLP backward launches in the 8-pair gradient check: {check_launches}, "
+             f"want {want}")
 
     warmup, steps = 2, 10
     batches = [(rng.integers(0, 256, size=(TRAIN_BATCH, 256, 256, 3), dtype=np.uint8),
@@ -1791,9 +1970,10 @@ def train(fe, card):
                 "fused_mlp": fe.fused_mlp.launches, **mlp_bwd_launches(fe)}
     peak = torch.cuda.max_memory_allocated()
     losses = [r["loss"] for r in trainer.logger.records if "loss" in r]
-    # 24 a step (12 layers x 2 towers); batch 256 is #5's side of the predicate
+    # 24 a step (12 layers x 2 towers); the MLP backward by the predicate
     want = {k: 24 * steps for k in launches}
-    want["fused_mlp_bwd"] = 0
+    want.update(mlp_bwd_routes(fe, ((TRAIN_BATCH * 50, 768, 3072, 768, 12 * steps),
+                                    (TRAIN_BATCH * 77, 512, 2048, 512, 12 * steps))))
     print(f"train: launches {launches}, want {want}", flush=True)
     for k, v in launches.items():
         if v != want[k]:
@@ -1913,7 +2093,7 @@ def lm_train(fe, fa, card):
     if not cos >= 0.99:
         fail(f"LM gradient cosine {cos} < 0.99 against fp32 on the CPU")
     # one packed row is 1,024 rows: #4's side of the predicate
-    if check_launches != {"fused_mlp_bwd": LM_TRAIN["n_layer"], "fused_mlp_bwd_acc": 0}:
+    if check_launches != mlp_bwd_routes(fe, ((1024, 768, 3072, 768, LM_TRAIN["n_layer"]),)):
         fail(f"MLP backward launches in the LM gradient check: {check_launches}")
 
     warmup, steps = 2, 5
@@ -1936,11 +2116,11 @@ def lm_train(fe, fa, card):
                 "fused_mlp": fe.fused_mlp.launches, **mlp_bwd_launches(fe)}
     layers = LM_TRAIN["n_layer"]
     # forward and remat recompute: 2 a layer; backward: 1; #9 only for a
-    # differentiated bias; 65,536 rows are #5's side of the predicate
+    # differentiated bias; the MLP backward of 65,536 rows by the predicate
     want = {"flash_attention": 2 * layers * steps, "flash_attention_bwd": layers * steps,
-            "flash_attention_bwd_dbias": 0,
-            "fused_mlp": 2 * layers * steps, "fused_mlp_bwd": 0,
-            "fused_mlp_bwd_acc": layers * steps}
+            "flash_attention_bwd_dbias": 0, "fused_mlp": 2 * layers * steps,
+            **mlp_bwd_routes(fe, ((LM_TRAIN_BATCH * LM_TRAIN_SEQ, 768, 3072, 768,
+                                   layers * steps),))}
     print(f"lm train: launches {launches}, want {want} ({steps} steps, {layers} layers)",
           flush=True)
     for k, v in launches.items():
@@ -1987,6 +2167,14 @@ def lm_train(fe, fa, card):
 FLAVA_BATCH = 64
 FLAVA_SEQS = (("image", 197), ("text", 77), ("mm", 275))  # rows a pair of each tower's MLP
 FLAVA_MLPS = 12 * 2 + 12 * 2 + 6  # image and text towers twice a step, multimodal once
+
+
+def flava_mlp_bwd_routes(fe, batch):
+    """#4's and #5's launches in one FLAVA step at ``batch`` pairs."""
+    rows = dict(FLAVA_SEQS)
+    return mlp_bwd_routes(fe, ((batch * rows["image"], 768, 3072, 768, 24),
+                               (batch * rows["text"], 768, 3072, 768, 24),
+                               (batch * rows["mm"], 768, 3072, 768, 6)))
 
 
 def flava_cfg(batch: int, steps: int, bf16: bool = True):
@@ -2069,10 +2257,10 @@ def flava_train(fe, fa, card):
           f"({time.perf_counter() - t0:.1f} s); launches {check_launches}", flush=True)
     if not cos >= 0.99:
         fail(f"FLAVA gradient cosine {cos} < 0.99 against fp32 on the CPU")
-    # 2 pairs are 394, 154 and 550 rows: #4's side of the predicate; the
-    # towers ask for attention probabilities, so no fused or flash attention
+    # 2 pairs are 394, 154 and 550 rows; the towers ask for attention
+    # probabilities, so no fused or flash attention
     want = dict.fromkeys(check_launches, 0)
-    want.update(fused_mlp=FLAVA_MLPS, fused_mlp_bwd=FLAVA_MLPS)
+    want.update(fused_mlp=FLAVA_MLPS, **flava_mlp_bwd_routes(fe, 2))
     if check_launches != want:
         fail(f"FLAVA gradient check launches {check_launches}, want {want}")
 
@@ -2090,7 +2278,8 @@ def flava_train(fe, fa, card):
     peak = torch.cuda.max_memory_allocated()
     launches = counts()
     want = dict.fromkeys(launches, 0)
-    want.update(fused_mlp=FLAVA_MLPS * steps, fused_mlp_bwd_acc=FLAVA_MLPS * steps)
+    want.update(fused_mlp=FLAVA_MLPS * steps,
+                **{k: v * steps for k, v in flava_mlp_bwd_routes(fe, FLAVA_BATCH).items()})
     print(f"flava: launches {launches}, want {want} ({steps} steps, {FLAVA_MLPS} MLPs a step)",
           flush=True)
     if launches != want:
@@ -2226,7 +2415,7 @@ def main() -> None:
         ("fused_mlp_bwd", "multimodal_tpu_torch/csrc/fused_mlp_bwd.cu",
          "multimodal_tpu/ops/fused_encoder.py:603", "flava_grad_image"),
         ("fused_mlp_bwd_acc", "multimodal_tpu_torch/csrc/fused_mlp_bwd_acc.cu",
-         "multimodal_tpu/ops/fused_encoder.py:706", "flava_image"),
+         "multimodal_tpu/ops/fused_encoder.py:706", "flava_mm"),
         ("flash_attention", "multimodal_tpu_torch/csrc/flash_attention_fwd.cu",
          "multimodal_tpu/ops/flash_attention.py:336", "prefill"),
         ("quantized_cache_attention", "multimodal_tpu_torch/csrc/quantized_cache_attention.cu",

@@ -539,17 +539,6 @@ __global__ void flash_bwd_wgmma_dq_kernel(const float4* __restrict__ acc, __nv_b
   }
 }
 
-// A TMA map of a bf16 (B, H, S, 64) tensor at `base` with element strides
-// st (batch, head, row), 64 x 64 boxes (rows x head dimension).
-cudaError_t map_bhsd(CUtensorMap* map, const void* base, int B, int H, int S,
-                     const long long (&st)[3]) {
-  const cuuint64_t dims[4] = {64, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
-  return wg::make_map_nd<4>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box);
-}
-
 unsigned grid_of(long long n) {
   const long long blocks = (n + 255) / 256;
   return (unsigned)(blocks < 65536 ? blocks : 65536);
@@ -565,10 +554,10 @@ cudaError_t launch_wgmma(const Args& a, void* dq, const long long* dqs, void* ws
   WgParams p;
   p.a = a;
   cudaError_t err;
-  if ((err = map_bhsd(&p.q, a.q, a.B, a.H, a.Sq, a.qs)) != cudaSuccess) return err;
-  if ((err = map_bhsd(&p.k, a.k, a.B, a.H, a.Sk, a.ks)) != cudaSuccess) return err;
-  if ((err = map_bhsd(&p.v, a.v, a.B, a.H, a.Sk, a.vs)) != cudaSuccess) return err;
-  if ((err = map_bhsd(&p.dout, a.dout, a.B, a.H, a.Sq, a.dos)) != cudaSuccess) return err;
+  if ((err = wg::map_bhsd(&p.q, a.q, a.B, a.H, a.Sq, a.qs)) != cudaSuccess) return err;
+  if ((err = wg::map_bhsd(&p.k, a.k, a.B, a.H, a.Sk, a.ks)) != cudaSuccess) return err;
+  if ((err = wg::map_bhsd(&p.v, a.v, a.B, a.H, a.Sk, a.vs)) != cudaSuccess) return err;
+  if ((err = wg::map_bhsd(&p.dout, a.dout, a.B, a.H, a.Sq, a.dos)) != cudaSuccess) return err;
   const long long rows = (long long)a.B * a.H * a.Sq;
   const cuuint64_t dims[3] = {64, (cuuint64_t)a.Sq, (cuuint64_t)a.B * a.H};
   const cuuint64_t strides[2] = {64 * sizeof(float), (cuuint64_t)a.Sq * 64 * sizeof(float)};

@@ -17,33 +17,55 @@
 // read in place and never materialised. A row that sees no key at all (l = 0)
 // is defined here as o = 0 and lse = -inf.
 //
-// What bounds it on this card: operations. At the LM prefill shape
-// (8, 12, S, 64) bf16 causal, the products are 4 * 64 * S(S+1)/2 FLOPs a head
-// (0.4 TFLOP at S = 4096, 0.4 ms at 989 TF/s) against 4 * 8 * 12 * S * 64 * 2
-// bytes of q, k, v and o (0.1 ms at 3.35 TB/s).
+// What bounds it on this card: operations. At the LM shapes (8, 12, S, 64)
+// bf16 causal the products are 4 * 64 FLOPs a visible (query, key) pair:
+// 52 GFLOP at S = 2048 (prefill, 0.052 ms at 989 TF/s) and 825 GFLOP at
+// S = 8192 (a train step's call, 0.834 ms), against 4 * 8 * 12 * S * 64 * 2
+// bytes of q, k, v and o (0.015 and 0.06 ms at 3.35 TB/s).
 //
-// Design (bf16 at head width 32, 64 or 128): one block of 4 warps per
-// (64-query tile, head, batch); each warp owns 16 query rows and keeps its q
-// fragments, its 16 x 64 score tile and its 16 x D output accumulator in
-// registers. The block walks 64-key tiles of K and V staged in a two-stage
-// cp.async double buffer in shared memory (the next tile loads under the
-// current tile's products); q . k^T and T(p) . v are `mma.sync` m16n8k16
-// products (fragments by `ldmatrix`, V by `ldmatrix.trans`), and the score
-// tile, rounded to bf16, is reused in registers as the A fragment of p . v.
-// With the causal mask the walk stops at the last key tile that any row of
-// the query tile can see, so tiles wholly above the diagonal are never read;
-// the per-element masks (causal, ragged edges, segments, bias) run only on
-// the tiles that need them, since their integer work per score otherwise
-// outweighs the tensor-core products (the first version, which masked every
-// tile, ran the prefill shape at 70 TF/s).
-// The row statistics (running max, partial row sums) stay in fp32 registers;
-// the partial sums of a row's four lanes are reduced once, at the end.
+// Design, bf16 at head width 64 without a bias (flash_fwd_wgmma_kernel):
+// one block of two warpgroups per (128-query tile, head, batch), 64 query
+// rows a warpgroup. The grid walks a chunk of heads at a time (about a wave
+// of blocks: 8 heads at S = 2048, 2 at 8192; 3% faster at S = 2048 than
+// every head's same query tile together), and inside a chunk the longest
+// causal rows first. Thread 0 loads the block's Q once by TMA (two 64 x 64 boxes,
+// 128-byte swizzle) and the first key tiles of K and V (128 keys each) into
+// a ring of six stages, each guarded by an mbarrier; there is no producer
+// warp (a ninth warp would cap every thread at 168 registers). The last of
+// the eight warps to be done with a stage refills it. Per key tile t a
+// warpgroup issues S(t) = Q K(t)^T (`wgmma` m64n128k16, both operands
+// K-major in shared memory, fp32 accumulators) and then O += P(t - 1)
+// V(t - 1) (m64n64k16 with P, rounded to bf16 and packed, as the A
+// fragments in registers and V MN-major), waits for S(t) alone and runs the
+// softmax of tile t (fp32, `ex2`, row maxima and sums in four partials)
+// while the tensor cores run P(t - 1) V(t - 1); the two warpgroups take
+// turns to issue (named barriers), so one's softmax also runs under the
+// other's products. P never goes through shared memory. Key tiles wholly
+// above the causal diagonal are never loaded; the leading tiles that every
+// row of the block sees whole run a loop without masks, the rest (the
+// diagonal, a ragged Sk edge, segment ids) a loop with one straight pass
+// of selects before the softmax, the segment ids read as bits before the
+// tile's products so that their loads run under them. Rows past Sq read
+// zeros and are not stored. At (8, 12, 2048, 64) causal it takes 0.19 ms,
+// at (8, 12, 8192, 64) 2.32 ms, against SDPA's 0.14 and 1.81 (H100 80GB
+// HBM3, 700.00 W; PERF.md): what remains is mostly the `ex2`s, 16 a clock
+// an SM, as many clocks a tile as the tensor cores' products.
 //
-// fp32, and bf16 at other head widths, run on the FP32 pipes: a block of 8
-// warps owns 32 query rows (4 per warp), stages 32-key tiles of K (transposed,
-// odd pitch) and V in fp32 shared memory; a lane owns one key of the tile for
-// the scores and 32-column slices of the output for p . v, with the
-// probabilities broadcast by shuffles. wgmma and TMA are later work.
+// The other routes, chosen by type, head width and bias, never after a
+// failure:
+// - bf16 at head width 32 or 128, and bf16 with a bias (flash_fwd_mma_kernel):
+//   one block of 4 warps per (64-query tile, head, batch); each warp owns 16
+//   query rows and keeps its q fragments, its 16 x 64 score tile and its
+//   16 x D output accumulator in registers. The block walks 64-key tiles of
+//   K and V staged in a two-stage cp.async double buffer; q . k^T and T(p) .
+//   v are `mma.sync` m16n8k16 products (fragments by `ldmatrix`, V by
+//   `ldmatrix.trans`), the score tile, rounded to bf16, reused in registers
+//   as the A fragment of p . v. The causal walk and the masks as above.
+// - fp32, and bf16 at other head widths, on the FP32 pipes: a block of 8
+//   warps owns 32 query rows (4 per warp), stages 32-key tiles of K
+//   (transposed, odd pitch) and V in fp32 shared memory; a lane owns one key
+//   of the tile for the scores and 32-column slices of the output for p . v,
+//   with the probabilities broadcast by shuffles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +73,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -89,7 +112,7 @@ __device__ __forceinline__ float bias_at(const Args& a, int b, int h, int i, int
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bf16 at head width 32, 64 or 128.
+// `mma.sync` path: bf16 at head width 32 or 128, and with a bias at 64.
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;
@@ -313,6 +336,332 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at head width 64 without a bias: `wgmma` + TMA.
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 128;    // query rows a block owns: 64 a warpgroup
+constexpr int kWgKeys = 128;    // keys a tile holds
+constexpr int kWgStages = 6;    // K and V tiles in flight
+constexpr int kWgThreads = 256;  // two warpgroups; one lane issues each copy
+constexpr int kWgWarps = kWgThreads / 32;
+constexpr int kBox = 64 * 64 * 2;         // one 64 x 64 bf16 box
+constexpr int kKvBytes = 4 * kBox;        // a stage: K's two boxes, then V's two
+// The two warpgroups take turns to issue their products (named barriers 3
+// and 4), so that one's softmax runs under the other's products, besides
+// each overlapping its own softmax of tile t with its product of t - 1.
+constexpr bool kPingPong = true;
+// Blocks that a chunk of heads spans (about a wave of the card's 132 SMs at
+// a block an SM): the blocks of a few heads run together and share their K
+// and V in L2.
+constexpr int kChunkBlocks = 132;
+// Shared memory, from a 1024-byte aligned base: Q (2 boxes), the stages,
+// their `full` barriers and Q's, and a count a stage of the warps done
+// with it.
+constexpr size_t kWgSmem = 1024 + 2 * kBox + (size_t)kWgStages * kKvBytes +
+                           (kWgStages + 1) * sizeof(uint64_t) + kWgStages * sizeof(int);
+
+struct WgParams {
+  CUtensorMap q, k, v;  // (B, H, S, 64) bf16, 64 x 64 boxes
+  Args a;
+};
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; -inf gives 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The copies of key tile t (K and V, 128 rows each) into its stage,
+// reported to the stage's `full` barrier.
+__device__ __forceinline__ void load_kv(const WgParams& p, uint8_t* kv, uint64_t* full, int t,
+                                        int h, int b) {
+  const int s = t % kWgStages;
+  uint8_t* dst = kv + s * kKvBytes;
+  wg::bar_expect_tx(&full[s], kKvBytes);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    wg::tma_box_4d(dst + j * kBox, &p.k, &full[s], 0, t * kWgKeys + 64 * j, h, b);
+    wg::tma_box_4d(dst + (2 + j) * kBox, &p.v, &full[s], 0, t * kWgKeys + 64 * j, h, b);
+  }
+}
+
+// Which of a thread's scores of key tile k0 pair a query and a key of one
+// segment: bit 4 j + 2 hh + c for row r0 + 8 hh and key k0 + 8 j + 2 t4 + c.
+// Read before the tile's products are issued, so that the loads' latency
+// runs under them.
+__device__ __forceinline__ uint64_t segment_bits(const Args& a, int b, int k0, int t4,
+                                                 const int (&qid)[2]) {
+  const int* kvseg = a.kvseg + b * a.kvseg_b;
+  uint64_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int key = k0 + 8 * j + 2 * t4 + c;
+      const int kid = key < a.Sk ? kvseg[key] : 0;  // keys past Sk are masked anyway
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        bits |= (uint64_t)(kid == qid[hh]) << (4 * j + 2 * hh + c);
+    }
+  return bits;
+}
+
+// The per-element masks of key tile k0 on a thread's scores (s[4 j + e] is
+// row r0 + 8 (e / 2), key k0 + 8 j + 2 t4 + e % 2): -inf where a key lies
+// past Sk, above the causal diagonal or, by `seg` (segment_bits; all ones
+// without segment ids), in another segment. One straight pass of selects:
+// no branch around an element.
+__device__ __forceinline__ void mask_tile(float (&s)[64], const Args& a, int r0, int k0, int t4,
+                                          uint64_t seg) {
+  const int off = a.Sk - a.Sq;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int key = k0 + 8 * j + 2 * t4 + c;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int x = 4 * j + 2 * hh + c;
+        const bool vis = key < a.Sk && (!a.causal || key <= r0 + 8 * hh + off) && ((seg >> x) & 1);
+        s[x] = vis ? s[x] : -INFINITY;
+      }
+    }
+}
+
+// One key tile t of a warpgroup: the products S(t) = Q K(t)^T (four k-steps,
+// the first overwriting S) and O += P(t - 1) V(t - 1) (eight, P from
+// registers) issued as two groups; the softmax of S(t) once the first group
+// is done, under the second; then, with both done, the stage of t - 1
+// released, O rescaled and P(t) packed. No instruction writes registers of
+// a product in flight (ptxas would serialize the products), and every
+// product is issued, unconditionally: for t = 0, P is 0 and V is tile 0's.
+template <bool MASK>
+__device__ __forceinline__ void flash_tile(const WgParams& p, uint8_t* kv, uint64_t* full,
+                                           int* released, int t, int n, int h, int b, int r0,
+                                           const int (&qid)[2], uint32_t q_desc_base,
+                                           float (&s)[64], float (&o)[32], uint32_t (&pa)[8][4],
+                                           float (&m)[2], float (&l)[2]) {
+  const Args& a = p.a;
+  const int lane = threadIdx.x & 31;
+  const int t4 = lane & 3;
+  const int wgi = threadIdx.x / 128;
+  const int st = t % kWgStages;
+  const int pv = t == 0 ? 0 : (t - 1) % kWgStages;
+  const uint64_t seg = MASK && a.qseg ? segment_bits(a, b, t * kWgKeys, t4, qid) : ~0ull;
+  wg::bar_wait(&full[st], (t / kWgStages) & 1);
+  __syncwarp();  // the warp leaves the poll together: `wgmma` is .aligned
+  if (kPingPong) wg::named_sync(3 + wgi, kWgThreads);
+  const uint32_t k_base = wg::smem_u32(kv + st * kKvBytes);
+  const uint32_t v_base = wg::smem_u32(kv + pv * kKvBytes + 2 * kBox);
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wg::mma_m64n128k16<wg::K, wg::K>(s, wg::desc(q_desc_base + kk * 32, 16, 1024),
+                                     wg::desc(k_base + kk * 32, 16, 1024), kk);
+  wg::wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wg::mma_m64n64k16_rs<wg::MN>(o, pa[kk], wg::desc(v_base + kk * 2048, kBox, 1024), 1);
+  wg::wgmma_commit();
+  if (kPingPong) wg::named_arrive(3 + (wgi ^ 1), kWgThreads);
+  wg::wgmma_wait<1>();  // S(t) is done; P(t - 1) V(t - 1) runs on
+  wg::fence_acc(s);
+
+  if (MASK) mask_tile(s, a, r0, t * kWgKeys, t4, seg);
+  // Row maxima and sums in four partials a row (x = 4 j + e: partial j % 4,
+  // row e / 2), so that no chain of 32 dependent instructions stalls the
+  // warp.
+  float part[2][4];
+#pragma unroll
+  for (int x = 0; x < 8; ++x) part[(x >> 1) & 1][x >> 2 << 1 | (x & 1)] = s[x];
+#pragma unroll
+  for (int x = 8; x < 64; ++x) {
+    float& pm = part[(x >> 1) & 1][((x >> 2) & 1) << 1 | (x & 1)];
+    pm = fmaxf(pm, s[x]);
+  }
+  float mx[2], alpha[2], mu[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(fmaxf(part[hh][0], part[hh][1]), fmaxf(part[hh][2], part[hh][3]));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    // max(s) * c is max(s * c) exactly: the rounding is monotonic, c > 0
+    const float m_new = fmaxf(m[hh], mx[hh] * a.scale_log2);
+    mu[hh] = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet: p = 0
+    alpha[hh] = ex2(m[hh] - mu[hh]);
+    m[hh] = m_new;
+  }
+#pragma unroll
+  for (int x = 0; x < 64; ++x) {
+    const int hh = (x >> 1) & 1;
+    s[x] = ex2(fmaf(s[x], a.scale_log2, -mu[hh]));
+    float& ps = part[hh][((x >> 2) & 1) << 1 | (x & 1)];
+    ps = x < 8 ? s[x] : ps + s[x];
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    l[hh] = l[hh] * alpha[hh] + ((part[hh][0] + part[hh][1]) + (part[hh][2] + part[hh][3]));
+
+  wg::wgmma_wait<0>();
+  wg::fence_acc(o);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) wg::fence_regs(pa[kk]);
+  // The stage of t - 1 is done in this warp; the last of the block's warps
+  // to be done refills it with tile t - 1 + kWgStages.
+  if (t > 0 && lane == 0) {
+    const int rs = (t - 1) % kWgStages;
+    __threadfence_block();
+    if (atomicAdd(&released[rs], 1) == kWgWarps - 1) {
+      released[rs] = 0;
+      __threadfence_block();
+      wg::fence_async_smem();
+      if (t - 1 + kWgStages < n) load_kv(p, kv, full, t - 1 + kWgStages, h, b);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int x = 0; x < 32; ++x) o[x] *= alpha[(x >> 1) & 1];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = mm::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ WgParams p) {
+  const Args& a = p.a;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                           ~uintptr_t(1023));
+  uint8_t* kv = sm + 2 * kBox;
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv + kWgStages * kKvBytes);
+  uint64_t* q_bar = full + kWgStages;
+  int* released = reinterpret_cast<int*>(q_bar + 1);
+
+  // The grid is walked a chunk of heads at a time (kChunkBlocks); inside a
+  // chunk, query tiles from the last: under the causal mask the longest
+  // rows start first.
+  const int nq = (a.Sq + kWgRows - 1) / kWgRows;
+  const int heads = a.B * a.H;
+  const int per_chunk = max(1, min(heads, kChunkBlocks / nq));  // heads a chunk
+  const int chunk = (int)blockIdx.x / (per_chunk * nq);
+  const int in_chunk = min(per_chunk, heads - chunk * per_chunk);
+  const int j = (int)blockIdx.x - chunk * per_chunk * nq;
+  const int bh = chunk * per_chunk + j % in_chunk;
+  const int h = bh % a.H;
+  const int b = bh / a.H;
+  const int q0 = (nq - 1 - j / in_chunk) * kWgRows;
+  const int off = a.Sk - a.Sq;
+  // Key tiles [0, n) are walked, at least one (a block whose rows see no
+  // key masks all of tile 0); [0, n_full) need no per-element mask: every
+  // row of the block sees every key of them.
+  int n = (a.Sk + kWgKeys - 1) / kWgKeys;
+  if (a.causal) {
+    const int last_key = min(a.Sq, q0 + kWgRows) - 1 + off;
+    n = max(1, min(n, last_key / kWgKeys + 1));
+  }
+  int n_full = a.qseg ? 0 : min(n, a.Sk / kWgKeys);
+  if (a.causal) n_full = min(n_full, q0 + off + 1 > 0 ? (q0 + off + 1) / kWgKeys : 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      wg::bar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    wg::bar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    wg::bar_expect_tx(q_bar, 2 * kBox);
+    wg::tma_box_4d(sm, &p.q, q_bar, 0, q0, h, b);
+    wg::tma_box_4d(sm + kBox, &p.q, q_bar, 0, q0 + 64, h, b);
+    for (int t = 0; t < kWgStages && t < n; ++t) load_kv(p, kv, full, t, h, b);
+  }
+
+  // Warpgroup wgi owns rows [q0 + 64 wgi, + 64); a thread rows r0 and
+  // r0 + 8, and of O columns 8 j + 2 t4 and + 1 (o[4 j + 2 hh + c]).
+  const int lane = threadIdx.x & 31;
+  const int wgi = threadIdx.x / 128;
+  const int t4 = lane & 3;
+  const int r0 = q0 + 64 * wgi + 16 * ((threadIdx.x / 32) % 4) + (lane >> 2);
+  int qid[2] = {0, 0};
+  if (a.qseg)
+    for (int hh = 0; hh < 2; ++hh)
+      qid[hh] = r0 + 8 * hh < a.Sq ? a.qseg[b * a.qseg_b + r0 + 8 * hh] : 0;
+
+  float s[64], o[32];
+  uint32_t pa[8][4];
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this lane's partial row sums
+#pragma unroll
+  for (int x = 0; x < 32; ++x) o[x] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = 0u;
+  // the zeros are written here, not sunk into the first products' flight
+  wg::fence_acc(o);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) wg::fence_regs(pa[kk]);
+  if (kPingPong && wgi == 1) wg::named_arrive(3, kWgThreads);  // warpgroup 0 issues first
+  wg::bar_wait(q_bar, 0);
+  __syncwarp();
+  const uint32_t q_desc_base = wg::smem_u32(sm + wgi * kBox);
+
+  for (int t = 0; t < n_full; ++t)
+    flash_tile<false>(p, kv, full, released, t, n, h, b, r0, qid, q_desc_base, s, o, pa, m, l);
+  for (int t = n_full; t < n; ++t)
+    flash_tile<true>(p, kv, full, released, t, n, h, b, r0, qid, q_desc_base, s, o, pa, m, l);
+
+  // O += P(n - 1) V(n - 1)
+  if (kPingPong) wg::named_sync(3 + wgi, kWgThreads);
+  const uint32_t v_last = wg::smem_u32(kv + ((n - 1) % kWgStages) * kKvBytes + 2 * kBox);
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wg::mma_m64n64k16_rs<wg::MN>(o, pa[kk], wg::desc(v_last + kk * 2048, kBox, 1024), 1);
+  wg::wgmma_commit();
+  if (kPingPong && wgi == 0) wg::named_arrive(4, kWgThreads);
+  wg::wgmma_wait<0>();
+  wg::fence_acc(o);
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) + b * a.os[0] + h * a.os[1];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = r0 + 8 * hh;
+    if (i >= a.Sq) continue;
+    const float inv = l[hh] == 0.f ? 0.f : 1.f / l[hh];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(og + i * a.os[2] + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+    if (a.lse && t4 == 0)
+      a.lse[((long long)b * a.H + h) * a.Sq + i] =
+          l[hh] == 0.f ? -INFINITY : m[hh] + log2f(l[hh]);
+  }
+}
+
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
+  static const cudaError_t smem_err = wg::allow_smem(flash_fwd_wgmma_kernel, kWgSmem);
+  if (smem_err != cudaSuccess) return smem_err;
+  WgParams p;
+  p.a = a;
+  cudaError_t err;
+  if ((err = wg::map_bhsd(&p.q, a.q, a.B, a.H, a.Sq, a.qs)) != cudaSuccess) return err;
+  if ((err = wg::map_bhsd(&p.k, a.k, a.B, a.H, a.Sk, a.ks)) != cudaSuccess) return err;
+  if ((err = wg::map_bhsd(&p.v, a.v, a.B, a.H, a.Sk, a.vs)) != cudaSuccess) return err;
+  flash_fwd_wgmma_kernel<<<(a.Sq + kWgRows - 1) / kWgRows * a.H * a.B, kWgThreads, kWgSmem,
+                           stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // FP32-pipe path: fp32, and bf16 at other head widths (D % 8 == 0, D <= 128).
 // ---------------------------------------------------------------------------
 
@@ -518,6 +867,7 @@ int mm_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   a.causal = causal;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_fp32<float>(a, D, st);
+  if (D == 64 && bias == nullptr) return (int)launch_wgmma(a, st);
   if (D == 32) return (int)launch_mma<32>(a, st);
   if (D == 64) return (int)launch_mma<64>(a, st);
   if (D == 128) return (int)launch_mma<128>(a, st);

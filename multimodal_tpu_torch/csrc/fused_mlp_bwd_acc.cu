@@ -28,12 +28,9 @@
 // Design: the function's five products as three stages of GEMMs, each
 // product run once, the (R, Dff) da_c and h_c written once in T and read
 // back (a workspace the wrapper allocates):
-//  1. z and dh: a block owns a 128-row x 128-column tile of (R, Dff) and
-//     runs x . W1 (K = Din) and then g . W2^T (K = Dout) into two
-//     accumulators. Its epilogue adds b1, applies the activation table,
-//     forms da, writes da_c and h_c, and writes the tile's fp32 column sums
-//     of the unrounded da: one db1 partial per 128-row tile.
-//  2. dx = da_c . W1^T (K = Dff), a block per 128 x 128 tile of dx.
+//  1. z and dh into da_c, h_c and one db1 partial per 128-row tile, and
+//  2. dx = da_c . W1^T (K = Dff), a block per 128 x 128 tile of dx: the
+//     stages that kernel #4 shares (csrc/mlp_bwd_common.cuh);
 //  3. dW1^T = da_c^T x and dW2^T = g^T h_c (K = R), one launch over the
 //     tiles of both, split over rows into `splits` runs so that the launch
 //     fills whole waves of the card's SMs; each run writes an fp32 partial.
@@ -44,12 +41,11 @@
 // In bf16 every product is the GEMM core of csrc/wgmma_gemm.cuh: TMA copies
 // by a producer warp into an mbarrier ring of shared-memory stages, `wgmma`
 // m64n128k16 with fp32 accumulators in two consumer warpgroups, persistent
-// blocks that walk their tiles (stage 1 holds two accumulators, 128
-// registers a thread, at one block an SM; stages 2 and 3 one, at two
-// blocks an SM). Stage 1's second product reads W2^T, and stage 3 all four
-// of its operands, MN-major. fp32 has no `wgmma` without TF32, which would
-// change the numbers, and no timed path runs it: it runs the same stages as
-// 128 x 64 tiles on the FP32 pipes, each thread 8 x 4 of a tile.
+// blocks that walk their tiles (stage 3 one accumulator at two blocks an
+// SM), all four of stage 3's operands MN-major. fp32 has no `wgmma` without
+// TF32, which would change the numbers, and no timed path runs it: it runs
+// the same stages as 128 x 64 tiles on the FP32 pipes, each thread 8 x 4 of
+// a tile.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -62,31 +58,14 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using mm::act_and_grad;
-using mm::to_f;
-using wg::BK;
-using wg::BM;
-using wg::BN;
-
-constexpr int kZdhStages = 6;  // one block an SM
-constexpr int kStages = 3;     // two blocks an SM
-constexpr size_t kZdhSmem = wg::smem_bytes<kZdhStages>(8 * BN * sizeof(float));
-constexpr size_t kSmem = wg::smem_bytes<kStages>(0);
-
-struct ZdhParams {
-  CUtensorMap x, w1, g, w2;  // x (R, Din), W1^T (Dff, Din), g (R, Dout), W2^T (Dout, Dff)
-  const bf16* b1;
-  bf16* dac;   // (R, Dff)
-  bf16* hc;    // (R, Dff)
-  float* dbp;  // (R / 128 tiles, Dff): the tiles' column sums of da
-  int R, Din, Dff, Dout;
-};
-
-struct DxParams {
-  CUtensorMap dac, w1;  // da_c (R, Dff), W1^T (Dff, Din)
-  bf16* dx;
-  int R, Din, Dff;
-};
+using mm::acc_row0;
+using mm::acc_col0;
+using mm::BK;
+using mm::BM;
+using mm::BN;
+using mm::clear;
+using mm::kSmem;
+using mm::kStages;
 
 struct DwParams {
   CUtensorMap dac, x, g, hc;  // da_c (R, Dff), x (R, Din), g (R, Dout), h_c (R, Dff)
@@ -95,153 +74,18 @@ struct DwParams {
   int R, Din, Dff, Dout, rows_per_split, splits, tiles1, tiles1_n, tiles2_n, tiles;
 };
 
-// A consumer thread's accumulator element d[4 j + 2 hf + e] is row
-// acc_row0() + 8 hf, column acc_col0() + 8 j + e of the block's tile.
-__device__ __forceinline__ int acc_row0() {
-  return 16 * (threadIdx.x / 32) + (threadIdx.x % 32) / 4;
-}
-__device__ __forceinline__ int acc_col0() { return 2 * (threadIdx.x % 4); }
-
-__device__ __forceinline__ void clear(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.f;
-  wg::fence_acc(d);
-}
-
-// Stage 1: z and dh of 128 x 128 tiles of (R, Dff), column tiles fastest,
-// then h_c, da_c and each tile's db1 partial.
+// Stages 1 and 2 (csrc/mlp_bwd_common.cuh), with db1 partials.
 template <int ACT>
 __global__ void __launch_bounds__(wg::kThreads, 1)
-fused_mlp_bwd_acc_zdh_kernel(const __grid_constant__ ZdhParams p) {
+fused_mlp_bwd_acc_zdh_kernel(const __grid_constant__ mm::ZdhParams p) {
   extern __shared__ uint8_t smem_raw[];
-  const wg::Ring<kZdhStages> ring(smem_raw);
-  float* red = reinterpret_cast<float*>(ring.extra);  // [8 warps][BN]
-  const int nk1 = p.Din / BK;
-  const int ftiles = (p.Dff + BN - 1) / BN;
-  const int row_tiles = (p.R + BM - 1) / BM;
-  auto tile = [&](int i) { return (int)blockIdx.x + i * (int)gridDim.x; };
-  float z[64], dh[64];
-  clear(z);
-  clear(dh);
-  wg::run(
-      ring, wg::items_of_block(row_tiles * ftiles), [&](int) { return nk1 + p.Dout / BK; },
-      [&](int i, int kb, uint8_t* a, uint8_t* b, uint64_t* bar) {
-        const int m0 = tile(i) / ftiles * BM, n0 = tile(i) % ftiles * BN;
-        if (kb < nk1) {
-          wg::load_operand<wg::K>(a, &p.x, bar, m0, kb * BK);
-          wg::load_operand<wg::K>(b, &p.w1, bar, n0, kb * BK);
-        } else {
-          wg::load_operand<wg::K>(a, &p.g, bar, m0, (kb - nk1) * BK);
-          wg::load_operand<wg::MN>(b, &p.w2, bar, n0, (kb - nk1) * BK);
-        }
-      },
-      [&](int kb, uint32_t a, uint32_t b) {
-        if (kb < nk1) {
-          wg::fence_acc(z);
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk) wg::mma_step<wg::K, wg::K>(z, a, b, kk);
-          wg::fence_acc(z);
-        } else {
-          wg::fence_acc(dh);
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk) wg::mma_step<wg::K, wg::MN>(dh, a, b, kk);
-          wg::fence_acc(dh);
-        }
-      },
-      [&](int i) {
-        // fp32 bias, act and act'; da_c and h_c out; db1 from the unrounded
-        // da of the rows below R, summed over rows in a fixed order.
-        wg::fence_acc(z);
-        wg::fence_acc(dh);
-        const int mt = tile(i) / ftiles, n0 = tile(i) % ftiles * BN;
-        const int r0 = mt * BM + acc_row0();
-        const int warp = threadIdx.x / 32;
-        const int lane = threadIdx.x % 32;
-        wg::consumer_sync();  // the previous tile's reads of red are done
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int c = n0 + 8 * j + acc_col0();
-          float s0 = 0.f, s1 = 0.f;
-          if (c < p.Dff) {
-            const float bias0 = to_f(p.b1[c]), bias1 = to_f(p.b1[c + 1]);
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              const int r = r0 + 8 * hf;
-              float h0, d0, h1, d1;
-              act_and_grad<ACT>(z[4 * j + 2 * hf] + bias0, h0, d0);
-              act_and_grad<ACT>(z[4 * j + 2 * hf + 1] + bias1, h1, d1);
-              const float da0 = dh[4 * j + 2 * hf] * d0;
-              const float da1 = dh[4 * j + 2 * hf + 1] * d1;
-              if (r < p.R) {
-                const size_t o = (size_t)r * p.Dff + c;
-                *reinterpret_cast<__nv_bfloat162*>(p.dac + o) = __floats2bfloat162_rn(da0, da1);
-                *reinterpret_cast<__nv_bfloat162*>(p.hc + o) = __floats2bfloat162_rn(h0, h1);
-                s0 += da0;
-                s1 += da1;
-              }
-            }
-          }
-          // the 8 lanes that share lane % 4 hold the warp's 16 rows of a column
-#pragma unroll
-          for (int o = 4; o < 32; o <<= 1) {
-            s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-            s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-          }
-          if (lane < 4) {
-            red[warp * BN + 8 * j + 2 * lane] = s0;
-            red[warp * BN + 8 * j + 2 * lane + 1] = s1;
-          }
-        }
-        wg::consumer_sync();
-        if (threadIdx.x < BN && n0 + (int)threadIdx.x < p.Dff) {
-          float s = 0.f;
-          for (int w = 0; w < 8; ++w) s += red[w * BN + threadIdx.x];
-          p.dbp[(size_t)mt * p.Dff + n0 + threadIdx.x] = s;
-        }
-        clear(z);
-        clear(dh);
-      });
+  mm::zdh_stage<ACT, true>(p, smem_raw);
 }
 
-// Stage 2: 128 x 128 tiles of dx = da_c . W1^T, column tiles fastest.
 __global__ void __launch_bounds__(wg::kThreads, 2)
-fused_mlp_bwd_acc_dx_kernel(const __grid_constant__ DxParams p) {
+fused_mlp_bwd_acc_dx_kernel(const __grid_constant__ mm::DxParams p) {
   extern __shared__ uint8_t smem_raw[];
-  const wg::Ring<kStages> ring(smem_raw);
-  const int ntiles = (p.Din + BN - 1) / BN;
-  const int row_tiles = (p.R + BM - 1) / BM;
-  auto tile = [&](int i) { return (int)blockIdx.x + i * (int)gridDim.x; };
-  float acc[64];
-  clear(acc);
-  wg::run(
-      ring, wg::items_of_block(row_tiles * ntiles), [&](int) { return p.Dff / BK; },
-      [&](int i, int kb, uint8_t* a, uint8_t* b, uint64_t* bar) {
-        wg::load_operand<wg::K>(a, &p.dac, bar, tile(i) / ntiles * BM, kb * BK);
-        wg::load_operand<wg::MN>(b, &p.w1, bar, tile(i) % ntiles * BN, kb * BK);
-      },
-      [&](int, uint32_t a, uint32_t b) {
-        wg::fence_acc(acc);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) wg::mma_step<wg::K, wg::MN>(acc, a, b, kk);
-        wg::fence_acc(acc);
-      },
-      [&](int i) {
-        wg::fence_acc(acc);
-        const int r0 = tile(i) / ntiles * BM + acc_row0();
-        const int n0 = tile(i) % ntiles * BN;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int c = n0 + 8 * j + acc_col0();
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int r = r0 + 8 * hf;
-            if (r < p.R && c < p.Din)
-              *reinterpret_cast<__nv_bfloat162*>(p.dx + (size_t)r * p.Din + c) =
-                  __floats2bfloat162_rn(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
-          }
-        }
-        clear(acc);
-      });
+  mm::dx_stage(p, smem_raw);
 }
 
 // Stage 3: items (tile, run) over the 128 x 128 tiles of dW1^T (Dff, Din) =
@@ -312,50 +156,10 @@ fused_mlp_bwd_acc_dw_kernel(const __grid_constant__ DwParams p) {
 // fp32: the same stages on the FP32 pipes
 // ---------------------------------------------------------------------------
 
-constexpr int FM = 128, FN = 64, FK = 16;
-
-struct F32Smem {
-  float a[FK][FM + 1];
-  float b[FK][FN + 1];
-};
-
-// c[i][j] += sum over k in [k0, k1) of A(m0 + ty + 16 i, k) B(k, n0 + tx + 16 j)
-// with tx = thread % 16, ty = thread / 16; A(m, k) = a[m sam + k sak] and
-// B(k, n) = b[k sbk + n sbn]; rows m >= M and columns n >= N read as 0.
-__device__ __forceinline__ void f32_tile(float (&c)[8][4], const float* __restrict__ a,
-                                         long long sam, long long sak, int M,
-                                         const float* __restrict__ b, long long sbk,
-                                         long long sbn, int N, int m0, int n0, int k0, int k1,
-                                         F32Smem& sm) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int kb = k0; kb < k1; kb += FK) {
-    __syncthreads();  // the previous step's reads are done
-    for (int idx = threadIdx.x; idx < FM * FK; idx += 256) {
-      // neighbouring threads walk the operand's contiguous axis
-      const int m = sak == 1 ? idx / FK : idx % FM;
-      const int k = sak == 1 ? idx % FK : idx / FM;
-      sm.a[k][m] = m0 + m < M && kb + k < k1 ? a[(m0 + m) * sam + (kb + k) * sak] : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < FN * FK; idx += 256) {
-      const int n = sbk == 1 ? idx / FK : idx % FN;
-      const int k = sbk == 1 ? idx % FK : idx / FN;
-      sm.b[k][n] = n0 + n < N && kb + k < k1 ? b[(kb + k) * sbk + (n0 + n) * sbn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < FK; ++k) {
-      float av[8], bv[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) av[i] = sm.a[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = sm.b[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(av[i], bv[j], c[i][j]);
-    }
-  }
-}
+using mm::F32Smem;
+using mm::f32_tile;
+using mm::FM;
+using mm::FN;
 
 template <int ACT>
 __global__ void __launch_bounds__(256)
@@ -364,57 +168,14 @@ fused_mlp_bwd_acc_zdh_f32_kernel(const float* __restrict__ x, const float* __res
                                  const float* __restrict__ w2, float* __restrict__ dac,
                                  float* __restrict__ hc, float* __restrict__ dbp, int R, int Din,
                                  int Dff, int Dout) {
-  __shared__ F32Smem sm;
-  __shared__ float red[16][FN];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int n0 = blockIdx.x * FN, m0 = blockIdx.y * FM;
-  float z[8][4] = {}, dh[8][4] = {};
-  f32_tile(z, x, Din, 1, R, w1, 1, Din, Dff, m0, n0, 0, Din, sm);
-  f32_tile(dh, g, Dout, 1, R, w2, Dff, 1, Dff, m0, n0, 0, Dout, sm);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int f = n0 + tx + 16 * j;
-    float s = 0.f;
-    if (f < Dff) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = m0 + ty + 16 * i;
-        float h, d;
-        act_and_grad<ACT>(z[i][j] + b1[f], h, d);
-        const float da = dh[i][j] * d;
-        if (r < R) {
-          dac[(size_t)r * Dff + f] = da;
-          hc[(size_t)r * Dff + f] = h;
-          s += da;
-        }
-      }
-    }
-    red[ty][tx + 16 * j] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < FN && n0 + (int)threadIdx.x < Dff) {
-    float s = 0.f;
-    for (int i = 0; i < 16; ++i) s += red[i][threadIdx.x];
-    dbp[(size_t)blockIdx.y * Dff + n0 + threadIdx.x] = s;
-  }
+  mm::zdh_f32_stage<ACT>(x, g, w1, b1, w2, dac, hc, dbp, R, Din, Dff, Dout);
 }
 
 // (256, 1): with no minimum, ptxas held it to 80 registers and spilled.
 __global__ void __launch_bounds__(256, 1)
 fused_mlp_bwd_acc_dx_f32_kernel(const float* __restrict__ dac, const float* __restrict__ w1,
                                 float* __restrict__ dx, int R, int Din, int Dff) {
-  __shared__ F32Smem sm;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int n0 = blockIdx.x * FN, m0 = blockIdx.y * FM;
-  float c[8][4] = {};
-  f32_tile(c, dac, Dff, 1, R, w1, Din, 1, Din, m0, n0, 0, Dff, sm);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = m0 + ty + 16 * i, d = n0 + tx + 16 * j;
-      if (r < R && d < Din) dx[(size_t)r * Din + d] = c[i][j];
-    }
+  mm::dx_f32_stage(dac, w1, dx, R, Din, Dff);
 }
 
 __global__ void __launch_bounds__(256)
@@ -484,43 +245,18 @@ cudaError_t launch_bf16(const void* x, const void* g, const void* w1, const void
   float* dbp = part + (splits > 1 ? splits * (n1 + n2) : 0);
   cudaError_t err;
 
-  ZdhParams zp;
-#define MM_MAP(map, ptr, rows, cols) \
-  if ((err = wg::make_map(&(map), ptr, rows, cols)) != cudaSuccess) return err
-  MM_MAP(zp.x, x, R, Din);
-  MM_MAP(zp.w1, w1, Dff, Din);
-  MM_MAP(zp.g, g, R, Dout);
-  MM_MAP(zp.w2, w2, Dout, Dff);
-  zp.b1 = static_cast<const bf16*>(b1);
-  zp.dac = dac;
-  zp.hc = hc;
-  zp.dbp = dbp;
-  zp.R = R;
-  zp.Din = Din;
-  zp.Dff = Dff;
-  zp.Dout = Dout;
-  if ((err = wg::allow_smem(fused_mlp_bwd_acc_zdh_kernel<ACT>, kZdhSmem)) != cudaSuccess)
+  if ((err = mm::launch_stages<ACT, true>(fused_mlp_bwd_acc_zdh_kernel<ACT>,
+                                          fused_mlp_bwd_acc_dx_kernel, x, g, w1, b1, w2, dx,
+                                          dac, hc, dbp, nullptr, R, Din, Dff, Dout, 1, st)) !=
+      cudaSuccess)
     return err;
-  fused_mlp_bwd_acc_zdh_kernel<ACT><<<wg::persistent_grid((Dff + BN - 1) / BN * row_tiles, 1),
-                                      wg::kThreads, kZdhSmem, st>>>(zp);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  DxParams xp;
-  MM_MAP(xp.dac, dac, R, Dff);
-  xp.w1 = zp.w1;
-  xp.dx = static_cast<bf16*>(dx);
-  xp.R = R;
-  xp.Din = Din;
-  xp.Dff = Dff;
-  if ((err = wg::allow_smem(fused_mlp_bwd_acc_dx_kernel, kSmem)) != cudaSuccess) return err;
-  fused_mlp_bwd_acc_dx_kernel<<<wg::persistent_grid((Din + BN - 1) / BN * row_tiles, 2),
-                                wg::kThreads, kSmem, st>>>(xp);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   DwParams wp;
-  wp.dac = xp.dac;
-  wp.x = zp.x;
-  wp.g = zp.g;
+#define MM_MAP(map, ptr, rows, cols) \
+  if ((err = wg::make_map(&(map), ptr, rows, cols)) != cudaSuccess) return err
+  MM_MAP(wp.dac, dac, R, Dff);
+  MM_MAP(wp.x, x, R, Din);
+  MM_MAP(wp.g, g, R, Dout);
   MM_MAP(wp.hc, hc, R, Dff);
 #undef MM_MAP
   wp.out = splits > 1 ? part : out;

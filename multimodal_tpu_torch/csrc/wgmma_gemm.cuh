@@ -28,11 +28,11 @@
 // either for 16-bit types; the shared-memory descriptor and the transpose
 // bit say which.
 //
-// The header also carries what csrc/flash_attention_bwd.cu's one-pass
-// kernel needs beside the ring's barriers and descriptors: maps of strided
-// tensors of up to five dimensions, m64n64k16 and m64n32k16 products, the
-// form with A in registers, bulk copies, TMA reductions into global fp32,
-// and named barriers.
+// The header also carries what the flash attention kernels
+// (csrc/flash_attention_{fwd,bwd}.cu) need beside the ring's barriers and
+// descriptors: maps of strided tensors of up to five dimensions, m64n64k16
+// and m64n32k16 products, the form with A in registers, bulk copies, TMA
+// reductions into global fp32, and named barriers.
 
 #pragma once
 
@@ -119,6 +119,18 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rows, int co
 // ---------------------------------------------------------------------------
 // Host: launch helpers
 // ---------------------------------------------------------------------------
+
+// A TMA map of a bf16 (B, H, S, 64) tensor at `base` with element strides
+// st (batch, head, row), 64 x 64 boxes (rows x head dimension). Rows past S
+// read zeros.
+inline cudaError_t map_bhsd(CUtensorMap* map, const void* base, int B, int H, int S,
+                            const long long (&st)[3]) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  return make_map_nd<4>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box);
+}
 
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only so).
 template <typename Kernel>
@@ -251,11 +263,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// d (64 x 128, fp32) += A (64 x 16) . B (16 x 128), both from shared memory.
-// The accumulator layout: with w = warp % 4 and l = lane, d[4 j + e] is row
-// 16 w + l / 4 + 8 (e / 2), column 8 j + 2 (l % 4) + e % 2.
+// d (64 x 128, fp32) (+)= A (64 x 16) . B (16 x 128), both from shared
+// memory; `acc` = 0 overwrites d instead of adding to it. The accumulator
+// layout: with w = warp % 4 and l = lane, d[4 j + e] is row 16 w + l / 4 +
+// 8 (e / 2), column 8 j + 2 (l % 4) + e % 2.
 template <int MA, int MB>
-__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                               int acc = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -282,7 +296,7 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da, uint
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "n"(MA), "n"(MB), "r"(1));
+      : "l"(da), "l"(db), "n"(MA), "n"(MB), "r"(acc));
 }
 
 // The flash attention backward's products. Each has the accumulator layout
@@ -411,6 +425,10 @@ __device__ __forceinline__ void fence_async_smem() {
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
+// Arrives at named barrier `id` without waiting for it.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 
 // k-step kk of the warpgroup's product on the stage whose A and B start at
 // shared addresses a and b.
@@ -472,14 +490,20 @@ __device__ __forceinline__ int items_of_block(int total) {
 // by every consumer thread with item i's products complete, writes its
 // tile and clears the accumulators. The producer warp returns at once, so
 // nothing may follow `run` in a kernel but the end.
-template <int STAGES, class NK, class Load, class Mma, class Epi>
-__device__ __forceinline__ void run(const Ring<STAGES>& r, int items, NK&& nk, Load&& load,
-                                    Mma&& mma, Epi&& epi) {
+//
+// run2 is the same with an item's k-blocks in two runs, [0, nk1(i)) through
+// mma1 and [nk1(i), nk1(i) + nk2(i)) through mma2, each in a loop of its
+// own: products that a branch inside one hook would choose between (two
+// accumulators) are then never issued under a condition, which would make
+// ptxas serialize them (C7520).
+template <int STAGES, class NK1, class NK2, class Load, class Mma1, class Mma2, class Epi>
+__device__ __forceinline__ void run2(const Ring<STAGES>& r, int items, NK1&& nk1, NK2&& nk2,
+                                     Load&& load, Mma1&& mma1, Mma2&& mma2, Epi&& epi) {
   if (threadIdx.x >= kConsumers) {
     if (threadIdx.x == kConsumers) {
       int g = 0;  // k-blocks issued so far
       for (int i = 0; i < items; ++i) {
-        const int n = nk(i);
+        const int n = nk1(i) + nk2(i);
         for (int kb = 0; kb < n; ++kb, ++g) {
           const int s = g % STAGES;
           if (g >= STAGES) bar_wait(&r.empty[s], (g / STAGES - 1) & 1);
@@ -491,21 +515,33 @@ __device__ __forceinline__ void run(const Ring<STAGES>& r, int items, NK&& nk, L
     return;
   }
   int g = 0;  // k-blocks consumed so far
+  // k-block kb of the item, through `mma`
+  auto consume = [&](int kb, auto&& mma) {
+    const int s = g % STAGES;
+    bar_wait(&r.full[s], (g / STAGES) & 1);
+    wgmma_fence();
+    mma(kb, smem_u32(r.a(s)), smem_u32(r.b(s)));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous k-block's products are done: free its stage
+    if (kb > 0) bar_arrive(&r.empty[(g - 1) % STAGES]);
+    ++g;
+  };
   for (int i = 0; i < items; ++i) {
-    const int n = nk(i);
-    for (int kb = 0; kb < n; ++kb, ++g) {
-      const int s = g % STAGES;
-      bar_wait(&r.full[s], (g / STAGES) & 1);
-      wgmma_fence();
-      mma(kb, smem_u32(r.a(s)), smem_u32(r.b(s)));
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous k-block's products are done: free its stage
-      if (kb > 0) bar_arrive(&r.empty[(g - 1) % STAGES]);
-    }
+    const int n1 = nk1(i);
+    const int n = n1 + nk2(i);
+    int kb = 0;
+    for (; kb < n1; ++kb) consume(kb, mma1);
+    for (; kb < n; ++kb) consume(kb, mma2);
     wgmma_wait<0>();
     if (n > 0) bar_arrive(&r.empty[(g - 1) % STAGES]);
     epi(i);
   }
+}
+
+template <int STAGES, class NK, class Load, class Mma, class Epi>
+__device__ __forceinline__ void run(const Ring<STAGES>& r, int items, NK&& nk, Load&& load,
+                                    Mma&& mma, Epi&& epi) {
+  run2(r, items, nk, [](int) { return 0; }, load, mma, mma, epi);
 }
 
 }  // namespace wg

@@ -35,9 +35,11 @@ kernels in ``csrc/flash_attention_{fwd,bwd}.cu`` or raises, and counts its
 calls in its ``launches``; on a CPU tensor it runs its part of the plain
 versions (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`),
 the same arithmetic a whole row at a time. In bf16 at head width 64
-``flash_attention_bwd`` is one pass over each key block that adds dq into
-an fp32 workspace, in no fixed order: its dq is not bitwise repeatable
-from call to call, its dk and dv are.
+(without a bias, for the forward) both directions run `wgmma` kernels fed
+by TMA: the forward keeps the probabilities in registers between its two
+products; ``flash_attention_bwd`` is one pass over each key block that adds
+dq into an fp32 workspace, in no fixed order: its dq is not bitwise
+repeatable from call to call, its dk and dv are.
 """
 
 from __future__ import annotations
@@ -180,10 +182,29 @@ def flash_attention_forward(
         raise ValueError(f"flash_attention_forward: no kernel for {q.device}")
     _check(q, k, v, bias, q_segment_ids, kv_segment_ids)
     b, h, sq, d = q.shape
-    sk = k.shape[2]
-    scale = sm_scale if sm_scale is not None else d ** -0.5
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = _grad_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
+    _flash_fwd_launch(q, k, v, bias, out, lse, causal=causal, sm_scale=sm_scale,
+                      q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
+    flash_attention_forward.launches += 1
+    return (out, lse) if return_lse else out
+
+
+def _flash_fwd_launch(q, k, v, bias, out, lse, *, causal: bool, sm_scale: Optional[float],
+                      q_segment_ids=None, kv_segment_ids=None) -> None:
+    """Launches kernel #6 into ``out`` (q's shape and dtype, 16-byte aligned
+    rows) and, unless None, ``lse`` (contiguous fp32 ``(B, H, Sq)``), on
+    operands that ``_check`` accepted. Counts nothing:
+    :func:`flash_attention_forward` is the counted entry point; a check may
+    pass outputs filled with NaN, so that an element the kernel leaves
+    unwritten shows."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if out.shape != q.shape or out.dtype != q.dtype or not _rows_ok(out) or (
+            lse is not None and (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+                                 or not lse.is_contiguous())):
+        raise ValueError("flash_attention_forward: out must match q with 16-byte aligned "
+                         "rows, lse be contiguous fp32 (B, H, Sq)")
     bias_ptr, bias_strides = None, None
     if bias is not None:
         bias = _as_4d_bias(bias)
@@ -203,11 +224,10 @@ def flash_attention_forward(
         None if qseg is None else qseg.data_ptr(), qseg_b,
         None if kvseg is None else kvseg.data_ptr(), kvseg_b,
         None if lse is None else lse.data_ptr(),
-        b, h, sq, sk, d, float(scale), int(causal), _DTYPE_CODES[q.dtype], _build.stream_of(q),
+        b, h, sq, sk, d, _scale(q, sm_scale), int(causal), _DTYPE_CODES[q.dtype],
+        _build.stream_of(q),
     )
     _build.raise_on(err, "flash_attention_forward")
-    flash_attention_forward.launches += 1
-    return (out, lse) if return_lse else out
 
 
 flash_attention_forward.launches = 0

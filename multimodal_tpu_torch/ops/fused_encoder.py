@@ -18,8 +18,9 @@ recomputes what it needs. On a CUDA tensor each wrapper launches its
 hand-written kernel (forward ``csrc/fused_qkv_attention.cu`` and
 ``csrc/fused_mlp.cu`` (two GEMMs on the core of ``csrc/wgmma_gemm.cuh``),
 backward ``csrc/fused_qkv_attention_bwd.cu`` and,
-for the MLP by a rule on shapes, ``csrc/fused_mlp_bwd_acc.cu`` (on the GEMM
-core of ``csrc/wgmma_gemm.cuh``) or ``csrc/fused_mlp_bwd.cu``) or raises;
+for the MLP by a rule on shapes, ``csrc/fused_mlp_bwd_acc.cu`` or
+``csrc/fused_mlp_bwd.cu``, which share their first two stages on the GEMM
+core of ``csrc/wgmma_gemm.cuh``) or raises;
 it never falls back. On a CPU tensor it runs the plain PyTorch version,
 which follows the TPU kernel body's arithmetic (where it rounds to the
 compute type and where it stays in fp32). Each kernel wrapper counts its
@@ -81,7 +82,7 @@ def _kernels() -> ctypes.CDLL:
             _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _V]
         lib.mm_fused_mlp.restype = _I
         lib.mm_fused_mlp_bwd.argtypes = [
-            _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _V]
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I, _V]
         lib.mm_fused_mlp_bwd.restype = _I
         lib.mm_fused_mlp_bwd_acc.argtypes = [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I, _V]
@@ -120,7 +121,7 @@ _SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
 _ACC_TILE = 128  # rows and columns of an output tile of kernel #5's products
 # Rows from which the MLP backward takes kernel #5: set from the card's
 # measurement of #5 against #4 plus the library's dW products (PERF.md).
-_ACC_MIN_ROWS = 1025
+_ACC_MIN_ROWS = 16_385
 
 
 def _acc_splits(rows: int, din: int, dff: int, dout: int) -> int:
@@ -135,6 +136,30 @@ def _acc_splits(rows: int, din: int, dff: int, dout: int) -> int:
     return max(1, min(best, -(-rows // 64)))
 
 
+def _mlp_bwd_splits(rows: int, din: int, dff: int) -> int:
+    """Runs of K = Dff in kernel #4's dx product (``da . W1^T``), from the
+    shapes alone: as many as fill the H100's SMs once with the 128 x 128 dx
+    tiles times the runs, each run at least 4 of Dff's 64-wide k-blocks, and
+    every run non-empty. 1 where the tiles alone fill the card (CLIP's
+    12,800 rows); 5 at FLAVA's gradient check's 394 image rows (24 tiles).
+    Each run writes an fp32 partial that a fixed-order pass sums."""
+    tiles = -(-rows // _ACC_TILE) * -(-din // _ACC_TILE)
+    kblocks = dff // 64
+    runs = max(1, min(_SM_COUNT // tiles, kblocks // 4))
+    per = -(-kblocks // runs)
+    return -(-kblocks // per)
+
+
+def _mlp_bwd_workspace(rows: int, din: int, dff: int, dtype: torch.dtype):
+    """Shape of kernel #4's fp32 workspace: the dx partials of its runs,
+    ``(splits, rows, Din)``, in bf16 where ``_mlp_bwd_splits`` gives more
+    than one run; else None (fp32 runs without a split)."""
+    if dtype != torch.bfloat16:
+        return None
+    splits = _mlp_bwd_splits(rows, din, dff)
+    return (splits, rows, din) if splits > 1 else None
+
+
 def fused_mlp_bwd_acc_supported(rows: int, din: int, dff: int, dout: int) -> bool:
     """Whether the MLP backward takes kernel #5 (``fused_mlp_bwd_acc``, dW
     summed by the kernel) rather than kernel #4 (``fused_mlp_bwd``) plus the
@@ -142,14 +167,16 @@ def fused_mlp_bwd_acc_supported(rows: int, din: int, dff: int, dout: int) -> boo
     ``_ACC_MIN_ROWS`` rows. A rule on shapes alone, so the CPU makes the
     same choice as the card.
 
-    #5 writes the ``(rows, Dff)`` da and h once and runs each of the
-    function's five products once, as tiled Hopper GEMMs. The threshold
-    comes from the card (``chip_smoke.py``'s ``acc_threshold``, 768 -> 3072
-    -> 768 in bf16, ``PERF.md`` §6): #5 beats #4 plus the library's dW
-    products at every row count timed, 1,024 to 4,096 (0.195 against 1.466
-    ms at 1,024), so the rule takes #5 from the lowest count that still
-    keeps the small-batch gradient checks (at most 1,024 rows) on #4, and
-    every timed train step (4,928 rows and more) on #5."""
+    #5 and #4 share their first two stages (z/dh into da and h, then dx);
+    #5 then sums dW1, dW2 and db1 itself, #4 leaves them to two library
+    products and a sum. The threshold comes from the card
+    (``chip_smoke.py``'s ``acc_threshold``, 768 -> 3072 -> 768 in bf16,
+    ``PERF.md`` §6): #4 plus the library's dW beats #5 at every row
+    count timed, 256 to 16,384 (0.99 against 1.11 ms at 16,384), so the
+    rule keeps #4 up to the largest count measured and #5 above it, where
+    no measurement has shown #4 ahead: FLAVA's image and text MLPs and
+    CLIP's vision MLP take #4, FLAVA's multimodal MLP (17,600 rows),
+    CLIP's text MLP (19,712) and the LM's (65,536) #5."""
     return fused_mlp_available(din, dff, dout) and rows >= _ACC_MIN_ROWS
 
 
@@ -524,7 +551,9 @@ def _mlp_fwd_launch(x, w1, b1, w2, b2, activation: str, out, ws) -> None:
 def fused_mlp_bwd(x, g, w1, b1, w2, activation: str = "gelu"):
     """Stage 1 of the MLP backward on ``x`` ``(rows, Din)`` and the output
     gradient ``g`` ``(rows, Dout)``: ``(dx, da, h)`` in the compute type.
-    Kernel #4 on CUDA, its plain version on the CPU."""
+    Kernel #4 on CUDA (in bf16 kernel #5's z/dh and dx stages, dx's product
+    split over Dff at few rows: one launch counted), its plain version on
+    the CPU."""
     if activation not in _ACT_CODES:
         raise ValueError(f"fused_mlp_bwd: unknown activation {activation!r}")
     if x.device.type == "cpu":
@@ -542,14 +571,30 @@ def fused_mlp_bwd(x, g, w1, b1, w2, activation: str = "gelu"):
     h = torch.empty_like(da)
     if rows == 0:
         return dx, da, h
-    err = _kernels().mm_fused_mlp_bwd(
-        x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        dx.data_ptr(), da.data_ptr(), h.data_ptr(), rows, din, dff, dout,
-        _ACT_CODES[activation], _DTYPE_CODES[x.dtype], _build.stream_of(x),
-    )
-    _build.raise_on(err, "fused_mlp_bwd")
+    ws_shape = _mlp_bwd_workspace(rows, din, dff, x.dtype)
+    part = None if ws_shape is None else torch.empty(ws_shape, dtype=torch.float32,
+                                                      device=x.device)
+    _mlp_bwd_launch(x, g, w1, b1, w2, activation, dx, da, h, part)
     fused_mlp_bwd.launches += 1
     return dx, da, h
+
+
+def _mlp_bwd_launch(x, g, w1, b1, w2, activation: str, dx, da, h, part) -> None:
+    """Launches kernel #4 into ``dx``, ``da`` and ``h`` with ``part`` as its
+    workspace (``_mlp_bwd_workspace``'s shape, or None), on operands that
+    ``fused_mlp_bwd`` accepted and at least one row. A check may pass its
+    own outputs and workspace, filled with NaN, so that an element the
+    kernel leaves unwritten shows."""
+    rows, din = x.shape
+    dff, dout = w2.shape
+    splits = 1 if part is None else part.shape[0]
+    err = _kernels().mm_fused_mlp_bwd(
+        x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        dx.data_ptr(), da.data_ptr(), h.data_ptr(), None if part is None else part.data_ptr(),
+        rows, din, dff, dout, splits, _ACT_CODES[activation], _DTYPE_CODES[x.dtype],
+        _build.stream_of(x),
+    )
+    _build.raise_on(err, "fused_mlp_bwd")
 
 
 def fused_mlp_bwd_acc(x, g, w1, b1, w2, activation: str = "gelu"):

@@ -1,20 +1,29 @@
-"""Variants of the flash attention backward's one-pass kernel, measured on
-the card: each variant is a list of (text, replacement) edits applied to
-``csrc/flash_attention_bwd.cu`` in a copy of the package under
-``build/variants/<name>/``. The copies build in parallel; the report gives,
-for ``flash_bwd_wgmma_kernel``, ptxas's registers and spills, its C75xx
-notes (``wgmma`` serialized) and the highest register its SASS uses, and,
-with ``--time``, the ms of ``flash_attention_bwd`` at the LM training shape
-(8, 12, 8192, 64) bf16 causal by CUDA events, each variant in a process of
-its own, twice in turns, with the profiler's device ms by kernel.
+"""Variants of the flash attention kernels' `wgmma` routes, measured on the
+card: each variant is a list of (text, replacement) edits applied to the
+kernel's source in a copy of the package under ``build/variants/<name>/``.
+The copies build in parallel; the report gives, for the kernel, ptxas's
+registers and spills, its C75xx notes (``wgmma`` serialized) and the
+highest register its SASS uses, and, with ``--time``, its ms by CUDA
+events, each variant in a process of its own, twice in turns, with the
+profiler's device ms by kernel.
 
-    python -m multimodal_tpu_torch.tools.kernel_variants [--time] [edits.json]
+    python -m multimodal_tpu_torch.tools.kernel_variants [--forward] [--time] [edits.json]
 
-``edits.json`` maps a variant's name to its edits; without it the variants
-are ``VARIANTS``: the source as it is, K and V read from shared memory in
-place of register fragments, ``exp2`` left out, the dq reduction left out,
-and four ring stages. A variant is for measuring only: its results are
-wrong where an edit leaves work out.
+Without ``--forward`` the kernel is the backward's one-pass
+``flash_bwd_wgmma_kernel`` (``csrc/flash_attention_bwd.cu``), timed as
+``flash_attention_bwd`` at the LM training shape (8, 12, 8192, 64) bf16
+causal, and the default variants are ``VARIANTS``: the source as it is, K
+and V read from shared memory in place of register fragments, ``exp2``
+left out, the dq reduction left out, and four ring stages. With
+``--forward`` it is the forward's ``flash_fwd_wgmma_kernel``
+(``csrc/flash_attention_fwd.cu``), timed as ``flash_attention_forward`` at
+the LM's prefill (8, 12, 2048, 64) and train (8, 12, 8192, 64) shapes bf16
+causal, and the default variants are ``FWD_VARIANTS``: the source as it
+is, each warpgroup overlapping only its own softmax (no ping-pong),
+``ex2`` left out, two and four ring stages, and the grid walked a query tile of every head
+at a time (in place of a chunk of heads at a time). ``edits.json`` maps a variant's name to its edits. A
+variant is for measuring only: its results are wrong where an edit leaves
+work out.
 """
 
 from __future__ import annotations
@@ -46,6 +55,42 @@ VARIANTS = {
     "four_stages": [("constexpr int kWgStages = 3;", "constexpr int kWgStages = 4;")],
 }
 
+FWD_SOURCE = "flash_attention_fwd.cu"
+FWD_KERNEL = "flash_fwd_wgmma_kernel"
+FWD_VARIANTS = {
+    "as_is": [],
+    "overlap_alone": [("constexpr bool kPingPong = true;", "constexpr bool kPingPong = false;")],
+    "no_ex2": [("s[x] = ex2(fmaf(s[x], a.scale_log2, -mu[hh]));",
+                "s[x] = fmaf(s[x], a.scale_log2, -mu[hh]);")],
+    "two_stages": [("constexpr int kWgStages = 6;", "constexpr int kWgStages = 2;")],
+    "four_stages": [("constexpr int kWgStages = 6;", "constexpr int kWgStages = 4;")],
+    "all_heads_per_tile": [("constexpr int kChunkBlocks = 132;",
+                            "constexpr int kChunkBlocks = 1 << 30;")],
+}
+
+FWD_TIME = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from torch.profiler import ProfilerActivity, profile
+from multimodal_tpu_torch.ops import flash_attention as fa
+gen = torch.Generator(device="cuda").manual_seed(8)
+ms, kernels = {}, {}
+with torch.no_grad():
+    for name, s in (("prefill", 2048), ("train", 8192)):
+        q, k, v = (torch.randn(8, 12, s, 64, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        fn = lambda: fa.flash_attention_forward(q, k, v, causal=True, return_lse=True)
+        ms[name] = [cs.time_ms(fn, 100 if s == 2048 else 20, warmup=3) for _ in range(3)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        kernels[name] = {e.key[:60]: round(getattr(e, "device_time_total", 0) / 3 / 1e3, 4)
+                         for e in prof.key_averages() if getattr(e, "device_time_total", 0)}
+print("variant_time " + json.dumps({"ms": ms, "device_ms": kernels, "card": cs.card_line()}))
+"""
+
 TIME = r"""
 import json, sys, torch
 sys.path.insert(0, ".")
@@ -69,9 +114,9 @@ print("variant_time " + json.dumps({"ms": ms, "device_ms": kernels, "card": cs.c
 """
 
 
-def make_copy(name: str, edits) -> Path:
+def make_copy(name: str, edits, source: str = SOURCE) -> Path:
     """The package and chip_smoke.py under build/variants/<name>, the
-    backward's source edited, the sources its wrapper binds kept."""
+    kernel's source edited, the sources its wrapper binds kept."""
     copy = ROOT / "build" / "variants" / name
     shutil.rmtree(copy, ignore_errors=True)
     shutil.copytree(ROOT / "multimodal_tpu_torch", copy / "multimodal_tpu_torch",
@@ -79,19 +124,19 @@ def make_copy(name: str, edits) -> Path:
     shutil.copy(ROOT / "chip_smoke.py", copy / "chip_smoke.py")
     csrc = copy / "multimodal_tpu_torch" / "csrc"
     for src in csrc.glob("*.cu"):
-        if src.name not in ("flash_attention_fwd.cu", SOURCE):
+        if src.name not in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
             src.unlink()
-    text = (csrc / SOURCE).read_text()
+    text = (csrc / source).read_text()
     for old, new in edits:
         if old not in text:
-            raise ValueError(f"variant {name}: {old!r} is not in {SOURCE}")
+            raise ValueError(f"variant {name}: {old!r} is not in {source}")
         text = text.replace(old, new)
-    (csrc / SOURCE).write_text(text)
+    (csrc / source).write_text(text)
     return copy
 
 
-def build_report(copy: Path) -> dict:
-    """Builds the copy; ptxas's lines for KERNEL and its SASS's highest
+def build_report(copy: Path, kernel: str = KERNEL) -> dict:
+    """Builds the copy; ptxas's lines for `kernel` and its SASS's highest
     register."""
     proc = subprocess.run(
         [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); "
@@ -100,15 +145,15 @@ def build_report(copy: Path) -> dict:
     if proc.returncode:
         return {"built": False, "log": proc.stdout[-2000:] + proc.stderr[-2000:]}
     lines = proc.stdout.splitlines()
-    at = [i for i, line in enumerate(lines) if KERNEL in line and "Compiling" in line]
+    at = [i for i, line in enumerate(lines) if kernel in line and "Compiling" in line]
     report = {"built": True,
               "ptxas": [line.strip() for line in lines[at[0] + 1:at[0] + 4]
                         if "Function properties" not in line] if at else [],
-              "notes": sorted({m.group(1) for m in re.finditer(r"\((C75\d\d)\)[^\n]*" + KERNEL,
+              "notes": sorted({m.group(1) for m in re.finditer(r"\((C75\d\d)\)[^\n]*" + kernel,
                                                                proc.stdout)})}
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", lines[0]], capture_output=True, text=True).stdout
-    body = [f for f in re.split(r"\n\s+Function : ", sass) if KERNEL in f.split("\n", 1)[0]]
+    body = [f for f in re.split(r"\n\s+Function : ", sass) if kernel in f.split("\n", 1)[0]]
     if body:
         report["highest_register"] = max(int(r) for r in re.findall(r"\bR(\d+)\b", body[0]))
     return report
@@ -116,11 +161,15 @@ def build_report(copy: Path) -> dict:
 
 def main(argv) -> None:
     time_it = "--time" in argv
+    forward = "--forward" in argv
+    source, kernel, timer = ((FWD_SOURCE, FWD_KERNEL, FWD_TIME) if forward
+                             else (SOURCE, KERNEL, TIME))
     files = [a for a in argv if not a.startswith("--")]
-    variants = json.loads(Path(files[0]).read_text()) if files else VARIANTS
-    copies = {name: make_copy(name, edits) for name, edits in variants.items()}
+    variants = (json.loads(Path(files[0]).read_text()) if files
+                else FWD_VARIANTS if forward else VARIANTS)
+    copies = {name: make_copy(name, edits, source) for name, edits in variants.items()}
     with ThreadPoolExecutor(len(copies)) as ex:
-        reports = dict(zip(copies, ex.map(build_report, copies.values())))
+        reports = dict(zip(copies, ex.map(lambda c: build_report(c, kernel), copies.values())))
     for name, report in reports.items():
         print(f"variant_build {name} " + json.dumps(report), flush=True)
     if not time_it:
@@ -129,7 +178,7 @@ def main(argv) -> None:
         for name, copy in copies.items():
             if not reports[name]["built"]:
                 continue
-            proc = subprocess.run([sys.executable, "-c", TIME], cwd=copy, capture_output=True,
+            proc = subprocess.run([sys.executable, "-c", timer], cwd=copy, capture_output=True,
                                   text=True)
             line = [x for x in proc.stdout.splitlines() if x.startswith("variant_time ")]
             print(f"variant_time {name} turn {turn} "

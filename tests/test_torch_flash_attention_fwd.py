@@ -1,0 +1,184 @@
+"""Kernel #6, the flash attention forward (multimodal_tpu_torch/ops/flash_attention.py),
+at the edges of the Hopper kernel's 128-query and 128-key tiles.
+
+On the CPU the port's wrapper runs its plain version; the JAX package's
+``flash_attention_forward`` runs its Pallas kernel in interpret mode (as
+tests/ops/test_flash_attention.py does). Inputs come from a numpy seed and go
+to both as the same arrays; the lse is compared in log2 space, the JAX
+kernel's ``lse[..., :Sq, 0]``. Also here: the launch helper's refusals, the
+C entry point's ctypes signature, the route that bf16 at head width 64
+takes in the source, and the names under which ``chip_smoke.py`` files the
+kernel's device time.
+"""
+
+import importlib.util
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_tpu.ops import flash_attention as jfa
+from multimodal_tpu_torch.ops import flash_attention as tfa
+from multimodal_tpu_torch.tools import kernel_variants
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "multimodal_tpu_torch" / "csrc"
+# The tolerances of tests/test_torch_flash_attention.py. fp32: the same
+# log2-space arithmetic in two frameworks, sums in another order and exp2
+# from two libraries over up to 1000 keys. bf16: both round the
+# probabilities and the output to bf16 at the same points; an exp2 an ulp
+# apart can move a rounding across a tie: two bf16 ulps of the output.
+ATOL_F32 = 2e-5
+ATOL_BF16 = 2.0 ** -7
+LSE_ATOL = 2e-5  # log2-space lse of fp32 scores (|lse| < 16)
+
+# (name, sq, sk, causal, segments): one row short of a 128-query tile, a
+# whole one, one row into the next, a tile and a half, and a ragged 1000;
+# causal with Sq != Sk (bottom-right aligned: every row sees a key).
+EDGE_CASES = [
+    ("sq127_causal", 127, 127, True, False),
+    ("sq128_causal", 128, 128, True, False),
+    ("sq129_causal", 129, 129, True, False),
+    ("sq191_non_causal", 191, 191, False, False),
+    ("sq1000_causal", 1000, 1000, True, False),
+    ("sq127_sk1000_causal", 127, 1000, True, False),
+    ("sq129_sk191_causal", 129, 191, True, False),
+    ("sq191_sk129_non_causal", 191, 129, False, False),
+    ("sq129_segment_ids", 129, 129, True, True),
+    ("sq191_segment_ids_non_causal", 191, 191, False, True),
+]
+
+
+def _inputs(sq, sk, segments, seed, b=1, h=2, d=64):
+    r = np.random.RandomState(seed)
+    q = r.randn(b, h, sq, d).astype(np.float32)
+    k = r.randn(b, h, sk, d).astype(np.float32)
+    v = r.randn(b, h, sk, d).astype(np.float32)
+    qseg = kvseg = None
+    if segments:  # packed documents: every query sees at least its own key
+        cuts = np.sort(r.choice(np.arange(1, sq), size=(b, 3), replace=False), axis=1)
+        qseg = np.stack([np.searchsorted(c, np.arange(sq), side="right") for c in cuts])
+        qseg = qseg.astype(np.int32)
+        kvseg = qseg.copy()
+    return q, k, v, qseg, kvseg
+
+
+def _jax(q, k, v, causal, qseg, kvseg, dtype):
+    c = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    out, lse = jfa.flash_attention_forward(
+        jnp.asarray(q, dtype), jnp.asarray(k, dtype), jnp.asarray(v, dtype), None,
+        causal=causal, return_lse=True, q_segment_ids=c(qseg), kv_segment_ids=c(kvseg))
+    return np.asarray(out.astype(jnp.float32)), np.asarray(lse)[:, :, : q.shape[2], 0]
+
+
+def _port(q, k, v, causal, qseg, kvseg, dtype):
+    c = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    out, lse = tfa.flash_attention_forward(
+        torch.from_numpy(q).to(dtype), torch.from_numpy(k).to(dtype),
+        torch.from_numpy(v).to(dtype), causal=causal, return_lse=True,
+        q_segment_ids=c(qseg), kv_segment_ids=c(kvseg))
+    return out.float().numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,sq,sk,causal,segments", EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_flash_forward_at_tile_edges_matches_jax(name, sq, sk, causal, segments, dtype):
+    q, k, v, qseg, kvseg = _inputs(sq, sk, segments, seed=sq + 7 * sk)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                        torch.bfloat16)
+    want, want_lse = _jax(q, k, v, causal, qseg, kvseg, jdt)
+    got, got_lse = _port(q, k, v, causal, qseg, kvseg, tdt)
+    assert got.shape == (1, 2, sq, 64) and got_lse.shape == (1, 2, sq)
+    np.testing.assert_allclose(got, want, atol=ATOL_F32 if dtype == "float32" else ATOL_BF16)
+    np.testing.assert_allclose(got_lse, want_lse, atol=LSE_ATOL, rtol=1e-6)
+
+
+def test_launch_refuses_outputs_it_cannot_write():
+    """``_flash_fwd_launch`` (the kernel's launch, which checks also use to
+    relaunch into NaN-filled outputs) refuses an output of another shape or
+    with unaligned rows, and an lse that is not contiguous fp32, before it
+    reaches the library."""
+    q = torch.zeros(1, 2, 129, 64, dtype=torch.bfloat16)
+    kw = dict(causal=True, sm_scale=None)
+    with pytest.raises(ValueError, match="out must match q"):
+        tfa._flash_fwd_launch(q, q, q, None, torch.zeros(1, 2, 128, 64, dtype=torch.bfloat16),
+                              None, **kw)
+    with pytest.raises(ValueError, match="out must match q"):
+        tfa._flash_fwd_launch(q, q, q, None, torch.zeros(1, 2, 129, 68, dtype=torch.bfloat16)
+                              [..., :64], None, **kw)
+    with pytest.raises(ValueError, match="lse be contiguous fp32"):
+        tfa._flash_fwd_launch(q, q, q, None, tfa._grad_like(q),
+                              torch.zeros(1, 2, 129, dtype=torch.bfloat16), **kw)
+
+
+def test_argtypes_match_the_entry_point():
+    """The wrapper's ctypes signature has one argument per parameter of
+    ``mm_flash_attention_fwd``: pointers and stride arrays as pointers, the
+    segment ids' batch strides as long long, the scale as float."""
+    params = re.search(r"int mm_flash_attention_fwd\(([^)]*)\)",
+                       (CSRC / "flash_attention_fwd.cu").read_text()).group(1).split(",")
+    py = Path(tfa.__file__).read_text()
+    argtypes = re.search(r"lib\.mm_flash_attention_fwd\.argtypes = \[([^\]]*)\]",
+                         py).group(1).split(",")
+    assert len(params) == len(argtypes) == 24
+    for param, arg in zip(params, argtypes):
+        param, arg = param.strip(), arg.strip()
+        if "*" in param:
+            assert arg == "_V", param
+        elif param.startswith("long long"):
+            assert arg == "_L", param
+        elif param.startswith("float"):
+            assert arg == "ctypes.c_float", param
+        else:
+            assert param.startswith("int") and arg == "_I", param
+
+
+def test_bf16_head_width_64_without_bias_takes_the_wgmma_kernel():
+    """The route is decided by dtype, head width and bias alone: bf16 at 64
+    without a bias launches the `wgmma` kernel; 32, 128 and a bias keep
+    the `mma.sync` kernel, fp32 the FP32 pipes."""
+    text = (CSRC / "flash_attention_fwd.cu").read_text()
+    entry = text[text.index("int mm_flash_attention_fwd("):]
+    assert "if (dtype == 0) return (int)dispatch_fp32<float>(a, D, st);" in entry
+    assert "if (D == 64 && bias == nullptr) return (int)launch_wgmma(a, st);" in entry
+    assert set(re.findall(r"launch_mma<(\d+)>\(a, st\)", entry)) == {"32", "64", "128"}
+    assert entry.index("launch_wgmma") < entry.index("launch_mma<64>")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("key", [
+    "(anonymous namespace)::flash_fwd_wgmma_kernel((anonymous namespace)::WgParams)",
+    "void (anonymous namespace)::flash_fwd_mma_kernel<64>((anonymous namespace)::Args)",
+    "void (anonymous namespace)::flash_fwd_fp32_kernel<float, 2>((anonymous namespace)::Args, "
+    "int)",
+])
+def test_profile_groups_file_the_forward_under_flash_attention(key):
+    assert _chip_smoke().kernel_group(key) == "flash_attention"
+
+
+def test_chip_smoke_cases_cover_the_tile_edges_and_the_train_shape():
+    """``chip_smoke.py`` checks #6 at the LM train shape (with and without
+    segment ids, with lse) and at Sq 127, 129 and 191 on the card."""
+    cases = {c[0]: c for c in _chip_smoke().FLASH_CASES}
+    assert cases["train"][1:5] == (8, 12, 8192, 8192) and cases["train"][7]["lse"]
+    assert cases["train_segment_ids"][7] == {"lse": True, "segments": True}
+    assert {c[3] for c in cases.values()} >= {127, 129, 191}
+
+
+@pytest.mark.parametrize("variant", sorted(kernel_variants.FWD_VARIANTS))
+def test_kernel_variants_apply_to_the_forward(variant):
+    """Each default forward variant of tools/kernel_variants.py edits text
+    that the forward's source holds once, so the tool still measures what
+    PERF.md reports."""
+    text = (CSRC / kernel_variants.FWD_SOURCE).read_text()
+    for old, _ in kernel_variants.FWD_VARIANTS[variant]:
+        assert text.count(old) == 1

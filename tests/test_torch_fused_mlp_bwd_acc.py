@@ -91,11 +91,11 @@ def _port_mlp_grads(x, g, w1, b1, w2, b2, act):
     return [t.numpy() for t in torch.autograd.grad(out, ts, torch.from_numpy(g))]
 
 
-@pytest.mark.parametrize("rows,acc", [(76, False), (4096, True)])
+@pytest.mark.parametrize("rows,acc", [(76, False), (tfe._ACC_MIN_ROWS, True)])
 @pytest.mark.parametrize("act", ["quick_gelu", "gelu_exact"])
 def test_mlp_function_grads_match_jax_both_routes(rows, acc, act, monkeypatch):
     """(dx, dW1, db1, dW2, db2) of ``_MLP`` on each branch of the predicate
-    (#4 at 76 rows, #5 at 4096) against ``jax.vjp`` of the JAX
+    (#4 at 76 rows, #5 from the threshold up) against ``jax.vjp`` of the JAX
     ``fused_mlp`` with its Pallas backward tiers on, which try the
     dW-accumulating kernel first."""
     monkeypatch.setenv("MMTPU_FORCE_FUSED_ENCODER", "1")
@@ -107,7 +107,7 @@ def test_mlp_function_grads_match_jax_both_routes(rows, acc, act, monkeypatch):
     want = vjp(jnp.asarray(g))
     for name, gv, wv in zip(("dx", "dW1", "db1", "dW2", "db2"), got, want):
         assert gv.shape == wv.shape, name
-        # dW sums over up to 4096 rows in another order
+        # dW sums over up to 16,385 rows in another order
         atol = ATOL * (1 + rows / 256)
         np.testing.assert_allclose(gv, np.asarray(wv), atol=atol, err_msg=name)
 
@@ -116,7 +116,7 @@ def test_mlp_function_acc_route_matches_plain_autograd():
     """``_MLP``'s #5 branch against autograd through the plain forward, the
     weights passed as the column-major views an nn.Linear gives: each
     gradient comes back in its input's shape and layout."""
-    x, g, w1, b1, w2, b2 = _inputs(25, rows=4096)
+    x, g, w1, b1, w2, b2 = _inputs(25, rows=tfe._ACC_MIN_ROWS)
     lin1 = torch.from_numpy(np.ascontiguousarray(w1.T)).requires_grad_()
     lin2 = torch.from_numpy(np.ascontiguousarray(w2.T)).requires_grad_()
     xs, b1s, b2s = (torch.from_numpy(a).requires_grad_() for a in (x, b1, b2))
@@ -133,25 +133,27 @@ def test_mlp_function_acc_route_matches_plain_autograd():
 @pytest.mark.parametrize(
     "rows,din,dff,dout,ok",
     [
-        (256 * 50, 768, 3072, 768, True),    # CLIP vision, batch 256
+        (256 * 50, 768, 3072, 768, False),   # CLIP vision, batch 256: #4 + library dW
         (256 * 77, 512, 2048, 512, True),    # CLIP text, batch 256
         (8 * 8192, 768, 3072, 768, True),    # LM train, 8 x 8192
-        (64 * 197, 768, 3072, 768, True),    # FLAVA image, batch 64
-        (64 * 77, 768, 3072, 768, True),     # FLAVA text, batch 64
+        (64 * 197, 768, 3072, 768, False),   # FLAVA image, batch 64: #4 + library dW
+        (64 * 77, 768, 3072, 768, False),    # FLAVA text, batch 64: #4 + library dW
         (64 * 275, 768, 3072, 768, True),    # FLAVA multimodal, batch 64
         (8 * 50, 768, 3072, 768, False),     # CLIP gradient check, 8 pairs
         (8 * 77, 512, 2048, 512, False),
         (1024, 768, 3072, 768, False),       # LM gradient check, 1 row
         (2 * 197, 768, 3072, 768, False),    # FLAVA gradient check, batch 2
-        (64 * 197, 1024, 4096, 1024, True),  # wider than 768: the GEMMs take any width
+        (64 * 275, 1024, 4096, 1024, True),  # wider than 768: the GEMMs take any width
         (tfe._ACC_MIN_ROWS, 768, 3072, 768, True),       # the threshold
         (tfe._ACC_MIN_ROWS - 1, 768, 3072, 768, False),
         (64 * 197, 96, 3072, 768, False),    # not a fused MLP width
     ],
 )
 def test_acc_predicate_choice(rows, din, dff, dout, ok):
-    """#5 on the timed train steps' shapes, at any fused MLP width; #4 at
-    the small-batch gradient checks'. The rule reads shapes only."""
+    """#5 from 16,385 rows (CLIP's text, FLAVA's multimodal and the LM's
+    train-step MLPs), at any fused MLP width; #4 below (the other train
+    steps' MLPs and the small-batch gradient checks'), where the card timed
+    #4 plus the library's dW faster. The rule reads shapes only."""
     assert tfe.fused_mlp_bwd_acc_supported(rows, din, dff, dout) is ok
 
 

@@ -136,6 +136,11 @@ def test_profile_groups_file_entries_under_fused_mlp(name, act):
     ("fused_mlp_bwd_acc_zdh_kernel<2>", "fused_mlp_bwd_acc"),
     ("fused_mlp_bwd_acc_sum_kernel", "fused_mlp_bwd_acc"),
     ("fused_mlp_bwd_kernel<__nv_bfloat16, 2, 12>", "fused_mlp_bwd"),
+    ("fused_mlp_bwd_zdh_kernel<2>", "fused_mlp_bwd"),
+    ("fused_mlp_bwd_dx_kernel", "fused_mlp_bwd"),
+    ("fused_mlp_bwd_dx_sum_kernel", "fused_mlp_bwd"),
+    ("fused_mlp_bwd_zdh_f32_kernel<2>", "fused_mlp_bwd"),
+    ("fused_mlp_bwd_acc_dx_kernel", "fused_mlp_bwd_acc"),
 ])
 def test_profile_groups_keep_the_backward_apart(name, group):
     assert _chip_smoke().kernel_group(f"void (anonymous namespace)::{name}(float const*)") \
