@@ -10,11 +10,14 @@ in order (any failure exits non-zero):
    ViT-B/32 shapes (both towers; batch 512 for the forward kernels, the
    train step's 256 for the backward ones) in bf16 and fp32, plus every
    MLP activation, head width 96 and the attention key-bias lane at small
-   shapes, and the attention backward (#2) past S = 128: ViT-B/16's S = 197
-   at batch 256, S = 256 at head width 64 and S = 181 at 128 (the
-   forward's largest there): max abs error against its tolerance, and the
-   kernel's, the plain version's and one library call's times beside the
-   card's bound;
+   shapes, and the attention backward (#2) past S = 128 (its `wgmma`
+   route): S = 129, ViT-B/16's S = 197 at batch 256, S = 256 at head width
+   64 and S = 181 at 128 (the forward's largest there), each #2 case also
+   relaunched into a dqkv filled with NaN, bitwise equal: max abs error
+   against its tolerance, and the kernel's, the plain version's and one
+   library call's times beside the card's bound; #2's two bf16 routes
+   timed against each other at S = 16 to 128 (the numbers
+   ``_BWD_WGMMA_MIN_SEQ`` is set from);
 3. CLIP ViT-B/32 embedding serving at full width and depth, random weights
    from a seed: an image server (uint8 256x256 -> preprocess ->
    encode_image) and a text server (token ids -> encode_text) answer
@@ -34,7 +37,9 @@ in order (any failure exits non-zero):
    and finite losses; items/s,
    ms a step, peak memory and one step's device time by kernel group; then
    CLIP ViT-B/16's gradients at 2 pairs (vision S = 197, #2 past S = 128)
-   against fp32 on the CPU (cosine >= 0.99, 24 launches of #2);
+   against fp32 on the CPU (cosine >= 0.99, 24 launches of #2), and its
+   train step at batch 256 (1 warm-up, 3 timed steps, 24 launches a step of
+   #1 and #2, one step's device time by kernel group);
 5. CLIP ViT-L/14's image tower (S = 257, past the fused kernels) at batch 8
    on the card against fp32 on the CPU (cosine >= 0.999);
 6. long-context LM serving at bench.py's serving width and depth (12
@@ -96,13 +101,16 @@ with lse, with and without segment ids, the 128-query tile's edges (Sq
 127, 129, 191) and its masking variants, each relaunched into an output
 and lse filled with NaN, bitwise equal, and times the prefill and train
 shapes against SDPA; and the int8-cache decode
-attention (#10) at the decode shape (33 x 12 heads, 4096 positions) and its
-verify-window and GQA variants, each output element held to its own row's
-scale (``row_relative_error``), and times #6 against the plain path at
-S = 32 to 1024 (the numbers ``ops/attention.py:FLASH_MIN_SEQ`` is set
-from). It checks the flash attention backward (``flash_attention_bwd``:
-#7 dq and #8 dk/dv as one call; #9 the bias gradient) against the plain
-backward at the prefill shape causal and #6's variants, bf16 and fp32, with
+attention (#10) at the decode shape (33 x 12 heads, 4096 positions), its
+verify-window and GQA variants, a query row that sees nothing, 8 query
+rows over 8,192 positions and one over 32,768, each output element held to
+its own row's scale (``row_relative_error``) and relaunched into an output
+and scratch filled with NaN, bitwise equal, its time the profiler's device
+time; and #6 against the plain path at S = 32 to 1024 (the numbers
+``ops/attention.py:FLASH_MIN_SEQ`` is set from). It checks the flash
+attention backward (``flash_attention_bwd``: #7 dq and #8 dk/dv as one
+call; #9 the bias gradient) against the plain backward at the prefill
+shape causal and #6's variants, bf16 and fp32, with
 the lse cotangent through ``flash_attention_lse``, each element to its
 row's scale, and launches it again into outputs and a dq workspace filled
 with NaN (dk and dv bitwise equal, dq within its bar); and times the call
@@ -119,11 +127,11 @@ and the route it replaces (#4 plus the library's dW products); and times
 ``fused_mlp_bwd_acc_supported``'s threshold is set from; the train phases'
 expected launches of #4 and #5 follow that predicate).
 ``--kernels-only`` stops after phase 2 and prints no result line;
-``--planted-faults`` only builds copies of #6, the flash backward, #4, #5
-and #3 with known faults (``PLANTED_FAULTS``) and shows that the checks
-catch each one; ``--ab PARENT`` only times #3-#6 at their paths' shapes,
-the flash attention backward at the LM training shape and the LM serving
-tick of the tree at
+``--planted-faults`` only builds copies of #2, #6, the flash backward, #4,
+#5, #3 and #10 with known faults (``PLANTED_FAULTS``) and shows that the
+checks catch each one; ``--ab PARENT`` only times #2-#6 and #10 at their
+paths' shapes, the flash attention backward at the LM training shape and
+the LM serving tick of the tree at
 PARENT (the parent commit unpacked with ``git archive``) and of this
 checkout, in turns, each in a process of its own.
 
@@ -175,6 +183,25 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, group: str, calls: int = 20) -> float:
+    """Device time of one ``fn()`` in ms: its kernels of ``kernel_group``
+    ``group`` under torch.profiler, summed over ``calls`` calls and divided
+    by them (for a call whose host time exceeds its device time, which the
+    events of ``time_ms`` would measure instead); NaN when the profiler sees
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages()
+             if kernel_group(e.key) == group)
+    return us / 1e3 / calls if us else float("nan")
 
 
 def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
@@ -376,7 +403,7 @@ def check_mlp_kernel(fe, dtypes=(torch.bfloat16, torch.float32), timing=True):
     return rows
 
 
-def attention_bwd_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen):
+def _attention_bwd_inputs(b, s, d, dtype, key_bias, gen):
     qkv = torch.randn(b, s, 3 * d, device="cuda", generator=gen).to(dtype)
     g = torch.randn(b, s, d, device="cuda", generator=gen).to(dtype)
     kb = None
@@ -384,13 +411,32 @@ def attention_bwd_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen):
         kb = torch.zeros(b, s, device="cuda")
         kb[:, s // 2:] = torch.where(
             torch.rand(b, s - s // 2, device="cuda", generator=gen) < 0.5, -1e30, 0.0)
+    return qkv, g, kb
+
+
+def attention_bwd_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen, timing=True):
+    """Kernel #2 against its plain version by max abs error (``tolerance``),
+    a key the bias masks getting dk = dv = 0 exactly, and a second launch
+    through ``_attention_bwd_launch`` into a dqkv filled with NaN, bitwise
+    equal to the first (every element written, in a fixed order)."""
+    qkv, g, kb = _attention_bwd_inputs(b, s, d, dtype, key_bias, gen)
     out = fe.fused_qkv_attention_bwd(qkv, g, h, causal, None, kb)
     ref = fe.qkv_attention_bwd_plain(qkv, g, h, causal, None, kb)
+    route = fe._attention_bwd_route(s, d // h, dtype)
+    again = torch.full_like(out, float("nan"))
+    fe._attention_bwd_launch(qkv, g, h, causal, None, kb, again, route)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     tol = tolerance(dtype, ref)
+    deterministic = bool(torch.equal(out, again))
     # a key masked by the bias is seen by no query: its dk and dv are exactly 0
     masked_zero = kb is None or bool((out[..., d:][kb < -1e29] == 0).all())
+    row = dict(kernel="fused_qkv_attention_bwd", case=name, shape=[b, s, 3 * d], heads=h,
+               causal=causal, key_bias=key_bias, dtype=str(dtype).replace("torch.", ""),
+               route=route, max_abs_err=err, tol=tol, masked_keys_zero=masked_zero,
+               deterministic=deterministic, ok=bool(err <= tol and masked_zero and deterministic))
+    if not timing:
+        return row
     kernel_ms = time_ms(lambda: fe.fused_qkv_attention_bwd(qkv, g, h, causal, None, kb), 1)
     reps = reps_for(kernel_ms)
     kernel_ms = time_ms(lambda: fe.fused_qkv_attention_bwd(qkv, g, h, causal, None, kb), reps)
@@ -411,11 +457,66 @@ def attention_bwd_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen):
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 10.0 * b * h * pairs * (d // h)  # five S x S x Dh products
     bms, by = bound_ms(nbytes, flops, dtype)
-    return dict(kernel="fused_qkv_attention_bwd", case=name, shape=[b, s, 3 * d], heads=h,
-                causal=causal, key_bias=key_bias, dtype=str(dtype).replace("torch.", ""),
-                max_abs_err=err, tol=tol, masked_keys_zero=masked_zero,
-                ok=bool(err <= tol and masked_zero), ms=kernel_ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    row.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    return row
+
+
+# Kernel #2's cases: CLIP ViT-B/32's towers at the train batch, the key-bias
+# lane, head width 96, and past S = 128 (the `wgmma` route): one past it,
+# ViT-B/16's vision tower at the train batch, S = 256 at head width 64 and
+# S = 181 at 128 (the forward's largest there), each with the masks.
+ATTENTION_BWD_CASES = [
+    ("vision", TRAIN_BATCH, 50, 768, 12, False, False),
+    ("text", TRAIN_BATCH, 77, 512, 8, True, False),
+    ("key_bias", 8, 40, 256, 4, False, True),
+    ("key_bias_causal", 8, 77, 256, 4, True, True),
+    ("head_width_96", 8, 50, 384, 4, True, False),
+    ("seq_129", 8, 129, 768, 12, True, True),
+    ("vit_b16", TRAIN_BATCH, 197, 768, 12, False, False),
+    ("seq_256", 8, 256, 768, 12, True, True),
+    ("head_width_128_seq_181", 8, 181, 512, 4, True, True),
+]
+
+
+def check_attention_bwd_kernel(fe, dtypes=(torch.bfloat16, torch.float32), timing=True):
+    """Kernel #2 at ``ATTENTION_BWD_CASES`` in each dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for dtype in dtypes:
+        for name, b, s, d, h, causal, kb in ATTENTION_BWD_CASES:
+            row = attention_bwd_case(fe, name, b, s, d, h, causal, dtype, kb, gen, timing=timing)
+            print("kernel_check " + json.dumps(row), flush=True)
+            rows.append(row)
+            torch.cuda.empty_cache()
+    return rows
+
+
+def attention_bwd_routes(fe, shapes=tuple((TRAIN_BATCH, s, 768, 12, False)
+                                           for s in (16, 33, 50, 64, 80, 81, 96, 112, 128))
+                         + ((TRAIN_BATCH, 77, 512, 8, True),)):
+    """Kernel #2's two bf16 routes at head width 64 on the same inputs, at
+    S <= 128 where both take the shape (CLIP's vision S = 50 and causal text
+    S = 77 among them; the `mma.sync` kernel's tiles change at 64 and 80):
+    each held to the bar, and timed. The numbers ``_BWD_WGMMA_MIN_SEQ`` is
+    set from."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for b, s, d, h, causal in shapes:
+        qkv, g, _ = _attention_bwd_inputs(b, s, d, torch.bfloat16, False, gen)
+        ref = fe.qkv_attention_bwd_plain(qkv, g, h, causal)
+        row = {"seq": s, "causal": causal}
+        for name, route in (("mma", fe._BWD_MMA), ("wgmma", fe._BWD_WGMMA)):
+            out = torch.empty_like(qkv)
+            fn = lambda: fe._attention_bwd_launch(qkv, g, h, causal, None, None, out, route)  # noqa: E731
+            fn()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if not err <= tolerance(torch.bfloat16, ref):
+                fail(f"#2 route {name} at S = {s}: max abs error {err}")
+            row[f"{name}_ms"] = time_ms(fn, reps_for(time_ms(fn, 1)))
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _mlp_bwd_inputs(rows, din, dff, dout, dtype, gen):
@@ -771,26 +872,50 @@ def decode_mask(b, s, length, gen, lo=600, hi=3200):
     return ar[None, None, None, :] <= rows[:, None, :, None]
 
 
-def qca_case(qa, kv, name, b, hq, hkv, s, length, d, dtype, gen):
-    """Kernel #10 against its plain version; the library call is SDPA over a
-    bf16 cache of the same length (another function: it reads twice the
-    cache bytes, all L positions)."""
+def _qca_inputs(qa, kv, b, hq, hkv, s, length, d, dtype, gen, lo, hi):
     q = torch.randn(b, hq, s, d, device="cuda", generator=gen).to(dtype)
     k = torch.randn(b, hkv, length, d, device="cuda", generator=gen)
     v = torch.randn(b, hkv, length, d, device="cuda", generator=gen)
     kc, vc = kv.QuantizedKV(*kv.quantize_kv(k)), kv.QuantizedKV(*kv.quantize_kv(v))
-    mask = decode_mask(b, s, length, gen)
+    return q, kc, vc, decode_mask(b, s, length, gen, lo, hi)
+
+
+def qca_case(qa, kv, name, b, hq, hkv, s, length, d, dtype, gen, lo=600, hi=3200,
+             blind=False, timing=True):
+    """Kernel #10 against its plain version, each element to its row's scale,
+    and a second launch through ``_launch`` into an output and a scratch
+    filled with NaN, bitwise equal to the first (the counters zeroed by the
+    scores kernel, every score, statistic and partial read written first,
+    the runs summed in a fixed order); the library call is SDPA over a bf16
+    cache of the same length (another function: it reads twice the cache
+    bytes, all L positions). ``blind``: the first slot's first query row
+    sees no position (p = 1 / L everywhere, as -1e30 scores give)."""
+    q, kc, vc, mask = _qca_inputs(qa, kv, b, hq, hkv, s, length, d, dtype, gen, lo, hi)
+    if blind:
+        mask[0, :, 0] = False
     with torch.inference_mode():
         out = qa.quantized_cache_attention(q, kc, vc, mask)
         ref = qa.quantized_cache_attention_plain(q, kc, vc, mask)
+        again = torch.full_like(out, float("nan"))
+        ws = torch.full((qa._workspace_bytes(b, hkv, (hq // hkv) * s, length, d),),
+                        255, dtype=torch.uint8, device="cuda")
+        qa._launch(q, kc, vc, mask, again, ws)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         rel_err = row_relative_error(out, ref)
         tol = ROW_RELATIVE_BAR["quantized_cache_attention", dtype]
+        deterministic = bool(torch.equal(out, again))
+        row = dict(kernel="quantized_cache_attention", case=name,
+                   shape=[b, hq, hkv, s, length, d], dtype=str(dtype).replace("torch.", ""),
+                   max_abs_err=err, rel_err=rel_err, tol=tol,
+                   deterministic=deterministic, ok=bool(rel_err <= tol and deterministic))
+        if not timing:
+            return row
         call = lambda: qa.quantized_cache_attention(q, kc, vc, mask)
-        kernel_ms = time_ms(call, 1)
-        reps = reps_for(kernel_ms)
-        kernel_ms = time_ms(call, reps)
+        call_ms = time_ms(call, 1)
+        reps = reps_for(call_ms)
+        call_ms = time_ms(call, reps)  # the host's wrapper time, where it is longer
+        kernel_ms = device_ms(call, "quantized_cache_attention")
         plain_ms = time_ms(lambda: qa.quantized_cache_attention_plain(q, kc, vc, mask),
                            max(3, reps // 4))
         group = hq // hkv
@@ -803,11 +928,47 @@ def qca_case(qa, kv, name, b, hq, hkv, s, length, d, dtype, gen):
     nbytes = seen * hkv * (2 * d + 8) + mask.numel() + (q.numel() + out.numel()) * q.element_size()
     flops = 4.0 * seen * hkv * group * s * d
     bms, by = bound_ms(nbytes, flops, torch.bfloat16)
-    return dict(kernel="quantized_cache_attention", case=name, shape=[b, hq, hkv, s, length, d],
-                dtype=str(dtype).replace("torch.", ""), max_abs_err=err, rel_err=rel_err,
-                tol=tol, ok=bool(rel_err <= tol), ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, library="SDPA over a bf16 cache (2x the bytes, all positions)", bound_ms=bms,
-                bound_by=by)
+    row.update(ms=kernel_ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library="SDPA over a bf16 cache (2x the bytes, all positions)", bound_ms=bms,
+               bound_by=by)
+    return row
+
+
+# Kernel #10's cases: the LM decode tick (33 slots x 12 heads, 4096
+# positions), a verify window, a GQA group, head width 128, a slot whose
+# first query row sees nothing, and, in bf16 (the LM's decode dtype),
+# caches the old whole-row block refused: 8 query rows over 8,192
+# positions, one row over 32,768 (positions spread over the whole cache).
+# Not in fp32: rows that see 1,000-8,000 positions reach p = 0.05, where
+# one bf16 tie of p x v_scale, rounded to another side by any other order
+# of the fp32 sums, moves an element by 2^-8 p |v|, past fp32's 2^-9
+# (PERF.md: on the draw that failed, the plain version was 2.7e-3
+# from a float64 softmax rounded as both round it, the kernel 6.0e-4).
+QCA_CASES = [
+    ("decode", 33, 12, 12, 1, 4096, 64, {}),
+    ("verify_window", 8, 12, 12, 5, 4096, 64, {}),
+    ("gqa_group4", 8, 12, 3, 2, 4096, 64, {}),
+    ("head_width_128", 8, 8, 8, 1, 2048, 128, {}),
+    ("rows_8_len_8192", 8, 12, 12, 8, 8192, 64, {"lo": 1000, "hi": 8000, "bf16_only": True}),
+    ("len_32768", 4, 12, 12, 1, 32768, 64, {"lo": 4000, "hi": 32000, "bf16_only": True}),
+    ("row_sees_nothing", 4, 4, 4, 2, 1024, 64, {"lo": 100, "hi": 800, "blind": True}),
+]
+
+
+def check_qca_kernel(qa, kv, dtypes=(torch.bfloat16, torch.float32), timing=True):
+    """Kernel #10 at ``QCA_CASES`` in each dtype (the long caches in bf16)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for dtype in dtypes:
+        for name, b, hq, hkv, s, length, d, kw in QCA_CASES:
+            kw = dict(kw)
+            if kw.pop("bf16_only", False) and dtype != torch.bfloat16:
+                continue
+            row = qca_case(qa, kv, name, b, hq, hkv, s, length, d, dtype, gen, timing=timing, **kw)
+            print("kernel_check " + json.dumps(row), flush=True)
+            rows.append(row)
+            torch.cuda.empty_cache()
+    return rows
 
 
 def flash_threshold(fa, attn, gen, heads=12, d=64, batch=8):
@@ -872,16 +1033,7 @@ def check_new_kernels(fa, qa, kv):
           "(|ref| + rms of ref's row)) within " + json.dumps(
               {f"{k}/{str(d).replace('torch.', '')}": v for (k, d), v in ROW_RELATIVE_BAR.items()}),
           flush=True)
-    cases = check_flash_fwd_kernel(fa)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    for dtype in (torch.bfloat16, torch.float32):
-        cases.append(qca_case(qa, kv, "decode", 33, 12, 12, 1, 4096, 64, dtype, gen))
-        cases.append(qca_case(qa, kv, "verify_window", 8, 12, 12, 5, 4096, 64, dtype, gen))
-        cases.append(qca_case(qa, kv, "gqa_group4", 8, 12, 3, 2, 4096, 64, dtype, gen))
-        cases.append(qca_case(qa, kv, "head_width_128", 8, 8, 8, 1, 2048, 128, dtype, gen))
-    for c in cases[-8:]:
-        print("kernel_check " + json.dumps(c), flush=True)
-    return cases
+    return check_flash_fwd_kernel(fa) + check_qca_kernel(qa, kv)
 
 
 # Bars of row_relative_error for kernels #7-#9 (dq by query row, dk and dv by
@@ -1148,32 +1300,22 @@ def check_kernels(fe):
         cases.append(attention_case(fe, "key_bias", 8, 40, 256, 4, False, dtype, True, gen))
         cases.append(attention_case(fe, "key_bias_causal", 8, 77, 256, 4, True, dtype, True, gen))
         cases.append(attention_case(fe, "head_width_96", 8, 50, 384, 4, True, dtype, False, gen))
-        tb = TRAIN_BATCH
-        cases.append(attention_bwd_case(fe, "vision", tb, 50, 768, 12, False, dtype, False, gen))
-        cases.append(attention_bwd_case(fe, "text", tb, 77, 512, 8, True, dtype, False, gen))
-        cases.append(attention_bwd_case(fe, "key_bias", 8, 40, 256, 4, False, dtype, True, gen))
-        cases.append(attention_bwd_case(fe, "key_bias_causal", 8, 77, 256, 4, True, dtype, True,
-                                        gen))
-        cases.append(attention_bwd_case(fe, "head_width_96", 8, 50, 384, 4, True, dtype, False,
-                                        gen))
-        # past S = 128: ViT-B/16's vision tower at the train batch, S = 256 at
-        # head width 64 and S = 181 at 128 (the forward's largest there),
-        # each with the masks
-        cases.append(attention_bwd_case(fe, "vit_b16", tb, 197, 768, 12, False, dtype, False,
-                                        gen))
-        cases.append(attention_bwd_case(fe, "seq_256", 8, 256, 768, 12, True, dtype, True, gen))
-        cases.append(attention_bwd_case(fe, "head_width_128_seq_181", 8, 181, 512, 4, True,
-                                        dtype, True, gen))
     print("kernel_check tolerance: " + " ".join(tolerance.__doc__.split()), flush=True)
     for c in cases:
         print("kernel_check " + json.dumps(c), flush=True)
-    return cases + check_mlp_bwd_kernel(fe)
+    return cases + check_attention_bwd_kernel(fe) + check_mlp_bwd_kernel(fe)
 
 
 # Faults planted in copies of the kernels' sources (under build/, never in
 # the checkout's sources): (source, the kernel function's signature, text,
 # replacement).
 PLANTED_FAULTS = {
+    "attention bwd: the ragged last key tile unmasked (padded keys' bias 0)": (
+        "fused_qkv_attention_bwd.cu", "qkv_attention_bwd_wgmma_kernel(const __grid_constant__",
+        ": 0.f) : -INFINITY;", ": 0.f) : 0.f;"),
+    "quantized attention: the merge drops the last run": (
+        "quantized_cache_attention.cu", "quantized_cache_attention_values_kernel(QArgs a)",
+        "for (int k = 0; k < a.runs; ++k) o +=", "for (int k = 0; k < a.runs - 1; ++k) o +="),
     "bwd: one key past the causal diagonal": (
         "flash_attention_bwd.cu", "flash_bwd_wgmma_kernel(const __grid_constant__",
         "visible(a, b, i, j)",
@@ -1237,6 +1379,14 @@ PLANTED_FAULTS = {
 _MLP_SOURCES = ("fused_qkv_attention.cu", "fused_qkv_attention_bwd.cu", "fused_mlp.cu",
                 "fused_mlp_bwd.cu", "fused_mlp_bwd_acc.cu")
 PLANTED_FAULT_CHECKS = {
+    "fused_qkv_attention_bwd.cu": (
+        _MLP_SOURCES,
+        "from multimodal_tpu_torch.ops import fused_encoder as fe; "
+        "cs.check_attention_bwd_kernel(fe, (torch.bfloat16,), timing=False)"),
+    "quantized_cache_attention.cu": (
+        ("quantized_cache_attention.cu",),
+        "from multimodal_tpu_torch.ops import kv_cache as kv, quantized_attention as qa; "
+        "cs.check_qca_kernel(qa, kv, (torch.bfloat16,), timing=False)"),
     "flash_attention_fwd.cu": (
         ("flash_attention_fwd.cu", "flash_attention_bwd.cu"),
         "from multimodal_tpu_torch.ops import flash_attention as fa; "
@@ -1320,7 +1470,7 @@ def planted_faults() -> None:
 
 
 # --------------------------------------------------------------------------
-# --ab: kernels #3, #4, #5 and #6, the flash attention backward and the LM
+# --ab: kernels #2-#6 and #10, the flash attention backward and the LM
 # serving tick, this checkout against another tree
 # --------------------------------------------------------------------------
 
@@ -1346,11 +1496,16 @@ def ab_side() -> None:
     at FLAVA's gradient check's 394 image rows and CLIP's 12,800 vision
     rows, of its #6 at the LM's prefill and train shapes (8, 12, 2048 and
     8192, 64) bf16 causal, of its flash attention backward (``_flash_backward``: delta, dq, dk and dv) at
-    the LM training shape (8, 12, 8192, 64) bf16 causal, and the LM serving
-    phase's ms a tick on the host clock and on the device. Prints one
-    ``ab`` JSON line."""
+    the LM training shape (8, 12, 8192, 64) bf16 causal, of its #2 at
+    CLIP's vision (256, 50) and causal text (256, 77) towers and ViT-B/16's
+    (256, 197), of its #10 at the first four ``QCA_CASES`` (device time
+    from the profiler, and the call on the events' clock), and the LM
+    serving phase's ms a tick on the host clock and on the device. Prints
+    one ``ab`` JSON line."""
     from multimodal_tpu_torch.ops import flash_attention as fa
     from multimodal_tpu_torch.ops import fused_encoder as fe
+    from multimodal_tpu_torch.ops import kv_cache as kv
+    from multimodal_tpu_torch.ops import quantized_attention as qa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1398,7 +1553,25 @@ def ab_side() -> None:
         out["flash_backward_train"] = time_ms(fn, reps_for(time_ms(fn, 1)))
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
-    from multimodal_tpu_torch.ops import quantized_attention as qa
+        # #2 at CLIP's vision and (causal) text towers and ViT-B/16's vision
+        # tower, the train batch
+        for name, s, d, h, causal in (("clip_vision", 50, 768, 12, False),
+                                      ("clip_text", 77, 512, 8, True),
+                                      ("vit_b16", 197, 768, 12, False)):
+            qkv, g, _ = _attention_bwd_inputs(TRAIN_BATCH, s, d, torch.bfloat16, False, gen)
+            fn = lambda: fe.fused_qkv_attention_bwd(qkv, g, h, causal)  # noqa: E731
+            out[f"attn_bwd_{name}"] = time_ms(fn, reps_for(time_ms(fn, 1)))
+            del qkv, g
+            torch.cuda.empty_cache()
+        # #10 at the four cases of the 4096-position cache
+        for name, b, hq, hkv, s, length, d, _ in QCA_CASES[:4]:  # the 4096-long ones
+            q, kc, vc, mask = _qca_inputs(qa, kv, b, hq, hkv, s, length, d, torch.bfloat16, gen,
+                                          600, 3200)
+            fn = lambda: qa.quantized_cache_attention(q, kc, vc, mask)  # noqa: E731
+            out[f"qca_{name}"] = device_ms(fn, "quantized_cache_attention")
+            out[f"qca_{name}_call"] = time_ms(fn, reps_for(time_ms(fn, 1)))
+            del q, kc, vc, mask
+            torch.cuda.empty_cache()
 
     _, res = lm_serve(fe, fa, qa, card_line())
     out["lm_ms_per_tick"] = res["ms_per_tick"]
@@ -1407,7 +1580,7 @@ def ab_side() -> None:
 
 
 def ab(parent: str) -> None:
-    """--ab PARENT: #3-#6, the flash backward and the LM serving tick of
+    """--ab PARENT: #2-#6, #10, the flash backward and the LM serving tick of
     another tree of the repo (PARENT: the parent commit, unpacked with git
     archive) and of this checkout, each side a process of its own, in turns: parent, checkout,
     checkout, parent, twice. The trees' kernels build in parallel first."""
@@ -1993,8 +2166,12 @@ def train(fe, card):
 def vit_b16_grad_check(fe, card):
     """CLIP ViT-B/16's gradients (vision S = 197: kernel #2 past S = 128) at
     2 pairs, fp32 parameters and bf16 compute on the card, against fp32 on
-    the CPU: concatenated cosine >= 0.99 with #2 launched."""
+    the CPU: concatenated cosine >= 0.99 with #2 launched. Then its train
+    step at batch 256 (AdamW, as the ViT-B/32 phase): 1 warm-up and 3 timed
+    steps with 24 launches a step of #1 and #2, and one step's device time
+    by kernel group."""
     from multimodal_tpu_torch.models.clip.model import clip_vit_b16
+    from multimodal_tpu_torch.training.trainer import Trainer
 
     model = clip_vit_b16(dtype=torch.bfloat16, param_dtype=torch.float32, seed=0).train()
     rng = np.random.default_rng(4)
@@ -2015,9 +2192,37 @@ def vit_b16_grad_check(fe, card):
     if launches["fused_qkv_attention_bwd"] != 24:
         fail(f"ViT-B/16 gradient check: #2 launched {launches['fused_qkv_attention_bwd']} "
              "times, want 24")
-    del model
+
+    warmup, steps = 1, 3
+    batches = [(rng.integers(0, 256, size=(TRAIN_BATCH, 256, 256, 3), dtype=np.uint8),
+                token_ids(rng, TRAIN_BATCH)) for _ in range(warmup + steps + 1)]
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4, fused=True)
+    trainer = Trainer(clip_loss_fn(torch.bfloat16), opt, log_interval=100)
+    trainer.fit(model, batches[:warmup], warmup)
+    torch.cuda.synchronize()
+    fe.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(model, batches[warmup:warmup + steps], steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    step_launches = {"fused_qkv_attention": fe.fused_qkv_attention.launches,
+                     "fused_qkv_attention_bwd": fe.fused_qkv_attention_bwd.launches}
+    losses = [r["loss"] for r in trainer.logger.records if "loss" in r]
+    print(f"vit_b16: train {TRAIN_BATCH * steps / dt:.1f} items/s, {dt / steps * 1e3:.1f} ms a "
+          f"step at batch {TRAIN_BATCH}, launches {step_launches}, losses "
+          f"{[round(x, 5) for x in losses]} on {card}", flush=True)
+    for k, v in step_launches.items():
+        if v != 24 * steps:
+            fail(f"ViT-B/16 train: {k} launched {v} times in {steps} steps, want {24 * steps}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"ViT-B/16 train: non-finite loss: {losses}")
+    breakdown = profile_step(lambda: trainer.fit(model, batches[-1:], 1), "vit_b16")
+    print("vit_b16: device time of one train step by kernel group " + json.dumps(breakdown),
+          flush=True)
+    del model, trainer, opt
     torch.cuda.empty_cache()
-    return launches, cos
+    return launches, cos, step_launches, dt / steps * 1e3
 
 
 # --------------------------------------------------------------------------
@@ -2368,6 +2573,9 @@ def main() -> None:
     threshold = flash_threshold(fa, attn, torch.Generator(device="cuda").manual_seed(2))
     print(f"threshold: flash vs the plain path, (8, 12, S, 64) bf16 causal: {json.dumps(threshold)}"
           f"; FLASH_MIN_SEQ = {attn.FLASH_MIN_SEQ}", flush=True)
+    routes = attention_bwd_routes(fe)
+    print(f"threshold: #2's mma.sync vs wgmma kernel, (256, S, 3D) bf16 at head width 64: "
+          f"{json.dumps(routes)}; _BWD_WGMMA_MIN_SEQ = {fe._BWD_WGMMA_MIN_SEQ}", flush=True)
     acc_rows = acc_threshold(fe)
     print(f"threshold: #5 vs #4 + library dW, (rows, 768, 3072, 768) bf16 exact GELU: "
           f"{json.dumps(acc_rows)}; _ACC_MIN_ROWS = {fe._ACC_MIN_ROWS}", flush=True)
@@ -2377,7 +2585,7 @@ def main() -> None:
 
     serve_launches, min_cos, device_rate, served_rate = serve(fe, card)
     launches, grad_cos, train_rate, step_ms, peak = train(fe, card)
-    b16_launches, b16_cos = vit_b16_grad_check(fe, card)
+    b16_launches, b16_cos, b16_step_launches, b16_step_ms = vit_b16_grad_check(fe, card)
     vit_cos = vit_l14_check(card)
     lm_launches, lm = lm_serve(fe, fa, qa, card)
     train_launches, lm_tr = lm_train(fe, fa, card)
@@ -2390,7 +2598,7 @@ def main() -> None:
     paths = {"serve": serve_launches, "train": launches, "lm": lm_launches,
              "lm_train": train_launches, "flava": flava_launches,
              "train_grad_check": {"fused_mlp_bwd": launches["fused_mlp_bwd_grad_check"]},
-             "vit_b16_grad_check": b16_launches,
+             "vit_b16_grad_check": b16_launches, "vit_b16_train": b16_step_launches,
              "lm_train_grad_check": {"fused_mlp_bwd": train_launches["fused_mlp_bwd_grad_check"]},
              "flava_grad_check": {"fused_mlp_bwd": flava_launches["fused_mlp_bwd_grad_check"]}}
     main_path = {"fused_qkv_attention": "serve", "fused_qkv_attention_bwd": "train",
@@ -2465,7 +2673,8 @@ def main() -> None:
     print(f"summary: serve min cosine {min_cos:.6f}, {device_rate:.1f} pairs/s device, "
           f"{served_rate:.1f} pairs/s served; train gradient cosine {grad_cos:.6f}, "
           f"{train_rate:.1f} items/s, {step_ms:.1f} ms a step, peak {peak / 2**30:.2f} GiB; "
-          f"ViT-B/16 gradient cosine {b16_cos:.6f}; ViT-L/14 cosine {vit_cos:.6f}; LM serving "
+          f"ViT-B/16 gradient cosine {b16_cos:.6f}, {b16_step_ms:.1f} ms a step; "
+          f"ViT-L/14 cosine {vit_cos:.6f}; LM serving "
           f"{lm['prefill_tokens_per_s']:.1f} prefill tokens/s, "
           f"{lm['decode_tokens_per_s']:.1f} decode tokens/s, {lm['ms_per_tick']:.2f} ms a tick "
           f"(device {lm.get('device_ms_per_tick', float('nan')):.2f}), TTFT p50 "

@@ -76,7 +76,7 @@ def _kernels() -> ctypes.CDLL:
             _V, _V, _V, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
         lib.mm_qkv_attention.restype = _I
         lib.mm_qkv_attention_bwd.argtypes = [
-            _V, _V, _V, _V, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
+            _V, _V, _V, _V, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _V]
         lib.mm_qkv_attention_bwd.restype = _I
         lib.mm_fused_mlp.argtypes = [
             _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _V]
@@ -182,12 +182,28 @@ def fused_mlp_bwd_acc_supported(rows: int, din: int, dff: int, dout: int) -> boo
 
 def fused_attention_bwd_supported(seq: int, embed_dim: int, num_heads: int,
                                   dtype: torch.dtype) -> bool:
-    """Shape predicate of the attention backward kernel: the forward's
-    domain, in either dtype. bf16 at head width 64 runs on the tensor cores
-    (one kernel up to ``seq`` 128, another to 256); every other shape runs
-    on the FP32 pipes. Neither keeps an S x S matrix in shared memory past
-    ``seq`` 128, and each fits wherever the forward's block does."""
+    """Shape predicate of the attention backward kernels: the forward's
+    domain, in either dtype (``_attention_bwd_route`` picks the kernel).
+    None keeps an S x S matrix in shared memory past ``seq`` 128, and each
+    fits wherever the forward's block does."""
     return fused_attention_supported(seq, embed_dim, num_heads)
+
+
+# Kernels of the attention backward (the `route` of mm_qkv_attention_bwd).
+_BWD_FP32_PIPES, _BWD_MMA, _BWD_WGMMA = 0, 1, 2
+# Sequence length from which bf16 at head width 64 takes the `wgmma`
+# kernel instead of the `mma.sync` one, set from the card (PERF.md).
+_BWD_WGMMA_MIN_SEQ = 81
+
+
+def _attention_bwd_route(seq: int, head_dim: int, dtype: torch.dtype) -> int:
+    """The backward kernel of a shape of ``fused_attention_bwd_supported``:
+    bf16 at head width 64 on the tensor cores, the `mma.sync` kernel below
+    ``_BWD_WGMMA_MIN_SEQ`` and the `wgmma` kernel from it; every other shape
+    on the FP32 pipes."""
+    if dtype != torch.bfloat16 or head_dim != 64:
+        return _BWD_FP32_PIPES
+    return _BWD_WGMMA if seq >= _BWD_WGMMA_MIN_SEQ else _BWD_MMA
 
 
 def _check_cuda(name: str, device: torch.device, dtype: torch.dtype,
@@ -337,17 +353,30 @@ def fused_qkv_attention_bwd(
     if g.shape != (b, s, d):
         raise ValueError(f"fused_qkv_attention_bwd: g must be {(b, s, d)}, got {tuple(g.shape)}")
     _check_cuda("fused_qkv_attention_bwd", qkv.device, qkv.dtype, g)
-    scale = sm_scale if sm_scale is not None else (d // num_heads) ** -0.5
     dqkv = torch.empty_like(qkv)
+    _attention_bwd_launch(qkv, g, num_heads, is_causal, sm_scale, key_bias, dqkv,
+                          _attention_bwd_route(s, d // num_heads, qkv.dtype))
+    fused_qkv_attention_bwd.launches += 1
+    return dqkv
+
+
+def _attention_bwd_launch(qkv, g, num_heads, is_causal, sm_scale, key_bias, dqkv,
+                          route: int) -> None:
+    """Kernel #2's launch alone, on the kernel ``route`` names, into
+    ``dqkv`` (``qkv``'s shape, dtype and layout); checks
+    ``fused_qkv_attention_bwd`` does not repeat."""
+    b, s, three_d = qkv.shape
+    d = three_d // 3
+    if dqkv.shape != qkv.shape or dqkv.dtype != qkv.dtype or not dqkv.is_contiguous():
+        raise ValueError("fused_qkv_attention_bwd: dqkv must be like qkv")
+    scale = sm_scale if sm_scale is not None else (d // num_heads) ** -0.5
     err = _kernels().mm_qkv_attention_bwd(
         qkv.data_ptr(), g.data_ptr(),
         key_bias.data_ptr() if key_bias is not None else None, dqkv.data_ptr(),
-        b, s, d, num_heads, float(scale), int(is_causal), _DTYPE_CODES[qkv.dtype],
+        b, s, d, num_heads, float(scale), int(is_causal), _DTYPE_CODES[qkv.dtype], route,
         _build.stream_of(qkv),
     )
     _build.raise_on(err, "fused_qkv_attention_bwd")
-    fused_qkv_attention_bwd.launches += 1
-    return dqkv
 
 
 class _QKVAttention(torch.autograd.Function):

@@ -27,11 +27,14 @@ import torch
 from multimodal_tpu_torch.ops import _build
 from multimodal_tpu_torch.ops.kv_cache import QuantizedKV
 
-_SMEM_LIMIT = 232_448       # bytes of shared memory a block may use on sm_90
 _MAX_ROWS = 8               # query rows a kv head's block serves (group x S)
 _HEAD_DIMS = (32, 64, 128)  # head widths the kernel is built for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASKED = -1e30
+# Cache positions of a run, a block's item in each of the kernel's two
+# launches (scores, then p' . v): kRun in csrc/quantized_cache_attention.cu,
+# set from the card (PERF.md).
+_RUN_LEN = 256
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,39 +46,43 @@ def _kernels() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load_library()
         lib.mm_quantized_cache_attention.argtypes = [
-            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
+            _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V,
             _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _V]
         lib.mm_quantized_cache_attention.restype = _I
         _lib = lib
     return _lib
 
 
-def _smem_bytes(rows: int, cache_len: int, head_dim: int) -> int:
-    """Mirror of ``smem_bytes`` in csrc/quantized_cache_attention.cu: the
-    block's score rows (rows padded to 1, 2, 4 or 8), its query rows, the
-    per-warp output partials and the softmax statistics, all fp32."""
-    r = 1 if rows <= 1 else 2 if rows <= 2 else 4 if rows <= 4 else 8
-    return 4 * (r * cache_len + r * head_dim + 8 * r * head_dim + 16 * r)
+def _runs(cache_len: int) -> int:
+    """Runs of ``_RUN_LEN`` positions a (kv head, batch row) is cut into."""
+    return -(-cache_len // _RUN_LEN)
+
+
+def _workspace_bytes(batch: int, kv_heads: int, rows: int, cache_len: int,
+                     head_dim: int) -> int:
+    """Bytes of the kernel's scratch (csrc/quantized_cache_attention.cu):
+    one counter for each of the G (kv head, batch row) groups, padded to 16
+    bytes, then fp32 scores (rows x L), each run's max and sum per row and
+    each run's partial output per row, for every group."""
+    groups = batch * kv_heads
+    counters = -(-4 * groups // 16) * 16
+    return counters + 4 * groups * rows * (cache_len + _runs(cache_len) * (2 + head_dim))
 
 
 def supports_quantized_attention(q: torch.Tensor, attn_mask: Optional[torch.Tensor],
                                  dropout_rate: float, is_causal: bool = False,
                                  kv_heads: int = 0) -> bool:
-    """Kernel applicability, the JAX package's rule with this card's limits:
-    a tiny query block (a kv head's whole query group, group x S <= 8 rows),
-    a bool head-broadcast mask as the sole mask (the kernel adds no causal
-    masking), no attention dropout, a head width the kernel is built for, and
-    the block's whole score row set within a block's shared memory (at one
-    query row, a cache of up to about 57,000 positions)."""
+    """Kernel applicability, the JAX package's rule: a tiny query block (a kv
+    head's whole query group, group x S <= 8 rows), a bool head-broadcast
+    mask as the sole mask (the kernel adds no causal masking), no attention
+    dropout, and a head width the kernel is built for. The cache's length
+    has no cap: the kernel splits it into runs."""
     if dropout_rate > 0.0 or attn_mask is None or is_causal:
         return False
     if attn_mask.dtype != torch.bool or attn_mask.dim() != 4 or attn_mask.shape[1] != 1:
         return False
     group = q.shape[1] // kv_heads if kv_heads else 1
-    rows = group * q.shape[2]
-    if rows > _MAX_ROWS or q.shape[-1] not in _HEAD_DIMS:
-        return False
-    return _smem_bytes(rows, attn_mask.shape[-1], q.shape[-1]) <= _SMEM_LIMIT
+    return group * q.shape[2] <= _MAX_ROWS and q.shape[-1] in _HEAD_DIMS
 
 
 def _group_rows(x: torch.Tensor, kv_heads: int) -> torch.Tensor:
@@ -127,9 +134,6 @@ def _check(q: torch.Tensor, k_cache: QuantizedKV, v_cache: QuantizedKV,
     if hq % h or (hq // h) * s > _MAX_ROWS or d not in _HEAD_DIMS:
         raise ValueError(f"{name}: no kernel for {hq} query heads over {h} kv heads, "
                          f"{s} rows, head width {d}")
-    if _smem_bytes((hq // h) * s, cache_len, d) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: cache of {cache_len} positions exceeds a block's "
-                         "shared memory")
     if q.stride(-1) != 1:
         raise ValueError(f"{name}: q's last dimension must be contiguous")
     if mask.dtype != torch.bool or mask.device != q.device:
@@ -156,19 +160,38 @@ def quantized_cache_attention(q: torch.Tensor, k_cache: QuantizedKV, v_cache: Qu
     _check(q, k_cache, v_cache, mask)
     b, hq, s, d = q.shape
     h, cache_len = k_cache.q.shape[1], k_cache.q.shape[2]
-    m = mask.expand(b, 1, s, cache_len)
     # (b, S, h_q, d) storage: merging the heads afterwards is a view
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    ws = torch.empty(_workspace_bytes(b, h, (hq // h) * s, cache_len, d), dtype=torch.uint8,
+                     device=q.device)
+    _launch(q, k_cache, v_cache, mask, out, ws)
+    quantized_cache_attention.launches += 1
+    return out
+
+
+def _launch(q: torch.Tensor, k_cache: QuantizedKV, v_cache: QuantizedKV, mask: torch.Tensor,
+            out: torch.Tensor, ws: torch.Tensor) -> None:
+    """The kernel's launches alone, into ``out`` (``q``'s shape and dtype,
+    any strides with a contiguous last dimension) with the scratch ``ws`` of
+    ``_workspace_bytes`` bytes; checks ``quantized_cache_attention`` does not
+    repeat."""
+    b, hq, s, d = q.shape
+    h, cache_len = k_cache.q.shape[1], k_cache.q.shape[2]
+    need = _workspace_bytes(b, h, (hq // h) * s, cache_len, d)
+    if out.shape != q.shape or out.dtype != q.dtype or out.stride(-1) != 1:
+        raise ValueError("quantized_cache_attention: out must be like q")
+    if ws.dtype != torch.uint8 or ws.numel() < need or ws.data_ptr() % 16:
+        raise ValueError(f"quantized_cache_attention: scratch must be {need} aligned bytes")
+    m = mask.expand(b, 1, s, cache_len)
     err = _kernels().mm_quantized_cache_attention(
         q.data_ptr(), _build.int64s(*q.stride()[:3]), k_cache.q.data_ptr(),
         k_cache.scale.data_ptr(), v_cache.q.data_ptr(), v_cache.scale.data_ptr(),
         m.data_ptr(), _build.int64s(m.stride(0), m.stride(2), m.stride(3)),
-        out.data_ptr(), _build.int64s(*out.stride()[:3]),
-        b, hq, h, s, cache_len, d, 1.0 / d ** 0.5, _DTYPE_CODES[q.dtype], _build.stream_of(q),
+        out.data_ptr(), _build.int64s(*out.stride()[:3]), ws.data_ptr(),
+        b, hq, h, s, cache_len, d, 1.0 / d ** 0.5, _DTYPE_CODES[q.dtype],
+        _build.stream_of(q),
     )
     _build.raise_on(err, "quantized_cache_attention")
-    quantized_cache_attention.launches += 1
-    return out
 
 
 quantized_cache_attention.launches = 0

@@ -7,7 +7,8 @@ highest register its SASS uses, and, with ``--time``, its ms by CUDA
 events, each variant in a process of its own, twice in turns, with the
 profiler's device ms by kernel.
 
-    python -m multimodal_tpu_torch.tools.kernel_variants [--forward] [--time] [edits.json]
+    python -m multimodal_tpu_torch.tools.kernel_variants [--forward | --decode] [--time]
+        [edits.json]
 
 Without ``--forward`` the kernel is the backward's one-pass
 ``flash_bwd_wgmma_kernel`` (``csrc/flash_attention_bwd.cu``), timed as
@@ -21,9 +22,17 @@ the LM's prefill (8, 12, 2048, 64) and train (8, 12, 8192, 64) shapes bf16
 causal, and the default variants are ``FWD_VARIANTS``: the source as it
 is, each warpgroup overlapping only its own softmax (no ping-pong),
 ``ex2`` left out, two and four ring stages, and the grid walked a query tile of every head
-at a time (in place of a chunk of heads at a time). ``edits.json`` maps a variant's name to its edits. A
-variant is for measuring only: its results are wrong where an edit leaves
-work out.
+at a time (in place of a chunk of heads at a time). With ``--decode`` it
+is the int8-cache decode attention's values kernel
+(``csrc/quantized_cache_attention.cu``, reported at head width 64 and one
+row), timed as ``quantized_cache_attention`` at ``chip_smoke.py``'s four
+4096-position cases in bf16 (device ms by kernel from the profiler), and
+the default variants are ``DECODE_VARIANTS``: the source as it is, the
+mask's loads left out (a 1,900-position prefix seen instead), the K
+copies, the V copies, and the merge's fence and counter left out (no
+output is written).
+``edits.json`` maps a variant's name to its edits. A variant is for
+measuring only: its results are wrong where an edit leaves work out.
 """
 
 from __future__ import annotations
@@ -114,6 +123,50 @@ print("variant_time " + json.dumps({"ms": ms, "device_ms": kernels, "card": cs.c
 """
 
 
+DECODE_SOURCE = "quantized_cache_attention.cu"
+DECODE_KERNEL = "quantized_cache_attention_values_kernelILi64ELi1E"
+DECODE_VARIANTS = {
+    "as_is": [],
+    "no_mask_loads": [
+        ("  unsigned bits = 0;\n  for (int s = 0; s < a.S; ++s) bits |= (unsigned)(mrow[s * a.ms[1]"
+         " + j * a.ms[2]] != 0) << s;\n  return bits;", "  return j < 1900 ? 1u : 0u;")],
+    "no_k_copies": [("      cp_async16(k_s + jj * D + part * 16, a.kq + (row0 + jj) * D"
+                     " + part * 16);", "")],
+    "no_v_copies": [("      if (msk[jj]) cp_async16(v_s + jj * D + part * 16, a.vq"
+                     " + (row0 + jj) * D + part * 16);", "")],
+    "no_merge_counter": [("    asm volatile(\"fence.acq_rel.gpu;\\n\" ::: \"memory\");\n", ""),
+                         ("    last = atomicAdd(&a.done[g], 1u) == (unsigned)(a.runs - 1);",
+                          "    last = 0u;")],
+}
+
+DECODE_TIME = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from multimodal_tpu_torch.ops import kv_cache as kv, quantized_attention as qa
+from torch.profiler import ProfilerActivity, profile
+gen = torch.Generator(device="cuda").manual_seed(6)
+ms, kernels = {}, {}
+with torch.inference_mode():
+    for name, b, hq, hkv, s, length, d, _ in cs.QCA_CASES[:4]:
+        q, kc, vc, mask = cs._qca_inputs(qa, kv, b, hq, hkv, s, length, d, torch.bfloat16, gen,
+                                         600, 3200)
+        fn = lambda: qa.quantized_cache_attention(q, kc, vc, mask)
+        ms[name] = cs.time_ms(fn, 200)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        kernels[name] = {e.key[:70]: round(getattr(e, "device_time_total", 0) / 20 / 1e3, 4)
+                         for e in prof.key_averages() if getattr(e, "device_time_total", 0)}
+print("variant_time " + json.dumps({"ms": ms, "device_ms": kernels, "card": cs.card_line()}))
+"""
+
+KEEP = {SOURCE: ("flash_attention_fwd.cu", "flash_attention_bwd.cu"),
+        FWD_SOURCE: ("flash_attention_fwd.cu", "flash_attention_bwd.cu"),
+        DECODE_SOURCE: (DECODE_SOURCE,)}
+
+
 def make_copy(name: str, edits, source: str = SOURCE) -> Path:
     """The package and chip_smoke.py under build/variants/<name>, the
     kernel's source edited, the sources its wrapper binds kept."""
@@ -124,7 +177,7 @@ def make_copy(name: str, edits, source: str = SOURCE) -> Path:
     shutil.copy(ROOT / "chip_smoke.py", copy / "chip_smoke.py")
     csrc = copy / "multimodal_tpu_torch" / "csrc"
     for src in csrc.glob("*.cu"):
-        if src.name not in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
+        if src.name not in KEEP[source]:
             src.unlink()
     text = (csrc / source).read_text()
     for old, new in edits:
@@ -162,11 +215,13 @@ def build_report(copy: Path, kernel: str = KERNEL) -> dict:
 def main(argv) -> None:
     time_it = "--time" in argv
     forward = "--forward" in argv
-    source, kernel, timer = ((FWD_SOURCE, FWD_KERNEL, FWD_TIME) if forward
-                             else (SOURCE, KERNEL, TIME))
+    decode = "--decode" in argv
+    source, kernel, timer, defaults = (
+        (FWD_SOURCE, FWD_KERNEL, FWD_TIME, FWD_VARIANTS) if forward
+        else (DECODE_SOURCE, DECODE_KERNEL, DECODE_TIME, DECODE_VARIANTS) if decode
+        else (SOURCE, KERNEL, TIME, VARIANTS))
     files = [a for a in argv if not a.startswith("--")]
-    variants = (json.loads(Path(files[0]).read_text()) if files
-                else FWD_VARIANTS if forward else VARIANTS)
+    variants = json.loads(Path(files[0]).read_text()) if files else defaults
     copies = {name: make_copy(name, edits, source) for name, edits in variants.items()}
     with ThreadPoolExecutor(len(copies)) as ex:
         reports = dict(zip(copies, ex.map(lambda c: build_report(c, kernel), copies.values())))

@@ -9,6 +9,10 @@ does) and ``jax.grad`` / ``jax.vjp`` of its XLA references. Inputs come from
 a numpy seed and go to both as the same arrays.
 """
 
+import importlib.util
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +21,8 @@ import torch
 
 from multimodal_tpu.ops import fused_encoder as jfe
 from multimodal_tpu_torch.ops import fused_encoder as tfe
+
+ROOT = Path(__file__).resolve().parents[1]
 
 # fp32 attention: the same exact-softmax arithmetic in two frameworks, sums
 # in another order; the JAX package's own kernel-vs-XLA tolerance.
@@ -103,17 +109,34 @@ def test_attention_function_grad_matches_plain_autograd(causal):
     assert got_bias is None
 
 
-def test_attention_bwd_bf16_matches_jax():
-    r = np.random.RandomState(6)
-    qkv = r.randn(2, 50, 3 * 128).astype(np.float32)
-    g = r.randn(2, 50, 128).astype(np.float32)
+def _bf16_bwd_against_jax(b, s, d, h, causal, kb, seed):
+    """The plain backward in bf16 against ``_qkv_attention_bwd_impl`` (the
+    Pallas kernel in interpret mode) on the same bf16 inputs."""
+    r = np.random.RandomState(seed)
+    qkv = r.randn(b, s, 3 * d).astype(np.float32)
+    g = r.randn(b, s, d).astype(np.float32)
+    bias = _key_bias(r, b, s) if kb else None
     want = np.asarray(jfe._qkv_attention_bwd_impl(
-        jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16), 2, True, None
-    )).astype(np.float32)
+        jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16), h, causal, None,
+        None if bias is None else jnp.asarray(bias))).astype(np.float32)
     got = tfe.qkv_attention_bwd_plain(
-        torch.from_numpy(qkv).bfloat16(), torch.from_numpy(g).bfloat16(), 2, True)
+        torch.from_numpy(qkv).bfloat16(), torch.from_numpy(g).bfloat16(), h, causal, None,
+        None if bias is None else torch.from_numpy(bias))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, atol=_bf16_atol(want))
+
+
+def test_attention_bwd_bf16_matches_jax():
+    _bf16_bwd_against_jax(2, 50, 128, 2, True, False, seed=6)
+
+
+@pytest.mark.parametrize("s,causal,kb", [(129, True, True), (197, True, True),
+                                         (197, False, False), (256, True, True)])
+def test_attention_bwd_bf16_past_128_matches_jax(s, causal, kb):
+    """The shapes of the `wgmma` route (S past 128, bf16, head width 64):
+    one past the `mma.sync` route's 128, ViT-B/16's 197 and the largest,
+    256, causal and with a key bias."""
+    _bf16_bwd_against_jax(1, s, 128, 2, causal, kb, seed=s)
 
 
 @pytest.fixture
@@ -226,3 +249,67 @@ def test_attention_bwd_domain_is_forward_domain(head_dim, dtype):
             for seq in range(1, 262):
                 assert (tfe.fused_attention_bwd_supported(seq, width, heads, dtype)
                         == tfe.fused_attention_supported(seq, width, heads)), (seq, width, heads)
+
+
+@pytest.mark.parametrize("seq,head_dim,dtype,route", [
+    (1, 64, torch.bfloat16, tfe._BWD_MMA), (50, 64, torch.bfloat16, tfe._BWD_MMA),
+    (77, 64, torch.bfloat16, tfe._BWD_MMA),
+    (tfe._BWD_WGMMA_MIN_SEQ - 1, 64, torch.bfloat16, tfe._BWD_MMA),
+    (tfe._BWD_WGMMA_MIN_SEQ, 64, torch.bfloat16, tfe._BWD_WGMMA),
+    (197, 64, torch.bfloat16, tfe._BWD_WGMMA), (256, 64, torch.bfloat16, tfe._BWD_WGMMA),
+    (50, 64, torch.float32, tfe._BWD_FP32_PIPES), (197, 64, torch.float32, tfe._BWD_FP32_PIPES),
+    (197, 128, torch.bfloat16, tfe._BWD_FP32_PIPES), (50, 96, torch.bfloat16, tfe._BWD_FP32_PIPES),
+    (181, 128, torch.bfloat16, tfe._BWD_FP32_PIPES), (77, 32, torch.bfloat16, tfe._BWD_FP32_PIPES),
+])
+def test_attention_bwd_route(seq, head_dim, dtype, route):
+    """bf16 at head width 64 takes the tensor cores (`mma.sync` below
+    ``_BWD_WGMMA_MIN_SEQ``, `wgmma` from it); fp32 and every other width the
+    FP32 pipes."""
+    assert tfe._attention_bwd_route(seq, head_dim, dtype) == route
+
+
+def test_attention_bwd_routes_take_their_shapes():
+    """Every S of the backward's domain goes to a kernel the C entry takes:
+    the `mma.sync` kernel only up to S = 128, the `wgmma` kernel up to 256."""
+    assert 1 < tfe._BWD_WGMMA_MIN_SEQ <= 129
+    for seq in range(1, 257):
+        route = tfe._attention_bwd_route(seq, 64, torch.bfloat16)
+        assert route == (tfe._BWD_MMA if seq <= 128 and seq < tfe._BWD_WGMMA_MIN_SEQ
+                         else tfe._BWD_WGMMA), seq
+
+
+def test_attention_bwd_argtypes_match_the_entry_point():
+    """The wrapper's ctypes signature has one argument per parameter of
+    ``mm_qkv_attention_bwd``: pointers as pointers, the scale as a float,
+    sizes, flags, the dtype code and the route as ints."""
+    src = (ROOT / "multimodal_tpu_torch" / "csrc" / "fused_qkv_attention_bwd.cu").read_text()
+    params = re.search(r"int mm_qkv_attention_bwd\(([^)]*)\)", src).group(1).split(",")
+    py = Path(tfe.__file__).read_text()
+    argtypes = re.search(r"lib\.mm_qkv_attention_bwd\.argtypes = \[([^\]]*)\]",
+                         py).group(1).split(",")
+    assert len(params) == len(argtypes) == 13
+    assert params[-2].split() == ["int", "route"]
+    for param, arg in zip(params, argtypes):
+        param, arg = param.strip(), arg.strip()
+        if "*" in param:
+            assert arg == "_V", param
+        elif param.startswith("float"):
+            assert arg == "ctypes.c_float", param
+        else:
+            assert arg == "_I", param
+
+
+def test_attention_bwd_kernels_are_filed_under_the_backward():
+    """A profile files the backward's kernels, the `wgmma` one among them,
+    under #2, and the forward's under #1."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    names = re.findall(r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
+                       (ROOT / "multimodal_tpu_torch" / "csrc" /
+                        "fused_qkv_attention_bwd.cu").read_text())
+    assert "qkv_attention_bwd_wgmma_kernel" in names
+    assert "qkv_attention_bwd_mma_long_kernel" not in names
+    for name in names:
+        assert cs.kernel_group(f"void (anonymous namespace)::{name}<256>(...)") == \
+            "fused_qkv_attention_bwd"
