@@ -84,7 +84,28 @@ in order (any failure exits non-zero):
    and finite losses; items/s, ms a step,
    peak memory and one step's device time by kernel group; then the
    recipe's ``main`` (batch 64, 2 steps), finite losses;
-9. a ``kernels`` JSON line, the card line, and the result line
+9. CLIP zero-shot classification from strings and uint8 images, the
+   ImageNet protocol (1,000 class names x 80 templates): the 80,000 prompts
+   through the port's ``CLIPTextTransform`` on the native tokenizer
+   (``native/bpe.py``, built by g++ at first use), every id row held equal
+   to the Python tokenizer's, prompts/s, native calls and per-word
+   fallbacks; then for ``clip_vit_b32`` and ``clip_rn50`` (bf16, seed 0;
+   RN50's BatchNorms drawn from a seed): the classifier through a text
+   ``EmbeddingServer`` (max_batch 256: 313 text forwards, exact launches of
+   #1 and #3), 8 classes' columns against fp32 on the CPU (cosine >=
+   0.999), ``imagenet_zero_shot_eval`` over 4,096 seeded 256x256 images with
+   seeded labels in batches of 256 (device preprocessing, the image tower:
+   ViT-B/32 #1 and #3, RN50's attention pool #6 once a batch; exact
+   launches), 4 images' logits against fp32 on the CPU (cosine >= 0.999),
+   images/s, top-1/top-5 (chance with random weights) and one image batch's
+   device time by kernel group; one forward of 2 images through each of
+   ``clip_rn101``, ``clip_rn50x4``, ``clip_rn50x16`` and ``clip_rn50x64`` at
+   full width (unit-norm embeddings, one #6 launch each); and
+   ``BASELINE.json``'s transform + encode p50/p90 latency
+   (``scripts/bench_latency.py``'s definition: batch 32, ViT-B/32, 20 runs
+   on distinct inputs) from ids and from prompt strings; the phase's wall
+   time;
+10. a ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 checks the MLP forward (#3) at the CLIP, LM (prefill, train step,
@@ -98,9 +119,10 @@ every activation, relaunched into NaN-filled outputs and workspace,
 bitwise equal. It also checks the flash attention forward (#6) at the
 prefill shape (8, 12, 2048, 64) causal, a train step's (8, 12, 8192, 64)
 with lse, with and without segment ids, the 128-query tile's edges (Sq
-127, 129, 191) and its masking variants, each relaunched into an output
-and lse filled with NaN, bitwise equal, and times the prefill and train
-shapes against SDPA; and the int8-cache decode
+127, 129, 191), its masking variants and the CLIP ResNet attention pools
+(non-causal at S = 50 with 256 x 32 heads, 82, 145 and 197), each
+relaunched into an output and lse filled with NaN, bitwise equal, and
+times each case against SDPA; and the int8-cache decode
 attention (#10) at the decode shape (33 x 12 heads, 4096 positions), its
 verify-window and GQA variants, a query row that sees nothing, 8 query
 rows over 8,192 positions and one over 32,768, each output element held to
@@ -145,6 +167,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -989,7 +1012,9 @@ def flash_threshold(fa, attn, gen, heads=12, d=64, batch=8):
 
 # Kernel #6's cases: the LM prefill call, a train step's call (with and
 # without packed documents), Sq != Sk, the masks, the 128-query tile's edges
-# (Sq 127, 129, 191) and the other routes (bias, head widths 32 and 128).
+# (Sq 127, 129, 191), the other routes (bias, head widths 32 and 128) and the
+# CLIP ResNet towers' attention pools (non-causal, one key tile: RN50 and
+# RN101 at the zero-shot batch, S = 50; RN50x4, x16 and x64 at 82, 145, 197).
 FLASH_CASES = [
     ("prefill", 8, 12, 2048, 2048, 64, True, {}),
     ("train", 8, 12, 8192, 8192, 64, True, {"lse": True}),
@@ -1007,6 +1032,10 @@ FLASH_CASES = [
     ("sq191_non_causal", 4, 12, 191, 191, 64, False, {}),
     ("head_width_32", 4, 12, 1024, 1024, 32, True, {}),
     ("head_width_128", 4, 12, 1024, 1024, 128, True, {}),
+    ("attnpool_rn50", 256, 32, 50, 50, 64, False, {}),
+    ("attnpool_rn50x4", 8, 40, 82, 82, 64, False, {}),
+    ("attnpool_rn50x16", 8, 48, 145, 145, 64, False, {}),
+    ("attnpool_rn50x64", 8, 64, 197, 197, 64, False, {}),
 ]
 
 
@@ -1967,8 +1996,14 @@ def kernel_group(name: str) -> str:
         return "fused_mlp_bwd"
     if "fused_mlp_kernel" in name or "fused_mlp_fwd_" in name:  # #3: fp32; bf16's stages
         return "fused_mlp"
+    if "fprop" in low or "implicit_gemm" in low:  # cuDNN's convolutions
+        return "conv"
     if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma")):
         return "library_gemm"
+    if "batch_norm" in low:
+        return "batch_norm"
+    if "avg_pool" in low:
+        return "pool"
     if "layer_norm" in low:
         return "layer_norm"
     if "conv" in low or "wgrad" in low or "dgrad" in low:
@@ -2525,6 +2560,294 @@ def flava_train(fe, fa, card):
     return launches, result
 
 
+# --------------------------------------------------------------------------
+# phase 9: CLIP zero-shot classification from strings and images
+# --------------------------------------------------------------------------
+
+MERGES = Path(__file__).resolve().parent / "tests" / "assets" / "clip_merges.bpe"
+ZS_BATCH = 256  # the text server's max_batch and the eval's image batch
+ZS_IMAGES = 4096
+ZS_CLASSES_A_CALL = 64  # build_zero_shot_classifier's batch_size
+ZS_COSINE = 0.999
+LATENCY_BATCH = 32  # scripts/bench_latency.py's
+LATENCY_RUNS = 20
+
+
+def zs_counts(fe, fa) -> dict:
+    return {"fused_qkv_attention": fe.fused_qkv_attention.launches,
+            "fused_mlp": fe.fused_mlp.launches,
+            "flash_attention": fa.flash_attention_forward.launches}
+
+
+def zs_reset(fe, fa) -> None:
+    fe.reset_launch_counts()
+    fa.reset_launch_counts()
+
+
+def zs_expect(label: str, got: dict, want: dict) -> None:
+    print(f"zero_shot {label}: launches {json.dumps(got)}, want {json.dumps(want)}", flush=True)
+    for k, v in want.items():
+        if got[k] != v:
+            fail(f"zero_shot {label}: {k} launched {got[k]} times, want {v}")
+
+
+def text_forwards(n_classes: int, n_templates: int) -> int:
+    """Text tower forwards of ``build_zero_shot_classifier`` through a server
+    of ``ZS_BATCH`` rows: each call encodes 64 classes' prompts."""
+    return sum(math.ceil(min(ZS_CLASSES_A_CALL, n_classes - i) * n_templates / ZS_BATCH)
+               for i in range(0, n_classes, ZS_CLASSES_A_CALL))
+
+
+def randomize_batch_norms(model, seed: int) -> None:
+    """Every BatchNorm scale, bias and running statistic drawn from ``seed``:
+    with the init's zero bn3 scales the bottleneck branches would add
+    nothing, and no check would see them."""
+    from multimodal_tpu_torch.models.clip.resnet_encoder import Fp32BatchNorm2d
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Fp32BatchNorm2d):
+                n = m.weight.numel()
+                m.weight.copy_(torch.rand(n, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(n, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(n, generator=gen) + 0.5)
+
+
+def zero_shot_model(fe, fa, card, label, model, ref_model, size, transform, images, labels,
+                    image_launches):
+    """Steps 2-3 of the zero-shot phase for one model: the ImageNet
+    classifier (1,000 classes x 80 templates) through a text server, 8 of its
+    columns against fp32 on the CPU; then ``imagenet_zero_shot_eval`` over
+    ``images`` in batches of 256 through device preprocessing and the image
+    tower, and 4 images' logits against fp32 on the CPU. ``image_launches``:
+    the kernels one image forward launches."""
+    from multimodal_tpu_torch.data.imagenet_zeroshot import (
+        imagenet_classnames, imagenet_templates, imagenet_zero_shot_eval)
+    from multimodal_tpu_torch.ops.image import fused_preprocess_for_encoder
+    from multimodal_tpu_torch.serving.embedding import EmbeddingServer
+    from multimodal_tpu_torch.training.zero_shot import build_zero_shot_classifier, logits_against
+
+    classnames, templates = imagenet_classnames(), imagenet_templates()
+    n_prompts = len(classnames) * len(templates)
+    server = EmbeddingServer(model.encode_text, max_batch=ZS_BATCH)
+
+    def encode_text(ids):
+        return torch.from_numpy(server.encode(ids)).cuda()
+
+    text_fwd = text_forwards(len(classnames), len(templates))
+    zs_reset(fe, fa)
+    t0 = time.perf_counter()
+    classifier = build_zero_shot_classifier(encode_text, transform, classnames, templates,
+                                            batch_size=ZS_CLASSES_A_CALL)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    classifier_counts = zs_counts(fe, fa)
+    zs_expect(f"{label} classifier", classifier_counts,
+              {"fused_qkv_attention": 12 * text_fwd, "fused_mlp": 12 * text_fwd,
+               "flash_attention": 0})
+    if classifier.shape != (model.encoder_b.projection.out_features, len(classnames)) or \
+            not torch.isfinite(classifier).all():
+        fail(f"zero_shot {label}: classifier {tuple(classifier.shape)}, finite "
+             f"{bool(torch.isfinite(classifier).all())}")
+    print(f"zero_shot {label}: classifier {tuple(classifier.shape)} from {n_prompts} prompts "
+          f"({text_fwd} text forwards of <= {ZS_BATCH} rows) in {build_s:.2f} s, "
+          f"{n_prompts / build_s:.1f} prompts/s, tokenizing included, on {card}", flush=True)
+
+    # 8 classes' columns in fp32 on the CPU, the same weights
+    pick = np.linspace(0, len(classnames) - 1, 8).round().astype(int)
+    with torch.inference_mode():
+        ref_cls = build_zero_shot_classifier(ref_model.encode_text, transform,
+                                             [classnames[i] for i in pick], templates)
+    cls_cos = cosine_rows(classifier[:, pick].T.cpu().numpy(), ref_cls.T.numpy())
+    print(f"zero_shot {label}: classifier columns {pick.tolist()} vs fp32 CPU cosine "
+          f"{cls_cos.round(6).tolist()} (bar {ZS_COSINE})", flush=True)
+    if cls_cos.min() < ZS_COSINE:
+        fail(f"zero_shot {label}: classifier column cosine {cls_cos.min()} < {ZS_COSINE}")
+
+    image_s = [0.0]
+
+    def encode_image(u8):
+        t0 = time.perf_counter()
+        x = fused_preprocess_for_encoder(torch.from_numpy(u8).cuda(), size, dtype=torch.bfloat16)
+        emb = model.encode_image(x)
+        torch.cuda.synchronize()
+        image_s[0] += time.perf_counter() - t0
+        return emb
+
+    batches = [{"image": images[i:i + ZS_BATCH], "labels": labels[i:i + ZS_BATCH]}
+               for i in range(0, len(images), ZS_BATCH)]
+    zs_reset(fe, fa)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        acc = imagenet_zero_shot_eval(encode_image, encode_text, transform, batches)
+    eval_s = time.perf_counter() - t0
+    eval_counts = zs_counts(fe, fa)
+    zs_expect(f"{label} eval", eval_counts, {
+        k: 12 * text_fwd * (k != "flash_attention") + len(batches) * image_launches.get(k, 0)
+        for k in eval_counts})
+    images_per_s = len(images) / image_s[0]
+    print(f"zero_shot {label}: imagenet_zero_shot_eval over {len(images)} seeded uint8 "
+          f"256x256 images with seeded labels in {eval_s:.2f} s (classifier rebuilt inside); "
+          f"top1 {acc['top1']:.6f} top5 {acc['top5']:.6f} (random weights and labels: chance, "
+          f"0.001 / 0.005, is what to expect); images {images_per_s:.1f}/s (upload, preprocess "
+          f"and image tower at batch {ZS_BATCH}) on {card}", flush=True)
+
+    with torch.inference_mode():
+        probe = images[:4]
+        got = logits_against(encode_image(probe), classifier).float().cpu().numpy()
+        ref_emb = ref_model.encode_image(fused_preprocess_for_encoder(
+            torch.from_numpy(probe), size, dtype=torch.float32))
+        want = logits_against(ref_emb, classifier.float().cpu()).numpy()
+    logit_cos = cosine_rows(got, want)
+    print(f"zero_shot {label}: logits of 4 images (1,000 classes; fp32 CPU image tower "
+          f"against the card's classifier) cosine {logit_cos.round(6).tolist()} "
+          f"(bar {ZS_COSINE})", flush=True)
+    if logit_cos.min() < ZS_COSINE:
+        fail(f"zero_shot {label}: logit cosine {logit_cos.min()} < {ZS_COSINE}")
+    breakdown = profile_step(lambda: encode_image(images[:ZS_BATCH]), f"zero_shot {label} image")
+    print(f"zero_shot {label}: device time by kernel of one image batch of {ZS_BATCH} "
+          + json.dumps(breakdown), flush=True)
+    return dict(classifier_launches=classifier_counts, eval_launches=eval_counts,
+                prompts_per_s=n_prompts / build_s, build_s=build_s, images_per_s=images_per_s,
+                classifier_cosine=float(cls_cos.min()), logit_cosine=float(logit_cos.min()),
+                top1=acc["top1"], top5=acc["top5"], image_breakdown=breakdown)
+
+
+def latency(model, transform, card):
+    """``BASELINE.json``'s transform + encode latency as
+    ``scripts/bench_latency.py`` defines it: batch 32, uint8 (32, 256, 256,
+    3) images and (32, 77) ids on the card, device preprocessing and both
+    ViT-B/32 towers, 20 runs on distinct inputs, p50 and p90 of the host
+    clock up to a scalar read back; then again from 32 prompt strings, host
+    tokenization inside the clock."""
+    from multimodal_tpu_torch.data.imagenet_zeroshot import imagenet_classnames, imagenet_templates
+    from multimodal_tpu_torch.ops.image import fused_preprocess_for_encoder
+
+    names, templates = imagenet_classnames(), imagenet_templates()
+    rng = np.random.default_rng(17)
+
+    def run(u8, text):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ids = text if isinstance(text, torch.Tensor) else transform(text).cuda()
+            t1 = time.perf_counter()
+            out = model(fused_preprocess_for_encoder(u8, 224, dtype=torch.bfloat16), ids)
+            float(out.embeddings_a.float().sum())
+        return (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3
+
+    result = {}
+    for kind in ("ids", "strings"):
+        lat, tok = [], []
+        for i in range(LATENCY_RUNS + 1):  # the first run warms up
+            u8 = torch.from_numpy(rng.integers(0, 256, (LATENCY_BATCH, 256, 256, 3),
+                                               dtype=np.uint8)).cuda()
+            prompts = [templates[i % len(templates)].format(names[(LATENCY_BATCH * i + j) % 1000])
+                       for j in range(LATENCY_BATCH)]
+            text = transform(prompts).cuda() if kind == "ids" else prompts
+            torch.cuda.synchronize()
+            ms, tok_ms = run(u8, text)
+            lat.append(ms)
+            tok.append(tok_ms)
+        lat, tok = sorted(lat[1:]), sorted(tok[1:])
+        result[kind] = {"p50_ms": lat[len(lat) // 2], "p90_ms": lat[int(len(lat) * 0.9)]}
+        print(f"zero_shot latency from {kind}: transform+encode batch {LATENCY_BATCH}: p50 "
+              f"{result[kind]['p50_ms']:.3f} ms, p90 {result[kind]['p90_ms']:.3f} ms, per pair "
+              f"p50 {result[kind]['p50_ms'] / LATENCY_BATCH:.4f} ms on {card}; the runs (ms) "
+              f"{[round(t, 2) for t in lat]}, of which tokenizing and the ids' upload p50 "
+              f"{tok[len(tok) // 2]:.3f} ms", flush=True)
+    return result
+
+
+def zero_shot(fe, fa, card):
+    """Phase 9: the ImageNet zero-shot protocol from strings and uint8
+    images (see the module docstring)."""
+    from multimodal_tpu_torch.data.imagenet_zeroshot import imagenet_classnames, imagenet_templates
+    from multimodal_tpu_torch.models.clip import model as clip_model
+    from multimodal_tpu_torch.ops.image import fused_preprocess_for_encoder
+    from multimodal_tpu_torch.transforms.clip_transform import CLIPTextTransform
+
+    phase_t0 = time.perf_counter()
+    # 1. the whole protocol's prompts, native against Python
+    prompts = [t.format(c) for c in imagenet_classnames() for t in imagenet_templates()]
+    t0 = time.perf_counter()
+    native = CLIPTextTransform(str(MERGES), native=True)
+    python = CLIPTextTransform(str(MERGES))
+    init_s = time.perf_counter() - t0
+    bpe = native.tokenizer.bpe
+    if bpe.num_merges != 48894:
+        fail(f"zero_shot: the tokenizer read {bpe.num_merges} merges, want 48894")
+    t0 = time.perf_counter()
+    ids_native = native(prompts)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids_python = python(prompts)
+    python_s = time.perf_counter() - t0
+    equal_rows = int((ids_native == ids_python).all(dim=1).sum())
+    print(f"zero_shot tokenize: {len(prompts)} prompts (1,000 classes x 80 templates), "
+          f"{equal_rows} id rows of the native tokenizer equal to the Python one's; native "
+          f"{native_s:.2f} s ({len(prompts) / native_s:.1f} prompts/s, {bpe.native_calls} "
+          f"native calls, {bpe.fallbacks} per-word fallbacks), Python {python_s:.2f} s "
+          f"({len(prompts) / python_s:.1f} prompts/s), both cold caches; tokenizers built in "
+          f"{init_s:.2f} s; host of the {card} machine", flush=True)
+    if equal_rows != len(prompts) or ids_native.shape != (len(prompts), 77):
+        fail(f"zero_shot: {len(prompts) - equal_rows} native id rows differ from Python's")
+
+    rng = np.random.default_rng(21)
+    images = rng.integers(0, 256, size=(ZS_IMAGES, 256, 256, 3), dtype=np.uint8)
+    labels = rng.integers(0, 1000, size=ZS_IMAGES)
+
+    # 2-3. ViT-B/32
+    vit = clip_model.clip_vit_b32(dtype=torch.bfloat16, seed=0)
+    ref = clip_model.clip_vit_b32(device="cpu", dtype=torch.float32)
+    ref.load_state_dict({k: v.float().cpu() for k, v in vit.state_dict().items()})
+    out = {"vit_b32": zero_shot_model(fe, fa, card, "vit_b32", vit, ref, 224, native, images,
+                                      labels, {"fused_qkv_attention": 12, "fused_mlp": 12})}
+    # 4. RN50: its attention pool takes #6 at S = 50, 32 heads of 64
+    rn50 = clip_model.clip_rn50(dtype=torch.bfloat16, seed=0)
+    randomize_batch_norms(rn50, seed=5)
+    ref = clip_model.clip_rn50(device="cpu", dtype=torch.float32)
+    ref.load_state_dict({k: v.float().cpu() for k, v in rn50.state_dict().items()})
+    out["rn50"] = zero_shot_model(fe, fa, card, "rn50", rn50, ref, 224, native, images, labels,
+                                  {"flash_attention": 1})
+    del rn50, ref
+    # 5. the other ResNet builders at full width, one forward of 2 images each
+    builders = {}
+    u8 = torch.from_numpy(rng.integers(0, 256, size=(2, 256, 256, 3), dtype=np.uint8)).cuda()
+    for name in ("clip_rn101", "clip_rn50x4", "clip_rn50x16", "clip_rn50x64"):
+        t0 = time.perf_counter()
+        model = getattr(clip_model, name)(dtype=torch.bfloat16, seed=0)
+        build_s = time.perf_counter() - t0
+        tower = model.encoder_a
+        size, dim = tower.input_resolution, tower.attnpool.c_proj.out_features
+        zs_reset(fe, fa)
+        with torch.inference_mode():
+            emb = model.encode_image(fused_preprocess_for_encoder(u8, size, dtype=torch.bfloat16))
+            torch.cuda.synchronize()
+        counts = zs_counts(fe, fa)
+        emb = emb.float().cpu().numpy()
+        norms = np.linalg.norm(emb, axis=-1)
+        seq = (size // 32) ** 2 + 1
+        print(f"zero_shot {name}: built in {build_s:.1f} s, input {size}, attention pool "
+              f"(2, {tower.attnpool.num_heads}, {seq}, 64), embeddings {emb.shape}, norms "
+              f"{norms.round(4).tolist()}, launches {json.dumps(counts)}", flush=True)
+        if emb.shape != (2, dim) or not np.isfinite(emb).all() or np.abs(norms - 1).max() > 1e-2:
+            fail(f"zero_shot {name}: embeddings {emb.shape} (want (2, {dim})), norms {norms}")
+        zs_expect(name, counts, {"fused_qkv_attention": 0, "fused_mlp": 0, "flash_attention": 1})
+        builders[name] = counts
+        del model, tower
+        torch.cuda.empty_cache()
+    out["rn_builders"] = builders
+    # 6. BASELINE.json's transform + encode latency, ViT-B/32
+    out["latency"] = latency(vit, native, card)
+    del vit
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - phase_t0
+    print(f"zero_shot: phase wall time {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -2590,6 +2913,7 @@ def main() -> None:
     lm_launches, lm = lm_serve(fe, fa, qa, card)
     train_launches, lm_tr = lm_train(fe, fa, card)
     flava_launches, flava = flava_train(fe, fa, card)
+    zs = zero_shot(fe, fa, card)
 
     # every path's launch counts, each read just after the path ran with the
     # counts set to 0 just before it; a kernel's `launches` is its count on
@@ -2600,7 +2924,10 @@ def main() -> None:
              "train_grad_check": {"fused_mlp_bwd": launches["fused_mlp_bwd_grad_check"]},
              "vit_b16_grad_check": b16_launches, "vit_b16_train": b16_step_launches,
              "lm_train_grad_check": {"fused_mlp_bwd": train_launches["fused_mlp_bwd_grad_check"]},
-             "flava_grad_check": {"fused_mlp_bwd": flava_launches["fused_mlp_bwd_grad_check"]}}
+             "flava_grad_check": {"fused_mlp_bwd": flava_launches["fused_mlp_bwd_grad_check"]},
+             **{f"zero_shot_{m}_{part}": zs[m][f"{part}_launches"]
+                for m in ("vit_b32", "rn50") for part in ("classifier", "eval")},
+             **{f"zero_shot_{name}": c for name, c in zs["rn_builders"].items()}}
     main_path = {"fused_qkv_attention": "serve", "fused_qkv_attention_bwd": "train",
                  "fused_mlp": "flava", "fused_mlp_bwd": "flava_grad_check",
                  "fused_mlp_bwd_acc": "flava", "flash_attention": "lm",
@@ -2683,7 +3010,16 @@ def main() -> None:
           f"{lm_tr['ms_per_step']:.1f} ms a step, peak {lm_tr['peak_gib']:.2f} GiB, gradient "
           f"cosine {lm_tr['grad_cosine']:.6f}; FLAVA pretraining {flava['items_per_s']:.1f} "
           f"items/s, {flava['ms_per_step']:.1f} ms a step, peak {flava['peak_gib']:.2f} GiB, "
-          f"gradient cosine {flava['grad_cosine']:.6f}; build {build_s:.1f} s", flush=True)
+          f"gradient cosine {flava['grad_cosine']:.6f}; zero-shot ViT-B/32 "
+          f"{zs['vit_b32']['prompts_per_s']:.1f} prompts/s to the classifier, "
+          f"{zs['vit_b32']['images_per_s']:.1f} images/s, cosines "
+          f"{zs['vit_b32']['classifier_cosine']:.6f} / {zs['vit_b32']['logit_cosine']:.6f}; RN50 "
+          f"{zs['rn50']['prompts_per_s']:.1f} prompts/s, {zs['rn50']['images_per_s']:.1f} "
+          f"images/s, cosines {zs['rn50']['classifier_cosine']:.6f} / "
+          f"{zs['rn50']['logit_cosine']:.6f}; transform+encode p50 "
+          f"{zs['latency']['ids']['p50_ms']:.3f} ms from ids, "
+          f"{zs['latency']['strings']['p50_ms']:.3f} ms from strings; zero-shot phase "
+          f"{zs['wall_s']:.1f} s; build {build_s:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,9 @@ Usage::
 Not here yet, each refused with ``NotImplementedError`` naming its queue in
 ROADMAP.md: ``data.path`` (the real-data layer, A3), ``data.imagenet_path``
 / ``data.coco_path`` / ``train.eval_every`` (zero-shot eval needs the
-tokenizer, slice 6), ``train.pure_bf16`` (AnyPrecision AdamW, A3), the MoE
+``ImageDataModule`` of ``data.imagenet_path`` and ``coco_zero_shot``, A3;
+the tokenizers and the ImageNet protocol are ported), ``train.pure_bf16``
+(AnyPrecision AdamW, A3), the MoE
 configs and ``train.ep`` (A4, A7), ``train.checkpoint_dir`` (A8), and more
 than one device (A7).
 """
@@ -161,7 +163,7 @@ def _refuse(cfg: Dict[str, Any]) -> None:
         (d["path"], "data.path (the real-data layer)", "A3"),
         (d["imagenet_path"] or d["coco_path"] or t["eval_every"],
          "zero-shot eval (data.imagenet_path, data.coco_path, train.eval_every), which needs "
-         "the tokenizer,", "slice 6"),
+         "data.imagenet_path's ImageDataModule and coco_zero_shot,", "A3"),
         (t["pure_bf16"], "train.pure_bf16 (AnyPrecision AdamW)", "A3"),
         (_model_kwargs(cfg).get("moe_num_experts") or int(t["ep"]) > 1,
          "MoE FLAVA (the MoE configs, train.ep)", "A4 and A7"),

@@ -4,12 +4,18 @@
 (numpy arrays) into this package's ``state_dict``. It is the inverse of
 ``multimodal_tpu/utils/checkpoint.py:clip_params_from_torch``.
 ``long_context_lm_state_dict_from_jax`` does the same for the JAX
-``LongContextLM`` (``multimodal_tpu/examples/long_context/model.py``), and
+``LongContextLM`` (``multimodal_tpu/examples/long_context/model.py``),
 ``flava_state_dict_from_jax`` for ``FLAVAForPreTraining``
-(``multimodal_tpu/models/flava/model.py``). Layouts:
+(``multimodal_tpu/models/flava/model.py``) and
+``clip_resnet_state_dict_from_jax`` for the ``clip_rn*`` models, the inverse
+of ``multimodal_tpu/utils/checkpoint.py:clip_resnet_params_from_torch``.
+Layouts:
 
 - ``nn.Dense`` kernels are ``(in, out)``; ``nn.Linear`` weights ``(out, in)``;
-- the patch conv is HWIO in JAX and OIHW in torch;
+- convolution kernels are HWIO in JAX and OIHW in torch;
+- flax ``BatchNorm`` keeps ``scale`` / ``bias`` in ``params`` and ``mean`` /
+  ``var`` in ``batch_stats``; ``Fp32BatchNorm2d`` has ``weight`` / ``bias``
+  and the buffers ``running_mean`` / ``running_var``;
 - ``Fp32LayerNorm`` parameters sit under ``LayerNorm_0`` in JAX, as
   ``scale`` / ``bias``;
 - the fused ``in_proj`` holds ``[q | k | v]`` in both.
@@ -81,11 +87,40 @@ def clip_state_dict_from_jax(
     sd.update(_fp32_layernorm(va["ln_pre"], "encoder_a.ln_pre"))
     sd.update(_encoder_stack(va["encoder"], "encoder_a.encoder", n_vision_layers))
     sd.update(_fp32_layernorm(va["ln_post"], "encoder_a.ln_post"))
-    sd["encoder_b.token_embedding.weight"] = _t(tb["token_embedding"]["embedding"])
-    sd["encoder_b.positional_embedding"] = _t(tb["positional_embedding"])
-    sd.update(_encoder_stack(tb["encoder"], "encoder_b.encoder", n_text_layers))
+    sd.update(_clip_text(tb, n_text_layers))
+    return sd
+
+
+def _clip_text(tb: Mapping, n_layers: int) -> Dict[str, torch.Tensor]:
+    sd = {"encoder_b.token_embedding.weight": _t(tb["token_embedding"]["embedding"]),
+          "encoder_b.positional_embedding": _t(tb["positional_embedding"])}
+    sd.update(_encoder_stack(tb["encoder"], "encoder_b.encoder", n_layers))
     sd.update(_fp32_layernorm(tb["ln_final"], "encoder_b.ln_final"))
     sd.update(_linear(tb["projection"], "encoder_b.projection"))
+    return sd
+
+
+def clip_resnet_state_dict_from_jax(
+    variables: Mapping, n_text_layers: int = 12
+) -> Dict[str, torch.Tensor]:
+    """JAX ResNet CLIP variables (``{"params": {"encoder_a": ...,
+    "encoder_b": ...}, "batch_stats": {"encoder_a": ...}}``, leaves as numpy
+    arrays) -> the ``state_dict`` of this package's ``clip_rn*`` models. The
+    image tower carries the JAX names, so its parameters map by path
+    (:func:`state_dict_from_jax_tree`); each BatchNorm's ``mean`` / ``var``
+    become ``running_mean`` / ``running_var``."""
+    p = variables["params"]
+    sd = {f"encoder_a.{k}": v for k, v in state_dict_from_jax_tree(p["encoder_a"]).items()}
+
+    def stats(node: Mapping, path: List[str]) -> None:
+        for key, value in node.items():
+            if key in ("mean", "var"):
+                sd[".".join(["encoder_a", *path, f"running_{key}"])] = _t(value)
+            else:
+                stats(value, path + [key])
+
+    stats(variables["batch_stats"]["encoder_a"], [])
+    sd.update(_clip_text(p["encoder_b"], n_text_layers))
     return sd
 
 

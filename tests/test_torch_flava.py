@@ -249,9 +249,9 @@ def test_main_debug_config_on_cpu(capsys):
 
 @pytest.mark.parametrize("override,queue", [
     ("data.path=/data/cc3m", "A3"),
-    ("data.imagenet_path=/data/imagenet", "slice 6"),
-    ("data.coco_path=/data/coco", "slice 6"),
-    ("train.eval_every=5", "slice 6"),
+    ("data.imagenet_path=/data/imagenet", "zero-shot eval .* A3"),
+    ("data.coco_path=/data/coco", "zero-shot eval .* A3"),
+    ("train.eval_every=5", "zero-shot eval .* A3"),
     ("train.pure_bf16=true", "A3"),
     ("model.size=base-moe-8e", "A4"),
     ("train.ep=2", "A4"),

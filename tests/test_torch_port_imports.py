@@ -4,6 +4,7 @@ training recipes) refuse to run without CUDA unless asked for the CPU, and
 on CPU tensors no kernel is launched, forward or backward."""
 
 import ast
+import os
 import pkgutil
 import subprocess
 import sys
@@ -174,3 +175,81 @@ def test_cpu_flava_training_launches_no_kernel():
     for counter in (fe.fused_qkv_attention, fe.fused_qkv_attention_bwd, fe.fused_mlp,
                     fe.fused_mlp_bwd, fe.fused_mlp_bwd_acc, fa.flash_attention_forward):
         assert counter.launches == 0
+
+
+HOST_ONLY = {"regex", "PIL", "ftfy"}  # absent on the card's machine
+BPE_PATH = ROOT / "tests" / "assets" / "clip_merges.bpe"
+
+
+def test_every_module_imports_and_tokenizes_without_regex_pil_ftfy():
+    """The card's machine has no regex, PIL or ftfy: every module still
+    imports, and the text transform (Python and native) tokenizes."""
+    blocked = "; ".join(f"sys.modules[{name!r}] = None"
+                        for name in sorted(FORBIDDEN | HOST_ONLY))
+    imports = "; ".join(f"importlib.import_module({m!r})" for m in _port_modules())
+    code = (f"import importlib, sys; {blocked}; {imports}; "
+            "from multimodal_tpu_torch.transforms.clip_transform import CLIPTextTransform; "
+            f"p = {str(BPE_PATH)!r}; "
+            "a = CLIPTextTransform(p)(\"It's a photo of 2 cats!\"); "
+            "b = CLIPTextTransform(p, native=True)(\"It's a photo of 2 cats!\"); "
+            "print(a[:12].tolist() == b[:12].tolist(), a[:12].tolist())")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    from multimodal_tpu_torch.transforms.clip_transform import CLIPTextTransform
+
+    want = CLIPTextTransform(str(BPE_PATH))("It's a photo of 2 cats!")[:12].tolist()
+    assert proc.stdout.strip() == f"True {want}"
+    assert want[0] == 49406 and 49407 in want
+
+
+def test_no_host_only_imports_at_module_level():
+    """regex and ftfy appear nowhere in the port; PIL only inside the
+    functions of transforms/clip_transform.py's image path."""
+    offenders = []
+    for f in sorted((ROOT / "multimodal_tpu_torch").rglob("*.py")):
+        tree = ast.parse(f.read_text(), str(f))
+        top = set(map(id, tree.body))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                root = n.split(".")[0]
+                lazy_pil = (root == "PIL" and id(node) not in top
+                            and f.relative_to(ROOT).as_posix()
+                            == "multimodal_tpu_torch/transforms/clip_transform.py")
+                if root in HOST_ONLY and not lazy_pil:
+                    offenders.append(f"{f.name}: {n}")
+    assert not offenders
+
+
+@pytest.mark.parametrize("cxx", ["/nonexistent/g++", "false"])
+def test_native_tokenizers_raise_when_the_build_fails(cxx):
+    """No fallback hides the native library: with a compiler that is missing
+    or fails, each native tokenizer raises and names the compiler."""
+    code = ("from multimodal_tpu_torch.native.bpe import NativeCLIPBPETokenizer\n"
+            "from multimodal_tpu_torch.native.wordpiece import NativeWordPieceTokenizer\n"
+            "for make in (lambda: NativeCLIPBPETokenizer("
+            f"{str(BPE_PATH)!r}, num_merges=100), "
+            "lambda: NativeWordPieceTokenizer(['[UNK]', 'a'])):\n"
+            "    try:\n"
+            "        make()\n"
+            "    except RuntimeError as e:\n"
+            f"        assert {cxx!r} in str(e), e\n"
+            "        print('raised')\n")
+    env = {**os.environ, "CXX": cxx}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["raised", "raised"]
+
+
+def test_clip_resnet_builders_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("clip_rn50", "clip_rn101", "clip_rn50x4", "clip_rn50x16", "clip_rn50x64"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            getattr(clip_model, name)()
