@@ -84,7 +84,34 @@ in order (any failure exits non-zero):
    and finite losses; items/s, ms a step,
    peak memory and one step's device time by kernel group; then the
    recipe's ``main`` (batch 64, 2 steps), finite losses;
-9. CLIP zero-shot classification from strings and uint8 images, the
+9. FLAVA from real data at ``base`` (the recipes of phase 8 on a seeded
+   local dataset written to a temporary directory: 256 {.npy uint8
+   256x256x3, text, label} pairs, 64 images in two class directories, 128
+   caption pairs; each image a mosaic of 16 x 16 cells of random colours,
+   flat or textured): the host transform's ms an image; the dVAE
+   codebook's bf16 logits on the card against fp32 on the CPU over 8
+   images (cosine >= 0.999, and >= 0.999 once each logit channel's mean
+   over positions is taken away; at least 5 distinct fp32 labels; the
+   labels' agreement printed); the gradients of the six
+   FLAVA losses (an image-text batch with dVAE labels, an image-only and a
+   text-only batch, 2 pairs each) against fp32 on the CPU with the card's
+   labels (cosine >= 0.99, exact #3 and #4 launches); 2 warm-up and 5
+   timed steps at batch 64 on ``real_batches`` (``VLDataModule``, the
+   two-way FLAVA transform, HashTokenizer, MLM masking, ITM negatives):
+   exact #3, #4 and #5 launches a step (54, 48, 6), finite losses, items/s,
+   ms a step, peak memory; 3 steps under the profiler (device ms by kernel
+   group, the dVAE's kernels its own ``dvae`` group, the idle share); an
+   image-only (MIM) and a text-only (MLM) step; the recipe's ``main`` for 7
+   steps saving every 3, its step-6 checkpoint taken away and a second
+   ``main`` resuming at step 3, steps 4-7's losses within ``RESUME_TOL``
+   (1e-6 of the loss; every card run so far gave them bitwise equal) of
+   the uninterrupted run's; ``main`` with ``train.pure_bf16`` for 3 steps
+   with the ImageNet zero-shot eval (the full 1,000 x 80 protocol over the
+   64 images) and the COCO retrieval eval through ``train.eval_every``
+   (each eval's seconds and exact launches); ``finetune.py`` at ``base``
+   from the labelled pairs for 3 steps, then resumed from its checkpoint
+   for 2 more (exact launches);
+10. CLIP zero-shot classification from strings and uint8 images, the
    ImageNet protocol (1,000 class names x 80 templates): the 80,000 prompts
    through the port's ``CLIPTextTransform`` on the native tokenizer
    (``native/bpe.py``, built by g++ at first use), every id row held equal
@@ -105,7 +132,7 @@ in order (any failure exits non-zero):
    (``scripts/bench_latency.py``'s definition: batch 32, ViT-B/32, 20 runs
    on distinct inputs) from ids and from prompt strings; the phase's wall
    time;
-10. a ``kernels`` JSON line, the card line, and the result line
+11. a ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 checks the MLP forward (#3) at the CLIP, LM (prefill, train step,
@@ -164,8 +191,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional
@@ -2021,9 +2051,28 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_step(step, label: str):
+def annotated_kernels(prof, names):
+    """(annotation, kernel name, us) of every kernel launched under a
+    ``record_function`` range named in ``names``: each kernel hangs on the
+    CPU op that launched it, whose ancestors hold the range."""
+    out = []
+    for e in prof.events():
+        kernels = getattr(e, "kernels", None)
+        if not kernels or e.device_type.name != "CPU":
+            continue
+        anc = e.cpu_parent
+        while anc is not None and anc.name not in names:
+            anc = anc.cpu_parent
+        if anc is not None:
+            out += [(anc.name, k.name, k.duration) for k in kernels]
+    return out
+
+
+def profile_step(step, label: str, annotations=()):
     """Device time of one ``step()``, summed by kernel group, from
-    torch.profiler; 'not measured' when the profiler sees no device time."""
+    torch.profiler; 'not measured' when the profiler sees no device time.
+    The kernels launched under a ``record_function`` range named in
+    ``annotations`` form a group of that name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2044,6 +2093,15 @@ def profile_step(step, label: str):
         top.append((round(us / 1e3, 3), e.key[:90]))
     if not groups:
         return "not measured"
+    carved = annotated_kernels(prof, set(annotations)) if annotations else []
+    for tag, name, us in carved:
+        g = kernel_group(name)
+        groups[g] = groups.get(g, 0.0) - us / 1e3
+        groups[tag] = groups.get(tag, 0.0) + us / 1e3
+    for tag in annotations:
+        if tag not in groups:
+            groups[tag] = 0.0
+            print(f"{label}: no kernel found under the {tag!r} range", flush=True)
     print(f"{label}: top kernels (ms) " + json.dumps(sorted(top, reverse=True)[:12]), flush=True)
     host = sorted(((round(e.self_cpu_time_total / 1e3, 3), e.count, e.key[:60])
                    for e in prof.key_averages() if e.self_cpu_time_total > 0), reverse=True)
@@ -2428,20 +2486,40 @@ def flava_cfg(batch: int, steps: int, bf16: bool = True):
                         defaults=fp.DEFAULTS)
 
 
-def flava_grad_cosine(model, batch):
+def flava_grad_cosine(model, batch, replay_codebook=False):
     """Cosine of the card's gradients (bf16 compute) against an fp32 step of
     the same weights on the CPU through the plain versions, both through the
-    recipe's loss: the concatenated gradient's, and the lowest single
-    tensor's with its name. Parameters the batch does not reach have no
-    gradient on either side."""
+    recipe's loss summed over ``batch`` (one batch or a list): the
+    concatenated gradient's, and the lowest single tensor's with its name.
+    Parameters the batches do not reach have no gradient on either side.
+    With ``replay_codebook`` the CPU model takes the card's dVAE labels (the
+    bf16 codebook's argmax flips on near-ties; ``dvae_check`` holds it)."""
     from multimodal_tpu_torch.examples.flava import pretrain as fp
 
+    batches = batch if isinstance(batch, list) else [batch]
+
+    def total(m, device):
+        loss = 0.0
+        for b in batches:
+            loss = loss + fp.loss_fn(m, {k: torch.as_tensor(v).to(device)
+                                         for k, v in b.items()})[0]
+        return loss
+
+    labels = []
+    codebook = model.image_codebook
+    if replay_codebook:
+        codebook.forward = lambda x: labels.append(type(codebook).forward(codebook, x)) \
+            or labels[-1]
     model.zero_grad(set_to_none=True)
-    loss, _ = fp.loss_fn(model, {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    loss = total(model, next(model.parameters()).device)
     loss.backward()
+    if replay_codebook:
+        del codebook.forward
     ref = fp.build_model(flava_cfg(2, 1, bf16=False), device="cpu")
     ref.load_state_dict({k: v.detach().float().cpu() for k, v in model.state_dict().items()})
-    ref_loss, _ = fp.loss_fn(ref, {k: torch.from_numpy(v) for k, v in batch.items()})
+    if replay_codebook:
+        ref.image_codebook.forward = lambda x: labels.pop(0).cpu()
+    ref_loss = total(ref, "cpu")
     ref_loss.backward()
     ref_grads = dict(ref.named_parameters())
     dots = sq_a = sq_b = 0.0
@@ -2561,7 +2639,427 @@ def flava_train(fe, fa, card):
 
 
 # --------------------------------------------------------------------------
-# phase 9: CLIP zero-shot classification from strings and images
+# phase 9: FLAVA from real data
+# --------------------------------------------------------------------------
+
+REAL_PAIRS = 256  # the seeded local dataset's image-text pairs
+REAL_WORDS = ("a photo of the cat dog bird car tree sky red blue green small big on under "
+              "over near two three sits runs flies parked old new bright dark").split()
+RESUME_TOL = 1e-6  # |loss difference| / max(1, |loss|) of a resumed step
+DVAE_IMAGES = 8  # codebook views in the dVAE check
+DVAE_MIN_LABELS = 5  # distinct fp32 labels the check needs for its agreement to tell
+IMAGE_KEYS = ("image", "image_for_codebook", "image_patches_mask")
+TEXT_KEYS = ("text", "text_masked", "mlm_labels")
+
+
+def mosaic(r: np.random.RandomState, size: int = 256, cells: int = 16) -> np.ndarray:
+    """A uint8 (size, size, 3) image of cells x cells squares of random
+    colours, each flat or overlaid with noise of amplitude 20 or 80: local
+    content that differs from place to place, as a photo's does, so that
+    the dVAE's labels differ across positions (on noise they hardly do)."""
+    k = np.ones((size // cells, size // cells, 1))
+    colours = np.kron(r.randint(0, 256, (cells, cells, 3)).astype(np.float32), k)
+    amp = np.kron(r.choice([0.0, 20.0, 80.0], (cells, cells, 1)), k)
+    noise = amp * r.uniform(-1, 1, (size, size, 3))
+    return np.clip(colours + noise, 0, 255).astype(np.uint8)
+
+
+def write_real_data(root: str) -> dict:
+    """The phase's seeded local data under ``root``: a jsonl of 256
+    {image: .npy uint8 256x256x3 (``mosaic``), text, label} pairs (the pretraining and
+    the labelled finetuning set), an image folder of 64 .npy images in two
+    class directories with a jsonl index (the zero-shot set) and a jsonl of
+    128 of the pairs (the COCO retrieval set)."""
+    r = np.random.RandomState(12)
+    os.makedirs(os.path.join(root, "images"))
+    rows = []
+    for i in range(REAL_PAIRS):
+        path = os.path.join(root, "images", f"{i:04d}.npy")
+        np.save(path, mosaic(r))
+        rows.append({"image": path, "text": " ".join(r.choice(REAL_WORDS, r.randint(5, 16))),
+                     "label": int(r.randint(2))})
+    paths = {"pairs": os.path.join(root, "pairs.jsonl"), "coco": os.path.join(root, "coco.jsonl"),
+             "imagenet": os.path.join(root, "imagenet.jsonl")}
+    for name, part in (("pairs", rows), ("coco", rows[:128])):
+        with open(paths[name], "w") as f:
+            f.writelines(json.dumps(row) + "\n" for row in part)
+    # two class directories, named after ImageNet's classes 0 and 1, and
+    # their index with those labels: a sample without a class name takes the
+    # eval's full protocol (1,000 class names x 80 templates)
+    folder = os.path.join(root, "imagenet")
+    with open(paths["imagenet"], "w") as f:
+        for label, c in enumerate(("tench", "goldfish")):
+            os.makedirs(os.path.join(folder, c))
+            for i in range(32):
+                path = os.path.join(folder, c, f"{i:02d}.npy")
+                np.save(path, mosaic(r))
+                f.write(json.dumps({"image": path, "label": label}) + "\n")
+    return paths
+
+
+def real_cfg(paths: dict, batch: int, steps: int, *extra: str):
+    from multimodal_tpu_torch.examples.flava import pretrain as fp
+    from multimodal_tpu_torch.utils.config import build_config
+
+    return build_config(None, [f"data.path={paths['pairs']}", f"data.batch_size={batch}",
+                               f"train.steps={steps}", "train.log_interval=100", *extra],
+                        defaults=fp.DEFAULTS)
+
+
+def real_args(paths: dict, batch: int, steps: int, *extra: str) -> list:
+    return [f"data.path={paths['pairs']}", f"data.batch_size={batch}", f"train.steps={steps}",
+            "train.log_interval=100", *extra]
+
+
+def dvae_check(model, batch):
+    """The bf16 dVAE on the card against an fp32 copy on the CPU over
+    ``DVAE_IMAGES`` codebook views: the logits' cosine, the cosine of the
+    logits less each channel's mean over an image's positions (the spatial
+    part, which a common mode cannot carry), the labels' agreement and the
+    count of distinct fp32 labels."""
+    from multimodal_tpu_torch.models.flava.dalle_vae import DalleVAEEncoder
+
+    x = batch["image_for_codebook"][:DVAE_IMAGES]
+    with torch.no_grad():
+        got = model.image_codebook.encoder(x.cuda()).float().cpu()
+    ref = DalleVAEEncoder()
+    ref.load_state_dict({k: v.float().cpu() for k, v in model.image_codebook.state_dict().items()})
+    with torch.no_grad():
+        want = ref.encoder(x)
+
+    def cosine(a, b):
+        return float(F.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0))
+
+    centred = cosine(got - got.mean((1, 2), keepdim=True), want - want.mean((1, 2), keepdim=True))
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return (cosine(got, want), centred, agree, tuple(got.shape),
+            int(want.argmax(-1).unique().numel()))
+
+
+def record_dvae(model):
+    """Wraps the codebook's forward in a ``dvae`` profiler range."""
+    from torch.profiler import record_function
+
+    codebook = model.image_codebook
+
+    def forward(x):
+        with record_function("dvae"):
+            return type(codebook).forward(codebook, x)
+
+    codebook.forward = forward
+
+
+def flava_real(fe, fa, card):
+    """Phase 9: the FLAVA recipes from a seeded local dataset at ``base``
+    (see the module docstring)."""
+    from multimodal_tpu_torch.examples.flava import coco_zero_shot as coco
+    from multimodal_tpu_torch.examples.flava import finetune as ff
+    from multimodal_tpu_torch.examples.flava import pretrain as fp
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="flava_real_")
+    try:
+        return _flava_real(fe, fa, card, fp, ff, coco, root, phase_t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _flava_real(fe, fa, card, fp, ff, coco, root, phase_t0):
+    def counts():
+        return {"fused_qkv_attention": fe.fused_qkv_attention.launches,
+                "fused_qkv_attention_bwd": fe.fused_qkv_attention_bwd.launches,
+                "fused_mlp": fe.fused_mlp.launches, **mlp_bwd_launches(fe),
+                "flash_attention": fa.flash_attention_forward.launches}
+
+    def reset():
+        fe.reset_launch_counts()
+        fa.reset_launch_counts()
+
+    def expect(label, got, mlps, forward=None):
+        """``mlps``: (rows, Din, Dff, Dout, count) of the MLP backwards;
+        ``forward``: the forwards, when more than the backwards."""
+        want = dict.fromkeys(got, 0)
+        want.update(fused_mlp=forward or sum(n for *_, n in mlps), **mlp_bwd_routes(fe, mlps))
+        print(f"flava_real {label}: launches {json.dumps(got)}, want {json.dumps(want)}",
+              flush=True)
+        if got != want:
+            fail(f"flava_real {label}: launches {got}, want {want}")
+
+    t0 = time.perf_counter()
+    paths = write_real_data(root)
+    result = {"write_s": time.perf_counter() - t0}
+    print(f"flava_real: wrote {REAL_PAIRS} pairs (.npy 256x256x3 mosaics), a 2-class folder of 64 "
+          f"images and 128 caption pairs in {result['write_s']:.1f} s", flush=True)
+
+    # the host transform alone (crop, bicubic 224 + Lanczos 112, mask): in
+    # one thread, and on the data modules' pool as a batch goes through it
+    from multimodal_tpu_torch.data.datamodules import _pixel_pool
+
+    cfg = real_cfg(paths, FLAVA_BATCH, 7)
+    transform = fp.flava_train_transform(cfg)
+    images = [np.load(os.path.join(root, "images", f"{i:04d}.npy")) for i in range(64)]
+    transform.transform(images[0])  # builds the C++ resampler
+    t0 = time.perf_counter()
+    for img in images:
+        transform.transform(img)
+    result["host_ms_per_image"] = (time.perf_counter() - t0) / len(images) * 1e3
+    pool = _pixel_pool()
+    t0 = time.perf_counter()
+    for f in [pool.submit(transform.plan(img)) for img in images]:
+        f.result()
+    result["pool_ms_per_image"] = (time.perf_counter() - t0) / len(images) * 1e3
+    print(f"flava_real: host transform {result['host_ms_per_image']:.2f} ms an image in one "
+          f"thread, {result['pool_ms_per_image']:.2f} on the pool's {pool._max_workers} "
+          f"threads (64 images, C++ resampling)", flush=True)
+
+    trainer, model = fp.build_trainer_and_state(cfg)
+    data = fp.real_batches(cfg)
+    first = next(data)
+
+    # accuracy: the dVAE, then the six-loss gradient at 2 pairs
+    cos, centred, agree, shape, distinct = dvae_check(model, first)
+    result.update(dvae_cosine=cos, dvae_centred_cosine=centred, dvae_label_agreement=agree,
+                  dvae_distinct_labels=distinct)
+    print(f"flava_real: dVAE logits {shape} bf16 card vs fp32 CPU, {DVAE_IMAGES} images: "
+          f"cosine {cos:.6f} (bar 0.999), less each channel's mean over positions "
+          f"{centred:.6f} (bar 0.999), labels agree {agree:.4f}, {distinct} distinct fp32 "
+          f"labels among {shape[0] * shape[1] * shape[2]} (bar {DVAE_MIN_LABELS}; random "
+          f"weights)", flush=True)
+    if not (cos >= 0.999 and centred >= 0.999):
+        fail(f"dVAE logit cosine {cos} (less channel means {centred}) < 0.999 against fp32 "
+             f"on the CPU")
+    if distinct < DVAE_MIN_LABELS:
+        fail(f"the dVAE check's fp32 labels take {distinct} values, fewer than "
+             f"{DVAE_MIN_LABELS}: their agreement tells nothing")
+    vl = next(fp.real_batches(real_cfg(paths, 2, 1)))
+    six = [vl, {k: vl[k] for k in IMAGE_KEYS}, {k: vl[k] for k in TEXT_KEYS}]
+    reset()
+    t0 = time.perf_counter()
+    gcos, (worst_cos, worst_name), loss_card, loss_cpu = flava_grad_cosine(
+        model, six, replay_codebook=True)
+    check_launches = counts()
+    print(f"flava_real: six-loss gradient cosine vs fp32 CPU at 2 pairs (image-text, image-only "
+          f"and text-only batches, the card's dVAE labels on both sides): {gcos:.6f} (bar "
+          f"0.99); lowest tensor {worst_name} {worst_cos:.6f}; loss card {loss_card:.6f} cpu "
+          f"{loss_cpu:.6f} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not gcos >= 0.99:
+        fail(f"FLAVA six-loss gradient cosine {gcos} < 0.99 against fp32 on the CPU")
+    # the image-text batch's 54 MLPs, 24 each of the unimodal batches; the
+    # unmasked pass of an image-only or text-only batch feeds no loss, so 12
+    # of each unimodal batch's MLPs have no backward
+    rows = dict(FLAVA_SEQS)
+    expect("gradient check", check_launches, (
+        (2 * rows["image"], 768, 3072, 768, 24 + 12), (2 * rows["text"], 768, 3072, 768, 24 + 12),
+        (2 * rows["mm"], 768, 3072, 768, 6)), forward=FLAVA_MLPS + 24 + 24)
+    result.update(grad_cosine=gcos, grad_cosine_lowest=[worst_name, worst_cos])
+
+    # timed: 2 warm-up and 5 steps on the real-data stream
+    step_mlps = ((FLAVA_BATCH * rows["image"], 768, 3072, 768, 24),
+                 (FLAVA_BATCH * rows["text"], 768, 3072, 768, 24),
+                 (FLAVA_BATCH * rows["mm"], 768, 3072, 768, 6))
+    trainer.fit(model, data, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    trainer.fit(model, data, 5)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts()
+    expect("5 timed steps", launches, tuple((r, a, b, c, n * 5) for r, a, b, c, n in step_mlps))
+    records = trainer.logger.records[-5:]
+    names = ("loss", "itm_loss", "mmm_text_loss", "mmm_image_loss", "global_contrastive_loss")
+    if (len(records) != 5 or any(r["nonfinite_skipped"] for r in records)
+            or not all(math.isfinite(r[k]) for r in records for k in names)):
+        fail(f"FLAVA real-data losses {records}")
+    result.update(items_per_s=FLAVA_BATCH * 5 / dt, ms_per_step=dt / 5 * 1e3,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  losses=[r["loss"] for r in records],
+                  last_step={k: records[-1][k] for k in names})
+    print(f"flava_real: {result['items_per_s']:.1f} items/s, {result['ms_per_step']:.1f} ms a "
+          f"step at batch {FLAVA_BATCH} (real data: draws on the prefetch thread, resampling on "
+          f"the pool), "
+          f"peak memory {result['peak_gib']:.2f} GiB, losses "
+          f"{[round(x, 5) for x in result['losses']]}, last step "
+          f"{json.dumps(result['last_step'])} on {card}", flush=True)
+    record_dvae(model)
+    breakdown = profile_step(lambda: trainer.fit(model, data, 3), "flava_real",
+                             annotations=("dvae",))
+    del model.image_codebook.forward
+    if isinstance(breakdown, dict):
+        result["idle_share"] = 1 - breakdown["total_device_ms"] / breakdown["wall_ms_under_profiler"]
+        breakdown = {k: round(v / 3, 3) for k, v in breakdown.items()}
+    print(f"flava_real: device time of a step by kernel group (3 real-data steps under the "
+          f"profiler, divided by 3) {json.dumps(breakdown)}; idle share "
+          f"{result.get('idle_share', float('nan')):.4f}", flush=True)
+    result["profile"] = breakdown
+
+    # what holds the step: the stream alone, then the step on batches drawn
+    # beforehand
+    stream = fp.real_batches(cfg, start_step=100)
+    next(stream)
+    time.sleep(2.0)  # its prefetch queue full: the 10 batches below include 2 made ahead
+    t0 = time.perf_counter()
+    ready = [next(stream) for _ in range(10)][-5:]
+    result["stream_ms_per_batch"] = (time.perf_counter() - t0) / 8 * 1e3
+    del stream
+    time.sleep(2.0)  # the stream's thread fills its queue again, then waits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit(model, ready, 5)
+    torch.cuda.synchronize()
+    result["ms_per_step_drawn_before"] = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"flava_real: the stream alone {result['stream_ms_per_batch']:.1f} ms a batch of "
+          f"{FLAVA_BATCH}; the step on batches drawn beforehand "
+          f"{result['ms_per_step_drawn_before']:.1f} ms", flush=True)
+
+    # MIM and MLM: an image-only and a text-only step at batch 64
+    batch = next(data)
+    trainer.fit(model, [{k: batch[k] for k in IMAGE_KEYS}], 1)
+    trainer.fit(model, [{k: batch[k] for k in TEXT_KEYS}], 1)
+    mim, mlm = trainer.logger.records[-2]["mim_loss"], trainer.logger.records[-1]["mlm_loss"]
+    result["six_losses"] = {**result["last_step"], "mim_loss": mim, "mlm_loss": mlm}
+    del result["six_losses"]["loss"]
+    print(f"flava_real: the six losses at batch {FLAVA_BATCH}: "
+          f"{json.dumps(result['six_losses'])}", flush=True)
+    if not (math.isfinite(mim) and math.isfinite(mlm)):
+        fail(f"FLAVA MIM / MLM losses {mim} {mlm}")
+    del model, trainer, data, batch, first
+    torch.cuda.empty_cache()
+
+    # checkpoint and resume: 7 steps saved every 3, the step-6 save taken
+    # away (a run killed after step 3's save), a second main resumes at 3
+    ckpt = os.path.join(root, "ckpt")
+    args = real_args(paths, FLAVA_BATCH, 7, f"train.checkpoint_dir={ckpt}",
+                     "train.checkpoint_every=3")
+    t0 = time.perf_counter()
+    _, whole = fp.main(args)
+    whole_s = time.perf_counter() - t0
+    full = {r["step"]: r for r in whole.logger.records}
+    del whole
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(ckpt, "6"))
+    t0 = time.perf_counter()
+    _, resumed = fp.main(args)
+    resumed_s = time.perf_counter() - t0
+    got = {r["step"]: r for r in resumed.logger.records}
+    del resumed
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt)
+    if sorted(got) != [4, 5, 6, 7]:
+        fail(f"the resumed run logged steps {sorted(got)}, want 4-7")
+    diffs = {s: max(abs(got[s][k] - full[s][k]) / max(1.0, abs(full[s][k])) for k in names)
+             for s in got}
+    result["resume"] = {"max_rel_diff_by_step": diffs,
+                        "bitwise": all(got[s][k] == full[s][k] for s in got for k in names),
+                        "whole_s": whole_s, "resumed_s": resumed_s}
+    print(f"flava_real: resume at step 3 of 7: steps 4-7 against the uninterrupted run, "
+          f"largest |diff| / max(1, |loss|) by step {json.dumps(diffs)} (bar {RESUME_TOL}), "
+          f"bitwise {result['resume']['bitwise']}; runs {whole_s:.1f} s and {resumed_s:.1f} s "
+          f"(checkpoints of the model, AdamW's state and the trainer's)", flush=True)
+    if not max(diffs.values()) <= RESUME_TOL:
+        fail(f"FLAVA resumed losses differ by {diffs}")
+
+    # pure bf16 with both evals through train.eval_every
+    evals = {}
+
+    def timed(name, build):
+        def build_timed(cfg_):
+            fn = build(cfg_)
+
+            def eval_fn(m):
+                before = counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(m)
+                torch.cuda.synchronize()
+                evals[name] = {"seconds": time.perf_counter() - t, "metrics": out,
+                               "launches": {k: v - before[k] for k, v in counts().items()}}
+                return out
+
+            return eval_fn
+
+        return build_timed
+
+    build_zs, build_coco = fp.build_zero_shot_eval, coco.build_coco_eval
+    fp.build_zero_shot_eval = timed("zero_shot", build_zs)
+    coco.build_coco_eval = timed("coco", build_coco)
+    reset()
+    try:
+        model, trainer = fp.main(real_args(
+            paths, FLAVA_BATCH, 3, "train.pure_bf16=true", f"data.imagenet_path={paths['imagenet']}",
+            f"data.coco_path={paths['coco']}", "train.eval_every=3",
+            f"data.eval_batch_size={FLAVA_BATCH}"))
+    finally:
+        fp.build_zero_shot_eval, coco.build_coco_eval = build_zs, build_coco
+    total = counts()
+    bf16_launches = {k: v - sum(e["launches"][k] for e in evals.values()) for k, v in total.items()}
+    expect("pure bf16, 3 steps", bf16_launches,
+           tuple((r, a, b, c, n * 3) for r, a, b, c, n in step_mlps))
+    bf16_losses = [r["loss"] for r in trainer.logger.records if "loss" in r]
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    print(f"flava_real: pure bf16 (AnyPrecision AdamW, parameter dtypes {dtypes}): losses "
+          f"{[round(x, 5) for x in bf16_losses]}", flush=True)
+    if len(bf16_losses) != 3 or not all(math.isfinite(x) for x in bf16_losses):
+        fail(f"pure bf16 losses {bf16_losses}")
+    result["pure_bf16_losses"] = bf16_losses
+    del model, trainer
+    torch.cuda.empty_cache()
+    # the zero-shot eval: 16 text forwards (64 classes x 80 templates a
+    # call) and one batch of 64 images; COCO: 2 batches of 64 pairs
+    for name, text_calls, image_calls in (("zero_shot", 16, 1), ("coco", 2, 2)):
+        e = evals.get(name)
+        if e is None:
+            fail(f"the {name} eval did not run")
+        want = dict.fromkeys(e["launches"], 0)
+        want["fused_mlp"] = 12 * (text_calls + image_calls)
+        print(f"flava_real: {name} eval in {e['seconds']:.2f} s: {json.dumps(e['metrics'])}; "
+              f"launches {json.dumps(e['launches'])}", flush=True)
+        if e["launches"] != want:
+            fail(f"the {name} eval launched {e['launches']}, want {want}")
+        if not all(0.0 <= v <= 1.0 for v in e["metrics"].values()):
+            fail(f"the {name} eval's metrics {e['metrics']}")
+    result["evals"] = {k: {"seconds": v["seconds"], **v["metrics"]} for k, v in evals.items()}
+
+    # finetuning at base from the labelled pairs: 3 steps, then a resumed run to 5
+    ftdir = os.path.join(root, "finetune")
+    ft_args = [f"data.path={paths['pairs']}", f"train.checkpoint_dir={ftdir}",
+               "train.log_interval=100"]
+    t0 = time.perf_counter()
+    _, ft = ff.main(ft_args + ["train.steps=3"])
+    ft_first = [r["loss"] for r in ft.logger.records]
+    del ft
+    torch.cuda.empty_cache()
+    reset()
+    _, ft = ff.main(ft_args + ["train.steps=5"])
+    ft_launches = counts()
+    ft_steps = [r["step"] for r in ft.logger.records]
+    ft_losses = ft_first + [r["loss"] for r in ft.logger.records]
+    b = ff.DEFAULTS["data"]["batch_size"]
+    # a step: both image passes (the masked one, with no mask, feeds no
+    # loss: no backward), the text pass and the unmasked multimodal pass
+    expect("finetune, 2 resumed steps", ft_launches, (
+        (b * rows["image"], 768, 3072, 768, 12 * 2), (b * rows["text"], 768, 3072, 768, 12 * 2),
+        (b * rows["mm"], 768, 3072, 768, 6 * 2)), forward=(24 + 12 + 6) * 2)
+    print(f"flava_real: finetune at base, batch {b}, fp32: steps 1-3, then resumed at "
+          f"{ft.step - len(ft_steps)} for steps {ft_steps}: losses "
+          f"{[round(x, 5) for x in ft_losses]} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if ft_steps != [4, 5] or not all(math.isfinite(x) for x in ft_losses):
+        fail(f"finetune steps {ft_steps}, losses {ft_losses}")
+    result["finetune_losses"] = ft_losses
+    del ft
+    torch.cuda.empty_cache()
+    result["wall_s"] = time.perf_counter() - phase_t0
+    print(f"flava_real: phase {result['wall_s']:.1f} s", flush=True)
+    paths_launches = {"flava_real": launches, "flava_real_pure_bf16": bf16_launches,
+                      "flava_real_finetune": ft_launches,
+                      "flava_real_grad_check": {"fused_mlp_bwd": check_launches["fused_mlp_bwd"]},
+                      **{f"flava_real_{k}_eval": v["launches"] for k, v in evals.items()}}
+    return paths_launches, result
+
+
+# --------------------------------------------------------------------------
+# phase 10: CLIP zero-shot classification from strings and images
 # --------------------------------------------------------------------------
 
 MERGES = Path(__file__).resolve().parent / "tests" / "assets" / "clip_merges.bpe"
@@ -2761,7 +3259,7 @@ def latency(model, transform, card):
 
 
 def zero_shot(fe, fa, card):
-    """Phase 9: the ImageNet zero-shot protocol from strings and uint8
+    """Phase 10: the ImageNet zero-shot protocol from strings and uint8
     images (see the module docstring)."""
     from multimodal_tpu_torch.data.imagenet_zeroshot import imagenet_classnames, imagenet_templates
     from multimodal_tpu_torch.models.clip import model as clip_model
@@ -2913,6 +3411,7 @@ def main() -> None:
     lm_launches, lm = lm_serve(fe, fa, qa, card)
     train_launches, lm_tr = lm_train(fe, fa, card)
     flava_launches, flava = flava_train(fe, fa, card)
+    real_launches, real = flava_real(fe, fa, card)
     zs = zero_shot(fe, fa, card)
 
     # every path's launch counts, each read just after the path ran with the
@@ -2925,6 +3424,7 @@ def main() -> None:
              "vit_b16_grad_check": b16_launches, "vit_b16_train": b16_step_launches,
              "lm_train_grad_check": {"fused_mlp_bwd": train_launches["fused_mlp_bwd_grad_check"]},
              "flava_grad_check": {"fused_mlp_bwd": flava_launches["fused_mlp_bwd_grad_check"]},
+             **real_launches,
              **{f"zero_shot_{m}_{part}": zs[m][f"{part}_launches"]
                 for m in ("vit_b32", "rn50") for part in ("classifier", "eval")},
              **{f"zero_shot_{name}": c for name, c in zs["rn_builders"].items()}}
@@ -3010,7 +3510,17 @@ def main() -> None:
           f"{lm_tr['ms_per_step']:.1f} ms a step, peak {lm_tr['peak_gib']:.2f} GiB, gradient "
           f"cosine {lm_tr['grad_cosine']:.6f}; FLAVA pretraining {flava['items_per_s']:.1f} "
           f"items/s, {flava['ms_per_step']:.1f} ms a step, peak {flava['peak_gib']:.2f} GiB, "
-          f"gradient cosine {flava['grad_cosine']:.6f}; zero-shot ViT-B/32 "
+          f"gradient cosine {flava['grad_cosine']:.6f}; FLAVA from real data "
+          f"{real['items_per_s']:.1f} items/s, {real['ms_per_step']:.1f} ms a step, peak "
+          f"{real['peak_gib']:.2f} GiB, host {real['host_ms_per_image']:.2f} ms an image, idle "
+          f"share {real.get('idle_share', float('nan')):.4f}, six-loss gradient cosine "
+          f"{real['grad_cosine']:.6f}, dVAE cosine {real['dvae_cosine']:.6f} (less channel "
+          f"means {real['dvae_centred_cosine']:.6f}; labels agree "
+          f"{real['dvae_label_agreement']:.4f} over {real['dvae_distinct_labels']} distinct), "
+          f"resume max diff "
+          f"{max(real['resume']['max_rel_diff_by_step'].values()):.3g}, evals "
+          f"{json.dumps({k: round(v['seconds'], 2) for k, v in real['evals'].items()})} s, phase "
+          f"{real['wall_s']:.1f} s; zero-shot ViT-B/32 "
           f"{zs['vit_b32']['prompts_per_s']:.1f} prompts/s to the classifier, "
           f"{zs['vit_b32']['images_per_s']:.1f} images/s, cosines "
           f"{zs['vit_b32']['classifier_cosine']:.6f} / {zs['vit_b32']['logit_cosine']:.6f}; RN50 "

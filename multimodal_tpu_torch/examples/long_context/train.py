@@ -14,15 +14,20 @@ Usage::
     python -m multimodal_tpu_torch.examples.long_context.train --bf16 \\
         --seq-len 8192 --batch-size 8 --steps 100 --tokens data/tokens.npy
 
+``--checkpoint-dir`` saves the trainer's state every ``--checkpoint-every``
+steps (500, as the JAX recipe); a run started on a directory that holds a
+checkpoint resumes from it, skips the batches already trained on and
+trains the remaining steps, so it ends as the uninterrupted run would.
+
 Not here yet: the mesh (``--dp``, ``--fsdp``; ROADMAP.md A7), context,
 expert and pipeline parallelism and MoE (``--cp``, ``--ep``, ``--pp``,
-``--moe-experts``; A4), and checkpointing (``--checkpoint-dir``; A8): each
-raises ``NotImplementedError``.
+``--moe-experts``; A4): each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 from typing import Iterator, Optional
 
@@ -126,6 +131,7 @@ def build_trainer(
     weight_decay: float = 0.1,
     log_dir: Optional[str] = None,
     log_interval: int = 10,
+    checkpoint_dir: Optional[str] = None,
 ) -> Trainer:
     """The recipe's ``Trainer`` for ``model`` on its own device: next-token
     loss (packed batches, those with ``segment_ids``, take the
@@ -150,15 +156,14 @@ def build_trainer(
     opt = ClipByGlobalNormAdamW(model.parameters(), lr=learning_rate,
                                 weight_decay=weight_decay, fused=device.type == "cuda")
     return Trainer(loss_fn, opt, device=device, log_dir=log_dir, log_interval=log_interval,
-                   skip_nonfinite_updates=True)
+                   skip_nonfinite_updates=True, checkpoint_dir=checkpoint_dir)
 
 
 def _refuse(args) -> None:
     for on, flag, queue in ((args.dp > 1 or args.fsdp > 1, "--dp/--fsdp", "A7"),
                             (args.cp > 1, "--cp", "A4"), (args.ep > 1, "--ep", "A4"),
                             (args.pp > 1, "--pp", "A4/A7"),
-                            (args.moe_experts, "--moe-experts", "A4"),
-                            (args.checkpoint_dir, "--checkpoint-dir", "A8")):
+                            (args.moe_experts, "--moe-experts", "A4")):
         if on:
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, queue {queue})")
 
@@ -192,6 +197,7 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=500)
     p.add_argument("--log-dir", default=None)
     p.add_argument("--device", default=None, help="default CUDA; 'cpu' runs the plain versions")
     args = p.parse_args(argv)
@@ -214,8 +220,12 @@ def main(argv=None):
         else:
             stream = synthetic_tokens(args.vocab_size, args.batch_size * args.seq_len * 64)
         data = token_batches(TokenWindowDataset(stream, args.seq_len), args.batch_size)
-    trainer = build_trainer(model, learning_rate=args.lr, log_dir=args.log_dir)
-    trainer.fit(model, data, args.steps)
+    trainer = build_trainer(model, learning_rate=args.lr, log_dir=args.log_dir,
+                            checkpoint_dir=args.checkpoint_dir)
+    trainer.restore_or_init(model)
+    start = trainer.step
+    trainer.fit(model, itertools.islice(data, start, None), max(0, args.steps - start),
+                checkpoint_every=args.checkpoint_every)
     return model, trainer
 
 

@@ -1,13 +1,16 @@
 """FLAVA image encoder: a ViT with BEiT-style mask tokens. Counterpart of
 ``multimodal_tpu/models/flava/image_encoder.py`` (``ImageEmbeddings``,
-``ImageTransformer``, ``flava_image_encoder``). Images are NHWC, as in the
-JAX package; the patch conv permutes to NCHW internally. Position-embedding
-interpolation for other resolutions and ``ImageTransformerWithVAE`` (the
-dVAE codebook) are not ported yet (ROADMAP.md, queue A3).
+``ImageTransformer``, ``flava_image_encoder``, ``ImageTransformerWithVAE``).
+Images are NHWC, as in the JAX package; the patch conv permutes to NCHW
+internally. With ``interpolate_pos_encoding`` an image of another size
+takes the patch position embeddings resampled to its grid by an
+antialiased bicubic resize (``F.interpolate``, which follows
+``jax.image.resize(method="cubic")``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Union
 
 import torch
@@ -44,10 +47,7 @@ class ImageEmbeddings(nn.Module):
                 interpolate_pos_encoding: bool = False,
                 deterministic: bool = True) -> torch.Tensor:
         b, h, w, _ = pixel_values.shape
-        if interpolate_pos_encoding:
-            raise NotImplementedError(
-                "position-embedding interpolation is not ported yet (ROADMAP.md, queue A3)")
-        if h != self.image_size or w != self.image_size:
+        if not interpolate_pos_encoding and (h != self.image_size or w != self.image_size):
             raise ValueError(
                 f"Input image size ({h}*{w}) doesn't match model ({self.image_size}).")
         dt = self.dtype or self.patch_projection.weight.dtype
@@ -60,9 +60,26 @@ class ImageEmbeddings(nn.Module):
             m = image_patches_mask.reshape(b, -1)[..., None].to(dt)
             emb = emb * (1 - m) + self.mask_token.to(dt) * m
         cls = self.cls_token.to(dt).expand(b, 1, -1)
-        emb = torch.cat([cls, emb], dim=1) + self.position_embeddings.to(dt)
+        emb = torch.cat([cls, emb], dim=1)
+        pos = self.position_embeddings
+        if interpolate_pos_encoding and emb.shape[1] != pos.shape[1]:
+            pos = self._interpolate(pos, h // self.patch_size, w // self.patch_size)
+        emb = emb + pos.to(dt)
         return F.dropout(emb, self.hidden_dropout_prob,
                          training=not deterministic and self.hidden_dropout_prob > 0)
+
+    @staticmethod
+    def _interpolate(position_embeddings: torch.Tensor, n_h: int, n_w: int) -> torch.Tensor:
+        """The patch position embeddings resampled to an ``n_h`` x ``n_w``
+        grid (bicubic, antialiased); the CLS position stays."""
+        cls_pos, patch_pos = position_embeddings[:, :1], position_embeddings[:, 1:]
+        d = patch_pos.shape[-1]
+        side = int(math.sqrt(patch_pos.shape[1]))
+        grid = patch_pos.reshape(1, side, side, d).permute(0, 3, 1, 2).float()
+        resized = F.interpolate(grid, size=(n_h, n_w), mode="bicubic", align_corners=False,
+                                antialias=True)
+        resized = resized.permute(0, 2, 3, 1).reshape(1, n_h * n_w, d)
+        return torch.cat([cls_pos, resized.to(cls_pos.dtype)], dim=1)
 
 
 class ImageTransformer(nn.Module):
@@ -121,3 +138,27 @@ def flava_image_encoder(
     return ImageTransformer(embeddings=embeddings, encoder=encoder,
                             layernorm=Fp32LayerNorm(hidden_size, eps=layer_norm_eps),
                             pooler=Pooler(hidden_size))
+
+
+class ImageTransformerWithVAE(nn.Module):
+    """An image transformer and the dVAE that gives its MIM labels: the
+    codebook index of each patch where ``image_patches_mask`` is set, -1
+    elsewhere."""
+
+    def __init__(self, image_transformer: nn.Module, vae: nn.Module):
+        super().__init__()
+        self.image_transformer = image_transformer
+        self.vae = vae
+
+    def forward(self, pixel_values: torch.Tensor,
+                image_patches_mask: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True) -> TransformerOutput:
+        b = pixel_values.shape[0]
+        labels = self.vae(pixel_values).reshape(b, -1)
+        mask = image_patches_mask.reshape(b, -1).bool()
+        labels = torch.where(mask, labels, -1)
+        out = self.image_transformer(pixel_values, image_patches_mask=image_patches_mask,
+                                     attention_mask=attention_mask,
+                                     deterministic=deterministic)
+        return out._replace(image_labels=labels)

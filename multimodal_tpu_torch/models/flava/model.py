@@ -1,6 +1,7 @@
 """FLAVA model assembly. Counterpart of ``multimodal_tpu/models/flava/model.py``
-(``FLAVAModel``, ``FLAVAForPreTraining``, ``flava_multimodal_encoder``,
-``flava_model``, ``flava_model_for_pretraining``).
+(``FLAVAModel``, ``FLAVAForPreTraining``, ``FLAVAForClassification``,
+``flava_multimodal_encoder``, ``flava_model``, ``flava_model_for_pretraining``,
+``flava_model_for_classification``).
 
 A pretraining forward runs the unmasked and masked unimodal passes and the
 masked multimodal pass: with no ``image_patches_mask`` the two image passes
@@ -12,25 +13,29 @@ unimodal tower.
 The builders take ``device`` (CUDA unless the caller asks for the CPU), the
 compute ``dtype``, ``param_dtype`` for the weights (default ``dtype``; the
 LayerNorms and ``logit_scale`` stay fp32) and ``seed`` for random weights
-with the JAX package's initial scales. Not ported yet (ROADMAP.md, queue
-A3): the dVAE codebook that makes MIM labels (``image_for_codebook``
-raises), ``FLAVAForClassification``; MoE towers (queues A4 and A7).
+with the JAX package's initial scales. ``FLAVAForPreTraining`` carries the
+frozen dVAE codebook (``dalle_vae.py``) that turns ``image_for_codebook``
+into MIM labels; it gets no gradient and no optimizer update. Not ported
+yet: MoE towers (ROADMAP.md, queues A4 and A7).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
+from multimodal_tpu_torch.models.flava.dalle_vae import DalleVAEEncoder
 from multimodal_tpu_torch.models.flava.image_encoder import ImageEmbeddings, flava_image_encoder
 from multimodal_tpu_torch.models.flava.text_encoder import flava_text_encoder
 from multimodal_tpu_torch.models.flava.transformer import FLAVATransformerWithoutEmbeddings
+from multimodal_tpu_torch.modules.layers.mlp import MLP
 from multimodal_tpu_torch.modules.layers.multi_head_attention import dense
 from multimodal_tpu_torch.modules.layers.normalizations import Fp32LayerNorm
 from multimodal_tpu_torch.modules.layers.transformer import TransformerEncoder, TransformerOutput
+from multimodal_tpu_torch.modules.losses.contrastive_loss_with_temperature import cross_entropy
 from multimodal_tpu_torch.modules.losses.flava import (
     FLAVAGlobalContrastiveLoss,
     FLAVAPretrainingLoss,
@@ -170,15 +175,29 @@ class FLAVAModel(nn.Module):
             projected_text_embeddings=projected_text)
 
 
-class FLAVAForPreTraining(nn.Module):
-    """``FLAVAModel`` and its pretraining losses. The dVAE image codebook
-    that makes MIM labels is not ported yet: a batch with
-    ``image_for_codebook`` raises."""
+class FLAVAForClassificationOutput(NamedTuple):
+    logits: torch.Tensor
+    loss: Optional[torch.Tensor]
 
-    def __init__(self, model: FLAVAModel, loss: FLAVAPretrainingLoss):
+
+class FLAVAForPreTraining(nn.Module):
+    """``FLAVAModel``, its pretraining losses and the frozen dVAE codebook:
+    with ``image_for_codebook`` (and ``image_patches_mask``) the MIM labels
+    are the codebook indices of the masked patches, -1 elsewhere."""
+
+    def __init__(self, model: FLAVAModel, loss: FLAVAPretrainingLoss,
+                 image_codebook: nn.Module):
         super().__init__()
         self.model = model
         self.loss = loss
+        self.image_codebook = image_codebook
+
+    def encode_image(self, image: torch.Tensor) -> torch.Tensor:
+        return self.model.encode_image(image, projection=True)[1]
+
+    def encode_text(self, text: torch.Tensor, text_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        return self.model.encode_text(text, text_mask, projection=True)[1]
 
     def forward(
         self,
@@ -193,10 +212,12 @@ class FLAVAForPreTraining(nn.Module):
         mlm_labels: Optional[torch.Tensor] = None,
         deterministic: bool = True,
     ) -> FLAVAPretrainingLossOutput:
+        image_labels = None
         if image_for_codebook is not None:
-            raise NotImplementedError(
-                "MIM labels need the dVAE image codebook, not ported yet "
-                "(ROADMAP.md, queue A3)")
+            b = image_for_codebook.shape[0]
+            image_labels = self.image_codebook(image_for_codebook).reshape(b, -1)
+            mask = image_patches_mask.reshape(image_patches_mask.shape[0], -1).bool()
+            image_labels = torch.where(mask, image_labels, -1)
         out = self.model(image=image, text=text, image_patches_mask=image_patches_mask,
                          text_masked=text_masked, required_embedding=required_embedding,
                          skip_unmasked_mm_encoder=skip_unmasked_mm_encoder,
@@ -210,11 +231,43 @@ class FLAVAForPreTraining(nn.Module):
                                  if not skip_unmasked_mm_encoder else None),
             multimodal_masked_sequence=out.multimodal_masked.last_hidden_state,
             itm_labels=itm_labels,
-            mim_labels=None,
+            mim_labels=image_labels,
             mlm_labels=mlm_labels,
             projected_image_embeddings=out.projected_image_embeddings,
             projected_text_embeddings=out.projected_text_embeddings,
         )
+
+
+class FLAVAForClassification(nn.Module):
+    """``FLAVAModel`` and a classifier head over one CLS token: the
+    multimodal encoder's (the default), the image tower's or the text
+    tower's, as ``required_embedding`` asks."""
+
+    def __init__(self, model: FLAVAModel, classifier: nn.Module,
+                 loss_fn: Optional[Callable] = None):
+        super().__init__()
+        self.model = model
+        self.classifier = classifier
+        self.loss_fn = loss_fn
+
+    def forward(self, image: Optional[torch.Tensor] = None, text: Optional[torch.Tensor] = None,
+                required_embedding: Optional[str] = None,
+                labels: Optional[torch.Tensor] = None, cls_index: int = 0,
+                deterministic: bool = True) -> FLAVAForClassificationOutput:
+        out = self.model(image=image, text=text, required_embedding=required_embedding,
+                         skip_unmasked_mm_encoder=False, deterministic=deterministic)
+        if required_embedding == "image":
+            hidden = out.image.last_hidden_state
+        elif required_embedding == "text":
+            hidden = out.text.last_hidden_state
+        else:
+            hidden = out.multimodal.last_hidden_state
+        scores = self.classifier(hidden[:, cls_index], deterministic=deterministic)
+        loss = None
+        if labels is not None:
+            fn = self.loss_fn if self.loss_fn is not None else cross_entropy
+            loss = fn(scores, labels.long())
+        return FLAVAForClassificationOutput(logits=scores, loss=loss)
 
 
 def _flava_model(
@@ -341,18 +394,52 @@ def flava_model_for_pretraining(
     dtype: torch.dtype = torch.float32,
     param_dtype: Optional[torch.dtype] = None,
     seed: int = 0,
+    codebook_image_size: int = 112,
     logit_scale_init: float = math.log(1 / 0.07),
     **flava_model_kwargs: Any,
 ) -> FLAVAForPreTraining:
-    """``FLAVAForPreTraining`` with random weights from ``seed``. The loss
-    heads keep the JAX builder's vocabularies (text 30522, image 8192)
-    whatever the model's ``vocab_size``, as the JAX package does."""
+    """``FLAVAForPreTraining`` with random weights from ``seed``, the dVAE
+    codebook in the model's dtypes. The loss heads keep the vocabularies of
+    the JAX package's function (text 30522, image 8192) whatever the model's
+    ``vocab_size``, as the JAX package does."""
     hidden_size = flava_model_kwargs.get("multimodal_hidden_size", 768)
 
     def build():
+        # the codebook is registered last, so the other weights draw from
+        # the seed as they did before it was ported
         return FLAVAForPreTraining(
             model=_flava_model(dtype=dtype, **flava_model_kwargs),
             loss=FLAVAPretrainingLoss(logit_scale_init=logit_scale_init,
-                                      hidden_size=hidden_size))
+                                      hidden_size=hidden_size),
+            image_codebook=DalleVAEEncoder(image_size=codebook_image_size, dtype=dtype))
+
+    return _built(build, device, dtype, param_dtype, seed)
+
+
+def flava_model_for_classification(
+    num_classes: int,
+    classifier_in_dim: int = 768,
+    classifier_hidden_sizes: Union[int, Sequence[int]] = 768,
+    classifier_dropout: float = 0.5,
+    classifier_activation: Union[str, Callable] = "relu",
+    classifier_normalization: Optional[Callable[[int], nn.Module]] = None,
+    loss_fn: Optional[Callable] = None,
+    device=None,
+    dtype: torch.dtype = torch.float32,
+    param_dtype: Optional[torch.dtype] = None,
+    seed: int = 0,
+    **flava_model_kwargs: Any,
+) -> FLAVAForClassification:
+    """``FLAVAForClassification`` with random weights from ``seed``: an MLP
+    head (``classifier_hidden_sizes``, ReLU, dropout) over the multimodal
+    CLS token."""
+
+    def build():
+        classifier = MLP(in_dim=classifier_in_dim, out_dim=num_classes,
+                         hidden_dims=classifier_hidden_sizes, dropout=classifier_dropout,
+                         activation=classifier_activation,
+                         normalization=classifier_normalization)
+        return FLAVAForClassification(model=_flava_model(dtype=dtype, **flava_model_kwargs),
+                                      classifier=classifier, loss_fn=loss_fn)
 
     return _built(build, device, dtype, param_dtype, seed)

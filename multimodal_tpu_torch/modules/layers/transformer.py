@@ -37,6 +37,7 @@ class TransformerOutput(NamedTuple):
     pooler_output: Optional[torch.Tensor] = None
     hidden_states: Optional[Tuple[torch.Tensor, ...]] = None
     attentions: Optional[Tuple[torch.Tensor, ...]] = None
+    image_labels: Optional[torch.Tensor] = None
     current_key_values: Optional[Tuple] = None
 
 

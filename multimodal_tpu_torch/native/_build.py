@@ -1,4 +1,5 @@
-"""Builds and loads the port's host libraries (the tokenizers' C++ loops).
+"""Builds and loads the port's host libraries (the tokenizers' C++ loops,
+the FLAVA transform's resampler).
 
 Each ``multimodal_tpu_torch/native/*.cpp`` is compiled on first use by the
 host C++ compiler (``$CXX``, else ``g++``) with ``-O2 -shared -fPIC`` into

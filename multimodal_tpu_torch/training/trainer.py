@@ -9,8 +9,15 @@ non-finite, leaving the parameters, the optimizer state and any gradient
 accumulation as they were; ``grad_accum_steps`` averages the gradients of
 that many steps before one optimizer step, as ``optax.MultiSteps`` does.
 
+With ``checkpoint_dir`` the trainer saves its state every
+``checkpoint_every`` steps of ``fit`` (``training/checkpoint.py``) and
+``restore_or_init`` loads the newest one. The state is the model's
+``state_dict``, the optimizer's (its schedule count included), the step,
+the gradient-accumulation buffers and the torch RNG states, so a resumed
+run is the uninterrupted run: on the CPU bitwise.
+
 Not here yet (ROADMAP A7, A8): the mesh and its strategies (ddp, fsdp, tp,
-custom), checkpointing and preemption, ``mutable_state`` and multihost
+custom), checkpointing on preemption, ``mutable_state`` and multihost
 input.
 """
 
@@ -25,6 +32,7 @@ import torch
 from torch import nn
 
 from multimodal_tpu_torch.data.device_prefetch import device_prefetch
+from multimodal_tpu_torch.training.checkpoint import CheckpointManager
 from multimodal_tpu_torch.utils.device import resolve_device
 
 
@@ -80,6 +88,8 @@ class Trainer:
         log_interval: int = 10,
         skip_nonfinite_updates: bool = False,
         grad_accum_steps: int = 1,
+        checkpoint_dir: Optional[str] = None,
+        max_checkpoints: int = 3,
     ):
         if grad_accum_steps < 1:
             raise ValueError("grad_accum_steps must be >= 1")
@@ -92,6 +102,40 @@ class Trainer:
         self.step = 0
         self._mini_step = 0
         self._acc: Optional[List[Optional[torch.Tensor]]] = None
+        self.ckpt = CheckpointManager(checkpoint_dir, max_checkpoints) if checkpoint_dir else None
+
+    def state_dict(self, model: nn.Module) -> Dict[str, Any]:
+        """Everything a resumed run needs to continue as this one would."""
+        rng = {"torch": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            rng["cuda"] = torch.cuda.get_rng_state(self.device)
+        return {"model": model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "mini_step": self._mini_step, "acc": self._acc,
+                "rng": rng}
+
+    def load_state_dict(self, model: nn.Module, state: Dict[str, Any]) -> None:
+        model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        self._mini_step = int(state["mini_step"])
+        acc = state["acc"]
+        self._acc = None if acc is None else [
+            None if a is None else a.to(p.device) for a, p in zip(acc, self._params())]
+        torch.set_rng_state(state["rng"]["torch"])
+        if "cuda" in state["rng"] and self.device.type == "cuda":
+            torch.cuda.set_rng_state(state["rng"]["cuda"], self.device)
+
+    def restore_or_init(self, model: nn.Module) -> nn.Module:
+        """Loads the newest checkpoint of ``checkpoint_dir`` into ``model``,
+        the optimizer and this trainer, if there is one; ``model`` as it is
+        otherwise."""
+        if self.ckpt is not None and self.ckpt.latest_step() is not None:
+            self.load_state_dict(model, self.ckpt.restore())
+            print(f"resumed from checkpoint step {self.step}", flush=True)
+        return model
+
+    def save(self, model: nn.Module) -> None:
+        self.ckpt.save(self.step, self.state_dict(model))
 
     def _params(self) -> List[torch.Tensor]:
         return [p for group in self.optimizer.param_groups for p in group["params"]]
@@ -127,12 +171,14 @@ class Trainer:
         num_steps: int,
         eval_fn: Optional[Callable[[nn.Module], Dict[str, float]]] = None,
         eval_every: Optional[int] = None,
+        checkpoint_every: Optional[int] = None,
     ) -> nn.Module:
         """Train ``model`` in place for ``num_steps`` batches of ``data``;
         the last step's gradients stay in ``.grad``. ``eval_fn(model) ->
         metrics`` runs under ``torch.no_grad()`` every
         ``eval_every`` steps and at the end; its metrics are logged with an
-        ``eval_`` prefix."""
+        ``eval_`` prefix. With a ``checkpoint_dir``, the state is saved
+        after every step that ``checkpoint_every`` divides."""
         model.train()
         params = self._params()
         data_iter = device_prefetch(
@@ -169,5 +215,8 @@ class Trainer:
                 with torch.no_grad():
                     eval_metrics = eval_fn(model)
                 self.logger.log(self.step, {f"eval_{k}": v for k, v in eval_metrics.items()})
+            if self.ckpt is not None and checkpoint_every and self.step % checkpoint_every == 0:
+                flush()
+                self.save(model)
         flush()  # data ran out before num_steps
         return model

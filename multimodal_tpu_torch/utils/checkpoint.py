@@ -5,8 +5,10 @@
 ``multimodal_tpu/utils/checkpoint.py:clip_params_from_torch``.
 ``long_context_lm_state_dict_from_jax`` does the same for the JAX
 ``LongContextLM`` (``multimodal_tpu/examples/long_context/model.py``),
-``flava_state_dict_from_jax`` for ``FLAVAForPreTraining``
-(``multimodal_tpu/models/flava/model.py``) and
+``flava_state_dict_from_jax`` for ``FLAVAForPreTraining`` and
+``FLAVAForClassification`` (``multimodal_tpu/models/flava/model.py``),
+``dalle_state_dict_from_jax`` for its dVAE codebook
+(``multimodal_tpu/models/flava/dalle_vae.py``) and
 ``clip_resnet_state_dict_from_jax`` for the ``clip_rn*`` models, the inverse
 of ``multimodal_tpu/utils/checkpoint.py:clip_resnet_params_from_torch``.
 Layouts:
@@ -174,10 +176,23 @@ def state_dict_from_jax_tree(tree: Mapping, skip=()) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def flava_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX ``FLAVAForPreTraining`` variables (``{"params": ...}`` or the
-    bare tree, leaves as numpy arrays) -> this package's
-    ``FLAVAForPreTraining`` ``state_dict`` (``state_dict_from_jax_tree``).
-    The dVAE ``image_codebook`` is skipped: it is not ported."""
+def dalle_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``DalleVAEEncoder`` variables (``{"params": ...}`` or the bare
+    tree, leaves as numpy arrays) -> this package's ``DalleVAEEncoder``
+    ``state_dict``: by path, convolution kernels HWIO -> OIHW."""
     p = params["params"] if "params" in params else params
-    return state_dict_from_jax_tree(p, skip=("image_codebook",))
+    return state_dict_from_jax_tree(p)
+
+
+def flava_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``FLAVAForPreTraining`` or ``FLAVAForClassification`` variables
+    (``{"params": ...}`` or the bare tree, leaves as numpy arrays) -> this
+    package's ``state_dict`` (``state_dict_from_jax_tree``). The dVAE
+    ``image_codebook`` goes through ``dalle_state_dict_from_jax``; a JAX
+    tree initialised without ``image_for_codebook`` has none."""
+    p = params["params"] if "params" in params else params
+    sd = state_dict_from_jax_tree(p, skip=("image_codebook",))
+    if "image_codebook" in p:
+        sd.update({f"image_codebook.{k}": v
+                   for k, v in dalle_state_dict_from_jax(p["image_codebook"]).items()})
+    return sd

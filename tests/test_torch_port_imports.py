@@ -15,13 +15,18 @@ import pytest
 import torch
 
 import multimodal_tpu_torch
+from multimodal_tpu_torch.examples.flava import finetune as flava_finetune
 from multimodal_tpu_torch.examples.flava import pretrain as flava_pretrain
 from multimodal_tpu_torch.examples.long_context import train as lm_train
 from multimodal_tpu_torch.examples.long_context.model import long_context_lm
 from multimodal_tpu_torch.models.clip import model as clip_model
 from multimodal_tpu_torch.models.clip.image_encoder import CLIPViTEncoder
 from multimodal_tpu_torch.models.clip.text_encoder import CLIPTextEncoder
-from multimodal_tpu_torch.models.flava.model import flava_model, flava_model_for_pretraining
+from multimodal_tpu_torch.models.flava.model import (
+    flava_model,
+    flava_model_for_classification,
+    flava_model_for_pretraining,
+)
 from multimodal_tpu_torch.ops import attention as attn
 from multimodal_tpu_torch.ops import flash_attention as fa
 from multimodal_tpu_torch.ops import fused_encoder as fe
@@ -163,6 +168,10 @@ def test_flava_entry_points_raise_without_cuda(monkeypatch):
         flava_model_for_pretraining(image_size=32, patch_size=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         flava_pretrain.main(FLAVA_TINY + ["train.steps=1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flava_model_for_classification(num_classes=2, image_size=32, patch_size=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flava_finetune.main(FLAVA_TINY + ["train.steps=1"])
 
 
 def test_cpu_flava_training_launches_no_kernel():
@@ -177,7 +186,12 @@ def test_cpu_flava_training_launches_no_kernel():
         assert counter.launches == 0
 
 
-HOST_ONLY = {"regex", "PIL", "ftfy"}  # absent on the card's machine
+HOST_ONLY = {"regex", "PIL", "ftfy", "datasets"}  # absent on the card's machine
+# modules that import PIL or HF datasets inside the functions that need them
+LAZY = {"PIL": {"multimodal_tpu_torch/transforms/clip_transform.py",
+                "multimodal_tpu_torch/data/datamodules.py",
+                "multimodal_tpu_torch/data/webdataset.py"},
+        "datasets": {"multimodal_tpu_torch/data/datasets.py"}}
 BPE_PATH = ROOT / "tests" / "assets" / "clip_merges.bpe"
 
 
@@ -205,7 +219,9 @@ def test_every_module_imports_and_tokenizes_without_regex_pil_ftfy():
 
 def test_no_host_only_imports_at_module_level():
     """regex and ftfy appear nowhere in the port; PIL only inside the
-    functions of transforms/clip_transform.py's image path."""
+    functions of transforms/clip_transform.py's image path and of the data
+    modules' image-file decoding, HF datasets only inside
+    data/datasets.py's arrow and hub loaders."""
     offenders = []
     for f in sorted((ROOT / "multimodal_tpu_torch").rglob("*.py")):
         tree = ast.parse(f.read_text(), str(f))
@@ -219,10 +235,9 @@ def test_no_host_only_imports_at_module_level():
                 continue
             for n in names:
                 root = n.split(".")[0]
-                lazy_pil = (root == "PIL" and id(node) not in top
-                            and f.relative_to(ROOT).as_posix()
-                            == "multimodal_tpu_torch/transforms/clip_transform.py")
-                if root in HOST_ONLY and not lazy_pil:
+                lazy = (id(node) not in top
+                        and f.relative_to(ROOT).as_posix() in LAZY.get(root, ()))
+                if root in HOST_ONLY and not lazy:
                     offenders.append(f"{f.name}: {n}")
     assert not offenders
 
@@ -230,12 +245,16 @@ def test_no_host_only_imports_at_module_level():
 @pytest.mark.parametrize("cxx", ["/nonexistent/g++", "false"])
 def test_native_tokenizers_raise_when_the_build_fails(cxx):
     """No fallback hides the native library: with a compiler that is missing
-    or fails, each native tokenizer raises and names the compiler."""
-    code = ("from multimodal_tpu_torch.native.bpe import NativeCLIPBPETokenizer\n"
+    or fails, each native tokenizer and the native resampler raise and name
+    the compiler."""
+    code = ("import numpy as np\n"
+            "from multimodal_tpu_torch.native.bpe import NativeCLIPBPETokenizer\n"
+            "from multimodal_tpu_torch.native.resample import resample_native\n"
             "from multimodal_tpu_torch.native.wordpiece import NativeWordPieceTokenizer\n"
             "for make in (lambda: NativeCLIPBPETokenizer("
             f"{str(BPE_PATH)!r}, num_merges=100), "
-            "lambda: NativeWordPieceTokenizer(['[UNK]', 'a'])):\n"
+            "lambda: NativeWordPieceTokenizer(['[UNK]', 'a']), "
+            "lambda: resample_native(np.zeros((4, 4, 3), np.uint8), (2, 2), 'bicubic')):\n"
             "    try:\n"
             "        make()\n"
             "    except RuntimeError as e:\n"
@@ -245,7 +264,7 @@ def test_native_tokenizers_raise_when_the_build_fails(cxx):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["raised", "raised"]
+    assert proc.stdout.split() == ["raised", "raised", "raised"]
 
 
 def test_clip_resnet_builders_raise_without_cuda(monkeypatch):
@@ -253,3 +272,29 @@ def test_clip_resnet_builders_raise_without_cuda(monkeypatch):
     for name in ("clip_rn50", "clip_rn101", "clip_rn50x4", "clip_rn50x16", "clip_rn50x64"):
         with pytest.raises(RuntimeError, match="CUDA"):
             getattr(clip_model, name)()
+
+
+def test_flava_data_path_runs_without_pil_or_datasets(tmp_path):
+    """With PIL and HF datasets blocked, the FLAVA transform and the
+    recipe's real batches run over a jsonl of .npy images (the card's
+    machine has neither)."""
+    import json
+
+    r = np.random.RandomState(0)
+    with open(tmp_path / "pairs.jsonl", "w") as f:
+        for i in range(4):
+            np.save(tmp_path / f"{i}.npy", r.randint(0, 256, (40, 36, 3)).astype(np.uint8))
+            f.write(json.dumps({"image": str(tmp_path / f"{i}.npy"), "text": "a cat"}) + "\n")
+    blocked = "; ".join(f"sys.modules[{name!r}] = None" for name in sorted(HOST_ONLY))
+    code = (f"import sys; {blocked}\n"
+            "from multimodal_tpu_torch.examples.flava import pretrain as p\n"
+            "cfg = p.build_config(None, ['data.path=" + str(tmp_path / "pairs.jsonl") + "', "
+            "'data.batch_size=2', 'model.image_size=32', 'model.patch_size=8'], "
+            "defaults=p.DEFAULTS)\n"
+            "b = next(p.real_batches(cfg))\n"
+            "print(sorted((k, tuple(v.shape)) for k, v in b.items()))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "('image_for_codebook', (2, 32, 32, 3))" in proc.stdout
+    assert "('image_patches_mask', (2, 4, 4))" in proc.stdout
