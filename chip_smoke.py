@@ -12,8 +12,10 @@ in order (any failure exits non-zero):
    MLP activation, head width 96 and the attention key-bias lane at small
    shapes, and the attention backward (#2) past S = 128 (its `wgmma`
    route): S = 129, ViT-B/16's S = 197 at batch 256, S = 256 at head width
-   64 and S = 181 at 128 (the forward's largest there), each #2 case also
-   relaunched into a dqkv filled with NaN, bitwise equal: max abs error
+   64 and S = 181 at 128 (the forward's largest there), and #1 and #2 at
+   ALBEF's text tower (32, 30, 3 x 768, 12 heads, a key bias), each #1 and
+   #2 case also relaunched into an output filled with NaN, bitwise equal:
+   max abs error
    against its tolerance, and the kernel's, the plain version's and one
    library call's times beside the card's bound; #2's two bf16 routes
    timed against each other at S = 16 to 128 (the numbers
@@ -132,22 +134,51 @@ in order (any failure exits non-zero):
    (``scripts/bench_latency.py``'s definition: batch 32, ViT-B/32, 20 runs
    on distinct inputs) from ids and from prompt strings; the phase's wall
    time;
-11. a ``kernels`` JSON line, the card line, and the result line
+11. ALBEF retrieval and VQA fine-tuning at the published widths (ViT-B/16
+   at 384, 577 image tokens; a 6-layer BERT text tower, 30 tokens; 6
+   cross-attention layers; 768 -> 256 projections, queue 65,536, temperature
+   0.07, momentum 0.995, alpha 0.4; fp32 parameters, bf16 compute; random
+   weights from a seed) on a seeded local dataset in a temporary directory:
+   the retrieval step's gradients at 2 pairs (the queue drawn on the CPU
+   from a seed and copied) against an fp32 step of the same weights on the
+   CPU (concatenated cosine >= 0.99) and the image, text and multimodal
+   features (cosine >= 0.999), exact launches; 2 warm-up and 5 timed steps
+   of ``albef_retrieval_train_step`` at batch 32 from
+   ``RetrievalTrainingDataModule`` (``CLIPImageTransform(384)``, WordPiece
+   ``BertTextTransform`` over a vocabulary the phase writes) with AdamW (lr
+   1e-5, weight decay 0.02) on ``albef_cosine_lr`` / ``albef_alpha_schedule``:
+   exact launches a step of #1, #2, #3, #4, #5, #6 and the flash backward
+   (derived from the dispatch predicates), finite losses, the queue pointer
+   advancing 32 a step, one momentum tensor equal to the EMA formula;
+   items/s, ms a step, peak memory, one step's device time by kernel group
+   and the idle share; retrieval inference over 128 images and 640
+   captions (features, the ITC matrix, ``retrieval_rerank``'s ITM rerank of
+   the top 128 both ways; seconds, exact launches, Recall@1/5/10, chance with
+   random weights); VQA: ``vqa_answer_loss``'s gradients at 2 questions
+   against fp32 on the CPU (cosine >= 0.99), then 1 warm-up and 3 timed
+   steps at batch 32 from ``VQADataModule`` (up to 10 answers of 10 tokens
+   a question, weighted; only each question's real answers decoded): exact
+   launches, questions/s;
+12. a ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 checks the MLP forward (#3) at the CLIP, LM (prefill, train step,
-decode tick) and FLAVA shapes, every activation at small widths and 48 to
+decode tick), FLAVA and ALBEF (960, 3,840 and 18,464 rows) shapes, every
+activation at small widths and 48 to
 512 rows, bf16 and fp32, each output element held to its own row's scale
 (``row_relative_error``), and a second launch into output and workspace
 filled with NaN bitwise equal to the first. It checks the MLP backward
-without weight gradients (#4) at CLIP's train step and the gradient
-checks' rows (FLAVA's 154-550, the LM's 1,024: dx split over Dff) and
+without weight gradients (#4) at CLIP's train step, the gradient checks'
+rows (FLAVA's 154-550, the LM's 1,024: dx split over Dff), ALBEF's text
+and multimodal rows (960) and its negative pairs' (1,920), and
 every activation, relaunched into NaN-filled outputs and workspace,
 bitwise equal. It also checks the flash attention forward (#6) at the
 prefill shape (8, 12, 2048, 64) causal, a train step's (8, 12, 8192, 64)
 with lse, with and without segment ids, the 128-query tile's edges (Sq
 127, 129, 191), its masking variants and the CLIP ResNet attention pools
-(non-causal at S = 50 with 256 x 32 heads, 82, 145 and 197), each
+(non-causal at S = 50 with 256 x 32 heads, 82, 145 and 197), ALBEF's
+ViT-B/16 at 384 (32, 12, 577, 577, 64) and at 256 (2, 12, 257, 257, 64)
+non-causal, and its cross-attention's (32, 12, 30, 577, 64), each
 relaunched into an output and lse filled with NaN, bitwise equal, and
 times each case against SDPA; and the int8-cache decode
 attention (#10) at the decode shape (33 x 12 heads, 4096 positions), its
@@ -160,7 +191,9 @@ time; and #6 against the plain path at S = 32 to 1024 (the numbers
 attention backward (``flash_attention_bwd``: #7 dq and #8 dk/dv as one
 call; #9 the bias gradient) against the plain backward at the prefill
 shape causal and #6's variants, bf16 and fp32, with
-the lse cotangent through ``flash_attention_lse``, each element to its
+the lse cotangent through ``flash_attention_lse``, and at ALBEF's ViT
+shapes non-causal, (32, 12, 577, 577, 64) and (2, 12, 257, 257, 64), timed
+in bf16 beside the SDPA backward and the bound, each element to its
 row's scale, and launches it again into outputs and a dq workspace filled
 with NaN (dk and dv bitwise equal, dq within its bar); and times the call
 and #9 at the LM training shape (8, 12, 8192, 64) bf16 causal beside their
@@ -172,9 +205,13 @@ activation, the CLIP, FLAVA and LM train steps' shapes, bf16 and fp32
 launches bitwise equal), and times it, and each of its stages (z/dh, dx,
 dW, sum, from the profiler), beside its bound, the library's recompute VJP
 and the route it replaces (#4 plus the library's dW products); and times
-#5 against that route at 256 to 16,384 rows (the numbers
-``fused_mlp_bwd_acc_supported``'s threshold is set from; the train phases'
-expected launches of #4 and #5 follow that predicate).
+#5 against that route at 256 to 65,536 rows (the numbers
+``fused_mlp_bwd_acc_supported``'s threshold is set from, the paths' own row
+counts above 16,384: ALBEF's 18,464, CLIP text's 19,712, ViT-B/16's 50,432,
+the LM's 65,536; the train phases' expected launches of #4 and #5 follow
+that predicate), #5 also at ALBEF's 18,464 rows; and times #6 against the
+plain path at ALBEF's cross-attention shape, forward and forward +
+backward.
 ``--kernels-only`` stops after phase 2 and prints no result line;
 ``--planted-faults`` only builds copies of #2, #6, the flash backward, #4,
 #5, #3 and #10 with known faults (``PLANTED_FAULTS``) and shows that the
@@ -332,7 +369,12 @@ def attention_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen):
     with torch.inference_mode():
         out = fe.fused_qkv_attention(qkv, h, causal, None, kb)
         ref = fe.qkv_attention_plain(qkv, h, causal, None, kb)
+        # the same launch into NaN: an element the kernel does not write shows
+        again = torch.full_like(out, math.nan)
+        fe._attention_fwd_launch(qkv, h, causal, None, kb, again)
         torch.cuda.synchronize()
+        deterministic = torch.equal(out, again)
+        del again
         err = (out.float() - ref.float()).abs().max().item()
         tol = tolerance(dtype, ref)
         kernel_ms = time_ms(lambda: fe.fused_qkv_attention(qkv, h, causal, None, kb), 1)
@@ -355,7 +397,8 @@ def attention_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen):
     bms, by = bound_ms(nbytes, flops, dtype)
     return dict(kernel="fused_qkv_attention", case=name, shape=[b, s, 3 * d], heads=h,
                 causal=causal, key_bias=key_bias, dtype=str(dtype).replace("torch.", ""),
-                max_abs_err=err, tol=tol, ok=bool(err <= tol), ms=kernel_ms,
+                max_abs_err=err, tol=tol, deterministic=deterministic,
+                ok=bool(err <= tol and deterministic), ms=kernel_ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
@@ -431,8 +474,8 @@ def check_mlp_kernel(fe, dtypes=(torch.bfloat16, torch.float32), timing=True):
     """Kernel #3 at the paths' shapes in each dtype: CLIP ViT-B/32 serving
     (batch 512), every activation at small widths (Dout 192 leaves a ragged
     column tile), the LM's prefill call, train step and decode tick, the
-    few rows between those two (48 to 512), and FLAVA's three MLPs at batch
-    64."""
+    few rows between those two (48 to 512), FLAVA's three MLPs at batch
+    64, and ALBEF's at batch 32 and in its rerank."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     shapes = [("vision", BATCH * 50, 768, 3072, 768, "quick_gelu"),
               ("text", BATCH * 77, 512, 2048, 512, "quick_gelu")]
@@ -446,6 +489,11 @@ def check_mlp_kernel(fe, dtypes=(torch.bfloat16, torch.float32), timing=True):
         ("rows_512", 512))]
     shapes += [(f"flava_{tower}", FLAVA_BATCH * seq, 768, 3072, 768, "gelu_exact")
                for tower, seq in FLAVA_SEQS]
+    # ALBEF at batch 32: the text and multimodal towers (960 rows), the
+    # rerank's multimodal calls (128 x 30) and the ViT at 384 (18,464)
+    shapes += [(name, r, 768, 3072, 768, "gelu_exact") for name, r in (
+        ("albef_text", ALBEF_BATCH * ALBEF_TEXT), ("albef_rerank", ALBEF_K_TEST * ALBEF_TEXT),
+        ("albef_vit", ALBEF_BATCH * ALBEF_SEQ))]
     rows = []
     for dtype in dtypes:
         for shape in shapes:
@@ -517,7 +565,8 @@ def attention_bwd_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen, timin
 # Kernel #2's cases: CLIP ViT-B/32's towers at the train batch, the key-bias
 # lane, head width 96, and past S = 128 (the `wgmma` route): one past it,
 # ViT-B/16's vision tower at the train batch, S = 256 at head width 64 and
-# S = 181 at 128 (the forward's largest there), each with the masks.
+# S = 181 at 128 (the forward's largest there), each with the masks; ALBEF's
+# text tower at batch 32 (S = 30, its padding bias).
 ATTENTION_BWD_CASES = [
     ("vision", TRAIN_BATCH, 50, 768, 12, False, False),
     ("text", TRAIN_BATCH, 77, 512, 8, True, False),
@@ -528,6 +577,7 @@ ATTENTION_BWD_CASES = [
     ("vit_b16", TRAIN_BATCH, 197, 768, 12, False, False),
     ("seq_256", 8, 256, 768, 12, True, True),
     ("head_width_128_seq_181", 8, 181, 512, 4, True, True),
+    ("albef_text", 32, 30, 768, 12, False, True),
 ]
 
 
@@ -638,8 +688,9 @@ def mlp_bwd_case(fe, name, rows, din, dff, dout, act, dtype, gen, timing=True):
 def check_mlp_bwd_kernel(fe, dtypes=(torch.bfloat16, torch.float32), timing=True):
     """Kernel #4 in each dtype at CLIP ViT-B/32's train-step MLPs (batch
     256), every activation at small widths (Dout 192: a ragged column tile;
-    Dff 512: dx in two runs), and the gradient checks' rows: FLAVA's at 2
-    pairs and the LM's packed row."""
+    Dff 512: dx in two runs), the gradient checks' rows (FLAVA's at 2
+    pairs and the LM's packed row), and ALBEF's retrieval step's text and
+    multimodal rows at batch 32."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     tb = TRAIN_BATCH
     shapes = [("vision", tb * 50, 768, 3072, 768, "quick_gelu"),
@@ -651,6 +702,10 @@ def check_mlp_bwd_kernel(fe, dtypes=(torch.bfloat16, torch.float32), timing=True
     shapes += [(f"flava_grad_{tower}", 2 * seq, 768, 3072, 768, "gelu_exact")
                for tower, seq in FLAVA_SEQS]
     shapes.append(("lm_grad", 1024, 768, 3072, 768, "gelu_exact"))
+    # ALBEF's retrieval step at batch 32: the text and multimodal towers
+    # (960 rows), the negative pairs' multimodal pass (1,920)
+    shapes += [("albef_text", ALBEF_BATCH * ALBEF_TEXT, 768, 3072, 768, "gelu_exact"),
+               ("albef_negatives", 2 * ALBEF_BATCH * ALBEF_TEXT, 768, 3072, 768, "gelu_exact")]
     rows = []
     for dtype in dtypes:
         for shape in shapes:
@@ -757,11 +812,14 @@ def stage_ms(fn, stages, reps=5):
     return out or "not measured"
 
 
-def acc_threshold(fe, rows=(256, 512, 1024, 2048, 4096, 8192, 16384), din=768, dff=3072,
-                  dout=768):
+def acc_threshold(fe, rows=(256, 512, 1024, 2048, 4096, 8192, 16384, 18464, 19712, 50432,
+                            65536), din=768, dff=3072, dout=768):
     """#5 against the route it replaces (#4 plus the library's dW products
     and the db1 sum) at the row counts around ``fused_mlp_bwd_acc_supported``'s
-    threshold, bf16, exact GELU: the numbers ``_ACC_MIN_ROWS`` is set from."""
+    threshold, bf16, exact GELU: the numbers ``_ACC_MIN_ROWS`` is set from.
+    Above 16,384 rows the paths' own counts: ALBEF's ViT-B/16 at 384 (18,464),
+    CLIP's text tower (19,712), ViT-B/16's at batch 256 (50,432) and the LM's
+    (65,536)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     out = {}
     for r in rows:
@@ -781,7 +839,8 @@ def acc_threshold(fe, rows=(256, 512, 1024, 2048, 4096, 8192, 16384), din=768, d
 
 # Kernel #5's shapes: every activation at 1,000 rows (a ragged last tile),
 # then the train steps' MLPs: CLIP ViT-B/32 vision and text at batch 256,
-# FLAVA's image, text and multimodal MLPs at batch 64, the LM at 8 x 8192.
+# FLAVA's image, text and multimodal MLPs at batch 64, the LM at 8 x 8192,
+# ALBEF's ViT-B/16 at 384 at batch 32 (18,464 rows).
 ACC_CASES = [(f"ragged_1000_{act}", 1000, 768, 3072, 768, act, False)
              for act in ("quick_gelu", "gelu", "gelu_exact", "relu", "silu")] + [
     ("clip_vision", TRAIN_BATCH * 50, 768, 3072, 768, "quick_gelu", True),
@@ -790,6 +849,7 @@ ACC_CASES = [(f"ragged_1000_{act}", 1000, 768, 3072, 768, act, False)
     ("flava_text", 64 * 77, 768, 3072, 768, "gelu_exact", True),
     ("flava_mm", 64 * 275, 768, 3072, 768, "gelu_exact", True),
     ("lm_train", 8 * 8192, 768, 3072, 768, "gelu_exact", True),
+    ("albef_vit", 32 * 577, 768, 3072, 768, "gelu_exact", True),
 ]
 
 
@@ -1040,6 +1100,32 @@ def flash_threshold(fa, attn, gen, heads=12, d=64, batch=8):
     return rows
 
 
+def cross_attention_reading(fa, attn, gen, b=32, h=12, sq=30, sk=577, d=64):
+    """Kernel #6 against the port's plain path at ALBEF's cross-attention
+    shape (30 text queries over 577 image tokens, non-causal, bf16), below
+    ``FLASH_MIN_SEQ`` in the query length so the path takes the plain one:
+    the forward alone and forward + backward (dq, dk, dv)."""
+    q = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(b, h, sk, d, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    do = torch.randn(b, h, sq, d, device="cuda", generator=gen).to(torch.bfloat16)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = {"shape": [b, h, sq, sk, d]}
+    with torch.inference_mode():
+        flash = lambda: fa.flash_attention_forward(q, k, v)  # noqa: E731
+        plain = lambda: attn.attention_plain(q, k, v)  # noqa: E731
+        reps = reps_for(time_ms(flash, 1))
+        out.update(flash_fwd_ms=time_ms(flash, reps), plain_fwd_ms=time_ms(plain, reps))
+
+    def both(fn):
+        return lambda: torch.autograd.grad(fn(), (qg, kg, vg), do)
+
+    out.update(flash_fwd_bwd_ms=time_ms(both(lambda: fa.flash_attention(qg, kg, vg)), reps),
+               plain_fwd_bwd_ms=time_ms(both(lambda: attn.attention_plain(qg, kg, vg)[0]),
+                                        reps))
+    return out
+
+
 # Kernel #6's cases: the LM prefill call, a train step's call (with and
 # without packed documents), Sq != Sk, the masks, the 128-query tile's edges
 # (Sq 127, 129, 191), the other routes (bias, head widths 32 and 128) and the
@@ -1066,6 +1152,13 @@ FLASH_CASES = [
     ("attnpool_rn50x4", 8, 40, 82, 82, 64, False, {}),
     ("attnpool_rn50x16", 8, 48, 145, 145, 64, False, {}),
     ("attnpool_rn50x64", 8, 64, 197, 197, 64, False, {}),
+    # ALBEF: ViT-B/16 at 384 (577 = 4 x 128 + 65 tokens, non-causal) at the
+    # train batch, at 256 (ALBEF's pre-training resolution: 257 tokens, the
+    # last key tile holds one key), and its cross-attention's shape (30 text
+    # queries over the 577 image tokens; the path takes the plain one there)
+    ("albef_vit_577", 32, 12, 577, 577, 64, False, {"lse": True}),
+    ("albef_vit_257", 2, 12, 257, 257, 64, False, {"lse": True}),
+    ("albef_cross_30x577", 32, 12, 30, 577, 64, False, {}),
 ]
 
 
@@ -1161,7 +1254,7 @@ def bwd_terms(fa, q, k, v, out, do, lse, dlse, bias, causal, seg, parts):
 
 
 def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
-                   segments=False, dbias=False, lse_cot=False):
+                   segments=False, dbias=False, lse_cot=False, timing=False):
     """``flash_attention_bwd`` (#7 + #8 as one call; and #9 with ``dbias``)
     against the plain backward on the same inputs, each output element to
     its row's scale; with ``lse_cot`` through ``flash_attention_lse``'s
@@ -1170,7 +1263,9 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
     with NaN first: dk and dv must come back bitwise equal to the first
     call's (no element left unwritten, no workspace read before its
     zero-fill), dq within its bar (its sum over key blocks has no fixed
-    order on the one-pass route)."""
+    order on the one-pass route). With ``timing`` (no bias, no segments)
+    the call is timed beside the plain backward, the SDPA backward (dq, dk
+    and dv in one call) and the bound of :func:`flash_bwd_timing`."""
     q, k, v, do, bias, seg = _bwd_inputs(b, h, sq, sk, d, dtype, gen, bias_kind, segments)
     kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
     relaunch = {}
@@ -1217,10 +1312,43 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
         rel_dq = row_relative_error(relaunch["dq"], ref["dq"], terms["dq"])
         extra = dict(deterministic=relaunch["same"], relaunch_dq_rel_err=rel_dq)
         ok = ok and relaunch["same"] and rel_dq <= tol["dq"]
+    if timing:
+        extra.update(bwd_case_timing(fa, q, k, v, do, causal))
     return dict(kernel="flash_attention_bwd", case=name, shape=[b, h, sq, sk, d], causal=causal,
                 bias=bias_kind, segments=segments, dbias=dbias, lse_cotangent=lse_cot,
                 dtype=str(dtype).replace("torch.", ""), rel_err=rel, max_abs_err=err, tol=tol,
                 rel_err_no_terms=no_terms, **extra, ok=ok)
+
+
+def bwd_case_timing(fa, q, k, v, do, causal):
+    """``flash_attention_bwd``'s ms at these inputs beside the plain
+    backward's, the SDPA backward's (dq, dk and dv in one call) and the
+    bound: five products over the visible pairs, or q, k, v, do, lse and
+    delta read once and dq, dk, dv written once."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    with torch.no_grad():
+        out, lse = fa.flash_attention_forward(q, k, v, causal=causal, return_lse=True)
+        delta = fa._delta(out, do, None)
+        call = lambda: fa.flash_attention_bwd(q, k, v, do, lse, delta, causal=causal)  # noqa: E731
+        kernel_ms = time_ms(call, 1, warmup=1)
+        kernel_ms = time_ms(call, reps_for(kernel_ms), warmup=1)
+        plain_ms = time_ms(lambda: fa._bwd_plain_parts(q, k, v, do, lse, delta, None, causal,
+                                                        None, None, None, ("dq", "dk", "dv")),
+                           2, warmup=1)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal and sq == sk)
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True),
+                     reps_for(kernel_ms))
+    del o, out, lse, delta
+    visible = sq * sk if not causal else sum(min(sk, max(0, i + 1 + sk - sq)) for i in range(sq))
+    pairs = b * h * visible
+    es = q.element_size()
+    nbytes = (3 * q.numel() + 4 * k.numel()) * es + 2 * b * h * sq * 4
+    bms, by = bound_ms(nbytes, 10.0 * d * pairs, q.dtype)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                tflops=10.0 * d * pairs / kernel_ms / 1e9,
+                library="SDPA backward (dq, dk and dv in one call)")
 
 
 def check_bwd_kernels(fa, dtypes=(torch.bfloat16, torch.float32)):
@@ -1248,6 +1376,12 @@ def check_bwd_kernels(fa, dtypes=(torch.bfloat16, torch.float32)):
                                     bias_kind="1h1k", dbias=True))
         cases.append(flash_bwd_case(fa, "lse_cotangent", 4, 12, 1000, 1000, 64, True, dtype,
                                     gen, lse_cot=True))
+        # ALBEF's ViT-B/16 at 384 (the last 64-query stage holds one row) and
+        # at 256 (the last key tile holds one key), non-causal, timed in bf16
+        cases.append(flash_bwd_case(fa, "albef_vit_577", 32, 12, 577, 577, 64, False, dtype,
+                                    gen, timing=dtype == torch.bfloat16))
+        cases.append(flash_bwd_case(fa, "albef_vit_257", 2, 12, 257, 257, 64, False, dtype,
+                                    gen, timing=dtype == torch.bfloat16))
     print("kernel_check tolerance #7-#9: row_relative_error with the terms, by the output's "
           "dtype (ds is fp32 in every case), within " + json.dumps(
               {str(k).replace("torch.", ""): v for k, v in ROW_RELATIVE_BAR_BWD.items()}),
@@ -1359,6 +1493,9 @@ def check_kernels(fe):
         cases.append(attention_case(fe, "key_bias", 8, 40, 256, 4, False, dtype, True, gen))
         cases.append(attention_case(fe, "key_bias_causal", 8, 77, 256, 4, True, dtype, True, gen))
         cases.append(attention_case(fe, "head_width_96", 8, 50, 384, 4, True, dtype, False, gen))
+        # ALBEF's BERT text tower at the train batch, with its padding bias
+        cases.append(attention_case(fe, "albef_text", ALBEF_BATCH, ALBEF_TEXT, 768, 12, False,
+                                    dtype, True, gen))
     print("kernel_check tolerance: " + " ".join(tolerance.__doc__.split()), flush=True)
     for c in cases:
         print("kernel_check " + json.dumps(c), flush=True)
@@ -3346,6 +3483,557 @@ def zero_shot(fe, fa, card):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 11: ALBEF retrieval and VQA fine-tuning (ViT-B/16 at 384)
+# --------------------------------------------------------------------------
+
+ALBEF_BATCH = 32
+ALBEF_IMAGE, ALBEF_PATCH = 384, 16
+ALBEF_SEQ = (ALBEF_IMAGE // ALBEF_PATCH) ** 2 + 1  # 577 image tokens
+ALBEF_TEXT = 30  # RetrievalTrainingDataModule's text_len, VQADataModule's question_len
+ALBEF_QUEUE, ALBEF_EMBED = 65536, 256
+ALBEF_TRAIN_IMAGES, ALBEF_EVAL_IMAGES, ALBEF_EVAL_CAPTIONS = 128, 128, 5
+ALBEF_K_TEST = 128
+VQA_QUESTIONS, VQA_ANSWERS, VQA_ANSWER_LEN = 128, 10, 10
+ALBEF_COSINE = 0.999
+# the published widths: ViT-B/16, a 6-layer BERT (vocab 30522), 6
+# cross-attention layers
+ALBEF_WIDTHS = dict(hidden=768, heads=12, mlp=3072, vit_layers=12, text_layers=6,
+                    mm_layers=6, vocab=30522)
+ALBEF_KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd", "fused_mlp", "fused_mlp_bwd",
+                 "fused_mlp_bwd_acc", "flash_attention", "flash_attention_bwd")
+VQA_WORDS = ("yes no two three red blue white black dog cat man woman table left right "
+             "tennis pizza frisbee kitchen grass water snow one four green").split()
+
+
+def albef_model(task: str, dtype):
+    """ALBEF at the published fine-tuning widths (ViT-B/16 at 384, a 6-layer
+    BERT text tower, 6 cross-attention layers, 768 -> 256 projections, queue
+    65,536, temperature 0.07, momentum 0.995; VQA: the 6-layer answer
+    decoder) on the CPU in fp32, ``dtype`` the compute dtype; weights drawn
+    from a seed as BERT and ViT draw theirs (normal 0.02, zero biases, unit
+    LayerNorms)."""
+    from multimodal_tpu_torch.examples.albef.model import (
+        ALBEFDecoder, ALBEFModelForRetrieval, ALBEFModelForVQA)
+    from multimodal_tpu_torch.models.albef.image_encoder import ALBEFVisionEncoder
+    from multimodal_tpu_torch.models.albef.model import ALBEFModel, ALBEFModelWithSimilarity
+    from multimodal_tpu_torch.models.albef.multimodal_encoder import ALBEFMultimodalEncoder
+    from multimodal_tpu_torch.modules.encoders.bert_text_encoder import bert_text_encoder
+
+    w = ALBEF_WIDTHS
+    d, heads, mlp = w["hidden"], w["heads"], w["mlp"]
+    torch.manual_seed(0)
+    albef = ALBEFModel(
+        ALBEFVisionEncoder(image_size=ALBEF_IMAGE, patch_size=ALBEF_PATCH,
+                           num_hidden_layers=w["vit_layers"], num_attention_heads=heads,
+                           hidden_size=d, mlp_dim=mlp, dtype=dtype),
+        bert_text_encoder(hidden_size=d, num_hidden_layers=w["text_layers"],
+                          num_attention_heads=heads, intermediate_size=mlp, dropout=0.0,
+                          vocab_size=w["vocab"], dtype=dtype),
+        ALBEFMultimodalEncoder(hidden_size=d, num_hidden_layers=w["mm_layers"],
+                               num_attention_heads=heads, intermediate_size=mlp),
+        momentum=0.995)
+    if task == "vqa":
+        model = ALBEFModelForVQA(albef, ALBEFDecoder(
+            vocab_size=w["vocab"], hidden_size=d, num_hidden_layers=w["mm_layers"],
+            num_attention_heads=heads, intermediate_size=mlp, dtype=dtype))
+    else:
+        model = ALBEFModelForRetrieval(ALBEFModelWithSimilarity(
+            albef, torch.nn.Linear(d, ALBEF_EMBED), torch.nn.Linear(d, ALBEF_EMBED),
+            embed_size=ALBEF_EMBED, queue_size=ALBEF_QUEUE, temp=0.07), hidden_size=d)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() >= 2:
+                p.normal_(0.0, 0.02, generator=gen)
+            elif p.dim() == 1 and name.endswith("bias"):
+                p.zero_()
+    return model
+
+
+def albef_counts(fe, fa) -> dict:
+    return {"fused_qkv_attention": fe.fused_qkv_attention.launches,
+            "fused_qkv_attention_bwd": fe.fused_qkv_attention_bwd.launches,
+            "fused_mlp": fe.fused_mlp.launches, **mlp_bwd_launches(fe),
+            "flash_attention": fa.flash_attention_forward.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches}
+
+
+def albef_launches(fe, attn, batch: int, task: str, train: bool = True,
+                   answers: Optional[int] = None) -> dict:
+    """One step's launches, derived from the dispatch predicates: the ViT
+    (12 layers, 577 tokens), the text tower (6, 30 tokens, #1 by
+    ``fused_attention_supported``), the multimodal encoder (6; its self and
+    cross attention take the flash kernel only from ``FLASH_MIN_SEQ``
+    queries) and, for VQA, the decoder (6, 10 answer tokens a row, one row
+    an answer: ``answers`` rows in all, ``batch x VQA_ANSWERS`` if None)
+    forward with gradients; retrieval adds the momentum forward of the
+    vision and text towers (its features need no multimodal pass) and the
+    negative pairs' multimodal pass (2 x batch rows); the MLP backward by
+    ``fused_mlp_bwd_acc_supported``."""
+    w = ALBEF_WIDTHS
+    d, heads, mlp, n_mm, n_text = (w["hidden"], w["heads"], w["mlp"], w["mm_layers"],
+                                   w["text_layers"])
+    flash = lambda sq, sk: sq >= attn.FLASH_MIN_SEQ and sk >= attn.FLASH_MIN_SEQ  # noqa: E731
+    vit_flash = not fe.fused_attention_supported(ALBEF_SEQ, d, heads) and flash(ALBEF_SEQ,
+                                                                                ALBEF_SEQ)
+    text_fused = fe.fused_attention_supported(ALBEF_TEXT, d, heads)
+    # (MLP rows, layers, forwards with gradients, forwards without, flash
+    # calls a layer)
+    mm_flash = int(flash(ALBEF_TEXT, ALBEF_TEXT)) + int(flash(ALBEF_TEXT, ALBEF_SEQ))
+    towers = [(batch * ALBEF_SEQ, w["vit_layers"], 1, 0, int(vit_flash)),
+              (batch * ALBEF_TEXT, n_text, 1, 0, 0),
+              (batch * ALBEF_TEXT, n_mm, 1, 0, mm_flash)]
+    if task == "retrieval":
+        towers[:2] = [(r, n, 1, 1, f) for r, n, _, _, f in towers[:2]]
+        towers.append((2 * batch * ALBEF_TEXT, n_mm, 1, 0, mm_flash))
+    else:
+        ans = VQA_ANSWER_LEN
+        rows = (batch * VQA_ANSWERS if answers is None else answers) * ans
+        towers.append((rows, n_mm, 1, 0, int(flash(ans, ans)) + int(flash(ans, ALBEF_TEXT))))
+    passes = 2 if task == "retrieval" else 1
+    out = {"fused_qkv_attention": n_text * passes if text_fused else 0,
+           "fused_qkv_attention_bwd": n_text if text_fused and train else 0,
+           "fused_mlp": sum(n * (g + m) for _, n, g, m, _ in towers),
+           "flash_attention": sum(n * (g + m) * f for _, n, g, m, f in towers),
+           "flash_attention_bwd": sum(n * g * f for _, n, g, m, f in towers) if train else 0,
+           "fused_mlp_bwd": 0, "fused_mlp_bwd_acc": 0}
+    if train:
+        out.update(mlp_bwd_routes(fe, [(r, d, mlp, d, n * g) for r, n, g, _, _ in towers]))
+    return out
+
+
+def albef_expect(label: str, got: dict, want: dict) -> None:
+    print(f"albef {label}: launches {json.dumps(got)}", flush=True)
+    if got != want:
+        fail(f"albef {label}: launches {got}, want {want}")
+
+
+def write_albef_data(root: str, words) -> dict:
+    """The phase's seeded local data under ``root``: 128 training images
+    (``mosaic``, 448 x 448 .npy) with two captions each and a json of the
+    256 pairs ({image, caption, image_id}); 128 eval images with five
+    captions each; a VQA json of 128 questions on the training images, each
+    with 10 annotator answers (a few distinct ones, so the weights differ);
+    the text transform's WordPiece vocabulary."""
+    r = np.random.RandomState(31)
+    os.makedirs(os.path.join(root, "images"))
+
+    def caption(lo=6, hi=40):
+        return " ".join(r.choice(words, r.randint(lo, hi)))
+
+    train, evals, vqa = [], [], []
+    for i in range(ALBEF_TRAIN_IMAGES + ALBEF_EVAL_IMAGES):
+        name = f"images/{i:04d}.npy"
+        np.save(os.path.join(root, name), mosaic(r, 448, 16))
+        if i < ALBEF_TRAIN_IMAGES:
+            train += [{"image": name, "caption": caption(), "image_id": f"coco_{i}"}
+                      for _ in range(2)]
+        else:
+            evals.append({"image": name, "caption": [caption()
+                                                     for _ in range(ALBEF_EVAL_CAPTIONS)],
+                          "image_id": f"coco_{i}"})
+    for q in range(VQA_QUESTIONS):
+        pool = list(r.choice(VQA_WORDS, r.randint(1, 5), replace=False))
+        answers = [" ".join(r.choice(pool, r.randint(1, 3))) for _ in range(10)]
+        vqa.append({"dataset": "vqa", "image": train[2 * (q % ALBEF_TRAIN_IMAGES)]["image"],
+                    "question": caption(4, 36) + " ?", "answer": answers, "question_id": q})
+    paths = {k: os.path.join(root, f"{k}.json") for k in ("train", "eval", "vqa")}
+    for k, rows in (("train", train), ("eval", evals), ("vqa", vqa)):
+        with open(paths[k], "w") as f:
+            json.dump(rows, f)
+    paths["vocab"] = os.path.join(root, "vocab.txt")
+    with open(paths["vocab"], "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "?"]
+                          + sorted(set(words) | set(VQA_WORDS))) + "\n")
+    return paths
+
+
+def albef_feature_cosines(model, ref, features) -> dict:
+    """The lowest row cosine of each of ``features(model, device)``'s
+    outputs on the card against the fp32 CPU ``ref``'s."""
+    with torch.no_grad():
+        got, want = features(model, "cuda"), features(ref, "cpu")
+    return {k: float(cosine_rows(got[k].float().cpu().numpy(), want[k].float().numpy()).min())
+            for k in got}
+
+
+def albef_grad_cosine(model, ref, step):
+    """The card's gradients of ``step(model, device)`` against the fp32 CPU
+    ``ref``'s (the same weights): the concatenated cosine, the lowest
+    tensor's and both losses."""
+    model.zero_grad(set_to_none=True)
+    loss = step(model, "cuda")
+    loss.backward()
+    ref.zero_grad(set_to_none=True)
+    ref_loss = step(ref, "cpu")
+    ref_loss.backward()
+    ref_grads = dict(ref.named_parameters())
+    dots = sq_a = sq_b = 0.0
+    worst = (2.0, "")
+    for name, p in model.named_parameters():
+        a = p.grad.double().cpu().flatten()
+        b = ref_grads[name].grad.double().flatten()
+        dots += float(a @ b)
+        sq_a += float(a @ a)
+        sq_b += float(b @ b)
+        worst = min(worst, (float(a @ b) / max(float(a.norm() * b.norm()), 1e-300), name))
+    model.zero_grad(set_to_none=True)
+    return dots / math.sqrt(sq_a * sq_b), worst, float(loss.detach()), float(ref_loss.detach())
+
+
+def recall_at_k(scores_i2t: torch.Tensor, scores_t2i: torch.Tensor, image_to_text: dict,
+                text_to_image: list, ks=(1, 5, 10)) -> dict:
+    """Recall@k of the retrieval protocol (the reference's ``itm_eval``): an
+    image's rank is its best ground-truth caption's, a caption's its
+    image's."""
+    order_i = torch.argsort(scores_i2t.float().cpu(), dim=1, descending=True).numpy()
+    order_t = torch.argsort(scores_t2i.float().cpu(), dim=1, descending=True).numpy()
+    rank_i = np.array([min(int(np.where(order_i[i] == t)[0][0]) for t in gts)
+                       for i, gts in image_to_text.items()])
+    rank_t = np.array([int(np.where(order_t[j] == img)[0][0])
+                       for j, img in enumerate(text_to_image)])
+    out = {f"i2t_r{k}": float((rank_i < k).mean()) for k in ks}
+    out.update({f"t2i_r{k}": float((rank_t < k).mean()) for k in ks})
+    return out
+
+
+def albef(fe, fa, attn, card):
+    """Phase 11: ALBEF retrieval and VQA fine-tuning at ViT-B/16 384 (see
+    the module docstring)."""
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="albef_")
+    try:
+        return _albef(fe, fa, attn, card, root, phase_t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _albef(fe, fa, attn, card, root, phase_t0):
+    from multimodal_tpu_torch.data.datamodules import _to_image
+    from multimodal_tpu_torch.examples.albef.data import (
+        RetrievalTrainingDataModule, VQADataModule, retrieval_eval_data)
+    from multimodal_tpu_torch.examples.albef.model import (
+        albef_retrieval_train_step, retrieval_rerank, vqa_answer_loss)
+    from multimodal_tpu_torch.examples.albef.recipes import albef_alpha_schedule, albef_cosine_lr
+    from multimodal_tpu_torch.examples.mugen.bert_text_transform import BertTextTransform
+    from multimodal_tpu_torch.models.albef.model import ALBEFQueues, init_albef_queues
+    from multimodal_tpu_torch.transforms.clip_transform import CLIPImageTransform
+    from multimodal_tpu_torch.utils.common import momentum_copy
+
+    def reset():
+        fe.reset_launch_counts()
+        fa.reset_launch_counts()
+
+    result, paths_out = {}, {}
+    words = REAL_WORDS
+    paths = write_albef_data(root, words)
+    text_t = BertTextTransform(paths["vocab"], max_length=64)
+    t0 = time.perf_counter()
+    model = albef_model("retrieval", torch.bfloat16).cuda()
+    ref = albef_model("retrieval", torch.float32)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"albef: built ALBEFModelForRetrieval (ViT-B/16 at {ALBEF_IMAGE}, {n_params / 1e6:.1f}M "
+          f"parameters, fp32, bf16 compute) and its fp32 CPU copy in "
+          f"{time.perf_counter() - t0:.1f} s; data written under a temporary directory",
+          flush=True)
+
+    # 1. gradients at 2 pairs against fp32 on the CPU, the queue drawn on the
+    # CPU from a seed and copied to the card
+    r = np.random.RandomState(5)
+    image = torch.from_numpy(r.randn(2, ALBEF_IMAGE, ALBEF_IMAGE, 3).astype(np.float32))
+    atts = torch.ones(2, ALBEF_TEXT, dtype=torch.long)
+    atts[1, 17:] = 0
+    text = torch.from_numpy(r.randint(6, ALBEF_WIDTHS["vocab"], (2, ALBEF_TEXT))) * atts
+    idx = torch.tensor([0, 1])
+    queues_cpu = init_albef_queues(ALBEF_EMBED, ALBEF_QUEUE,
+                                   generator=torch.Generator().manual_seed(4), device="cpu")
+
+    def grad_step(m, dev):
+        q = queues_cpu if dev == "cpu" else ALBEFQueues(
+            *(t.to(dev) for t in (queues_cpu.image_queue, queues_cpu.text_queue,
+                                  queues_cpu.idx_queue, queues_cpu.queue_ptr)))
+        q = ALBEFQueues(q.image_queue.clone(), q.text_queue.clone(), q.idx_queue.clone(),
+                        q.queue_ptr.clone())
+        m_m = momentum_copy(m.model_with_similarity, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)  # batch 2: the draw is forced
+        return albef_retrieval_train_step(m, m_m, q, image.to(dev), text.to(dev),
+                                          atts.to(dev), idx.to(dev), gen, alpha=0.4)
+
+    def features(m, dev):
+        sim = m.model_with_similarity
+        img, txt, mm, (img_f, txt_f) = sim(image.to(dev), text.to(dev), atts.to(dev))
+        return {"image_feat": img_f, "text_feat": txt_f, "multimodal_cls": mm[:, 0]}
+
+    ref.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    feat_cos = albef_feature_cosines(model, ref, features)
+    reset()
+    cos, (worst_cos, worst_name), loss_card, loss_cpu = albef_grad_cosine(model, ref, grad_step)
+    check = albef_counts(fe, fa)
+    print(f"albef retrieval: gradient cosine vs fp32 CPU at 2 pairs: {cos:.6f} (bar 0.99); "
+          f"lowest tensor {worst_name} {worst_cos:.6f}; loss card {loss_card:.6f} cpu "
+          f"{loss_cpu:.6f}; feature cosines {json.dumps(feat_cos)} (bar {ALBEF_COSINE}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not cos >= 0.99:
+        fail(f"ALBEF retrieval gradient cosine {cos} < 0.99 against fp32 on the CPU")
+    if min(feat_cos.values()) < ALBEF_COSINE:
+        fail(f"ALBEF feature cosines {feat_cos} below {ALBEF_COSINE}")
+    albef_expect("retrieval gradient check", check, albef_launches(fe, attn, 2, "retrieval"))
+    result.update(grad_cosine=cos, grad_cosine_lowest=[worst_name, worst_cos],
+                  feature_cosines=feat_cos)
+    paths_out["albef_grad_check"] = check
+    del ref
+    torch.cuda.empty_cache()
+
+    # 2. retrieval training from the data layer: 2 warm-up and 5 timed steps
+    warmup, steps = 2, 5
+    dm = RetrievalTrainingDataModule(
+        paths["train"], root, CLIPImageTransform(ALBEF_IMAGE, rng=np.random.RandomState(6)),
+        text_t, text_len=ALBEF_TEXT, batch_size=ALBEF_BATCH, seed=0)
+    per_epoch = dm.batches_per_epoch()
+    model_m = momentum_copy(model.model_with_similarity)
+    queues = init_albef_queues(ALBEF_EMBED, ALBEF_QUEUE,
+                               generator=torch.Generator().manual_seed(7))
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-5, weight_decay=0.02)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    stream = dm.train_batches()
+    n_step = [0]
+
+    def train_step(batch):
+        i = n_step[0]
+        for group in opt.param_groups:
+            group["lr"] = albef_cosine_lr(i // per_epoch, i % per_epoch)
+        alpha = albef_alpha_schedule(i // per_epoch, i % per_epoch, per_epoch)
+        b = {k: v.cuda(non_blocking=True) for k, v in batch.items()}
+        loss = albef_retrieval_train_step(model, model_m, queues, b["image"], b["text"].long(),
+                                          b["text_atts"], b["idx"].long(), gen, alpha=alpha)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        n_step[0] += 1
+        return loss.detach()
+
+    losses = [train_step(next(stream)) for _ in range(warmup)]
+    # the EMA of one tensor, read around the first timed step
+    probe = (f"model_with_similarity.albef_model.text_encoder.encoder.layers."
+             f"{ALBEF_WIDTHS['text_layers'] - 1}.feedforward.out.weight")
+    p_name = probe.split(".", 1)[1]
+    p_before = dict(model.named_parameters())[probe].detach().clone()
+    m_before = dict(model_m.named_buffers())[p_name].clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    for s in range(steps):
+        losses.append(train_step(next(stream)))
+        if s == 0:
+            m_after = dict(model_m.named_buffers())[p_name].clone()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    train_counts = albef_counts(fe, fa)
+    want = {k: v * steps for k, v in albef_launches(fe, attn, ALBEF_BATCH, "retrieval").items()}
+    albef_expect(f"retrieval training ({steps} steps)", train_counts, want)
+    losses = [float(x) for x in losses]
+    ema = m_before * 0.995 + p_before * (1 - 0.995)
+    ema_err = float((m_after - ema).abs().max() / ema.abs().max())
+    ptr = int(queues.queue_ptr)
+    print(f"albef retrieval: losses {[round(x, 5) for x in losses]}; queue pointer {ptr} after "
+          f"{warmup + steps} steps of {ALBEF_BATCH} (want {(warmup + steps) * ALBEF_BATCH}); "
+          f"momentum {p_name} against the EMA formula: max relative error {ema_err:.3g}",
+          flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"ALBEF retrieval losses {losses}")
+    if ptr != (warmup + steps) * ALBEF_BATCH % ALBEF_QUEUE:
+        fail(f"ALBEF queue pointer {ptr} after {warmup + steps} steps")
+    if not ema_err <= 1e-6:
+        fail(f"ALBEF momentum tensor {p_name} off the EMA formula by {ema_err}")
+    result.update(items_per_s=ALBEF_BATCH * steps / dt, ms_per_step=dt / steps * 1e3,
+                  peak_gib=peak / 2 ** 30, losses=losses, ema_rel_err=ema_err)
+    print(f"albef retrieval: {result['items_per_s']:.1f} items/s, {result['ms_per_step']:.1f} ms "
+          f"a step at batch {ALBEF_BATCH}, image {ALBEF_IMAGE} (RetrievalTrainingDataModule, "
+          f"CLIPImageTransform, prefetched), peak memory {result['peak_gib']:.2f} GiB on {card}",
+          flush=True)
+    # the stream alone (one thread, nothing else running), then the step on
+    # the batches it drew: what the host transform costs, and the step
+    # without it
+    quiet = RetrievalTrainingDataModule(
+        paths["train"], root, CLIPImageTransform(ALBEF_IMAGE, rng=np.random.RandomState(10)),
+        text_t, text_len=ALBEF_TEXT, batch_size=ALBEF_BATCH, seed=1, prefetch=0)
+    quiet_stream = quiet.train_batches()
+    t0 = time.perf_counter()
+    drawn = [next(quiet_stream) for _ in range(3)]
+    result["stream_ms_per_batch"] = (time.perf_counter() - t0) / 3 * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in drawn:
+        train_step(b)
+    torch.cuda.synchronize()
+    result["drawn_ms_per_step"] = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"albef retrieval: the data stream alone {result['stream_ms_per_batch']:.1f} ms a "
+          f"batch of {ALBEF_BATCH} (CLIPImageTransform(384) and the tokenizer, one thread); "
+          f"the step on batches drawn beforehand {result['drawn_ms_per_step']:.1f} ms",
+          flush=True)
+    batch = drawn[-1]
+    breakdown = profile_step(lambda: train_step(batch), "albef retrieval")
+    if isinstance(breakdown, dict):
+        result["idle_share"] = 1 - breakdown["total_device_ms"] / breakdown[
+            "wall_ms_under_profiler"]
+    print(f"albef retrieval: device time of one step by kernel group {json.dumps(breakdown)}; "
+          f"idle share {result.get('idle_share', float('nan')):.4f}", flush=True)
+    result["profile"] = breakdown
+    paths_out["albef_retrieval"] = train_counts
+    del opt, stream, dm, batch, drawn, quiet_stream
+    torch.cuda.empty_cache()
+
+    # 3. retrieval inference: features, the ITC matrix, the ITM rerank of the
+    # top k_test both ways
+    data = retrieval_eval_data(paths["eval"], root)
+    eval_t = CLIPImageTransform(ALBEF_IMAGE, is_train=False)
+    images = torch.stack([eval_t(_to_image(p)) for p in data["images"]])
+    ids = text_t(data["texts"])[:, :ALBEF_TEXT]
+    ids = torch.nn.functional.pad(ids, (0, ALBEF_TEXT - ids.shape[1]))
+    text_atts = ids != 0
+    sim_model = model.model_with_similarity
+    albef_m = sim_model.albef_model
+    model.eval()
+    reset()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        image_embeds = torch.cat([albef_m.vision_encoder(images[i:i + ALBEF_BATCH].cuda())
+                                  for i in range(0, len(images), ALBEF_BATCH)])
+        ids_c, atts_c = ids.cuda(), text_atts.cuda()
+        text_embeds = torch.cat([albef_m.text_encoder(
+            input_ids=ids_c[j:j + 128], attention_mask=atts_c[j:j + 128]).last_hidden_state
+            for j in range(0, len(ids), 128)])
+        image_feat, text_feat = sim_model.project_features(image_embeds, text_embeds)
+        sim_i2t = image_feat @ text_feat.T
+
+        def itm(text_e, att, image_e):
+            mm = albef_m.encode_multimodal(text_e, att, image_e)
+            return model.itm_scores(mm[:, 0])[:, 1]
+
+        k = ALBEF_K_TEST
+        i2t = retrieval_rerank(sim_i2t, lambda i, c: itm(
+            text_embeds[c], atts_c[c], image_embeds[i].expand(len(c), -1, -1)), k_test=k)
+        t2i = retrieval_rerank(sim_i2t.T, lambda j, c: itm(
+            text_embeds[j].expand(len(c), -1, -1), atts_c[j].expand(len(c), -1),
+            image_embeds[c]), k_test=k)
+        torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    infer_counts = albef_counts(fe, fa)
+    n_img, n_txt = len(images), len(ids)
+    want = dict.fromkeys(ALBEF_KERNELS, 0)
+    w = ALBEF_WIDTHS
+    image_calls, text_calls = -(-n_img // ALBEF_BATCH), -(-n_txt // 128)
+    vit_flash = not fe.fused_attention_supported(ALBEF_SEQ, w["hidden"], w["heads"])
+    want.update(flash_attention=w["vit_layers"] * image_calls * int(vit_flash),
+                fused_qkv_attention=w["text_layers"] * text_calls * int(
+                    fe.fused_attention_supported(ALBEF_TEXT, w["hidden"], w["heads"])),
+                fused_mlp=w["vit_layers"] * image_calls + w["text_layers"] * text_calls
+                + w["mm_layers"] * (n_img + n_txt))
+    albef_expect("retrieval inference", infer_counts, want)
+    recall = recall_at_k(i2t, t2i, data["image_to_text"], data["text_to_image"])
+    finite = int(torch.isfinite(i2t).sum()), int(torch.isfinite(t2i).sum())
+    print(f"albef retrieval inference: {n_img} images, {n_txt} captions: features, the ITC "
+          f"matrix and the ITM rerank of the top {k} both ways in {infer_s:.2f} s "
+          f"({n_img + n_txt} rerank calls of {k} pairs); finite scores {finite} (want "
+          f"{(n_img * k, n_txt * k)}); recall {json.dumps(recall)} (random weights: chance, "
+          f"about 5k/640 image->text, k/128 text->image) on {card}", flush=True)
+    if finite != (n_img * k, n_txt * k) or sim_i2t.shape != (n_img, n_txt):
+        fail(f"ALBEF rerank scores: finite {finite}, similarity {tuple(sim_i2t.shape)}")
+    result.update(rerank_s=infer_s, recall=recall)
+    paths_out["albef_inference"] = infer_counts
+    del model, model_m, queues, sim_model, albef_m, image_embeds, text_embeds
+    torch.cuda.empty_cache()
+
+    # 4. VQA: gradients at 2 questions against fp32 on the CPU, then 1
+    # warm-up and 3 timed steps at batch 32 from VQADataModule
+    vqa = albef_model("vqa", torch.bfloat16).cuda()
+    ref = albef_model("vqa", torch.float32)
+    ref.load_state_dict({k: v.float().cpu() for k, v in vqa.state_dict().items()})
+    vdm = VQADataModule(paths["vqa"], root, root,
+                        CLIPImageTransform(ALBEF_IMAGE, rng=np.random.RandomState(9)), text_t,
+                        max_answers=VQA_ANSWERS, question_len=ALBEF_TEXT,
+                        answer_len=VQA_ANSWER_LEN, batch_size=ALBEF_BATCH, seed=0)
+    vstream = vdm.train_batches()
+    first = next(vstream)
+    small = {k: v[:2] for k, v in first.items()}
+
+    def vqa_step(m, dev, b=small):
+        counts = b["answer_counts"]  # stays on the host: the rows to decode
+        b = {k: v.to(dev) for k, v in b.items() if k != "answer_counts"}
+        return vqa_answer_loss(m, b["image"], b["question"].long(), b["question_atts"],
+                               b["answers"].long(), b["answer_atts"], b["answer_weights"],
+                               counts)
+
+    t0 = time.perf_counter()
+    reset()
+    vcos, (vworst_cos, vworst_name), vloss_card, vloss_cpu = albef_grad_cosine(vqa, ref,
+                                                                               vqa_step)
+    vcheck = albef_counts(fe, fa)
+    print(f"albef vqa: gradient cosine vs fp32 CPU at 2 questions "
+          f"({small['answer_counts'].tolist()} answers): {vcos:.6f} (bar 0.99); lowest tensor {vworst_name} {vworst_cos:.6f}; loss "
+          f"card {vloss_card:.6f} cpu {vloss_cpu:.6f} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if not vcos >= 0.99:
+        fail(f"ALBEF VQA gradient cosine {vcos} < 0.99 against fp32 on the CPU")
+    albef_expect("vqa gradient check", vcheck, albef_launches(
+        fe, attn, 2, "vqa", answers=int(small["answer_counts"].sum())))
+    del ref
+    vopt = torch.optim.AdamW(vqa.parameters(), lr=2e-5, weight_decay=0.02)
+
+    answer_rows = []  # the answers each timed step decodes
+
+    def vqa_train(b, i):
+        answer_rows.append(int(b["answer_counts"].sum()))
+        for group in vopt.param_groups:
+            group["lr"] = albef_cosine_lr(0, i, lr=2e-5)
+        loss = vqa_step(vqa, "cuda", b)
+        loss.backward()
+        vopt.step()
+        vopt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    vsteps = 3
+    vlosses = [vqa_train(first, 0)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    answer_rows.clear()
+    reset()
+    t0 = time.perf_counter()
+    vlosses += [vqa_train(next(vstream), i + 1) for i in range(vsteps)]
+    torch.cuda.synchronize()
+    vdt = time.perf_counter() - t0
+    vcounts = albef_counts(fe, fa)
+    want = {}
+    for n in answer_rows:
+        for k, v in albef_launches(fe, attn, ALBEF_BATCH, "vqa", answers=n).items():
+            want[k] = want.get(k, 0) + v
+    albef_expect(f"vqa training ({vsteps} steps)", vcounts, want)
+    vlosses = [float(x) for x in vlosses]
+    if not all(math.isfinite(x) for x in vlosses):
+        fail(f"ALBEF VQA losses {vlosses}")
+    result.update(vqa_grad_cosine=vcos, vqa_grad_cosine_lowest=[vworst_name, vworst_cos],
+                  vqa_items_per_s=ALBEF_BATCH * vsteps / vdt, vqa_ms_per_step=vdt / vsteps * 1e3,
+                  vqa_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, vqa_losses=vlosses)
+    result["vqa_answers_per_step"] = answer_rows
+    print(f"albef vqa: {result['vqa_items_per_s']:.1f} questions/s, "
+          f"{result['vqa_ms_per_step']:.1f} ms a step at batch {ALBEF_BATCH} ({answer_rows} "
+          f"answers decoded, of {VQA_ANSWER_LEN} tokens each, at most {VQA_ANSWERS} a "
+          f"question), peak memory "
+          f"{result['vqa_peak_gib']:.2f} GiB, losses {[round(x, 4) for x in vlosses]} on {card}",
+          flush=True)
+    paths_out["albef_vqa_grad_check"] = vcheck
+    paths_out["albef_vqa"] = vcounts
+    del vqa, vopt, vstream, vdm
+    torch.cuda.empty_cache()
+    result["wall_s"] = time.perf_counter() - phase_t0
+    print(f"albef: phase wall time {result['wall_s']:.1f} s", flush=True)
+    return paths_out, result
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -3394,6 +4082,10 @@ def main() -> None:
     threshold = flash_threshold(fa, attn, torch.Generator(device="cuda").manual_seed(2))
     print(f"threshold: flash vs the plain path, (8, 12, S, 64) bf16 causal: {json.dumps(threshold)}"
           f"; FLASH_MIN_SEQ = {attn.FLASH_MIN_SEQ}", flush=True)
+    cross = cross_attention_reading(fa, attn, torch.Generator(device="cuda").manual_seed(3))
+    print(f"threshold: #6 vs the plain path at ALBEF's cross-attention, bf16 non-causal: "
+          f"{json.dumps(cross)}; the path takes the plain one below FLASH_MIN_SEQ = "
+          f"{attn.FLASH_MIN_SEQ} queries", flush=True)
     routes = attention_bwd_routes(fe)
     print(f"threshold: #2's mma.sync vs wgmma kernel, (256, S, 3D) bf16 at head width 64: "
           f"{json.dumps(routes)}; _BWD_WGMMA_MIN_SEQ = {fe._BWD_WGMMA_MIN_SEQ}", flush=True)
@@ -3413,6 +4105,7 @@ def main() -> None:
     flava_launches, flava = flava_train(fe, fa, card)
     real_launches, real = flava_real(fe, fa, card)
     zs = zero_shot(fe, fa, card)
+    albef_launches_by_path, albef_result = albef(fe, fa, attn, card)
 
     # every path's launch counts, each read just after the path ran with the
     # counts set to 0 just before it; a kernel's `launches` is its count on
@@ -3427,7 +4120,8 @@ def main() -> None:
              **real_launches,
              **{f"zero_shot_{m}_{part}": zs[m][f"{part}_launches"]
                 for m in ("vit_b32", "rn50") for part in ("classifier", "eval")},
-             **{f"zero_shot_{name}": c for name, c in zs["rn_builders"].items()}}
+             **{f"zero_shot_{name}": c for name, c in zs["rn_builders"].items()},
+             **albef_launches_by_path}
     main_path = {"fused_qkv_attention": "serve", "fused_qkv_attention_bwd": "train",
                  "fused_mlp": "flava", "fused_mlp_bwd": "flava_grad_check",
                  "fused_mlp_bwd_acc": "flava", "flash_attention": "lm",
@@ -3495,7 +4189,9 @@ def main() -> None:
             "cases": [{"case": c["case"], "dtype": c["dtype"],
                        "tol": {n: c["tol"][n] for n in parts},
                        "rel_err": {n: c["rel_err"][n] for n in parts},
-                       **{k: c[k] for k in ("deterministic", "relaunch_dq_rel_err") if k in c}}
+                       **{k: c[k] for k in ("deterministic", "relaunch_dq_rel_err", "ms",
+                                            "plain_ms", "library_ms", "bound_ms", "bound_by")
+                          if k in c}}
                       for c in bwd_checks if parts[0] in c["rel_err"]]})
     print(f"summary: serve min cosine {min_cos:.6f}, {device_rate:.1f} pairs/s device, "
           f"{served_rate:.1f} pairs/s served; train gradient cosine {grad_cos:.6f}, "
@@ -3529,7 +4225,17 @@ def main() -> None:
           f"{zs['rn50']['logit_cosine']:.6f}; transform+encode p50 "
           f"{zs['latency']['ids']['p50_ms']:.3f} ms from ids, "
           f"{zs['latency']['strings']['p50_ms']:.3f} ms from strings; zero-shot phase "
-          f"{zs['wall_s']:.1f} s; build {build_s:.1f} s", flush=True)
+          f"{zs['wall_s']:.1f} s; ALBEF retrieval {albef_result['items_per_s']:.1f} items/s, "
+          f"{albef_result['ms_per_step']:.1f} ms a step, peak {albef_result['peak_gib']:.2f} "
+          f"GiB, idle share {albef_result.get('idle_share', float('nan')):.4f}, the stream "
+          f"alone {albef_result['stream_ms_per_batch']:.1f} ms a batch, the step on drawn "
+          f"batches {albef_result['drawn_ms_per_step']:.1f} ms, gradient cosine "
+          f"{albef_result['grad_cosine']:.6f}, feature cosines "
+          f"{json.dumps({k: round(v, 6) for k, v in albef_result['feature_cosines'].items()})}, "
+          f"rerank {albef_result['rerank_s']:.2f} s; ALBEF VQA "
+          f"{albef_result['vqa_items_per_s']:.1f} questions/s, gradient cosine "
+          f"{albef_result['vqa_grad_cosine']:.6f}; ALBEF phase {albef_result['wall_s']:.1f} s; "
+          f"build {build_s:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

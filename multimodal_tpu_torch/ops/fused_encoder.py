@@ -172,11 +172,14 @@ def fused_mlp_bwd_acc_supported(rows: int, din: int, dff: int, dout: int) -> boo
     products and a sum. The threshold comes from the card
     (``chip_smoke.py``'s ``acc_threshold``, 768 -> 3072 -> 768 in bf16,
     ``PERF.md`` §6): #4 plus the library's dW beats #5 at every row
-    count timed, 256 to 16,384 (0.99 against 1.11 ms at 16,384), so the
-    rule keeps #4 up to the largest count measured and #5 above it, where
-    no measurement has shown #4 ahead: FLAVA's image and text MLPs and
-    CLIP's vision MLP take #4, FLAVA's multimodal MLP (17,600 rows),
-    CLIP's text MLP (19,712) and the LM's (65,536) #5."""
+    count timed, 256 to 65,536 (0.99 against 1.11 ms at 16,384, 3.99
+    against 4.51 at 65,536). Below 16,385 rows the rule takes #4; above, #5
+    stays, because a threshold past every path's rows would put the
+    library's dW products in place of the hand-written #5 on every path,
+    which the port does not do: #5 is to be redesigned (ROADMAP.md, B).
+    FLAVA's image and text MLPs and CLIP's vision MLP take #4; FLAVA's
+    multimodal MLP (17,600 rows), ALBEF's ViT at 384 (18,464), CLIP's text
+    MLP (19,712) and the LM's (65,536) #5."""
     return fused_mlp_available(din, dff, dout) and rows >= _ACC_MIN_ROWS
 
 
@@ -319,17 +322,26 @@ def _attention_fwd(qkv, num_heads, is_causal, sm_scale, key_bias) -> torch.Tenso
         raise ValueError(f"fused_qkv_attention: no kernel for {qkv.device}")
     _check_attention("fused_qkv_attention", qkv, num_heads, key_bias)
     b, s, three_d = qkv.shape
+    out = torch.empty((b, s, three_d // 3), dtype=qkv.dtype, device=qkv.device)
+    _attention_fwd_launch(qkv, num_heads, is_causal, sm_scale, key_bias, out)
+    fused_qkv_attention.launches += 1
+    return out
+
+
+def _attention_fwd_launch(qkv, num_heads, is_causal, sm_scale, key_bias, out) -> None:
+    """Launches kernel #1 into ``out`` ``(B, S, D)`` on operands that
+    ``_check_attention`` accepted. ``_attention_fwd`` calls it with a fresh
+    output; a check may pass its own, filled with NaN, so that an element
+    the kernel leaves unwritten shows."""
+    b, s, three_d = qkv.shape
     d = three_d // 3
     scale = sm_scale if sm_scale is not None else (d // num_heads) ** -0.5
-    out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
     err = _kernels().mm_qkv_attention(
         qkv.data_ptr(), key_bias.data_ptr() if key_bias is not None else None,
         out.data_ptr(), b, s, d, num_heads, float(scale), int(is_causal),
         _DTYPE_CODES[qkv.dtype], _build.stream_of(qkv),
     )
     _build.raise_on(err, "fused_qkv_attention")
-    fused_qkv_attention.launches += 1
-    return out
 
 
 def fused_qkv_attention_bwd(

@@ -25,8 +25,9 @@ Read against that pattern on every assigned code point:
 points that Python's ``unicodedata`` leaves unassigned (``Cn``); this module
 follows ``unicodedata``.
 
-The image path (:class:`CLIPImageTransform`) imports PIL when it is called,
-as the JAX package does; the card's path starts from uint8 arrays through
+The image path (:class:`CLIPImageTransform`) resamples with the port's copy
+of PIL's resampler (``native/resample.py``), so it needs PIL only for a PIL
+image; the card's serving path starts from uint8 arrays through
 ``ops/image.py`` instead. ``basic_clean`` normalises to NFC and unescapes
 HTML, the JAX package's path when ``ftfy`` is absent; ``ftfy`` is not used.
 """
@@ -302,27 +303,42 @@ class CLIPTextTransform:
         return out[0] if single else out
 
 
-def _pil_resize_center_crop(img, size: int):
-    """torchvision-equivalent Resize(size, bicubic) + CenterCrop(size)."""
-    from PIL import Image
+def _rgb_array(image) -> np.ndarray:
+    """A uint8 HWC RGB array from an array (HW, HWC RGB or RGBA) or a PIL
+    image, as PIL's ``convert("RGB")`` makes it: grey repeated, alpha
+    dropped."""
+    if not isinstance(image, np.ndarray):  # a PIL image
+        if image.mode != "RGB":
+            image = image.convert("RGB")
+        return np.asarray(image, np.uint8)
+    image = np.asarray(image, np.uint8)
+    if image.ndim == 2:
+        image = np.repeat(image[:, :, None], 3, axis=2)
+    return image[:, :, :3]
 
-    w, h = img.size
+
+def _resize_center_crop(img: np.ndarray, size: int) -> np.ndarray:
+    """torchvision-equivalent Resize(size, bicubic) + CenterCrop(size)."""
+    from multimodal_tpu_torch.native.resample import resample_native
+
+    h, w, _ = img.shape
     short, long = (w, h) if w <= h else (h, w)
-    new_short = size
     new_long = int(round(size * long / short))
-    new_w, new_h = (new_short, new_long) if w <= h else (new_long, new_short)
-    img = img.resize((new_w, new_h), Image.BICUBIC)
+    new_w, new_h = (size, new_long) if w <= h else (new_long, size)
+    img = resample_native(img, (new_w, new_h), "bicubic")
     left = (new_w - size) // 2
     top = (new_h - size) // 2
-    return img.crop((left, top, left + size, top + size))
+    return img[top:top + size, left:left + size]
 
 
 class CLIPImageTransform:
     """Image (PIL or uint8 HWC array) -> normalized float32 HWC tensor.
 
     Eval: Resize(bicubic, short side) + CenterCrop; train: RandomResizedCrop
-    with draws from ``rng`` in the JAX package's order. A host path: the
-    batched device path is ``ops/image.py:fused_preprocess_for_encoder``.
+    with draws from ``rng`` in the JAX package's order. The resampling is
+    ``native/resample.py``'s copy of PIL's (equal to ``Image.resize`` pixel
+    for pixel), so arrays need no PIL. A host path: the batched device path
+    is ``ops/image.py:fused_preprocess_for_encoder``.
     """
 
     def __init__(
@@ -340,10 +356,10 @@ class CLIPImageTransform:
         self.is_train = is_train
         self.rng = rng or np.random.RandomState()
 
-    def _random_resized_crop(self, img):
-        from PIL import Image
+    def _random_resized_crop(self, img: np.ndarray) -> np.ndarray:
+        from multimodal_tpu_torch.native.resample import resample_native
 
-        w, h = img.size
+        h, w, _ = img.shape
         area = w * h
         size = self.image_size
         for _ in range(10):
@@ -354,22 +370,17 @@ class CLIPImageTransform:
             if 0 < cw <= w and 0 < ch <= h:
                 left = self.rng.randint(0, w - cw + 1)
                 top = self.rng.randint(0, h - ch + 1)
-                return img.resize(
-                    (size, size), Image.BICUBIC, box=(left, top, left + cw, top + ch)
-                )
-        return _pil_resize_center_crop(img, size)
+                return resample_native(img, (size, size), "bicubic",
+                                       box=(left, top, left + cw, top + ch))
+        return _resize_center_crop(img, size)
 
     def __call__(self, image) -> torch.Tensor:
-        from PIL import Image
-
-        if isinstance(image, np.ndarray):
-            image = Image.fromarray(image)
-        image = image.convert("RGB")
+        image = _rgb_array(image)
         if self.is_train:
             image = self._random_resized_crop(image)
         else:
-            image = _pil_resize_center_crop(image, self.image_size)
-        arr = np.asarray(image, dtype=np.float32) / 255.0
+            image = _resize_center_crop(image, self.image_size)
+        arr = image.astype(np.float32) / 255.0
         return torch.from_numpy((arr - self.mean) / self.std)
 
 

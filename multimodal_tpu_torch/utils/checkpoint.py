@@ -10,7 +10,9 @@
 ``dalle_state_dict_from_jax`` for its dVAE codebook
 (``multimodal_tpu/models/flava/dalle_vae.py``) and
 ``clip_resnet_state_dict_from_jax`` for the ``clip_rn*`` models, the inverse
-of ``multimodal_tpu/utils/checkpoint.py:clip_resnet_params_from_torch``.
+of ``multimodal_tpu/utils/checkpoint.py:clip_resnet_params_from_torch``, and
+``albef_state_dict_from_jax`` for ALBEF (``ALBEFModelWithSimilarity``,
+``ALBEFModelForRetrieval``, ``ALBEFModelForVQA``).
 Layouts:
 
 - ``nn.Dense`` kernels are ``(in, out)``; ``nn.Linear`` weights ``(out, in)``;
@@ -196,3 +198,10 @@ def flava_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         sd.update({f"image_codebook.{k}": v
                    for k, v in dalle_state_dict_from_jax(p["image_codebook"]).items()})
     return sd
+
+
+# JAX ALBEF parameter trees (``ALBEFModelWithSimilarity``,
+# ``ALBEFModelForRetrieval``, ``ALBEFModelForVQA``, or a momentum tree onto
+# the momentum copy's buffers) need nothing past the path map: dense kernels
+# transposed, the patchify convolution HWIO -> OIHW.
+albef_state_dict_from_jax = state_dict_from_jax_tree

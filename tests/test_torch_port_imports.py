@@ -188,8 +188,7 @@ def test_cpu_flava_training_launches_no_kernel():
 
 HOST_ONLY = {"regex", "PIL", "ftfy", "datasets"}  # absent on the card's machine
 # modules that import PIL or HF datasets inside the functions that need them
-LAZY = {"PIL": {"multimodal_tpu_torch/transforms/clip_transform.py",
-                "multimodal_tpu_torch/data/datamodules.py",
+LAZY = {"PIL": {"multimodal_tpu_torch/data/datamodules.py",
                 "multimodal_tpu_torch/data/webdataset.py"},
         "datasets": {"multimodal_tpu_torch/data/datasets.py"}}
 BPE_PATH = ROOT / "tests" / "assets" / "clip_merges.bpe"
@@ -219,8 +218,8 @@ def test_every_module_imports_and_tokenizes_without_regex_pil_ftfy():
 
 def test_no_host_only_imports_at_module_level():
     """regex and ftfy appear nowhere in the port; PIL only inside the
-    functions of transforms/clip_transform.py's image path and of the data
-    modules' image-file decoding, HF datasets only inside
+    functions of the data modules' image-file decoding, HF datasets only
+    inside
     data/datasets.py's arrow and hub loaders."""
     offenders = []
     for f in sorted((ROOT / "multimodal_tpu_torch").rglob("*.py")):
@@ -298,3 +297,89 @@ def test_flava_data_path_runs_without_pil_or_datasets(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "('image_for_codebook', (2, 32, 32, 3))" in proc.stdout
     assert "('image_patches_mask', (2, 4, 4))" in proc.stdout
+
+
+ALBEF_TINY = dict(hidden=64, ff=128, heads=2, layers=1, vocab=50)
+
+
+def _albef_tiny():
+    from multimodal_tpu_torch.examples.albef.model import ALBEFModelForRetrieval
+    from multimodal_tpu_torch.models.albef.image_encoder import ALBEFVisionEncoder
+    from multimodal_tpu_torch.models.albef.model import ALBEFModel, ALBEFModelWithSimilarity
+    from multimodal_tpu_torch.models.albef.multimodal_encoder import ALBEFMultimodalEncoder
+    from multimodal_tpu_torch.modules.encoders.bert_text_encoder import bert_text_encoder
+
+    t = ALBEF_TINY
+    albef = ALBEFModel(
+        ALBEFVisionEncoder(image_size=32, patch_size=8, num_hidden_layers=t["layers"],
+                           num_attention_heads=t["heads"], hidden_size=t["hidden"],
+                           mlp_dim=t["ff"]),
+        bert_text_encoder(hidden_size=t["hidden"], num_hidden_layers=t["layers"],
+                          num_attention_heads=t["heads"], intermediate_size=t["ff"],
+                          dropout=0.0, vocab_size=t["vocab"], max_position_embeddings=16),
+        ALBEFMultimodalEncoder(hidden_size=t["hidden"], num_hidden_layers=t["layers"],
+                               num_attention_heads=t["heads"], intermediate_size=t["ff"]))
+    sim = ALBEFModelWithSimilarity(albef, torch.nn.Linear(t["hidden"], 8),
+                                   torch.nn.Linear(t["hidden"], 8), embed_size=8, queue_size=8)
+    return ALBEFModelForRetrieval(sim, hidden_size=t["hidden"])
+
+
+def test_albef_entry_points_raise_without_cuda(monkeypatch):
+    """The ALBEF constructors of state (the queues, the momentum copy)
+    default to CUDA and raise without it."""
+    from multimodal_tpu_torch.models.albef.model import init_albef_queues
+    from multimodal_tpu_torch.utils.common import momentum_copy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_albef_queues(8, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        momentum_copy(torch.nn.Linear(2, 2))
+
+
+def test_cpu_albef_retrieval_step_launches_no_kernel():
+    """An ALBEF retrieval step on the CPU at widths the fused kernels take
+    (text S = 8 with padding, image S = 17): the plain versions run, no
+    kernel; gradients reach every parameter of the trained model."""
+    from multimodal_tpu_torch.examples.albef.model import albef_retrieval_train_step
+    from multimodal_tpu_torch.models.albef.model import init_albef_queues
+    from multimodal_tpu_torch.utils.common import momentum_copy
+
+    fe.reset_launch_counts()
+    fa.reset_launch_counts()
+    torch.manual_seed(0)
+    model = _albef_tiny()
+    model_m = momentum_copy(model.model_with_similarity, device="cpu")
+    queues = init_albef_queues(8, 8, device="cpu")
+    r = np.random.RandomState(0)
+    atts = np.ones((4, 8), np.int64)
+    atts[1, 5:] = 0
+    text = torch.from_numpy(r.randint(1, 50, (4, 8)) * atts)
+    loss = albef_retrieval_train_step(
+        model, model_m, queues, torch.from_numpy(r.randn(4, 32, 32, 3).astype(np.float32)),
+        text, torch.from_numpy(atts), torch.arange(4), torch.Generator().manual_seed(0))
+    loss.backward()
+    assert torch.isfinite(loss) and int(queues.queue_ptr) == 4
+    assert all(p.grad is not None for p in model.parameters())
+    for counter in (fe.fused_qkv_attention, fe.fused_qkv_attention_bwd, fe.fused_mlp,
+                    fe.fused_mlp_bwd, fe.fused_mlp_bwd_acc, fa.flash_attention_forward,
+                    fa.flash_attention_bwd):
+        assert counter.launches == 0
+
+
+def test_clip_image_transform_runs_without_pil(tmp_path):
+    """With PIL blocked (the card's machine has none), the CLIP image
+    transform takes uint8 arrays through the port's resampler, train and
+    eval."""
+    blocked = "; ".join(f"sys.modules[{name!r}] = None" for name in sorted(HOST_ONLY))
+    code = (f"import sys; {blocked}\n"
+            "import numpy as np\n"
+            "from multimodal_tpu_torch.transforms.clip_transform import CLIPImageTransform\n"
+            "im = np.random.RandomState(0).randint(0, 256, (50, 40, 3)).astype(np.uint8)\n"
+            "for train in (False, True):\n"
+            "    t = CLIPImageTransform(24, is_train=train, rng=np.random.RandomState(1))\n"
+            "    print(tuple(t(im).shape))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[:2] == ["(24, 24, 3)", "(24, 24, 3)"]
