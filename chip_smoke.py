@@ -159,7 +159,40 @@ in order (any failure exits non-zero):
    steps at batch 32 from ``VQADataModule`` (up to 10 answers of 10 tokens
    a question, weighted; only each question's real answers decoded): exact
    launches, questions/s;
-12. a ``kernels`` JSON line, the card line, and the result line
+12. CoCa ViT-L/14 pretraining and captioning at the published widths
+   (``coca_vit_l_14``: a 24-layer ViT-L/14 at 224 without a CLS token, 256
+   tokens; the cascaded attention pooler, 256 queries then 1, 8 heads of
+   96; a 12-layer text decoder of 77 positions and 12 fusion layers, 768
+   wide, vocab 49,408; fp32 parameters, bf16 compute, random weights from a
+   seed): the contrastive embeddings and captioning logits at batch 4 and
+   ``CoCaForPretraining``'s gradients at 2 pairs against fp32 on the CPU
+   (cosines >= 0.999 and >= 0.99), exact launches; 2 warm-up and 5 timed
+   steps at batch 32 through the ``Trainer`` (AdamW) on seeded batches
+   with seeded text lengths and padding: exact launches a step of #1, #2,
+   #3, #4, #6 and the flash backward derived from the dispatch predicates
+   (#5 and #9 none), finite losses, items/s, ms a step, peak memory, one
+   step's device time by kernel group and the idle share; then
+   ``CoCaCaptionServer`` over a bf16 copy: 64 seeded images encoded, then
+   captioned from the start token for 75 tokens on 32 slots with the int8
+   cache, half greedy, half top-k 50 at temperature 1: every request at its
+   length, exact #10 and #3 launches a tick, 2 served captions'
+   teacher-forced logits through the int8 cache against fp32 on the CPU
+   (cosine >= 0.99), captions/s, decode tokens/s, host and device ms a
+   tick, TTFT p50 and one decode call's device time by kernel group;
+13. BLIP-2 stage 1 at the published widths (the port's ViT-L/14 image tower,
+   23 layers, 257 tokens, frozen; ``QformerForCLM``, 12 layers, 768 wide,
+   cross-attention every 2nd layer to 1024, 32 queries, vocab 30,523; fp32
+   parameters, bf16 compute, random weights from a seed): the features and
+   prediction scores at batch 4 and ``blip2_phase1_loss``'s gradients at 2
+   pairs (the card's hard negatives replayed on the CPU) against fp32 on
+   the CPU, no gradient in the tower; 2 warm-up and 5 timed steps at batch
+   128 (AdamW, betas 0.9 / 0.98, weight decay 0.05) with exact launches,
+   items/s, ms a step, peak memory, a step's device time by group and the
+   idle share; then ``Blip2CaptionServer`` over a bf16 copy: 64 images
+   primed, captioned from BOS for 31 tokens on 32 slots with the int8
+   cache, half greedy and half sampled, with the same checks and rates as
+   CoCa's (#10 and #3 12 times a tick and a prefill call);
+14. a ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 checks the MLP forward (#3) at the CLIP, LM (prefill, train step,
@@ -211,7 +244,15 @@ counts above 16,384: ALBEF's 18,464, CLIP text's 19,712, ViT-B/16's 50,432,
 the LM's 65,536; the train phases' expected launches of #4 and #5 follow
 that predicate), #5 also at ALBEF's 18,464 rows; and times #6 against the
 plain path at ALBEF's cross-attention shape, forward and forward +
-backward.
+backward. CoCa's and BLIP-2's shapes: #1 and #2 at (32, 256, 3 x 1024),
+16 heads; #6 and the flash backward on the bias route at CoCa's text
+decoder (32, 12, 77, 77, 64) with its causal-and-padding mask, its fusion
+self-attention (32, 12, 76, 76, 64) causal-masked and BLIP-2's captioning
+pass (128, 12, 32, 64, 64) with the -10000 mask, at head width 96 (the
+pooler, (32, 8, 256, 256, 96)), at the cross-attentions (32, 12, 76, 256,
+64) and (128, 12, 32, 257, 64), #6 at BLIP-2's tower (128, 16, 257, 257,
+64), and #10 over the caption caches (33 x 12 heads over 76 and 64
+positions), each relaunched into NaN-filled outputs and timed as above.
 ``--kernels-only`` stops after phase 2 and prints no result line;
 ``--planted-faults`` only builds copies of #2, #6, the flash backward, #4,
 #5, #3 and #10 with known faults (``PLANTED_FAULTS``) and shows that the
@@ -348,6 +389,13 @@ def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def slice_gen(dtype: torch.dtype) -> torch.Generator:
+    """The generator of the caption slice's phase-2 cases in ``dtype``:
+    apart from the earlier cases' generators, whose inputs stay those of
+    the runs their readings come from."""
+    return torch.Generator(device="cuda").manual_seed(14 if dtype == torch.bfloat16 else 15)
 
 
 def reps_for(ms_guess: float) -> int:
@@ -579,6 +627,9 @@ ATTENTION_BWD_CASES = [
     ("head_width_128_seq_181", 8, 181, 512, 4, True, True),
     ("albef_text", 32, 30, 768, 12, False, True),
 ]
+# CoCa ViT-L/14's vision tower at the train batch, on generators of
+# its own (``slice_gen``): the cases above keep their inputs
+CAPTION_ATTENTION_BWD_CASES = [("coca_vit_l14", 32, 256, 1024, 16, False, False)]
 
 
 def check_attention_bwd_kernel(fe, dtypes=(torch.bfloat16, torch.float32), timing=True):
@@ -586,11 +637,14 @@ def check_attention_bwd_kernel(fe, dtypes=(torch.bfloat16, torch.float32), timin
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
     for dtype in dtypes:
-        for name, b, s, d, h, causal, kb in ATTENTION_BWD_CASES:
-            row = attention_bwd_case(fe, name, b, s, d, h, causal, dtype, kb, gen, timing=timing)
-            print("kernel_check " + json.dumps(row), flush=True)
-            rows.append(row)
-            torch.cuda.empty_cache()
+        for cases, g in ((ATTENTION_BWD_CASES, gen), (CAPTION_ATTENTION_BWD_CASES,
+                                                      slice_gen(dtype))):
+            for name, b, s, d, h, causal, kb in cases:
+                row = attention_bwd_case(fe, name, b, s, d, h, causal, dtype, kb, g,
+                                         timing=timing)
+                print("kernel_check " + json.dumps(row), flush=True)
+                rows.append(row)
+                torch.cuda.empty_cache()
     return rows
 
 
@@ -875,6 +929,63 @@ def _segments(b, s, gen):
     return ids.to(torch.int32)[None].expand(b, s).contiguous()
 
 
+def _key_lengths(b, s, gen, lo):
+    """(b,) seeded lengths of the real tokens of padded text rows in
+    [lo, s], the first row full."""
+    n = torch.randint(lo, s + 1, (b,), device="cuda", generator=gen)
+    n[0] = s
+    return n
+
+
+MASK_BIASES = ("causal_mask", "coca_text", "qformer_itg")
+
+
+def make_bias(kind, b, h, sq, sk, gen):
+    """The additive float bias of a case, as the path hands it to #6:
+    "1h1k" an ALiBi-style per-head key ramp; "b1qk" a dense random (B, 1,
+    Sq, Sk); the masks, 0 where a pair attends: "causal_mask" CoCa's fusion
+    self-attention's (1, 1, S, S) causal bool, "coca_text" its text
+    decoder's (B, 1, S, S) causal AND key padding with the last (CLS) key
+    always open, both as the dispatch turns a bool mask into a bias (-1e30
+    elsewhere); "qformer_itg" the Q-Former's captioning pass, (B, 1, Sq, Sk)
+    over Sk - Sq cached query rows all open, then causal text with key
+    padding, as ``(1 - mask) * -10000``."""
+    if kind is None:
+        return None
+    if kind == "1h1k":
+        return -0.05 * torch.rand(1, h, 1, 1, device="cuda", generator=gen) * torch.arange(
+            sk, device="cuda")[None, None, None, :]
+    if kind == "b1qk":
+        return torch.randn(b, 1, sq, sk, device="cuda", generator=gen)
+    causal = torch.ones(sq, sq, dtype=torch.bool, device="cuda").tril()
+    if kind == "causal_mask":
+        return torch.where(causal, 0.0, -1e30)[None, None]
+    if kind == "coca_text":
+        keys = torch.arange(sk, device="cuda")[None, :] < _key_lengths(b, sk - 1, gen, 6)[:, None]
+        keys[:, -1] = True
+        return torch.where(causal[None] & keys[:, None, :], 0.0, -1e30)[:, None]
+    if kind == "qformer_itg":
+        prefix = sk - sq
+        keys = (torch.arange(sq, device="cuda")[None, :]
+                < _key_lengths(b, sq, gen, 4)[:, None]).float()
+        m = torch.cat([torch.ones(sq, prefix, device="cuda"), causal.float()], dim=1)
+        m = m[None] * torch.cat([torch.ones(b, prefix, device="cuda"), keys], dim=1)[:, None, :]
+        return ((1.0 - m) * -10000.0)[:, None]
+    raise ValueError(f"unknown bias kind {kind!r}")
+
+
+def _visible_pairs(bias, causal, b, sq, sk, h):
+    """(query, key) pairs a case's function needs: the causal or mask
+    pattern's open pairs over every batch row and head."""
+    visible = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+    if causal:
+        visible = visible.tril(sk - sq)
+    visible = visible[None, None].expand(b, 1, sq, sk)
+    if bias is not None:
+        visible = visible & (bias > -1e3).expand(b, 1, sq, sk)
+    return int(visible.sum().item()) * h
+
+
 def flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
                segments=False, lse=False, timing=True):
     """Kernel #6 against its plain version (a batch row at a time where the
@@ -886,12 +997,7 @@ def flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
     is top-left aligned)."""
     q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen).to(dtype)
                for s in (sq, sk, sk))
-    bias = None
-    if bias_kind == "1h1k":  # ALiBi-style per-head key ramp
-        bias = -0.05 * torch.rand(1, h, 1, 1, device="cuda", generator=gen) * torch.arange(
-            sk, device="cuda")[None, None, None, :]
-    elif bias_kind == "b1qk":
-        bias = torch.randn(b, 1, sq, sk, device="cuda", generator=gen)
+    bias = make_bias(bias_kind, b, h, sq, sk, gen)
     qseg = kvseg = None
     if segments:
         qseg = kvseg = _segments(b, sq, gen)
@@ -943,6 +1049,8 @@ def flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
         visible = visible[None, None].expand(b, 1, sq, sk)
         if segments:
             visible = visible & (qseg[:, None, :, None] == kvseg[:, None, None, :])
+        if bias_kind in MASK_BIASES:  # the work a mask leaves
+            visible = visible & (bias > -1e3).expand(b, 1, sq, sk)
         pairs = int(visible.sum().item()) * h
         lib_mask = None
         if bias is not None or segments or (causal and sq != sk):
@@ -1066,6 +1174,13 @@ QCA_CASES = [
     ("len_32768", 4, 12, 12, 1, 32768, 64, {"lo": 4000, "hi": 32000, "bf16_only": True}),
     ("row_sees_nothing", 4, 4, 4, 2, 1024, 64, {"lo": 100, "hi": 800, "blind": True}),
 ]
+CAPTION_QCA_CASES = [
+    # the caption servers' ticks (their own generators): 32 slots and the
+    # trash row over CoCa's 76 positions and BLIP-2's 32 query rows + 32
+    # text positions
+    ("coca_caption_76", 33, 12, 12, 1, 76, 64, {"lo": 1, "hi": 75}),
+    ("blip2_caption_64", 33, 12, 12, 1, 64, 64, {"lo": 32, "hi": 63}),
+]
 
 
 def check_qca_kernel(qa, kv, dtypes=(torch.bfloat16, torch.float32), timing=True):
@@ -1073,14 +1188,16 @@ def check_qca_kernel(qa, kv, dtypes=(torch.bfloat16, torch.float32), timing=True
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for dtype in dtypes:
-        for name, b, hq, hkv, s, length, d, kw in QCA_CASES:
-            kw = dict(kw)
-            if kw.pop("bf16_only", False) and dtype != torch.bfloat16:
-                continue
-            row = qca_case(qa, kv, name, b, hq, hkv, s, length, d, dtype, gen, timing=timing, **kw)
-            print("kernel_check " + json.dumps(row), flush=True)
-            rows.append(row)
-            torch.cuda.empty_cache()
+        for cases, g in ((QCA_CASES, gen), (CAPTION_QCA_CASES, slice_gen(dtype))):
+            for name, b, hq, hkv, s, length, d, kw in cases:
+                kw = dict(kw)
+                if kw.pop("bf16_only", False) and dtype != torch.bfloat16:
+                    continue
+                row = qca_case(qa, kv, name, b, hq, hkv, s, length, d, dtype, g, timing=timing,
+                               **kw)
+                print("kernel_check " + json.dumps(row), flush=True)
+                rows.append(row)
+                torch.cuda.empty_cache()
     return rows
 
 
@@ -1160,6 +1277,24 @@ FLASH_CASES = [
     ("albef_vit_257", 2, 12, 257, 257, 64, False, {"lse": True}),
     ("albef_cross_30x577", 32, 12, 30, 577, 64, False, {}),
 ]
+# The caption slice's cases, on generators of their own (``slice_gen``), so
+# the cases above keep their inputs. CoCa ViT-L/14 at the train batch: the
+# text decoder's causal-and-padding mask and the fusion layers' causal mask
+# on the bias lane (mma.sync), the fusion cross-attention (76 text queries
+# over the 256 pooled image tokens) and the attention pooler (256 queries, 8
+# heads of 96: the FP32-pipe route); BLIP-2 at the train batch: the frozen
+# tower (257 tokens, 16 heads), the Q-Former's cross-attention (32 queries
+# over the 257 image tokens) and its captioning pass (32 text queries over 32
+# cached query rows and the text, the -10000 mask bias).
+CAPTION_FLASH_CASES = [
+    ("coca_text_77", 32, 12, 77, 77, 64, False, {"bias_kind": "coca_text", "lse": True}),
+    ("coca_fusion_76", 32, 12, 76, 76, 64, False, {"bias_kind": "causal_mask"}),
+    ("coca_cross_76x256", 32, 12, 76, 256, 64, False, {}),
+    ("coca_pooler_d96", 32, 8, 256, 256, 96, False, {"lse": True}),
+    ("blip2_vit_257", 128, 16, 257, 257, 64, False, {}),
+    ("qformer_cross_32x257", 128, 12, 32, 257, 64, False, {}),
+    ("blip2_itg_32x64", 128, 12, 32, 64, 64, False, {"bias_kind": "qformer_itg"}),
+]
 
 
 def check_flash_fwd_kernel(fa, dtypes=(torch.bfloat16, torch.float32), timing=True):
@@ -1168,13 +1303,15 @@ def check_flash_fwd_kernel(fa, dtypes=(torch.bfloat16, torch.float32), timing=Tr
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for dtype in dtypes:
-        for name, b, h, sq, sk, d, causal, kw in FLASH_CASES:
-            if name.startswith("train") and dtype != torch.bfloat16:
-                continue
-            row = flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, timing=timing, **kw)
-            print("kernel_check " + json.dumps(row), flush=True)
-            rows.append(row)
-            torch.cuda.empty_cache()
+        for cases, g in ((FLASH_CASES, gen), (CAPTION_FLASH_CASES, slice_gen(dtype))):
+            for name, b, h, sq, sk, d, causal, kw in cases:
+                if name.startswith("train") and dtype != torch.bfloat16:
+                    continue
+                row = flash_case(fa, name, b, h, sq, sk, d, causal, dtype, g, timing=timing,
+                                 **kw)
+                print("kernel_check " + json.dumps(row), flush=True)
+                rows.append(row)
+                torch.cuda.empty_cache()
     return rows
 
 
@@ -1212,12 +1349,7 @@ def _bwd_inputs(b, h, sq, sk, d, dtype, gen, bias_kind, segments):
     q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen).to(dtype)
                for s in (sq, sk, sk))
     do = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype).transpose(1, 2)
-    bias = None
-    if bias_kind == "1h1k":  # ALiBi-style per-head key ramp
-        bias = -0.05 * torch.rand(1, h, 1, 1, device="cuda", generator=gen) * torch.arange(
-            sk, device="cuda")[None, None, None, :]
-    elif bias_kind == "b1qk":
-        bias = torch.randn(b, 1, sq, sk, device="cuda", generator=gen)
+    bias = make_bias(bias_kind, b, h, sq, sk, gen)
     seg = _segments(b, sq, gen) if segments else None
     return q, k, v, do, bias, seg
 
@@ -1263,9 +1395,10 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
     with NaN first: dk and dv must come back bitwise equal to the first
     call's (no element left unwritten, no workspace read before its
     zero-fill), dq within its bar (its sum over key blocks has no fixed
-    order on the one-pass route). With ``timing`` (no bias, no segments)
-    the call is timed beside the plain backward, the SDPA backward (dq, dk
-    and dv in one call) and the bound of :func:`flash_bwd_timing`."""
+    order on the one-pass route). With ``timing`` (no segments, no bias
+    gradient) the call is timed beside the plain backward, the SDPA
+    backward (dq, dk and dv in one call, the bias as its mask) and the bound
+    of :func:`flash_bwd_timing`."""
     q, k, v, do, bias, seg = _bwd_inputs(b, h, sq, sk, d, dtype, gen, bias_kind, segments)
     kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
     relaunch = {}
@@ -1313,38 +1446,43 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
         extra = dict(deterministic=relaunch["same"], relaunch_dq_rel_err=rel_dq)
         ok = ok and relaunch["same"] and rel_dq <= tol["dq"]
     if timing:
-        extra.update(bwd_case_timing(fa, q, k, v, do, causal))
+        extra.update(bwd_case_timing(fa, q, k, v, do, causal, bias))
     return dict(kernel="flash_attention_bwd", case=name, shape=[b, h, sq, sk, d], causal=causal,
                 bias=bias_kind, segments=segments, dbias=dbias, lse_cotangent=lse_cot,
                 dtype=str(dtype).replace("torch.", ""), rel_err=rel, max_abs_err=err, tol=tol,
                 rel_err_no_terms=no_terms, **extra, ok=ok)
 
 
-def bwd_case_timing(fa, q, k, v, do, causal):
+def bwd_case_timing(fa, q, k, v, do, causal, bias=None):
     """``flash_attention_bwd``'s ms at these inputs beside the plain
-    backward's, the SDPA backward's (dq, dk and dv in one call) and the
-    bound: five products over the visible pairs, or q, k, v, do, lse and
-    delta read once and dq, dk, dv written once."""
+    backward's, the SDPA backward's (dq, dk and dv in one call; a bias goes
+    in as its float mask, not differentiated) and the bound: five products
+    over the visible pairs (a mask bias's open ones), or q, k, v, do, lse,
+    delta and the bias read once and dq, dk, dv written once."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     with torch.no_grad():
-        out, lse = fa.flash_attention_forward(q, k, v, causal=causal, return_lse=True)
+        out, lse = fa.flash_attention_forward(q, k, v, bias, causal=causal, return_lse=True)
         delta = fa._delta(out, do, None)
-        call = lambda: fa.flash_attention_bwd(q, k, v, do, lse, delta, causal=causal)  # noqa: E731
+        call = lambda: fa.flash_attention_bwd(q, k, v, do, lse, delta, bias,  # noqa: E731
+                                              causal=causal)
         kernel_ms = time_ms(call, 1, warmup=1)
         kernel_ms = time_ms(call, reps_for(kernel_ms), warmup=1)
-        plain_ms = time_ms(lambda: fa._bwd_plain_parts(q, k, v, do, lse, delta, None, causal,
+        plain_ms = time_ms(lambda: fa._bwd_plain_parts(q, k, v, do, lse, delta, bias, causal,
                                                         None, None, None, ("dq", "dk", "dv")),
                            2, warmup=1)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal and sq == sk)
+    lib_mask = None if bias is None else bias.to(q.dtype)
+    o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=lib_mask,
+                                       is_causal=causal and sq == sk and bias is None)
     lib_ms = time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True),
                      reps_for(kernel_ms))
-    del o, out, lse, delta
-    visible = sq * sk if not causal else sum(min(sk, max(0, i + 1 + sk - sq)) for i in range(sq))
-    pairs = b * h * visible
+    del o, out, lse, delta, lib_mask
+    mask = bias if bias is not None and float(bias.min()) <= -1e3 else None
+    pairs = _visible_pairs(mask, causal, b, sq, sk, h)
     es = q.element_size()
     nbytes = (3 * q.numel() + 4 * k.numel()) * es + 2 * b * h * sq * 4
+    nbytes += 0 if bias is None else bias.numel() * 4
     bms, by = bound_ms(nbytes, 10.0 * d * pairs, q.dtype)
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
                 tflops=10.0 * d * pairs / kernel_ms / 1e9,
@@ -1382,6 +1520,19 @@ def check_bwd_kernels(fa, dtypes=(torch.bfloat16, torch.float32)):
                                     gen, timing=dtype == torch.bfloat16))
         cases.append(flash_bwd_case(fa, "albef_vit_257", 2, 12, 257, 257, 64, False, dtype,
                                     gen, timing=dtype == torch.bfloat16))
+        # CoCa's and BLIP-2's trained attention: the mask biases (not
+        # differentiated: no #9), the pooler at head width 96, the
+        # cross-attentions; on a generator of their own
+        g = slice_gen(dtype)
+        for name, b, h, sq, sk, d, kind in (
+                ("coca_text_77", 32, 12, 77, 77, 64, "coca_text"),
+                ("coca_fusion_76", 32, 12, 76, 76, 64, "causal_mask"),
+                ("coca_cross_76x256", 32, 12, 76, 256, 64, None),
+                ("coca_pooler_d96", 32, 8, 256, 256, 96, None),
+                ("qformer_cross_32x257", 128, 12, 32, 257, 64, None),
+                ("blip2_itg_32x64", 128, 12, 32, 64, 64, "qformer_itg")):
+            cases.append(flash_bwd_case(fa, name, b, h, sq, sk, d, False, dtype, g,
+                                        bias_kind=kind, timing=dtype == torch.bfloat16))
     print("kernel_check tolerance #7-#9: row_relative_error with the terms, by the output's "
           "dtype (ds is fp32 in every case), within " + json.dumps(
               {str(k).replace("torch.", ""): v for k, v in ROW_RELATIVE_BAR_BWD.items()}),
@@ -1496,6 +1647,10 @@ def check_kernels(fe):
         # ALBEF's BERT text tower at the train batch, with its padding bias
         cases.append(attention_case(fe, "albef_text", ALBEF_BATCH, ALBEF_TEXT, 768, 12, False,
                                     dtype, True, gen))
+        # CoCa ViT-L/14's vision tower at the train batch: 256 tokens, no
+        # CLS; on a generator of its own, so the cases above keep their inputs
+        cases.append(attention_case(fe, "coca_vit_l14", COCA_BATCH, 256, 1024, 16, False, dtype,
+                                    False, slice_gen(dtype)))
     print("kernel_check tolerance: " + " ".join(tolerance.__doc__.split()), flush=True)
     for c in cases:
         print("kernel_check " + json.dumps(c), flush=True)
@@ -3660,8 +3815,8 @@ def albef_feature_cosines(model, ref, features) -> dict:
 
 def albef_grad_cosine(model, ref, step):
     """The card's gradients of ``step(model, device)`` against the fp32 CPU
-    ``ref``'s (the same weights): the concatenated cosine, the lowest
-    tensor's and both losses."""
+    ``ref``'s (the same weights), over the parameters that take one: the
+    concatenated cosine, the lowest tensor's and both losses."""
     model.zero_grad(set_to_none=True)
     loss = step(model, "cuda")
     loss.backward()
@@ -3672,6 +3827,8 @@ def albef_grad_cosine(model, ref, step):
     dots = sq_a = sq_b = 0.0
     worst = (2.0, "")
     for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
         a = p.grad.double().cpu().flatten()
         b = ref_grads[name].grad.double().flatten()
         dots += float(a @ b)
@@ -4034,6 +4191,631 @@ def _albef(fe, fa, attn, card, root, phase_t0):
     return paths_out, result
 
 
+# --------------------------------------------------------------------------
+# phases 12 and 13: CoCa ViT-L/14 and BLIP-2 stage 1, training and captioning
+# --------------------------------------------------------------------------
+
+COCA_BATCH = 32  # CoCa's 65,536 over 2,048 chips (Yu et al. 2022, arXiv:2205.01917)
+COCA_SEQ = 256  # ViT-L/14 at 224 without a CLS token
+COCA_TEXT = 77  # the position table: 76 tokens and the CLS token
+COCA_VOCAB = 49408
+CAPTION_IMAGES = 64
+CAPTION_SLOTS = 32
+CAPTION_COSINE = 0.999
+SOT = 49406
+# the depth of coca_vit_l_14 and of BLIP-2's towers; a CPU dry run of a
+# phase shrinks these, never the widths
+COCA_DEPTH = dict(vision_n_layer=24, text_n_layer=12, fusion_n_layer=12)
+BLIP2_BATCH = 128  # the paper's 2,320 for ViT-L over 16 A100s is 145 a GPU (arXiv:2301.12597)
+BLIP2_SEQ = 257  # CLIP ViT-L/14 at 224 with its CLS token
+BLIP2_TEXT, BLIP2_QUERIES, BLIP2_VOCAB, BLIP2_BOS = 32, 32, 30523, 30522
+BLIP2_DEPTH = dict(vit_layers=23, qformer_layers=12)  # BLIP-2 drops the ViT's last layer
+
+
+def flash_pair(attn, sq, sk):
+    return sq >= attn.FLASH_MIN_SEQ and sk >= attn.FLASH_MIN_SEQ
+
+
+def path_counts(fe, fa, qa) -> dict:
+    return {"fused_qkv_attention": fe.fused_qkv_attention.launches,
+            "fused_qkv_attention_bwd": fe.fused_qkv_attention_bwd.launches,
+            "fused_mlp": fe.fused_mlp.launches, **mlp_bwd_launches(fe),
+            "flash_attention": fa.flash_attention_forward.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches,
+            "flash_attention_bwd_dbias": fa.flash_attention_bwd_dbias.launches,
+            "quantized_cache_attention": qa.quantized_cache_attention.launches}
+
+
+def reset_counts(fe, fa, qa) -> None:
+    fe.reset_launch_counts()
+    fa.reset_launch_counts()
+    qa.reset_launch_counts()
+
+
+def expect(label: str, got: dict, want: dict) -> None:
+    want = {k: want.get(k, 0) for k in got}
+    print(f"{label}: launches {json.dumps(got)}", flush=True)
+    if got != want:
+        fail(f"{label}: launches {got}, want {want}")
+
+
+def coca_launches(fe, attn, batch: int, train: bool = True) -> dict:
+    """One CoCa forward's launches (and its backward's with ``train``),
+    derived from the dispatch predicates: the vision tower (256 tokens, #1
+    by ``fused_attention_supported``), the pooler (256 queries over 256
+    tokens, then 1 query), the text decoder (77 tokens under the dense mask)
+    and the fusion layers (76 tokens causal-masked, cross-attending 256);
+    the MLP backward by ``fused_mlp_bwd_acc_supported``."""
+    nv, nt, nf = (COCA_DEPTH[k] for k in ("vision_n_layer", "text_n_layer", "fusion_n_layer"))
+    fused = fe.fused_attention_supported(COCA_SEQ, 1024, 16)
+    flash = (nv * int(not fused and flash_pair(attn, COCA_SEQ, COCA_SEQ))
+             + nt * flash_pair(attn, COCA_TEXT, COCA_TEXT)
+             + nf * (flash_pair(attn, COCA_TEXT - 1, COCA_TEXT - 1)
+                     + flash_pair(attn, COCA_TEXT - 1, COCA_SEQ))
+             + flash_pair(attn, COCA_SEQ, COCA_SEQ) + flash_pair(attn, 1, COCA_SEQ))
+    out = {"fused_qkv_attention": nv * fused, "fused_mlp": nv + nt + nf,
+           "flash_attention": flash}
+    if train:
+        out.update(fused_qkv_attention_bwd=nv * fused, flash_attention_bwd=flash)
+        out.update(mlp_bwd_routes(fe, [(batch * COCA_SEQ, 1024, 4096, 1024, nv),
+                                       (batch * COCA_TEXT, 768, 3072, 768, nt),
+                                       (batch * (COCA_TEXT - 1), 768, 3072, 768, nf)]))
+    return out
+
+
+def coca_batch(rng, b: int):
+    """(images (b, 224, 224, 3) fp32 normal, ids (b, 77) CLIP-style with
+    seeded lengths and zero padding)."""
+    return (torch.from_numpy(rng.standard_normal((b, 224, 224, 3), dtype=np.float32)),
+            torch.from_numpy(token_ids(rng, b)))
+
+
+def cpu_copy(model_fn, module):
+    """An fp32 copy of ``module`` on the CPU, built on the meta device by
+    ``model_fn(device)`` and filled from ``module``'s state (no second
+    random draw)."""
+    ref = model_fn("meta").to_empty(device="cpu")
+    ref.load_state_dict({k: v.detach().float().cpu() for k, v in module.state_dict().items()})
+    return ref.float().eval()
+
+
+def min_cosines(got: dict, want: dict) -> dict:
+    return {k: float(cosine_rows(got[k].float().reshape(-1, got[k].shape[-1]).cpu().numpy(),
+                                 want[k].float().reshape(-1, want[k].shape[-1]).numpy()).min())
+            for k in got}
+
+
+def caption_logits(adapter, seq, device, length, geom, conditioning=None, prefix=None):
+    """The logits of every position of ``seq`` decoded one token at a time
+    over a one-row int8 cache, as the engine's decode ticks run: the cache
+    seeded with ``prefix`` rows (BLIP-2's query keys and values) when given,
+    the adapter fed ``conditioning`` (CoCa's image tokens) when given."""
+    from multimodal_tpu_torch.ops.kv_cache import QuantizedKV, quantized_kv_zeros
+    from multimodal_tpu_torch.serving.engine import _kv_rows_like
+
+    n_layer, n_head, head_dim = geom
+    shape = (1, n_head, length, head_dim)
+    cache = []
+    for li in range(n_layer):
+        pair = []
+        for i in range(2):
+            c = quantized_kv_zeros(shape, device)
+            if prefix is not None:
+                rows = _kv_rows_like(c, 1, prefix[li][i][None].to(device).float(),
+                                     prefix[li][i].shape[-2])
+                c = QuantizedKV(rows.q, rows.scale)
+            pair.append(c)
+        cache.append(tuple(pair))
+    plen = 0 if prefix is None else prefix[0][0].shape[-2]
+    kw = {} if conditioning is None else {"conditioning": conditioning[None].to(device)}
+    ar = torch.arange(length, device=device)
+    rows = []
+    with torch.inference_mode():
+        for t, tok in enumerate(seq):
+            pos = torch.tensor([plen + t], device=device)
+            logits, _ = adapter(torch.tensor([[tok]], device=device), positions=pos[:, None],
+                                past_key_values=tuple(cache), cache_index=pos,
+                                attention_mask=(ar <= pos)[None, None, None, :],
+                                use_cache=True, **kw)
+            rows.append(logits[0, 0].float().cpu())
+    return torch.stack(rows).double()
+
+
+def serve_captions(server, submit_all, card, label, fe, fa, qa, layers):
+    """Runs ``submit_all(server)``'s requests through the server's engine
+    with the counts set to 0 just before: every request must finish at its
+    length; #10 and #3 ``layers`` times a decode tick and a prefill call;
+    captions/s, decode tokens/s, host and device ms a tick, TTFT p50 and
+    one decode call's device time by kernel group."""
+    engine = server.engine
+    timing = {"prefill": 0.0, "decode": 0.0}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            timing[name] += time.perf_counter() - t
+            return out
+        return run
+
+    prefill_name = "_prefill_prefixed" if engine.kv_prefix_len is not None else "_prefill"
+    setattr(engine, prefill_name, timed("prefill", getattr(engine, prefill_name)))
+    engine._decode = timed("decode", engine._decode)
+    reqs = submit_all(server)
+    torch.cuda.synchronize()
+    reset_counts(fe, fa, qa)
+    t0 = time.perf_counter()
+    outs = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = path_counts(fe, fa, qa)
+    calls, ticks = engine.prefill_calls, engine.ticks
+    # the prefixed prefill of one token attends the int8 cache through #10
+    prefill_qca = layers * calls if engine.kv_prefix_len is not None else 0
+    expect(f"{label} serving ({calls} prefill calls, {ticks} decode ticks)", counts,
+           {"quantized_cache_attention": layers * ticks + prefill_qca,
+            "fused_mlp": layers * (ticks + calls)})
+    by_id = {o.request_id: o for o in outs}
+    if sorted(by_id) != sorted(r["id"] for r in reqs):
+        fail(f"{label}: {len(by_id)} of {len(reqs)} requests finished")
+    for r in reqs:
+        o = by_id[r["id"]]
+        if o.finish_reason != "length" or len(o.tokens) != r["max_new"]:
+            fail(f"{label} request {r['id']}: {o.finish_reason}, {len(o.tokens)} of "
+                 f"{r['max_new']} tokens")
+    decoded = sum(len(o.tokens) - 1 for o in outs)
+    ttft = sorted(o.queue_time + o.prefill_time for o in outs)
+    result = {"requests": len(outs), "prefill_calls": calls, "decode_ticks": ticks,
+              "captions_per_s": len(outs) / wall, "decode_tokens_per_s": decoded / timing["decode"],
+              "host_ms_per_tick": timing["decode"] / ticks * 1e3, "prefill_s": timing["prefill"],
+              "wall_s": wall, "ttft_p50_s": ttft[len(ttft) // 2], "launches": counts}
+    dev = engine.device
+    rows = engine.n_slots + 1
+    dtok = torch.full((rows,), 5, device=dev)
+    dpos = torch.full((rows,), engine.max_len // 2, device=dev)
+    dsamp = torch.tensor([[0.0, 0.0, 1.0]] * rows, device=dev)
+    groups = profile_step(lambda: engine._decode(dtok, dpos, torch.ones_like(dpos), dsamp, False),
+                          f"{label} decode")
+    result["decode_profile"] = groups
+    if isinstance(groups, dict):
+        result["device_ms_per_tick"] = groups["total_device_ms"] / engine.decode_steps
+    print(f"{label} serving: " + json.dumps({k: v for k, v in result.items()
+                                             if k != "decode_profile"}) + f" on {card}",
+          flush=True)
+    print(f"{label}: device time of one decode call ({engine.decode_steps} ticks x {rows} rows) "
+          f"by kernel group " + json.dumps(groups), flush=True)
+    return by_id, result
+
+
+def coca_phase(fe, fa, qa, attn, card):
+    """Phase 12: CoCa ViT-L/14 (see the module docstring)."""
+    from multimodal_tpu_torch.models.coca.coca_model import (
+        COCA_CONFIGS, coca_for_pretraining, coca_vit)
+    from multimodal_tpu_torch.serving.caption_server import CoCaCaptionServer
+    from multimodal_tpu_torch.training.trainer import Trainer
+
+    phase_t0 = time.perf_counter()
+    cfg = {**COCA_CONFIGS["coca_vit_l_14"], **COCA_DEPTH}
+    build = lambda dev: coca_for_pretraining(device=dev, dtype=torch.bfloat16,  # noqa: E731
+                                             param_dtype=torch.float32, seed=0, **cfg)
+    t0 = time.perf_counter()
+    model = build("cuda")
+    ref = cpu_copy(lambda dev: coca_for_pretraining(device=dev, dtype=torch.float32, **cfg),
+                   model)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"coca: built coca_for_pretraining(coca_vit_l_14) {json.dumps(COCA_DEPTH)}, "
+          f"{n_params / 1e6:.1f}M parameters (fp32, bf16 compute) and its fp32 CPU copy in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    result, paths_out = {}, {}
+    rng = np.random.default_rng(12)
+
+    # 1. accuracy at batch 4 and gradients at 2 pairs against fp32 on the CPU
+    images, texts = coca_batch(rng, 4)
+
+    def outputs(m, dev):
+        out = m.model(images.to(dev), texts.to(dev))
+        return {"image_embedding": out.image_pooled_output,
+                "text_embedding": out.text_pooled_output,
+                "captioning_logits": out.multimodal_embeddings}
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cos = min_cosines(outputs(model, "cuda"), outputs(ref, "cpu"))
+    print(f"coca: lowest row cosines vs fp32 CPU at batch 4 {json.dumps(cos)} (bar "
+          f"{CAPTION_COSINE}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if min(cos.values()) < CAPTION_COSINE:
+        fail(f"CoCa outputs {cos} below {CAPTION_COSINE} against fp32 on the CPU")
+
+    def step(m, dev):
+        out = m(images[:2].to(dev), texts[:2].to(dev))
+        return out["contrastive"] + out["captioning"]
+
+    t0 = time.perf_counter()
+    model.train()
+    reset_counts(fe, fa, qa)
+    gcos, (worst_cos, worst_name), loss_card, loss_cpu = albef_grad_cosine(model, ref, step)
+    check = path_counts(fe, fa, qa)
+    print(f"coca: gradient cosine vs fp32 CPU at 2 pairs: {gcos:.6f} (bar 0.99); lowest tensor "
+          f"{worst_name} {worst_cos:.6f}; loss card {loss_card:.6f} cpu {loss_cpu:.6f} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not gcos >= 0.99:
+        fail(f"CoCa gradient cosine {gcos} < 0.99 against fp32 on the CPU")
+    expect("coca gradient check", check, coca_launches(fe, attn, 2))
+    result.update(output_cosines=cos, grad_cosine=gcos, grad_cosine_lowest=[worst_name,
+                                                                             worst_cos])
+    paths_out["coca_grad_check"] = check
+
+    # 2. training: 2 warm-up and 5 timed steps at batch 32 through the Trainer
+    warmup, steps = 2, 5
+    batches = [coca_batch(rng, COCA_BATCH) for _ in range(warmup + steps + 1)]
+    opt = torch.optim.AdamW(model.parameters(), lr=5e-4, betas=(0.9, 0.999),
+                            weight_decay=0.01, fused=True)
+
+    def loss_fn(m, batch):
+        out = m(*batch)
+        return out["contrastive"] + out["captioning"], {}
+
+    trainer = Trainer(loss_fn, opt, log_interval=100)
+    trainer.fit(model, batches[:warmup], warmup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fe, fa, qa)
+    t0 = time.perf_counter()
+    trainer.fit(model, batches[warmup:warmup + steps], steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = path_counts(fe, fa, qa)
+    expect(f"coca training ({steps} steps)", counts,
+           {k: v * steps for k, v in coca_launches(fe, attn, COCA_BATCH).items()})
+    losses = [r["loss"] for r in trainer.logger.records if "loss" in r]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"CoCa losses {losses}")
+    result.update(items_per_s=COCA_BATCH * steps / dt, ms_per_step=dt / steps * 1e3,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, losses=losses)
+    print(f"coca: {result['items_per_s']:.1f} items/s, {result['ms_per_step']:.1f} ms a step at "
+          f"batch {COCA_BATCH}, peak memory {result['peak_gib']:.2f} GiB, losses "
+          f"{[round(x, 4) for x in losses]} on {card}", flush=True)
+    breakdown = profile_step(lambda: trainer.fit(model, batches[-1:], 1), "coca train")
+    if isinstance(breakdown, dict):
+        result["idle_share"] = 1 - breakdown["total_device_ms"] / breakdown[
+            "wall_ms_under_profiler"]
+    print(f"coca: device time of one step by kernel group {json.dumps(breakdown)}; idle share "
+          f"{result.get('idle_share', float('nan')):.4f}", flush=True)
+    result["profile"] = breakdown
+    paths_out["coca_train"] = counts
+    del opt, trainer, batches
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # 3. captioning: a bf16 copy behind CoCaCaptionServer, an int8 cache
+    serve_model = coca_vit(device="meta", dtype=torch.bfloat16, **cfg).to_empty(device="cuda")
+    serve_model.load_state_dict(model.model.state_dict())
+    serve_model.eval()
+    # the CPU reference takes the trained weights too
+    ref.load_state_dict({k: v.detach().float().cpu() for k, v in model.state_dict().items()})
+    del model
+    torch.cuda.empty_cache()
+    server = CoCaCaptionServer(serve_model, n_slots=CAPTION_SLOTS, cache_dtype="int8",
+                               prefill_batch=8, decode_steps=8)
+    srng = np.random.default_rng(13)
+    images = torch.from_numpy(srng.standard_normal((CAPTION_IMAGES, 224, 224, 3),
+                                                   dtype=np.float32))
+    t0 = time.perf_counter()
+    cap, _ = server.encode(images)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    max_new = server.adapter.max_positions - 1
+
+    def submit_all(s):
+        reqs = []
+        for i in range(CAPTION_IMAGES):
+            sampled = i % 2 == 1
+            s.submit([SOT], image_tokens=cap[i], request_id=i, max_new_tokens=max_new,
+                     temperature=1.0 if sampled else 0.0, top_k=50 if sampled else None)
+            reqs.append({"id": i, "max_new": max_new})
+        return reqs
+
+    layers = COCA_DEPTH["text_n_layer"] + COCA_DEPTH["fusion_n_layer"]
+    by_id, serving = serve_captions(server, submit_all, card, "coca", fe, fa, qa, layers)
+    serving["encode_s"] = encode_s
+    # 2 served captions teacher-forced through the int8 decode path against
+    # fp32 on the CPU
+    geom = (server.adapter.n_layer, server.adapter.n_head, server.adapter.head_dim)
+    ref_adapter = type(server.adapter)(ref.model)
+    worst = 1.0
+    for i in (0, 1):
+        seq = [SOT] + by_id[i].tokens[:15]
+        with torch.no_grad():
+            ref_cap, _ = ref.model.encode_image(images[i:i + 1])
+        a = caption_logits(server.adapter, seq, "cuda", server.adapter.max_positions, geom,
+                           conditioning=cap[i])
+        b = caption_logits(ref_adapter, seq, "cpu", server.adapter.max_positions, geom,
+                           conditioning=ref_cap[0])
+        worst = min(worst, float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min()))
+    print(f"coca: 2 served captions ({len(seq)} positions each) teacher-forced through the int8 "
+          f"cache, lowest logit cosine vs fp32 CPU {worst:.6f} (bar 0.99)", flush=True)
+    if worst < 0.99:
+        fail(f"CoCa served-caption logits reach cosine {worst} < 0.99 against fp32")
+    serving["teacher_forced_cosine"] = worst
+    result["serving"] = serving
+    paths_out["coca_serve"] = serving.pop("launches")
+    del server, serve_model, ref, ref_adapter
+    torch.cuda.empty_cache()
+    result["wall_s"] = time.perf_counter() - phase_t0
+    print(f"coca: phase wall time {result['wall_s']:.1f} s", flush=True)
+    return paths_out, result
+
+
+def blip2_modules(dtype, device, seed: int = 0):
+    """BLIP-2 stage 1 at the published widths: the port's ViT-L/14 image
+    tower (23 layers, 257 tokens, frozen), the Q-Former (``QformerForCLM``,
+    12 layers, 768 wide, cross-attention every 2nd layer to 1024, vocab
+    30,523) and ``Blip2Phase1Loss``; ``dtype`` the compute dtype, fp32
+    weights drawn from ``seed`` (normal 0.02, zero biases, unit LayerNorms)
+    on the CPU, then moved to ``device``."""
+    from multimodal_tpu_torch.models.blip2.blip2 import BLIP2
+    from multimodal_tpu_torch.models.blip2.qformer_model import QformerForCLM
+    from multimodal_tpu_torch.modules.encoders.vision_transformer import vision_transformer
+    from multimodal_tpu_torch.modules.losses.blip2_losses import Blip2Phase1Loss
+
+    w = BLIP2_DEPTH
+    with torch.device("meta" if device == "meta" else "cpu"):
+        model = BLIP2(
+            QformerForCLM(num_hidden_layers=w["qformer_layers"], dim_q=768, dim_feedforward=3072,
+                          num_heads=12, max_position_embeddings=512, vocab_size=BLIP2_VOCAB,
+                          query_length=BLIP2_QUERIES, dim_kv=1024, dtype=dtype),
+            vision_transformer(patch_size=14, hidden_dim=1024, dim_feedforward=4096,
+                               n_layer=w["vit_layers"], n_head=16, image_size=224,
+                               include_cls_embed=True, dtype=dtype),
+            dim_q=768, image_encoder_embedding_dim=1024, embedding_dim=256,
+            num_query_token=BLIP2_QUERIES, decoder_bos_token_id=BLIP2_BOS, dtype=dtype)
+        loss = Blip2Phase1Loss(dim_q=768)
+    model.vision_encoder.requires_grad_(False)
+    if device == "meta":
+        return model, loss
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in (model, loss):
+            for name, p in m.named_parameters():
+                if p.dim() >= 2:
+                    p.normal_(0.0, 0.02, generator=gen)
+                elif name.endswith("bias"):
+                    p.zero_()
+    return model.to(device), loss.to(device)
+
+
+def blip2_launches(fe, attn, batch: int, train: bool = True) -> dict:
+    """One stage-1 step's launches, derived from the dispatch predicates:
+    the frozen tower (257 tokens: past #1's 256, so #6; no backward), the
+    Q-Former's query pass (32 queries, cross-attention in every 2nd layer),
+    text pass (32 tokens, the padding bias), captioning pass (32 text
+    queries over 32 cached query rows and the text) and the ITM pass over
+    the 3x batch ([32 queries; 32 text]); each pass's MLPs (the query
+    branch, the text branch) and, with ``train``, their backward by
+    ``fused_mlp_bwd_acc_supported``."""
+    nv, nq = BLIP2_DEPTH["vit_layers"], BLIP2_DEPTH["qformer_layers"]
+    ca = len(range(0, nq, 2))
+    q, t = BLIP2_QUERIES, BLIP2_TEXT
+    tower_fused = fe.fused_attention_supported(BLIP2_SEQ, 1024, 16)
+    tower_flash = nv * int(not tower_fused and flash_pair(attn, BLIP2_SEQ, BLIP2_SEQ))
+    qf_flash = (nq * flash_pair(attn, q, q) + ca * flash_pair(attn, q, BLIP2_SEQ)
+                + nq * flash_pair(attn, t, t) + nq * flash_pair(attn, t, q + t)
+                + nq * flash_pair(attn, q + t, q + t) + ca * flash_pair(attn, q, BLIP2_SEQ))
+    # (rows, layers) of each Q-Former MLP call: query pass, text pass,
+    # captioning pass, ITM's query and text branches
+    mlps = [(batch * q, nq), (batch * t, nq), (batch * t, nq), (3 * batch * q, nq),
+            (3 * batch * t, nq)]
+    out = {"fused_qkv_attention": nv * tower_fused, "fused_mlp": nv + sum(n for _, n in mlps),
+           "flash_attention": tower_flash + qf_flash}
+    if train:
+        out["flash_attention_bwd"] = qf_flash
+        out.update(mlp_bwd_routes(fe, [(r, 768, 3072, 768, n) for r, n in mlps]))
+    return out
+
+
+def blip2_batch(rng, b: int):
+    """(images, ids, attention mask): ids of ``BLIP2_TEXT`` tokens, [CLS]
+    first, seeded lengths in [4, 32], zero padding."""
+    lengths = rng.integers(4, BLIP2_TEXT + 1, size=b)
+    atts = (np.arange(BLIP2_TEXT)[None, :] < lengths[:, None]).astype(np.int64)
+    ids = rng.integers(1000, BLIP2_VOCAB - 1, size=(b, BLIP2_TEXT)) * atts
+    ids[:, 0] = 101
+    return (torch.from_numpy(rng.standard_normal((b, 224, 224, 3), dtype=np.float32)),
+            torch.from_numpy(ids), torch.from_numpy(atts))
+
+
+class Blip2Stage1(torch.nn.Module):
+    """BLIP-2 and its stage-1 loss module as one module for the Trainer and
+    the gradient check; ``forward`` is the total loss."""
+
+    def __init__(self, model, loss, generator=None):
+        super().__init__()
+        self.model, self.loss = model, loss
+        self.generator = generator
+
+    def forward(self, image, ids, atts):
+        from multimodal_tpu_torch.modules.losses.blip2_losses import blip2_phase1_loss
+
+        out = self.model(image, ids, atts)
+        return blip2_phase1_loss(self.loss, self.model, out, ids, atts, self.generator,
+                                 decoder_bos_token_id=BLIP2_BOS, vocab_size=BLIP2_VOCAB)
+
+
+def blip2_phase(fe, fa, qa, attn, card):
+    """Phase 13: BLIP-2 stage 1 (see the module docstring)."""
+    from multimodal_tpu_torch.modules.losses import blip2_losses
+    from multimodal_tpu_torch.serving.blip2_caption_server import Blip2CaptionServer
+    from multimodal_tpu_torch.training.trainer import Trainer
+
+    phase_t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    stage = Blip2Stage1(*blip2_modules(torch.bfloat16, "cuda"), generator=gen)
+    ref = cpu_copy(lambda dev: Blip2Stage1(*blip2_modules(torch.float32, dev)), stage)
+    n_params = sum(p.numel() for p in stage.parameters())
+    n_trained = sum(p.numel() for p in stage.parameters() if p.requires_grad)
+    print(f"blip2: built BLIP-2 stage 1 {json.dumps(BLIP2_DEPTH)}, {n_params / 1e6:.1f}M "
+          f"parameters ({n_trained / 1e6:.1f}M trained; fp32, bf16 compute) and its fp32 CPU "
+          f"copy in {time.perf_counter() - t0:.1f} s", flush=True)
+    result, paths_out = {}, {}
+    rng = np.random.default_rng(15)
+
+    # 1. accuracy at batch 4 and gradients at 2 pairs against fp32 on the CPU
+    image, ids, atts = blip2_batch(rng, 4)
+
+    def outputs(s, dev):
+        out = s.model(image.to(dev), ids.to(dev), atts.to(dev))
+        return {"image_features": out.image_features, "text_features": out.text_features,
+                "prediction_scores": out.prediction_scores}
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cos = min_cosines(outputs(stage, "cuda"), outputs(ref, "cpu"))
+    print(f"blip2: lowest row cosines vs fp32 CPU at batch 4 {json.dumps(cos)} (bar "
+          f"{CAPTION_COSINE}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if min(cos.values()) < CAPTION_COSINE:
+        fail(f"BLIP-2 outputs {cos} below {CAPTION_COSINE} against fp32 on the CPU")
+
+    # the card's hard negatives replayed in the CPU step
+    drawn = []
+    draw = blip2_losses.hard_negative_indices
+
+    def record(*a, **k):
+        drawn.append(draw(*a, **k))
+        return drawn[-1]
+
+    def step(s, dev):
+        if dev == "cuda":
+            blip2_losses.hard_negative_indices = record
+        else:
+            blip2_losses.hard_negative_indices = lambda *a, **k: tuple(
+                x.cpu() for x in drawn[-1])
+        try:
+            return s(image[:2].to(dev), ids[:2].to(dev), atts[:2].to(dev)).total_loss
+        finally:
+            blip2_losses.hard_negative_indices = draw
+
+    t0 = time.perf_counter()
+    stage.train()
+    reset_counts(fe, fa, qa)
+    gcos, (worst_cos, worst_name), loss_card, loss_cpu = albef_grad_cosine(stage, ref, step)
+    check = path_counts(fe, fa, qa)
+    tower_grads = [p.grad for p in stage.model.vision_encoder.parameters() if p.grad is not None]
+    print(f"blip2: gradient cosine vs fp32 CPU at 2 pairs (the card's negatives "
+          f"{[x.tolist() for x in drawn[-1]]} on both): {gcos:.6f} (bar 0.99); lowest tensor "
+          f"{worst_name} {worst_cos:.6f}; loss card {loss_card:.6f} cpu {loss_cpu:.6f}; tower "
+          f"tensors with a gradient {len(tower_grads)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if not gcos >= 0.99:
+        fail(f"BLIP-2 gradient cosine {gcos} < 0.99 against fp32 on the CPU")
+    if tower_grads:
+        fail("a gradient reached BLIP-2's frozen image tower")
+    expect("blip2 gradient check", check, blip2_launches(fe, attn, 2))
+    result.update(output_cosines=cos, grad_cosine=gcos, grad_cosine_lowest=[worst_name,
+                                                                             worst_cos])
+    paths_out["blip2_grad_check"] = check
+
+    # 2. training: 2 warm-up and 5 timed steps at batch 128 through the Trainer
+    warmup, steps = 2, 5
+    batches = [blip2_batch(rng, BLIP2_BATCH) for _ in range(warmup + steps + 1)]
+    trained = [p for p in stage.parameters() if p.requires_grad]
+    opt = torch.optim.AdamW(trained, lr=1e-4, betas=(0.9, 0.98), weight_decay=0.05, fused=True)
+    trainer = Trainer(lambda s, b: (s(*b).total_loss, {}), opt, log_interval=100)
+    trainer.fit(stage, batches[:warmup], warmup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fe, fa, qa)
+    t0 = time.perf_counter()
+    trainer.fit(stage, batches[warmup:warmup + steps], steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = path_counts(fe, fa, qa)
+    expect(f"blip2 training ({steps} steps)", counts,
+           {k: v * steps for k, v in blip2_launches(fe, attn, BLIP2_BATCH).items()})
+    losses = [r["loss"] for r in trainer.logger.records if "loss" in r]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"BLIP-2 losses {losses}")
+    result.update(items_per_s=BLIP2_BATCH * steps / dt, ms_per_step=dt / steps * 1e3,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, losses=losses)
+    print(f"blip2: {result['items_per_s']:.1f} items/s, {result['ms_per_step']:.1f} ms a step at "
+          f"batch {BLIP2_BATCH}, peak memory {result['peak_gib']:.2f} GiB, losses "
+          f"{[round(x, 4) for x in losses]} on {card}", flush=True)
+    breakdown = profile_step(lambda: trainer.fit(stage, batches[-1:], 1), "blip2 train")
+    if isinstance(breakdown, dict):
+        result["idle_share"] = 1 - breakdown["total_device_ms"] / breakdown[
+            "wall_ms_under_profiler"]
+    print(f"blip2: device time of one step by kernel group {json.dumps(breakdown)}; idle share "
+          f"{result.get('idle_share', float('nan')):.4f}", flush=True)
+    result["profile"] = breakdown
+    paths_out["blip2_train"] = counts
+    del opt, trainer, batches
+    stage.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # 3. captioning: a bf16 copy behind Blip2CaptionServer, an int8 cache
+    serve_model, _ = blip2_modules(torch.bfloat16, "meta")
+    serve_model = serve_model.to(torch.bfloat16).to_empty(device="cuda")
+    for m in serve_model.modules():
+        if isinstance(m, torch.nn.LayerNorm):
+            m.float()
+    serve_model.load_state_dict(stage.model.state_dict())
+    serve_model.eval()
+    ref.load_state_dict({k: v.detach().float().cpu() for k, v in stage.state_dict().items()})
+    del stage
+    torch.cuda.empty_cache()
+    server = Blip2CaptionServer(serve_model, n_slots=CAPTION_SLOTS, max_text_len=BLIP2_TEXT,
+                                cache_dtype="int8", prefill_batch=8, decode_steps=8)
+    srng = np.random.default_rng(16)
+    images = torch.from_numpy(srng.standard_normal((CAPTION_IMAGES, 224, 224, 3),
+                                                   dtype=np.float32))
+    t0 = time.perf_counter()
+    kvs, _ = server.prime(images)
+    torch.cuda.synchronize()
+    prime_s = time.perf_counter() - t0
+    max_new = BLIP2_TEXT - 1
+
+    def submit_all(s):
+        reqs = []
+        for i in range(CAPTION_IMAGES):
+            sampled = i % 2 == 1
+            s.submit([BLIP2_BOS], kv_prefix=kvs[i], request_id=i, max_new_tokens=max_new,
+                     temperature=1.0 if sampled else 0.0, top_k=50 if sampled else None)
+            reqs.append({"id": i, "max_new": max_new})
+        return reqs
+
+    by_id, serving = serve_captions(server, submit_all, card, "blip2", fe, fa, qa,
+                                    BLIP2_DEPTH["qformer_layers"])
+    serving["prime_s"] = prime_s
+    geom = (server.adapter.n_layer, server.adapter.n_head, server.adapter.head_dim)
+    ref_server = Blip2CaptionServer(ref.model, n_slots=1, max_text_len=BLIP2_TEXT, device="cpu")
+    worst = 1.0
+    for i in (0, 1):
+        seq = [BLIP2_BOS] + by_id[i].tokens[:15]
+        ref_kv, _ = ref_server.prime(images[i:i + 1])
+        a = caption_logits(server.adapter, seq, "cuda", server.engine.max_len, geom,
+                           prefix=kvs[i])
+        b = caption_logits(ref_server.adapter, seq, "cpu", server.engine.max_len, geom,
+                           prefix=ref_kv[0])
+        worst = min(worst, float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min()))
+    print(f"blip2: 2 served captions ({len(seq)} positions each) teacher-forced through the "
+          f"int8 cache over the primed query rows, lowest logit cosine vs fp32 CPU "
+          f"{worst:.6f} (bar 0.99)", flush=True)
+    if worst < 0.99:
+        fail(f"BLIP-2 served-caption logits reach cosine {worst} < 0.99 against fp32")
+    serving["teacher_forced_cosine"] = worst
+    result["serving"] = serving
+    paths_out["blip2_serve"] = serving.pop("launches")
+    del server, serve_model, ref, ref_server
+    torch.cuda.empty_cache()
+    result["wall_s"] = time.perf_counter() - phase_t0
+    print(f"blip2: phase wall time {result['wall_s']:.1f} s", flush=True)
+    return paths_out, result
+
+
+SCRIPT_T0 = time.perf_counter()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -4106,6 +4888,8 @@ def main() -> None:
     real_launches, real = flava_real(fe, fa, card)
     zs = zero_shot(fe, fa, card)
     albef_launches_by_path, albef_result = albef(fe, fa, attn, card)
+    coca_launches_by_path, coca = coca_phase(fe, fa, qa, attn, card)
+    blip2_launches_by_path, blip2 = blip2_phase(fe, fa, qa, attn, card)
 
     # every path's launch counts, each read just after the path ran with the
     # counts set to 0 just before it; a kernel's `launches` is its count on
@@ -4121,7 +4905,7 @@ def main() -> None:
              **{f"zero_shot_{m}_{part}": zs[m][f"{part}_launches"]
                 for m in ("vit_b32", "rn50") for part in ("classifier", "eval")},
              **{f"zero_shot_{name}": c for name, c in zs["rn_builders"].items()},
-             **albef_launches_by_path}
+             **albef_launches_by_path, **coca_launches_by_path, **blip2_launches_by_path}
     main_path = {"fused_qkv_attention": "serve", "fused_qkv_attention_bwd": "train",
                  "fused_mlp": "flava", "fused_mlp_bwd": "flava_grad_check",
                  "fused_mlp_bwd_acc": "flava", "flash_attention": "lm",
@@ -4235,7 +5019,20 @@ def main() -> None:
           f"rerank {albef_result['rerank_s']:.2f} s; ALBEF VQA "
           f"{albef_result['vqa_items_per_s']:.1f} questions/s, gradient cosine "
           f"{albef_result['vqa_grad_cosine']:.6f}; ALBEF phase {albef_result['wall_s']:.1f} s; "
-          f"build {build_s:.1f} s", flush=True)
+          + "; ".join(
+              f"{name} training {r['items_per_s']:.1f} items/s, {r['ms_per_step']:.1f} ms a step, "
+              f"peak {r['peak_gib']:.2f} GiB, idle share {r.get('idle_share', float('nan')):.4f}, "
+              f"gradient cosine {r['grad_cosine']:.6f}, output cosines "
+              f"{json.dumps({k: round(v, 6) for k, v in r['output_cosines'].items()})}; "
+              f"{name} captioning {r['serving']['captions_per_s']:.2f} captions/s, "
+              f"{r['serving']['decode_tokens_per_s']:.1f} decode tokens/s, "
+              f"{r['serving']['host_ms_per_tick']:.2f} ms a tick (device "
+              f"{r['serving'].get('device_ms_per_tick', float('nan')):.2f}), TTFT p50 "
+              f"{r['serving']['ttft_p50_s']:.3f} s, teacher-forced cosine "
+              f"{r['serving']['teacher_forced_cosine']:.6f}; {name} phase {r['wall_s']:.1f} s"
+              for name, r in (("CoCa", coca), ("BLIP-2", blip2)))
+          + f"; build {build_s:.1f} s; script {time.perf_counter() - SCRIPT_T0:.1f} s",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

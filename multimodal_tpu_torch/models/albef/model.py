@@ -175,16 +175,20 @@ class ALBEFModelWithSimilarity(nn.Module):
 
 
 def hard_negative_indices(sim_i2t: torch.Tensor, sim_t2i: torch.Tensor,
-                          generator: Optional[torch.Generator] = None
+                          generator: Optional[torch.Generator] = None, offset: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """In-batch hard negatives: for each text an image index drawn with
     probability ``softmax`` of its row of ``sim_t2i`` (batch columns) less
     the diagonal, then for each image a text index likewise from
-    ``sim_i2t``. Never the diagonal. ``(neg_img_idx, neg_txt_idx)``."""
-    bs = sim_i2t.shape[0]
-    if bs < 2:
+    ``sim_i2t``. Never the diagonal, which sits at column ``offset + row``
+    (a rank's rows against the gathered batch). ``(neg_img_idx,
+    neg_txt_idx)``. ALBEF's and BLIP-2's ITM draw both."""
+    rows, cols = sim_i2t.shape
+    if cols < 2:
         raise ValueError("hard negatives need a batch of at least 2")
-    diag = torch.eye(bs, dtype=torch.bool, device=sim_i2t.device)
+    dev = sim_i2t.device
+    diag = (torch.arange(cols, device=dev)[None, :]
+            == torch.arange(rows, device=dev)[:, None] + offset)
 
     def draw(sim):
         w = F.softmax(sim.detach().float().masked_fill(diag, -torch.inf), dim=1)

@@ -27,11 +27,25 @@ position ``max_len - 1`` and do not advance, positions clamp to the last
 row, and the first tokens of an admission round are copied to the host only
 after every prefill of the round is launched.
 
+Two features serve encoder-decoder clients (the caption servers):
+
+- Per-request conditioning (``conditioning_spec``): a per-slot buffer
+  ``(n_slots + 1, *shape)`` whose row of a request is written at admission
+  (``Request.conditioning``) and whose trash row stays zero; every prefill
+  passes the admitted slots' rows and every decode tick the whole buffer to
+  the model as ``conditioning=`` (CoCa's pooled image tokens).
+- ``kv_prefix`` rows (``kv_prefix_len``): each request brings per-layer
+  ``(k, v)`` rows ``(heads, kv_prefix_len, head_dim)`` (BLIP-2's primed
+  query rows). Admission seeds them into the slot's cache positions
+  ``[0, kv_prefix_len)`` (quantized as a prefill's rows are, for the int8
+  cache), clearing the rest of the row, and the prompt prefills from
+  position ``kv_prefix_len`` on top of them; decode attends them through
+  the valid-prefix mask.
+
 Not ported yet (ROADMAP.md, queue A5): registered prefixes, chunked
 prefill, multi-LoRA adapters, sliding-window streaming (``window`` /
-``sinks``), per-request conditioning, ``kv_prefix`` rows and speculative
-decoding with a draft model. The constructor or ``submit`` raises
-``NotImplementedError`` for each.
+``sinks``) and speculative decoding with a draft model. The constructor,
+``register_prefix`` or ``submit`` raises ``NotImplementedError`` for each.
 """
 
 from __future__ import annotations
@@ -45,7 +59,12 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from multimodal_tpu_torch.ops.kv_cache import is_quantized_kv, quantize_kv, quantized_kv_zeros
+from multimodal_tpu_torch.ops.kv_cache import (
+    QuantizedKV,
+    is_quantized_kv,
+    quantize_kv,
+    quantized_kv_zeros,
+)
 from multimodal_tpu_torch.utils.device import resolve_device
 from multimodal_tpu_torch.utils.generate import filter_logits_per_row
 
@@ -64,12 +83,47 @@ def _kv_set_rows(cache, new: torch.Tensor, slots: torch.Tensor, bucket: int):
     return cache
 
 
+def _kv_rows_like(cache, b: int, prefix_kv: torch.Tensor, plen: int):
+    """Fresh ``(b, ...)`` rows in ``cache``'s format holding ``prefix_kv``
+    ``(b or 1, h, plen, d)`` at positions ``[0, plen)`` and zeros after;
+    int8 rows are quantized by ``quantize_kv``, as a prefill's are."""
+    if is_quantized_kv(cache):
+        rows = quantized_kv_zeros((b,) + tuple(cache.q.shape[1:]), cache.q.device)
+        q, scale = quantize_kv(prefix_kv)
+        rows.q[:, :, :plen] = q
+        rows.scale[:, :, :plen] = scale
+        return rows
+    rows = torch.zeros((b,) + tuple(cache.shape[1:]), dtype=cache.dtype, device=cache.device)
+    rows[:, :, :plen] = prefix_kv.to(cache.dtype)
+    return rows
+
+
+def _kv_scatter_rows(cache, rows, slots: torch.Tensor) -> None:
+    """Overwrite whole rows ``slots`` of the cache with ``rows`` (same
+    format), in place."""
+    if is_quantized_kv(cache):
+        cache.q[slots] = rows.q
+        cache.scale[slots] = rows.scale
+    else:
+        cache[slots] = rows
+
+
+def _kv_gather_rows(cache, slots: torch.Tensor):
+    """Copies of rows ``slots`` of a dense or int8 cache tensor."""
+    if is_quantized_kv(cache):
+        return QuantizedKV(cache.q[slots], cache.scale[slots])
+    return cache[slots]
+
+
 @dataclass
 class Request:
     """One generation request. ``on_token(token_id)`` streams each sampled
     token as it is collected; ``on_finish(output)`` is called once when the
-    slot retires. ``prefix``, ``adapter``, ``conditioning`` and
-    ``kv_prefix`` are the JAX engine's fields for features not ported yet;
+    slot retires. ``conditioning`` (one row of the engine's
+    ``conditioning_spec``) and ``kv_prefix`` (per-layer ``(k, v)`` of shape
+    ``(heads, kv_prefix_len, head_dim)``, tensors or arrays) are required
+    exactly when the engine was built with their feature. ``prefix`` and
+    ``adapter`` are the JAX engine's fields for features not ported yet;
     ``submit`` refuses a request that sets one."""
 
     prompt: Sequence[int]
@@ -148,6 +202,11 @@ class InferenceEngine:
         seed: the sampling generator's seed.
         device: where the caches live and the model runs; CUDA unless the
             caller asks for the CPU.
+        conditioning_spec: ``(shape, dtype)`` of one request's conditioning
+            row; the model then takes ``conditioning=`` (rows aligned with
+            the batch) on every call.
+        kv_prefix_len: the length of each request's ``kv_prefix`` rows;
+            prompts start at this position.
     """
 
     def __init__(
@@ -174,9 +233,7 @@ class InferenceEngine:
         draft_model: Optional[Any] = None,
     ):
         for name, value in (("adapters", adapters), ("prefill_chunk", prefill_chunk),
-                            ("window", window), ("sinks", sinks),
-                            ("conditioning_spec", conditioning_spec),
-                            ("kv_prefix_len", kv_prefix_len), ("draft_model", draft_model)):
+                            ("window", window), ("sinks", sinks), ("draft_model", draft_model)):
             if value is not None:
                 raise NotImplementedError(f"InferenceEngine({name}=...) is {_NOT_PORTED}")
         self.device = resolve_device(device)
@@ -213,6 +270,18 @@ class InferenceEngine:
         else:
             raise ValueError(f"cache_dtype {cache_dtype!r}: a floating torch dtype, or the "
                              "string 'int8' for the quantized KV cache")
+        # row n_slots is the trash row here too: it stays zero, and the
+        # outputs of the rows that read it are dropped
+        self.conditioning = None
+        if conditioning_spec is not None:
+            shape, dtype = conditioning_spec
+            self.conditioning = torch.zeros((n_slots + 1,) + tuple(shape), dtype=dtype,
+                                            device=self.device)
+        if kv_prefix_len is not None and not 0 < kv_prefix_len < max_len:
+            raise ValueError(f"kv_prefix_len ({kv_prefix_len}) must leave room for the prompt "
+                             f"and generation (max_len {max_len})")
+        self.kv_prefix_len = kv_prefix_len
+        self._kv_geom = (n_layer, n_head, head_dim)  # for Request.kv_prefix's validation
         self._slots = [_Slot() for _ in range(n_slots)]
         self._queue: deque = deque()
         self._done: List[RequestOutput] = []
@@ -224,11 +293,32 @@ class InferenceEngine:
         self._tokens_out = 0
 
     def register_prefix(self, name: str, tokens: Sequence[int], adapter: Optional[str] = None):
+        if self.conditioning is not None:
+            raise ValueError(
+                "prefix caching does not compose with per-request conditioning: prefix KV rows "
+                "depend on the conditioning through cross-attention")
+        if self.kv_prefix_len is not None:
+            raise ValueError("registered prefixes do not compose with kv_prefix_len: both claim "
+                             "cache positions [0, plen)")
         raise NotImplementedError(f"registered prefixes are {_NOT_PORTED}")
 
     # ------------------------------------------------------------- device
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _cond_kwargs(self, slots: Optional[torch.Tensor] = None) -> dict:
+        """The ``conditioning=`` argument of a model call: the buffer's rows
+        ``slots``, or the whole buffer when the batch is the slot pool.
+        Empty without conditioning: such a model never sees the argument."""
+        if self.conditioning is None:
+            return {}
+        return {"conditioning": self.conditioning if slots is None else self.conditioning[slots]}
+
+    def _last_tokens(self, logits: torch.Tensor, lengths: torch.Tensor,
+                     sampling: torch.Tensor) -> torch.Tensor:
+        last = logits[torch.arange(logits.shape[0], device=logits.device), lengths - 1]
+        self.prefill_calls += 1
+        return self._sample(last, sampling)
 
     @torch.no_grad()
     def _prefill(self, tokens: torch.Tensor, slots: torch.Tensor, lengths: torch.Tensor,
@@ -237,14 +327,50 @@ class InferenceEngine:
         each row's keys and values are block-written into its slot. Returns
         the first sampled token of each row (from the logits at
         ``lengths - 1``), on the device."""
-        logits, kvs = self.model(tokens, use_cache=True)
+        logits, kvs = self.model(tokens, use_cache=True, **self._cond_kwargs(slots))
         bucket = tokens.shape[1]
         for (ck, cv), (k, v) in zip(self.cache, kvs):
             _kv_set_rows(ck, k, slots, bucket)
             _kv_set_rows(cv, v, slots, bucket)
-        last = logits[torch.arange(tokens.shape[0], device=logits.device), lengths - 1]
-        self.prefill_calls += 1
-        return self._sample(last, sampling)
+        return self._last_tokens(logits, lengths, sampling)
+
+    @torch.no_grad()
+    def _seed_prefix(self, prefix_kvs, slots: torch.Tensor) -> None:
+        """Write whole rows ``slots`` of every layer's cache: the per-request
+        prefix rows ``prefix_kvs`` (per layer ``(b, h, kv_prefix_len, d)``)
+        at ``[0, kv_prefix_len)``, zeros after, so nothing of a slot's
+        earlier request stays."""
+        b = slots.shape[0]
+        for (ck, cv), (pk, pv) in zip(self.cache, prefix_kvs):
+            _kv_scatter_rows(ck, _kv_rows_like(ck, b, pk, self.kv_prefix_len), slots)
+            _kv_scatter_rows(cv, _kv_rows_like(cv, b, pv, self.kv_prefix_len), slots)
+
+    @torch.no_grad()
+    def _prefill_prefixed(self, prefix_kvs, tokens: torch.Tensor, slots: torch.Tensor,
+                          lengths: torch.Tensor, sampling: torch.Tensor) -> torch.Tensor:
+        """Prefill a batch of prompts on top of per-request prefix rows: the
+        slots are seeded (:meth:`_seed_prefix`), the prompts' forward runs on
+        copies of their rows, attending the prefix through the valid-prefix
+        mask and writing its own keys and values from position
+        ``kv_prefix_len``, and the rows go back to the slots. A padding
+        position past a row's prompt writes to the sacrificial ``max_len -
+        1``, which a tick overwrites before any mask admits it."""
+        self._seed_prefix(prefix_kvs, slots)
+        rows = tuple((_kv_gather_rows(ck, slots), _kv_gather_rows(cv, slots))
+                     for ck, cv in self.cache)
+        b, bucket = tokens.shape
+        offs = torch.arange(bucket, device=self.device)[None, :]
+        positions = (self.kv_prefix_len + offs).clamp_max(self.max_len - 1).expand(b, bucket)
+        write_idx = torch.where(offs < lengths[:, None], positions, self.max_len - 1)
+        mask = (torch.arange(self.max_len, device=self.device)[None, None, None, :]
+                <= positions[:, None, :, None])
+        logits, rows = self.model(tokens, positions=positions, past_key_values=rows,
+                                  cache_index=write_idx, attention_mask=mask, use_cache=True,
+                                  **self._cond_kwargs(slots))
+        for (ck, cv), (rk, rv) in zip(self.cache, rows):
+            _kv_scatter_rows(ck, rk, slots)
+            _kv_scatter_rows(cv, rv, slots)
+        return self._last_tokens(logits, lengths, sampling)
 
     @torch.no_grad()
     def _decode(self, tokens: torch.Tensor, positions: torch.Tensor, advance: torch.Tensor,
@@ -260,7 +386,7 @@ class InferenceEngine:
             mask = ar[None, None, None, :] <= pos[:, None, None, None]
             logits, _ = self.model(tokens[:, None], positions=pos[:, None],
                                    past_key_values=self.cache, cache_index=pos,
-                                   attention_mask=mask, use_cache=True)
+                                   attention_mask=mask, use_cache=True, **self._cond_kwargs())
             tokens = self._sample(logits[:, 0], sampling, use_filters=filters_on)
             # idle rows don't advance: their write target stays pinned
             positions = positions + advance
@@ -292,15 +418,42 @@ class InferenceEngine:
 
     # --------------------------------------------------------------- host
     def submit(self, request: Request) -> None:
-        for name in ("prefix", "adapter", "conditioning", "kv_prefix"):
+        for name in ("prefix", "adapter"):
             if getattr(request, name) is not None:
                 raise NotImplementedError(f"Request.{name} is {_NOT_PORTED}")
-        if len(request.prompt) + request.max_new_tokens > self.max_len:
+        if (self.kv_prefix_len is not None) != (request.kv_prefix is not None):
             raise ValueError(
-                f"prompt({len(request.prompt)}) + max_new_tokens({request.max_new_tokens}) "
-                f"exceeds max_len({self.max_len})")
+                "Request.kv_prefix is required exactly when the engine was built with "
+                f"kv_prefix_len (engine: {self.kv_prefix_len}, request: "
+                f"{request.kv_prefix is not None})")
+        plen = 0
+        if request.kv_prefix is not None:
+            n_layer, n_head, head_dim = self._kv_geom
+            if len(request.kv_prefix) != n_layer:
+                raise ValueError(f"kv_prefix has {len(request.kv_prefix)} layers, cache has "
+                                 f"{n_layer}")
+            want = (n_head, self.kv_prefix_len, head_dim)
+            for li, pair in enumerate(request.kv_prefix):
+                for nm, arr in zip("kv", pair):
+                    if tuple(arr.shape) != want:
+                        raise ValueError(f"kv_prefix layer {li} {nm} shape {tuple(arr.shape)} "
+                                         f"!= {want}")
+            plen = self.kv_prefix_len
+        if plen + len(request.prompt) + request.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prefix({plen}) + prompt({len(request.prompt)}) + "
+                f"max_new_tokens({request.max_new_tokens}) exceeds max_len({self.max_len})")
         if len(request.prompt) == 0:
             raise ValueError("empty prompt")
+        if (self.conditioning is not None) != (request.conditioning is not None):
+            raise ValueError(
+                "Request.conditioning is required exactly when the engine was built with "
+                f"conditioning_spec (engine: {self.conditioning is not None}, request: "
+                f"{request.conditioning is not None})")
+        if (self.conditioning is not None
+                and tuple(request.conditioning.shape) != tuple(self.conditioning.shape[1:])):
+            raise ValueError(f"conditioning shape {tuple(request.conditioning.shape)} != spec "
+                             f"{tuple(self.conditioning.shape[1:])}")
         request._submit_t = time.perf_counter()
         self._queue.append(request)
 
@@ -309,6 +462,28 @@ class InferenceEngine:
         collected token (or leaves the queue before admission) with
         ``finish_reason='cancelled'``."""
         request._cancelled = True
+
+    def _stack_kv_prefixes(self, chunk, n: int):
+        """Per layer, ``(n, heads, kv_prefix_len, head_dim)`` fp32 stacks of
+        ``chunk``'s requests' ``kv_prefix`` rows on the device, zeros for
+        the padding entries (their rows land in the trash row)."""
+        def stack(li: int, i: int) -> torch.Tensor:
+            rows = torch.stack([torch.as_tensor(req.kv_prefix[li][i]).to(self.device,
+                                                                          torch.float32)
+                                for _, req in chunk])
+            return torch.cat([rows, rows.new_zeros((n - len(chunk),) + rows.shape[1:])])
+
+        return tuple((stack(li, 0), stack(li, 1)) for li in range(self._kv_geom[0]))
+
+    def _write_conditioning(self, pairs) -> None:
+        """Write the admitted requests' conditioning rows into their slots'
+        rows of the buffer."""
+        if self.conditioning is None:
+            return
+        slots = self._tensor(np.asarray([sid for sid, _ in pairs], np.int64))
+        rows = torch.stack([torch.as_tensor(req.conditioning).to(self.device)
+                            for _, req in pairs])
+        self.conditioning[slots] = rows.to(self.conditioning.dtype)
 
     def _admit(self) -> None:
         # pair free slots with queued requests, group by length bucket;
@@ -329,6 +504,8 @@ class InferenceEngine:
                 pairs.append((slot_id, self._queue.popleft()))
         if not pairs:
             return
+        self._write_conditioning(pairs)
+        plen = self.kv_prefix_len or 0
         groups: dict = {}
         for slot_id, req in pairs:
             groups.setdefault(_bucket(len(req.prompt), self.prefill_buckets), []).append(
@@ -352,13 +529,17 @@ class InferenceEngine:
                     sampling[j] = self._sampling_row(req)
                     slot = self._slots[slot_id]
                     slot.request = req
-                    slot.output = RequestOutput(req.request_id, len(prompt))
+                    slot.output = RequestOutput(req.request_id, plen + len(prompt))
                     slot.admit_t = time.perf_counter()
                     slot.output.queue_time = slot.admit_t - getattr(req, "_submit_t",
                                                                     slot.admit_t)
-                    slot.pos = len(prompt)
-                firsts = self._prefill(self._tensor(tokens), self._tensor(slots),
-                                       self._tensor(lengths), self._tensor(sampling))
+                    slot.pos = plen + len(prompt)
+                args = (self._tensor(tokens), self._tensor(slots), self._tensor(lengths),
+                        self._tensor(sampling))
+                if self.kv_prefix_len is None:
+                    firsts = self._prefill(*args)
+                else:
+                    firsts = self._prefill_prefixed(self._stack_kv_prefixes(chunk, n), *args)
                 admitted.append((chunk, firsts))
         # pull first tokens only after every prefill is dispatched
         for chunk, firsts in admitted:

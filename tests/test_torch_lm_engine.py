@@ -124,9 +124,13 @@ def test_filter_logits_per_row_matches_jax():
 def test_submit_and_constructor_refuse_what_is_not_ported(models):
     _, _, port = models
     eng = InferenceEngine(port, device="cpu", **ENGINE)
-    for field in ("prefix", "adapter", "conditioning", "kv_prefix"):
+    for field in ("prefix", "adapter"):
         with pytest.raises(NotImplementedError, match="A5"):
             eng.submit(Request([1, 2], 3, **{field: "x"}))
+    # ported since: a plain engine refuses requests that carry them
+    for field in ("conditioning", "kv_prefix"):
+        with pytest.raises(ValueError, match="required exactly when"):
+            eng.submit(Request([1, 2], 3, **{field: torch.zeros(1)}))
     with pytest.raises(NotImplementedError, match="A5"):
         eng.register_prefix("sys", [1, 2])
     with pytest.raises(ValueError, match="max_len"):
@@ -134,7 +138,7 @@ def test_submit_and_constructor_refuse_what_is_not_ported(models):
     with pytest.raises(ValueError, match="empty"):
         eng.submit(Request([], 3))
     for kw in (dict(prefill_chunk=16), dict(window=64), dict(sinks=4), dict(adapters={}),
-               dict(draft_model=port), dict(kv_prefix_len=4), dict(conditioning_spec={})):
+               dict(draft_model=port)):
         with pytest.raises(NotImplementedError, match="A5"):
             InferenceEngine(port, device="cpu", **ENGINE, **kw)
     with pytest.raises(ValueError, match="int8"):

@@ -383,3 +383,71 @@ def test_clip_image_transform_runs_without_pil(tmp_path):
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split("\n")[:2] == ["(24, 24, 3)", "(24, 24, 3)"]
+
+
+COCA_TINY = dict(vision_patch_size=8, vision_dim_feedforward=128, vision_n_layer=1,
+                 vision_n_head=2, vocab_size=100, num_text_positions=40, text_hidden_dim=64,
+                 text_n_layer=1, text_n_head=2, text_dim_feedforward=128, text_output_dim=64,
+                 fusion_n_layer=1, fusion_n_head=2, fusion_dim_feedforward=128,
+                 pooler_input_embed_dim=64, pooler_output_embed_dim=64, pooler_n_head=2,
+                 image_size=48, multimodal_output_projection_dim=100, pooler_n_queries=32)
+
+
+def test_coca_entry_points_raise_without_cuda(monkeypatch):
+    from multimodal_tpu_torch.models.coca import coca_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (coca_model.coca_vit_b_32, coca_model.coca_vit_l_14,
+                  lambda: coca_model.coca_vit(**COCA_TINY),
+                  lambda: coca_model.coca_for_pretraining(**COCA_TINY)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+
+
+def test_cpu_coca_and_blip2_steps_launch_no_kernel():
+    """A CoCa pretraining step (the text and fusion self-attention past the
+    flash threshold with their dense masks, the pooler's 32 queries) and a
+    BLIP-2 stage-1 step (32 queries, the ITM 3x batch) on the CPU: the
+    plain versions run, no kernel; every trained parameter gets a
+    gradient, the frozen tower none."""
+    from multimodal_tpu_torch.models.blip2.blip2 import BLIP2
+    from multimodal_tpu_torch.models.blip2.qformer_model import QformerForCLM
+    from multimodal_tpu_torch.models.coca.coca_model import coca_for_pretraining
+    from multimodal_tpu_torch.modules.encoders.vision_transformer import vision_transformer
+    from multimodal_tpu_torch.modules.losses.blip2_losses import (
+        Blip2Phase1Loss,
+        blip2_phase1_loss,
+    )
+
+    fe.reset_launch_counts()
+    fa.reset_launch_counts()
+    r = np.random.RandomState(0)
+    coca = coca_for_pretraining(device="cpu", **COCA_TINY)
+    texts = torch.from_numpy(r.randint(1, 100, (2, 40)))
+    texts[1, 30:] = 0
+    images = torch.from_numpy(r.randn(2, 48, 48, 3).astype(np.float32))
+    losses = coca(images, texts)
+    sum(losses.values()).backward()
+    assert all(p.grad is not None for p in coca.parameters())
+    torch.manual_seed(0)
+    model = BLIP2(QformerForCLM(num_hidden_layers=2, dim_q=64, dim_feedforward=128, num_heads=2,
+                                max_position_embeddings=40, vocab_size=100, dim_kv=64),
+                  vision_transformer(patch_size=8, hidden_dim=64, dim_feedforward=128,
+                                     n_layer=1, n_head=2, image_size=48),
+                  dim_q=64, image_encoder_embedding_dim=64, decoder_bos_token_id=99)
+    loss = Blip2Phase1Loss(dim_q=64)
+    atts = torch.ones(2, 36, dtype=torch.long)
+    atts[0, 20:] = 0
+    ids = torch.from_numpy(r.randint(1, 99, (2, 36))) * atts
+    out = model(images, ids, atts)
+    total = blip2_phase1_loss(loss, model, out, ids, atts, torch.Generator().manual_seed(0),
+                              decoder_bos_token_id=99, vocab_size=100).total_loss
+    total.backward()
+    assert torch.isfinite(total)
+    assert all(p.grad is None for p in model.vision_encoder.parameters())
+    assert all(p.grad is not None for n, p in model.named_parameters()
+               if not n.startswith("vision_encoder"))
+    for counter in (fe.fused_qkv_attention, fe.fused_qkv_attention_bwd, fe.fused_mlp,
+                    fe.fused_mlp_bwd, fe.fused_mlp_bwd_acc, fa.flash_attention_forward,
+                    fa.flash_attention_bwd, fa.flash_attention_bwd_dbias):
+        assert counter.launches == 0
