@@ -1,5 +1,5 @@
-// Helpers shared by the kernels: type conversions, cp.async, ldmatrix and
-// the bf16 tensor-core product.
+// Helpers shared by the kernels: type conversions, `ex2`, cp.async, ldmatrix
+// and the bf16 tensor-core product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,6 +17,13 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);  // round to nearest even
+}
+
+// 2^x on the SFU (approximate, flushing denormals); -inf gives 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats rounded to bf16 and packed, the first in the low half.

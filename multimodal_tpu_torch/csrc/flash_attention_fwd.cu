@@ -23,42 +23,62 @@
 // S = 8192 (a train step's call, 0.834 ms), against 4 * 8 * 12 * S * 64 * 2
 // bytes of q, k, v and o (0.015 and 0.06 ms at 3.35 TB/s).
 //
-// Design, bf16 at head width 64 without a bias (flash_fwd_wgmma_kernel):
-// one block of two warpgroups per (128-query tile, head, batch), 64 query
-// rows a warpgroup. The grid walks a chunk of heads at a time (about a wave
-// of blocks: 8 heads at S = 2048, 2 at 8192; 3% faster at S = 2048 than
-// every head's same query tile together), and inside a chunk the longest
-// causal rows first. Thread 0 loads the block's Q once by TMA (two 64 x 64 boxes,
-// 128-byte swizzle) and the first key tiles of K and V (128 keys each) into
-// a ring of six stages, each guarded by an mbarrier; there is no producer
-// warp (a ninth warp would cap every thread at 168 registers). The last of
-// the eight warps to be done with a stage refills it. Per key tile t a
-// warpgroup issues S(t) = Q K(t)^T (`wgmma` m64n128k16, both operands
-// K-major in shared memory, fp32 accumulators) and then O += P(t - 1)
-// V(t - 1) (m64n64k16 with P, rounded to bf16 and packed, as the A
-// fragments in registers and V MN-major), waits for S(t) alone and runs the
-// softmax of tile t (fp32, `ex2`, row maxima and sums in four partials)
-// while the tensor cores run P(t - 1) V(t - 1); the two warpgroups take
-// turns to issue (named barriers), so one's softmax also runs under the
-// other's products. P never goes through shared memory. Key tiles wholly
-// above the causal diagonal are never loaded; the leading tiles that every
-// row of the block sees whole run a loop without masks, the rest (the
-// diagonal, a ragged Sk edge, segment ids) a loop with one straight pass
-// of selects before the softmax, the segment ids read as bits before the
-// tile's products so that their loads run under them. Rows past Sq read
-// zeros and are not stored. At (8, 12, 2048, 64) causal it takes 0.19 ms,
-// at (8, 12, 8192, 64) 2.32 ms, against SDPA's 0.14 and 1.81 (H100 80GB
-// HBM3, 700.00 W; PERF.md): what remains is mostly the `ex2`s, 16 a clock
-// an SM, as many clocks a tile as the tensor cores' products.
+// Design, bf16 at head width 64 or 96, with or without a bias
+// (flash_fwd_wgmma_kernel<D, BIAS, WGS>): one block of two warpgroups per
+// (128-query tile, head, batch), 64 query rows a warpgroup; up to 64
+// queries (kShortQueries: BLIP-2's 32 text queries) a block is one
+// warpgroup of 64 rows with a two-stage ring, so that no warpgroup owns
+// padding rows only and two blocks share an SM. The grid walks a
+// chunk of heads at a time (about a wave of blocks: 8 heads at S = 2048, 2
+// at 8192; 3% faster at S = 2048 than every head's same query tile
+// together), and inside a chunk the longest causal rows first. Thread 0
+// loads the block's Q once by TMA and the first key tiles of K and V (128
+// keys each) into a ring of stages, each guarded by an mbarrier; there is no
+// producer warp (a ninth warp would cap every thread at 168 registers). The
+// last of the eight warps to be done with a stage refills it. Per key tile t
+// a warpgroup issues S(t) = Q K(t)^T (`wgmma` m64n128k16, D / 16 k-steps,
+// both operands K-major in shared memory, fp32 accumulators) and then O +=
+// P(t - 1) V(t - 1) (m64n64k16 or m64n96k16 with P, rounded to bf16 and
+// packed, as the A fragments in registers and V MN-major), waits for S(t)
+// alone and runs the softmax of tile t (fp32, `ex2`, row maxima and sums in
+// four partials) while the tensor cores run P(t - 1) V(t - 1); the two
+// warpgroups take turns to issue (named barriers), so one's softmax also
+// runs under the other's products. P never goes through shared memory. Key
+// tiles wholly above the causal diagonal are never loaded; the leading tiles
+// that every row of the block sees whole run a loop without masks, the rest
+// (the diagonal, a ragged Sk edge, segment ids, every tile with a bias) a
+// loop with one straight pass of selects before the softmax (each element
+// visible where its key is at most its row's last one and its segment bit
+// is set, the tests combined with bitwise operators: with `&&` the compiler
+// branched around elements, 7% slower at the LM prefill), the segment ids
+// read as bits and the bias as the thread's 64 fp32 values of the tile
+// (through its four strides, in place) before the tile's products, so that
+// their loads run under them. With a bias the scores go into log2 units
+// with the bias added before the row maxima: a row that the bias masks
+// wholly (every score -1e30) has every score equal to its maximum and
+// averages its visible keys' V, as the plain version does; o = 0 and lse =
+// -inf only where a row has no visible key (causal, segments). Rows past Sq
+// read zeros and are not stored. A 64-wide row is 128 bytes, one box in the
+// 128-byte swizzle, and six stages of K and V fit; a 96-wide row (192
+// bytes) is past that swizzle, so at D = 96 a tile is three 32-column
+// chunks in the 64-byte swizzle (the descriptors' chunks one chunk apart)
+// and four stages of 48 KB fit beside Q. At (8, 12, 2048, 64) causal it
+// takes 0.188 ms, at (8, 12, 8192, 64) 2.28-2.31 ms, against SDPA's
+// 0.14 and 1.78 (H100 80GB HBM3, 700.00 W; PERF.md): what remains is mostly
+// the `ex2`s, 16 a clock an SM, as many clocks a tile as the tensor cores'
+// products. At CoCa's and BLIP-2's short shapes (one or two key tiles a
+// block) a block's load and softmax latencies show: with a bias a thread
+// holds 254 registers, one two-warpgroup block an SM (CoCa's fusion mask
+// 0.021 device ms against SDPA's 0.007-0.014; the pooler at D = 96 0.033
+// against 0.024, PERF.md).
 //
-// The other routes, chosen by type, head width and bias, never after a
-// failure:
-// - bf16 at head width 32 or 128, and bf16 with a bias (flash_fwd_mma_kernel):
-//   one block of 4 warps per (64-query tile, head, batch); each warp owns 16
-//   query rows and keeps its q fragments, its 16 x 64 score tile and its
-//   16 x D output accumulator in registers. The block walks 64-key tiles of
-//   K and V staged in a two-stage cp.async double buffer; q . k^T and T(p) .
-//   v are `mma.sync` m16n8k16 products (fragments by `ldmatrix`, V by
+// The other routes, chosen by type and head width, never after a failure:
+// - bf16 at head width 32 or 128 (flash_fwd_mma_kernel), with or without a
+//   bias: one block of 4 warps per (64-query tile, head, batch); each warp
+//   owns 16 query rows and keeps its q fragments, its 16 x 64 score tile and
+//   its 16 x D output accumulator in registers. The block walks 64-key tiles
+//   of K and V staged in a two-stage cp.async double buffer; q . k^T and
+//   T(p) . v are `mma.sync` m16n8k16 products (fragments by `ldmatrix`, V by
 //   `ldmatrix.trans`), the score tile, rounded to bf16, reused in registers
 //   as the A fragment of p . v. The causal walk and the masks as above.
 // - fp32, and bf16 at other head widths, on the FP32 pipes: a block of 8
@@ -77,6 +97,7 @@
 
 namespace {
 
+using mm::ex2;
 using mm::from_f;
 using mm::to_f;
 
@@ -112,7 +133,7 @@ __device__ __forceinline__ float bias_at(const Args& a, int b, int h, int i, int
 }
 
 // ---------------------------------------------------------------------------
-// `mma.sync` path: bf16 at head width 32 or 128, and with a bias at 64.
+// `mma.sync` path: bf16 at head width 32 or 128.
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;
@@ -336,53 +357,129 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at head width 64 without a bias: `wgmma` + TMA.
+// bf16 at head width 64 or 96, with or without a bias: `wgmma` + TMA.
 // ---------------------------------------------------------------------------
 
-constexpr int kWgRows = 128;    // query rows a block owns: 64 a warpgroup
-constexpr int kWgKeys = 128;    // keys a tile holds
-constexpr int kWgStages = 6;    // K and V tiles in flight
-constexpr int kWgThreads = 256;  // two warpgroups; one lane issues each copy
-constexpr int kWgWarps = kWgThreads / 32;
-constexpr int kBox = 64 * 64 * 2;         // one 64 x 64 bf16 box
-constexpr int kKvBytes = 4 * kBox;        // a stage: K's two boxes, then V's two
-// The two warpgroups take turns to issue their products (named barriers 3
-// and 4), so that one's softmax runs under the other's products, besides
-// each overlapping its own softmax of tile t with its product of t - 1.
+constexpr int kWgKeys = 128;  // keys a tile holds
+// Query lengths up to which a block is one warpgroup (64 query rows) with
+// a ring of kShortStages, not two (128 rows) with the head width's
+// kStages: a second warpgroup would own padding rows only, and two such
+// blocks share an SM (2x faster at BLIP-2's 32 text queries; at 76-256
+// queries the blocks of two warpgroups were as fast or faster, PERF.md).
+constexpr int kShortQueries = 64;
+constexpr int kShortStages = 2;
+
+// The layout of a head width's tiles in shared memory. A tile of R rows is
+// D / kCols column chunks, each R rows of kRowBytes, the rows of a chunk
+// back to back (so a chunk is one K-major operand of up to 128 rows, or one
+// MN-major run of keys), each 64 rows of it one TMA box. At D = 64 a row is
+// 128 bytes, one chunk in the 128-byte swizzle; a 192-byte row at D = 96 is
+// past that swizzle's span, so it is three 32-column chunks of 64-byte rows
+// in the 64-byte swizzle. kStages: K and V tiles in flight, as many as 227
+// KB hold beside Q.
+template <int D>
+struct WgShape;
+template <>
+struct WgShape<64> {
+  static constexpr int kCols = 64;
+  static constexpr int kStages = 6;
+  static constexpr uint64_t kSwizzle = 1;  // the descriptors' 128-byte swizzle
+  static constexpr CUtensorMapSwizzle kMapSwizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+};
+template <>
+struct WgShape<96> {
+  static constexpr int kCols = 32;
+  static constexpr int kStages = 4;
+  static constexpr uint64_t kSwizzle = 2;  // 64-byte swizzle
+  static constexpr CUtensorMapSwizzle kMapSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
+};
+
+template <int D>
+struct Wg : WgShape<D> {
+  static constexpr int kRowBytes = 2 * WgShape<D>::kCols;
+  static constexpr int kChunks = D / WgShape<D>::kCols;
+  static constexpr int kBox = 64 * kRowBytes;          // 64 rows of a chunk
+  static constexpr int kTile = kChunks * 2 * kBox;     // 128 rows, every chunk
+  static constexpr int kKvBytes = 2 * kTile;           // a stage: K's tile, then V's
+  static constexpr int kKSteps = D / 16;               // k-steps of Q K^T
+};
+
+// A block of WGS warpgroups (64 query rows each) at head width D.
+template <int D, int WGS>
+struct Blk {
+  static constexpr int kRows = 64 * WGS;  // query rows a block owns
+  static constexpr int kThreads = 128 * WGS;  // one lane issues each copy
+  static constexpr int kWarps = 4 * WGS;
+  static constexpr int kStages = WGS == 2 ? WgShape<D>::kStages : kShortStages;
+  static constexpr int kQTile = WGS * Wg<D>::kChunks * Wg<D>::kBox;  // Q: kRows rows
+  // Shared memory, from a 1024-byte aligned base: Q's tile, the stages,
+  // their `full` barriers and Q's, and a count a stage of the warps done
+  // with it.
+  static constexpr size_t kSmem = 1024 + kQTile + (size_t)kStages * Wg<D>::kKvBytes +
+                                  (kStages + 1) * sizeof(uint64_t) + kStages * sizeof(int);
+};
+static_assert(Blk<64, 2>::kSmem <= 232448 && Blk<96, 2>::kSmem <= 232448,
+              "a block's shared memory");
+
+// A block's two warpgroups take turns to issue their products (named
+// barriers 3 and 4), so that one's softmax runs under the other's products,
+// besides each overlapping its own softmax of tile t with its product of
+// t - 1.
 constexpr bool kPingPong = true;
 // Blocks that a chunk of heads spans (about a wave of the card's 132 SMs at
 // a block an SM): the blocks of a few heads run together and share their K
 // and V in L2.
 constexpr int kChunkBlocks = 132;
-// Shared memory, from a 1024-byte aligned base: Q (2 boxes), the stages,
-// their `full` barriers and Q's, and a count a stage of the warps done
-// with it.
-constexpr size_t kWgSmem = 1024 + 2 * kBox + (size_t)kWgStages * kKvBytes +
-                           (kWgStages + 1) * sizeof(uint64_t) + kWgStages * sizeof(int);
 
 struct WgParams {
-  CUtensorMap q, k, v;  // (B, H, S, 64) bf16, 64 x 64 boxes
+  CUtensorMap q, k, v;  // (B, H, S, D) bf16, 64-row boxes of a chunk's columns
   Args a;
 };
 
-__device__ __forceinline__ float ex2(float x) {  // 2^x; -inf gives 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
+// A shared-memory descriptor in head width D's swizzle (wg::desc's fields).
+template <int D>
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (wg::desc(addr, lbo, sbo) & ~(3ull << 62)) | (Wg<D>::kSwizzle << 62);
+}
+// K-major descriptor of k-step kk (16 columns) of the rows at `tile` + `row0`
+// bytes of each chunk (a tile of ROWS rows): chunk kk / (kCols / 16), 32
+// bytes a k-step into its rows, 8-row groups 8 rows apart.
+template <int D, int ROWS>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, uint32_t row0, int kk) {
+  constexpr int per = Wg<D>::kCols / 16;
+  return wg_desc<D>(tile + (kk / per) * ROWS * Wg<D>::kRowBytes + row0 + (kk % per) * 32, 16,
+                    8 * Wg<D>::kRowBytes);
+}
+// MN-major descriptor of k-step kk (16 keys) of a V tile: 16 rows on, the
+// chunks (N) one chunk apart.
+template <int D>
+__device__ __forceinline__ uint64_t desc_v(uint32_t tile, int kk) {
+  return wg_desc<D>(tile + kk * 16 * Wg<D>::kRowBytes, 2 * Wg<D>::kBox, 8 * Wg<D>::kRowBytes);
+}
+
+// The boxes of the 64 R rows of a (B, H, S, D) tensor from row r0 into a
+// tile at `dst`, reported to `bar`.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int r0, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < Wg<D>::kChunks; ++c)
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      wg::tma_box_4d(dst + (R * c + j) * Wg<D>::kBox, map, bar, c * Wg<D>::kCols, r0 + 64 * j,
+                     h, b);
 }
 
 // The copies of key tile t (K and V, 128 rows each) into its stage,
 // reported to the stage's `full` barrier.
+template <int D, int STAGES>
 __device__ __forceinline__ void load_kv(const WgParams& p, uint8_t* kv, uint64_t* full, int t,
                                         int h, int b) {
-  const int s = t % kWgStages;
-  uint8_t* dst = kv + s * kKvBytes;
-  wg::bar_expect_tx(&full[s], kKvBytes);
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wg::tma_box_4d(dst + j * kBox, &p.k, &full[s], 0, t * kWgKeys + 64 * j, h, b);
-    wg::tma_box_4d(dst + (2 + j) * kBox, &p.v, &full[s], 0, t * kWgKeys + 64 * j, h, b);
-  }
+  const int s = t % STAGES;
+  uint8_t* dst = kv + s * Wg<D>::kKvBytes;
+  wg::bar_expect_tx(&full[s], Wg<D>::kKvBytes);
+  load_tile<D, 2>(dst, &p.k, &full[s], t * kWgKeys, h, b);
+  load_tile<D, 2>(dst + Wg<D>::kTile, &p.v, &full[s], t * kWgKeys, h, b);
 }
 
 // Which of a thread's scores of key tile k0 pair a query and a key of one
@@ -406,14 +503,39 @@ __device__ __forceinline__ uint64_t segment_bits(const Args& a, int b, int k0, i
   return bits;
 }
 
+// The bias of a thread's scores of key tile k0 (bv[4 j + 2 hh + c] for row
+// r0 + 8 hh and key k0 + 8 j + 2 t4 + c), fp32 read in place through its
+// four strides; rows and keys past the ends read the last ones (masked
+// anyway). Read before the tile's products are issued, as the segment ids
+// are; CoCa's rows of 77 floats are not 16-byte aligned, so these are
+// ordinary loads.
+__device__ __forceinline__ void bias_tile(float (&bv)[64], const Args& a, int b, int h, int r0,
+                                          int k0, int t4) {
+  const float* base = a.bias + b * a.bs[0] + h * a.bs[1];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float* row = base + min(r0 + 8 * hh, a.Sq - 1) * a.bs[2];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        bv[4 * j + 2 * hh + c] = row[min(k0 + 8 * j + 2 * t4 + c, a.Sk - 1) * a.bs[3]];
+  }
+}
+
 // The per-element masks of key tile k0 on a thread's scores (s[4 j + e] is
 // row r0 + 8 (e / 2), key k0 + 8 j + 2 t4 + e % 2): -inf where a key lies
 // past Sk, above the causal diagonal or, by `seg` (segment_bits; all ones
-// without segment ids), in another segment. One straight pass of selects:
-// no branch around an element.
+// without segment ids), in another segment. With BIAS the visible scores
+// are scaled into log2 units and the bias (bias_tile) added, in place. One
+// straight pass of selects: no branch around an element.
+template <bool BIAS>
 __device__ __forceinline__ void mask_tile(float (&s)[64], const Args& a, int r0, int k0, int t4,
-                                          uint64_t seg) {
-  const int off = a.Sk - a.Sq;
+                                          uint64_t seg, const float (&bv)[64]) {
+  // the last key each of the thread's two rows sees: Sk - 1, or its causal
+  // diagonal before it
+  const int last[2] = {a.causal ? min(a.Sk - 1, r0 + a.Sk - a.Sq) : a.Sk - 1,
+                       a.causal ? min(a.Sk - 1, r0 + 8 + a.Sk - a.Sq) : a.Sk - 1};
 #pragma unroll
   for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -422,52 +544,64 @@ __device__ __forceinline__ void mask_tile(float (&s)[64], const Args& a, int r0,
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int x = 4 * j + 2 * hh + c;
-        const bool vis = key < a.Sk && (!a.causal || key <= r0 + 8 * hh + off) && ((seg >> x) & 1);
-        s[x] = vis ? s[x] : -INFINITY;
+        const bool vis = (key <= last[hh]) & (((seg >> x) & 1) != 0);
+        const float v = BIAS ? fmaf(s[x], a.scale_log2, bv[x] * kLog2e) : s[x];
+        s[x] = vis ? v : -INFINITY;
       }
     }
 }
 
-// One key tile t of a warpgroup: the products S(t) = Q K(t)^T (four k-steps,
-// the first overwriting S) and O += P(t - 1) V(t - 1) (eight, P from
-// registers) issued as two groups; the softmax of S(t) once the first group
-// is done, under the second; then, with both done, the stage of t - 1
+// One key tile t of a warpgroup: the products S(t) = Q K(t)^T (D / 16
+// k-steps, the first overwriting S) and O += P(t - 1) V(t - 1) (eight, P
+// from registers) issued as two groups; the softmax of S(t) once the first
+// group is done, under the second; then, with both done, the stage of t - 1
 // released, O rescaled and P(t) packed. No instruction writes registers of
 // a product in flight (ptxas would serialize the products), and every
 // product is issued, unconditionally: for t = 0, P is 0 and V is tile 0's.
-template <bool MASK>
+// Scores are raw products, scaled inside the softmax, except with BIAS,
+// where mask_tile leaves them in log2 units with the bias added.
+template <int D, int WGS, bool MASK, bool BIAS>
 __device__ __forceinline__ void flash_tile(const WgParams& p, uint8_t* kv, uint64_t* full,
                                            int* released, int t, int n, int h, int b, int r0,
-                                           const int (&qid)[2], uint32_t q_desc_base,
-                                           float (&s)[64], float (&o)[32], uint32_t (&pa)[8][4],
-                                           float (&m)[2], float (&l)[2]) {
+                                           const int (&qid)[2], uint32_t q_tile, uint32_t q_row0,
+                                           float (&s)[64], float (&o)[D / 2],
+                                           uint32_t (&pa)[8][4], float (&m)[2], float (&l)[2]) {
+  using B = Blk<D, WGS>;
+  constexpr int kStages = B::kStages;
+  constexpr bool kTurns = kPingPong && WGS == 2;
   const Args& a = p.a;
   const int lane = threadIdx.x & 31;
   const int t4 = lane & 3;
   const int wgi = threadIdx.x / 128;
-  const int st = t % kWgStages;
-  const int pv = t == 0 ? 0 : (t - 1) % kWgStages;
+  const int st = t % kStages;
+  const int pv = t == 0 ? 0 : (t - 1) % kStages;
   const uint64_t seg = MASK && a.qseg ? segment_bits(a, b, t * kWgKeys, t4, qid) : ~0ull;
-  wg::bar_wait(&full[st], (t / kWgStages) & 1);
+  float bv[64];
+  if (BIAS) bias_tile(bv, a, b, h, r0, t * kWgKeys, t4);
+  wg::bar_wait(&full[st], (t / kStages) & 1);
   __syncwarp();  // the warp leaves the poll together: `wgmma` is .aligned
-  if (kPingPong) wg::named_sync(3 + wgi, kWgThreads);
-  const uint32_t k_base = wg::smem_u32(kv + st * kKvBytes);
-  const uint32_t v_base = wg::smem_u32(kv + pv * kKvBytes + 2 * kBox);
+  if (kTurns) wg::named_sync(3 + wgi, B::kThreads);
+  const uint32_t k_tile = wg::smem_u32(kv + st * Wg<D>::kKvBytes);
+  const uint32_t v_tile = wg::smem_u32(kv + pv * Wg<D>::kKvBytes + Wg<D>::kTile);
   wg::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wg::mma_m64n128k16<wg::K, wg::K>(s, wg::desc(q_desc_base + kk * 32, 16, 1024),
-                                     wg::desc(k_base + kk * 32, 16, 1024), kk);
+  for (int kk = 0; kk < Wg<D>::kKSteps; ++kk)
+    wg::mma_m64n128k16<wg::K, wg::K>(s, desc_k<D, B::kRows>(q_tile, q_row0, kk),
+                                     desc_k<D, kWgKeys>(k_tile, 0, kk), kk);
   wg::wgmma_commit();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wg::mma_m64n64k16_rs<wg::MN>(o, pa[kk], wg::desc(v_base + kk * 2048, kBox, 1024), 1);
+  for (int kk = 0; kk < 8; ++kk) {
+    if constexpr (D == 64)
+      wg::mma_m64n64k16_rs<wg::MN>(o, pa[kk], desc_v<D>(v_tile, kk), 1);
+    else
+      wg::mma_m64n96k16_rs<wg::MN>(o, pa[kk], desc_v<D>(v_tile, kk), 1);
+  }
   wg::wgmma_commit();
-  if (kPingPong) wg::named_arrive(3 + (wgi ^ 1), kWgThreads);
+  if (kTurns) wg::named_arrive(3 + (wgi ^ 1), B::kThreads);
   wg::wgmma_wait<1>();  // S(t) is done; P(t - 1) V(t - 1) runs on
   wg::fence_acc(s);
 
-  if (MASK) mask_tile(s, a, r0, t * kWgKeys, t4, seg);
+  if (MASK) mask_tile<BIAS>(s, a, r0, t * kWgKeys, t4, seg, bv);
   // Row maxima and sums in four partials a row (x = 4 j + e: partial j % 4,
   // row e / 2), so that no chain of 32 dependent instructions stalls the
   // warp.
@@ -486,7 +620,7 @@ __device__ __forceinline__ void flash_tile(const WgParams& p, uint8_t* kv, uint6
     mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
     mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
     // max(s) * c is max(s * c) exactly: the rounding is monotonic, c > 0
-    const float m_new = fmaxf(m[hh], mx[hh] * a.scale_log2);
+    const float m_new = fmaxf(m[hh], BIAS ? mx[hh] : mx[hh] * a.scale_log2);
     mu[hh] = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet: p = 0
     alpha[hh] = ex2(m[hh] - mu[hh]);
     m[hh] = m_new;
@@ -494,7 +628,10 @@ __device__ __forceinline__ void flash_tile(const WgParams& p, uint8_t* kv, uint6
 #pragma unroll
   for (int x = 0; x < 64; ++x) {
     const int hh = (x >> 1) & 1;
-    s[x] = ex2(fmaf(s[x], a.scale_log2, -mu[hh]));
+    if constexpr (BIAS)
+      s[x] = ex2(s[x] - mu[hh]);  // a row the bias masks wholly: every s = mu, p = 1
+    else
+      s[x] = ex2(fmaf(s[x], a.scale_log2, -mu[hh]));
     float& ps = part[hh][((x >> 2) & 1) << 1 | (x & 1)];
     ps = x < 8 ? s[x] : ps + s[x];
   }
@@ -507,35 +644,40 @@ __device__ __forceinline__ void flash_tile(const WgParams& p, uint8_t* kv, uint6
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) wg::fence_regs(pa[kk]);
   // The stage of t - 1 is done in this warp; the last of the block's warps
-  // to be done refills it with tile t - 1 + kWgStages.
+  // to be done refills it with tile t - 1 + kStages.
   if (t > 0 && lane == 0) {
-    const int rs = (t - 1) % kWgStages;
+    const int rs = (t - 1) % kStages;
     __threadfence_block();
-    if (atomicAdd(&released[rs], 1) == kWgWarps - 1) {
+    if (atomicAdd(&released[rs], 1) == B::kWarps - 1) {
       released[rs] = 0;
       __threadfence_block();
       wg::fence_async_smem();
-      if (t - 1 + kWgStages < n) load_kv(p, kv, full, t - 1 + kWgStages, h, b);
+      if (t - 1 + kStages < n) load_kv<D, kStages>(p, kv, full, t - 1 + kStages, h, b);
     }
   }
   __syncwarp();
 #pragma unroll
-  for (int x = 0; x < 32; ++x) o[x] *= alpha[(x >> 1) & 1];
+  for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) pa[kk][r] = mm::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
-__global__ void __launch_bounds__(kWgThreads, 1)
+template <int D, bool BIAS, int WGS>
+__global__ void __launch_bounds__(Blk<D, WGS>::kThreads, WGS == 2 ? 1 : 2)
     flash_fwd_wgmma_kernel(const __grid_constant__ WgParams p) {
+  using B = Blk<D, WGS>;
+  constexpr int kStages = B::kStages;
+  constexpr int kWgRows = B::kRows;
+  constexpr bool kTurns = kPingPong && WGS == 2;
   const Args& a = p.a;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                            ~uintptr_t(1023));
-  uint8_t* kv = sm + 2 * kBox;
-  uint64_t* full = reinterpret_cast<uint64_t*>(kv + kWgStages * kKvBytes);
-  uint64_t* q_bar = full + kWgStages;
+  uint8_t* kv = sm + B::kQTile;
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv + kStages * Wg<D>::kKvBytes);
+  uint64_t* q_bar = full + kStages;
   int* released = reinterpret_cast<int*>(q_bar + 1);
 
   // The grid is walked a chunk of heads at a time (kChunkBlocks); inside a
@@ -554,17 +696,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int off = a.Sk - a.Sq;
   // Key tiles [0, n) are walked, at least one (a block whose rows see no
   // key masks all of tile 0); [0, n_full) need no per-element mask: every
-  // row of the block sees every key of them.
+  // row of the block sees every key of them (and there is no bias).
   int n = (a.Sk + kWgKeys - 1) / kWgKeys;
   if (a.causal) {
     const int last_key = min(a.Sq, q0 + kWgRows) - 1 + off;
     n = max(1, min(n, last_key / kWgKeys + 1));
   }
-  int n_full = a.qseg ? 0 : min(n, a.Sk / kWgKeys);
+  int n_full = a.qseg || BIAS ? 0 : min(n, a.Sk / kWgKeys);
   if (a.causal) n_full = min(n_full, q0 + off + 1 > 0 ? (q0 + off + 1) / kWgKeys : 0);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       wg::bar_init(&full[s], 1);
       released[s] = 0;
     }
@@ -573,10 +715,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    wg::bar_expect_tx(q_bar, 2 * kBox);
-    wg::tma_box_4d(sm, &p.q, q_bar, 0, q0, h, b);
-    wg::tma_box_4d(sm + kBox, &p.q, q_bar, 0, q0 + 64, h, b);
-    for (int t = 0; t < kWgStages && t < n; ++t) load_kv(p, kv, full, t, h, b);
+    wg::bar_expect_tx(q_bar, B::kQTile);
+    load_tile<D, WGS>(sm, &p.q, q_bar, q0, h, b);
+    for (int t = 0; t < kStages && t < n; ++t) load_kv<D, kStages>(p, kv, full, t, h, b);
   }
 
   // Warpgroup wgi owns rows [q0 + 64 wgi, + 64); a thread rows r0 and
@@ -590,12 +731,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int hh = 0; hh < 2; ++hh)
       qid[hh] = r0 + 8 * hh < a.Sq ? a.qseg[b * a.qseg_b + r0 + 8 * hh] : 0;
 
-  float s[64], o[32];
+  float s[64], o[D / 2];
   uint32_t pa[8][4];
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // this lane's partial row sums
 #pragma unroll
-  for (int x = 0; x < 32; ++x) o[x] = 0.f;
+  for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
@@ -604,25 +745,34 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   wg::fence_acc(o);
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) wg::fence_regs(pa[kk]);
-  if (kPingPong && wgi == 1) wg::named_arrive(3, kWgThreads);  // warpgroup 0 issues first
+  if (kTurns && wgi == 1) wg::named_arrive(3, B::kThreads);  // warpgroup 0 issues first
   wg::bar_wait(q_bar, 0);
   __syncwarp();
-  const uint32_t q_desc_base = wg::smem_u32(sm + wgi * kBox);
+  const uint32_t q_tile = wg::smem_u32(sm);
+  const uint32_t q_row0 = wgi * 64 * Wg<D>::kRowBytes;
 
-  for (int t = 0; t < n_full; ++t)
-    flash_tile<false>(p, kv, full, released, t, n, h, b, r0, qid, q_desc_base, s, o, pa, m, l);
+  if constexpr (!BIAS)
+    for (int t = 0; t < n_full; ++t)
+      flash_tile<D, WGS, false, false>(p, kv, full, released, t, n, h, b, r0, qid, q_tile,
+                                       q_row0, s, o, pa, m, l);
   for (int t = n_full; t < n; ++t)
-    flash_tile<true>(p, kv, full, released, t, n, h, b, r0, qid, q_desc_base, s, o, pa, m, l);
+    flash_tile<D, WGS, true, BIAS>(p, kv, full, released, t, n, h, b, r0, qid, q_tile, q_row0,
+                                   s, o, pa, m, l);
 
   // O += P(n - 1) V(n - 1)
-  if (kPingPong) wg::named_sync(3 + wgi, kWgThreads);
-  const uint32_t v_last = wg::smem_u32(kv + ((n - 1) % kWgStages) * kKvBytes + 2 * kBox);
+  if (kTurns) wg::named_sync(3 + wgi, B::kThreads);
+  const uint32_t v_last =
+      wg::smem_u32(kv + ((n - 1) % kStages) * Wg<D>::kKvBytes + Wg<D>::kTile);
   wg::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wg::mma_m64n64k16_rs<wg::MN>(o, pa[kk], wg::desc(v_last + kk * 2048, kBox, 1024), 1);
+  for (int kk = 0; kk < 8; ++kk) {
+    if constexpr (D == 64)
+      wg::mma_m64n64k16_rs<wg::MN>(o, pa[kk], desc_v<D>(v_last, kk), 1);
+    else
+      wg::mma_m64n96k16_rs<wg::MN>(o, pa[kk], desc_v<D>(v_last, kk), 1);
+  }
   wg::wgmma_commit();
-  if (kPingPong && wgi == 0) wg::named_arrive(4, kWgThreads);
+  if (kTurns && wgi == 0) wg::named_arrive(4, B::kThreads);
   wg::wgmma_wait<0>();
   wg::fence_acc(o);
 
@@ -638,27 +788,55 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (i >= a.Sq) continue;
     const float inv = l[hh] == 0.f ? 0.f : 1.f / l[hh];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(og + i * a.os[2] + 8 * j + 2 * t4) =
-          __floats2bfloat162_rn(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+    for (int jc = 0; jc < D / 8; ++jc)
+      *reinterpret_cast<__nv_bfloat162*>(og + i * a.os[2] + 8 * jc + 2 * t4) =
+          __floats2bfloat162_rn(o[4 * jc + 2 * hh] * inv, o[4 * jc + 2 * hh + 1] * inv);
     if (a.lse && t4 == 0)
       a.lse[((long long)b * a.H + h) * a.Sq + i] =
           l[hh] == 0.f ? -INFINITY : m[hh] + log2f(l[hh]);
   }
 }
 
+// A TMA map of a bf16 (B, H, S, D) tensor with element strides st (batch,
+// head, row): boxes of 64 rows by a chunk's columns, in D's swizzle. Rows
+// past S read zeros.
+template <int D>
+cudaError_t map_bhsd(CUtensorMap* map, const void* base, int B, int H, int S,
+                     const long long (&st)[3]) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)Wg<D>::kCols, 64, 1, 1};
+  return wg::make_map_nd<4>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box,
+                            Wg<D>::kMapSwizzle);
+}
+
+template <int D, bool BIAS, int WGS>
 cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
-  static const cudaError_t smem_err = wg::allow_smem(flash_fwd_wgmma_kernel, kWgSmem);
+  using B = Blk<D, WGS>;
+  static const cudaError_t smem_err =
+      wg::allow_smem(flash_fwd_wgmma_kernel<D, BIAS, WGS>, B::kSmem);
   if (smem_err != cudaSuccess) return smem_err;
   WgParams p;
   p.a = a;
   cudaError_t err;
-  if ((err = wg::map_bhsd(&p.q, a.q, a.B, a.H, a.Sq, a.qs)) != cudaSuccess) return err;
-  if ((err = wg::map_bhsd(&p.k, a.k, a.B, a.H, a.Sk, a.ks)) != cudaSuccess) return err;
-  if ((err = wg::map_bhsd(&p.v, a.v, a.B, a.H, a.Sk, a.vs)) != cudaSuccess) return err;
-  flash_fwd_wgmma_kernel<<<(a.Sq + kWgRows - 1) / kWgRows * a.H * a.B, kWgThreads, kWgSmem,
-                           stream>>>(p);
+  if ((err = map_bhsd<D>(&p.q, a.q, a.B, a.H, a.Sq, a.qs)) != cudaSuccess) return err;
+  if ((err = map_bhsd<D>(&p.k, a.k, a.B, a.H, a.Sk, a.ks)) != cudaSuccess) return err;
+  if ((err = map_bhsd<D>(&p.v, a.v, a.B, a.H, a.Sk, a.vs)) != cudaSuccess) return err;
+  flash_fwd_wgmma_kernel<D, BIAS, WGS><<<(a.Sq + B::kRows - 1) / B::kRows * a.H * a.B,
+                                         B::kThreads, B::kSmem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int D, bool BIAS>
+cudaError_t dispatch_blocks(const Args& a, cudaStream_t stream) {
+  return a.Sq <= kShortQueries ? launch_wgmma<D, BIAS, 1>(a, stream)
+                               : launch_wgmma<D, BIAS, 2>(a, stream);
+}
+
+template <int D>
+cudaError_t dispatch_wgmma(const Args& a, cudaStream_t stream) {
+  return a.bias ? dispatch_blocks<D, true>(a, stream) : dispatch_blocks<D, false>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -867,9 +1045,9 @@ int mm_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   a.causal = causal;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_fp32<float>(a, D, st);
-  if (D == 64 && bias == nullptr) return (int)launch_wgmma(a, st);
+  if (D == 64) return (int)dispatch_wgmma<64>(a, st);
+  if (D == 96) return (int)dispatch_wgmma<96>(a, st);
   if (D == 32) return (int)launch_mma<32>(a, st);
-  if (D == 64) return (int)launch_mma<64>(a, st);
   if (D == 128) return (int)launch_mma<128>(a, st);
   return (int)dispatch_fp32<__nv_bfloat16>(a, D, st);
 }

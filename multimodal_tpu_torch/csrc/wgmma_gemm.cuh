@@ -30,9 +30,10 @@
 //
 // The header also carries what the flash attention kernels
 // (csrc/flash_attention_{fwd,bwd}.cu) need beside the ring's barriers and
-// descriptors: maps of strided tensors of up to five dimensions, m64n64k16
-// and m64n32k16 products, the form with A in registers, bulk copies, TMA
-// reductions into global fp32, and named barriers.
+// descriptors: maps of strided tensors of up to five dimensions (in the
+// 64-byte swizzle too), m64n64k16 and m64n32k16 products, the form with A in
+// registers (also m64n96k16), bulk copies, TMA reductions into global fp32,
+// and named barriers.
 
 #pragma once
 
@@ -88,19 +89,20 @@ inline EncodeTiled encode_tiled() {
 // A TMA map of a strided tensor of R dimensions, dims[0] the contiguous one:
 // `strides` are the other dimensions' strides in bytes (multiples of 16, in
 // any order), `box` the box's extent in each dimension, 128-byte swizzle
-// (box[0] times the element size at most 128 bytes). Boxes that reach past
-// a dimension read zeros there, and a reduction into the map skips those
-// elements.
+// (box[0] times the element size at most 128 bytes) unless `swizzle` names
+// another. Boxes that reach past a dimension read zeros there, and a
+// reduction into the map skips those elements.
 template <int R>
 inline cudaError_t make_map_nd(CUtensorMap* map, CUtensorMapDataType type, const void* base,
                                const cuuint64_t (&dims)[R], const cuuint64_t (&strides)[R - 1],
-                               const cuuint32_t (&box)[R]) {
+                               const cuuint32_t (&box)[R],
+                               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorSymbolNotFound;
   cuuint32_t elem[R];
   for (int i = 0; i < R; ++i) elem[i] = 1;
   const CUresult r = enc(map, type, R, const_cast<void*>(base), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -349,6 +351,35 @@ __device__ __forceinline__ void mma_m64n64k16_rs(float (&d)[32], const uint32_t 
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(MB));
+}
+
+// d (64 x 96) (+)= A (64 x 16) . B (16 x 96), A from registers as in
+// mma_m64n64k16_rs: the output product of attention at head width 96.
+template <int MB>
+__device__ __forceinline__ void mma_m64n96k16_rs(float (&d)[48], const uint32_t (&a)[4],
+                                                 uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(MB));
 }
 

@@ -34,12 +34,12 @@ On a CUDA tensor each wrapper (``flash_attention_forward``,
 kernels in ``csrc/flash_attention_{fwd,bwd}.cu`` or raises, and counts its
 calls in its ``launches``; on a CPU tensor it runs its part of the plain
 versions (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`),
-the same arithmetic a whole row at a time. In bf16 at head width 64
-(without a bias, for the forward) both directions run `wgmma` kernels fed
-by TMA: the forward keeps the probabilities in registers between its two
-products; ``flash_attention_bwd`` is one pass over each key block that adds
-dq into an fp32 workspace, in no fixed order: its dq is not bitwise
-repeatable from call to call, its dk and dv are.
+the same arithmetic a whole row at a time. In bf16 at head width 64 both
+directions run `wgmma` kernels fed by TMA (the forward also at head width
+96 and with a bias): the forward keeps the probabilities in registers
+between its two products; ``flash_attention_bwd`` is one pass over each
+key block that adds dq into an fp32 workspace, in no fixed order: its dq
+is not bitwise repeatable from call to call, its dk and dv are.
 """
 
 from __future__ import annotations
@@ -88,6 +88,12 @@ def _as_4d_bias(bias: torch.Tensor) -> torch.Tensor:
     return bias.reshape((1,) * (4 - bias.dim()) + tuple(bias.shape)).float()
 
 
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' accumulation type: fp32 for fp32 and bf16 inputs
+    (the kernels' arithmetic), float64 for float64 ones (a reference)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -101,11 +107,13 @@ def flash_attention_plain(
     kv_segment_ids: Optional[torch.Tensor] = None,
 ):
     """Plain PyTorch version of the kernel (the TPU kernel's
-    ``_flash_kernel``), the whole row at once."""
+    ``_flash_kernel``), the whole row at once; in float64 throughout when
+    ``q``, ``k`` and ``v`` are float64."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    acc = _acc(q)
     scale = sm_scale if sm_scale is not None else d ** -0.5
-    s2 = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (scale * LOG2E)
+    s2 = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * (scale * LOG2E)
     if bias is not None:
         s2 = s2 + _as_4d_bias(bias) * LOG2E
     visible = _visible(sq, sk, causal, q_segment_ids, kv_segment_ids, q.device)
@@ -114,7 +122,7 @@ def flash_attention_plain(
     m = torch.where(m == -math.inf, 0.0, m)  # a row that sees no key: p = 0
     p = torch.exp2(s2 - m)
     lsum = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), v.float())
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).to(acc), v.to(acc))
     o = (o / torch.where(lsum == 0, 1.0, lsum)).to(q.dtype)
     if not return_lse:
         return o
@@ -247,39 +255,43 @@ def _visible(sq: int, sk: int, causal: bool, q_segment_ids, kv_segment_ids, devi
 def _bwd_plain_parts(q, k, v, do, lse, delta, bias, causal, sm_scale, q_segment_ids,
                      kv_segment_ids, parts):
     """The parts (``"dq"``, ``"dk"``, ``"dv"``, ``"ds"``) of the plain
-    backward, from the forward's log2-space ``lse`` and ``delta``."""
+    backward, from the forward's log2-space ``lse`` and ``delta``; in
+    float64 throughout when ``q``, ``k``, ``v`` and ``do`` are float64."""
     d = q.shape[-1]
+    acc = _acc(q)
     scale = sm_scale if sm_scale is not None else d ** -0.5
-    s2 = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (scale * LOG2E)
+    s2 = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * (scale * LOG2E)
     if bias is not None:
         s2 = s2 + _as_4d_bias(bias) * LOG2E
     visible = _visible(q.shape[2], k.shape[2], causal, q_segment_ids, kv_segment_ids, q.device)
     # a row that saw no key (lse -inf) gives p = 0, not exp2(-inf + inf)
-    lse = torch.where(lse == -math.inf, math.inf, lse.float())
+    lse = torch.where(lse == -math.inf, math.inf, lse.to(acc))
     p = torch.where(visible, torch.exp2(s2 - lse[..., None]), 0.0)
-    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
-    ds = p * (dp - delta.float()[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.to(acc), v.to(acc))
+    ds = p * (dp - delta.to(acc)[..., None])
     out = {}
     if "dq" in parts:
-        out["dq"] = (torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), k.float())
+        out["dq"] = (torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).to(acc), k.to(acc))
                      * scale).to(q.dtype)
     if "dk" in parts:
-        out["dk"] = (torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+        out["dk"] = (torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).to(acc), q.to(acc))
                      * scale).to(k.dtype)
     if "dv" in parts:
-        out["dv"] = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(),
-                                 do.float()).to(v.dtype)
+        out["dv"] = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).to(acc),
+                                 do.to(acc)).to(v.dtype)
     if "ds" in parts:
         out["ds"] = ds
     return out
 
 
 def _delta(out: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor]) -> torch.Tensor:
-    """``rowsum(do * o)`` in fp32, ``(B, H, Sq)``; an lse cotangent folds in
-    as ``delta - dlse * log2(e)``: ``d lse2 / d s_ij = p_ij log2(e)``."""
-    delta = (do.float() * out.float()).sum(-1)
+    """``rowsum(do * o)`` in fp32 (float64 for float64 inputs), ``(B, H,
+    Sq)``; an lse cotangent folds in as ``delta - dlse * log2(e)``:
+    ``d lse2 / d s_ij = p_ij log2(e)``."""
+    acc = _acc(out)
+    delta = (do.to(acc) * out.to(acc)).sum(-1)
     if dlse is not None:
-        delta = delta - dlse.float() * LOG2E
+        delta = delta - dlse.to(acc) * LOG2E
     return delta.contiguous()
 
 

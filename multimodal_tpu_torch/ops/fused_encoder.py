@@ -91,9 +91,19 @@ def _kernels() -> ctypes.CDLL:
     return _lib
 
 
+def _attention_wgmma_smem_bytes(seq: int) -> int:
+    """Mirror of ``wg_smem`` in csrc/fused_qkv_attention.cu (bf16 at head
+    width 64): the 1,024 bytes that align the swizzled boxes, a 64 x 64 bf16
+    box of Q and S / 64 (rounded up) of K and of V each, the key bias and an
+    mbarrier a K box and one for V."""
+    chunks = -(-seq // 64)
+    return 1024 + (1 + 2 * chunks) * 64 * 64 * 2 + 4 * 64 * chunks + 8 * (chunks + 1)
+
+
 def _attention_smem_bytes(seq: int, head_dim: int) -> int:
-    """Mirror of ``smem_floats`` in csrc/fused_qkv_attention.cu: K^T and V
-    of one head in fp32, plus per-warp q rows and probability rows."""
+    """Mirror of ``smem_floats`` in csrc/fused_qkv_attention.cu (the FP32
+    pipes): K^T and V of one head in fp32, plus per-warp q rows and
+    probability rows."""
     sp = -(-seq // 32) * 32
     warps, rows = 8, 4
     return 4 * (head_dim * (sp + 1) + seq * head_dim
@@ -102,14 +112,18 @@ def _attention_smem_bytes(seq: int, head_dim: int) -> int:
 
 def fused_attention_supported(seq: int, embed_dim: int, num_heads: int) -> bool:
     """Shape predicate of the attention kernel: a clean head split with
-    ``head_dim % 8 == 0`` and ``<= 128``, ``seq <= 256``, and one head's K and
-    V (fp32) plus the warps' row buffers within a block's shared memory."""
+    ``head_dim % 8 == 0`` and ``<= 128``, ``seq <= 256``, and the block of
+    every kernel the shape can take within a block's shared memory: the FP32
+    pipes' (``_attention_smem_bytes``, fp32 and every width) and, at head
+    width 64, the bf16 `wgmma` kernel's (``_attention_wgmma_smem_bytes``),
+    so that no shape is admitted that a kernel refuses."""
     if num_heads <= 0 or embed_dim % num_heads:
         return False
     dh = embed_dim // num_heads
     if dh % 8 or dh > 128 or not 0 < seq <= _MAX_SEQ:
         return False
-    return _attention_smem_bytes(seq, dh) <= _SMEM_LIMIT
+    return _attention_smem_bytes(seq, dh) <= _SMEM_LIMIT and (
+        dh != 64 or _attention_wgmma_smem_bytes(seq) <= _SMEM_LIMIT)
 
 
 def fused_mlp_available(in_dim: int, hidden_dim: int, out_dim: int) -> bool:

@@ -7,8 +7,8 @@ highest register its SASS uses, and, with ``--time``, its ms by CUDA
 events, each variant in a process of its own, twice in turns, with the
 profiler's device ms by kernel.
 
-    python -m multimodal_tpu_torch.tools.kernel_variants [--forward | --decode] [--time]
-        [edits.json]
+    python -m multimodal_tpu_torch.tools.kernel_variants [--forward | --decode | --qkv]
+        [--time] [--only=name,name] [edits.json]
 
 Without ``--forward`` the kernel is the backward's one-pass
 ``flash_bwd_wgmma_kernel`` (``csrc/flash_attention_bwd.cu``), timed as
@@ -21,9 +21,12 @@ left out, the dq reduction left out, and four ring stages. With
 the LM's prefill (8, 12, 2048, 64) and train (8, 12, 8192, 64) shapes bf16
 causal, and the default variants are ``FWD_VARIANTS``: the source as it
 is, each warpgroup overlapping only its own softmax (no ping-pong),
-``ex2`` left out, two and four ring stages, and the grid walked a query tile of every head
-at a time (in place of a chunk of heads at a time). With ``--decode`` it
-is the int8-cache decode attention's values kernel
+``ex2`` left out, two and four ring stages, the grid walked a query tile
+of every head at a time (in place of a chunk of heads at a time), and
+two-warpgroup blocks at every query length (no one-warpgroup blocks up to
+``kShortQueries``); CoCa's and BLIP-2's shapes (``chip_smoke``'s
+``CAPTION_FLASH_CASES``) are timed too, by the profiler's device ms. With
+``--decode`` it is the int8-cache decode attention's values kernel
 (``csrc/quantized_cache_attention.cu``, reported at head width 64 and one
 row), timed as ``quantized_cache_attention`` at ``chip_smoke.py``'s four
 4096-position cases in bf16 (device ms by kernel from the profiler), and
@@ -31,8 +34,17 @@ the default variants are ``DECODE_VARIANTS``: the source as it is, the
 mask's loads left out (a 1,900-position prefix seen instead), the K
 copies, the V copies, and the merge's fence and counter left out (no
 output is written).
-``edits.json`` maps a variant's name to its edits. A variant is for
-measuring only: its results are wrong where an edit leaves work out.
+With ``--qkv`` it is the fused QKV attention's `wgmma` kernel
+(``csrc/fused_qkv_attention.cu``, reported at four key chunks), timed as
+``fused_qkv_attention`` at CoCa-L's (32, 256, 3 x 1024, 16 heads),
+ViT-B/16's (256, 197), CLIP's vision (512, 50) and causal text (512, 77)
+and ALBEF's text (32, 30, a key bias) towers, and the default variants are
+``QKV_VARIANTS``: the source as it is, ``ex2`` left out, the output
+product left out, the loads alone, and the registers free to hold two
+blocks an SM.
+``--only=`` keeps the named variants. ``edits.json`` maps a variant's
+name to its edits. A variant is for measuring only: its results are wrong
+where an edit leaves work out.
 """
 
 from __future__ import annotations
@@ -65,16 +77,33 @@ VARIANTS = {
 }
 
 FWD_SOURCE = "flash_attention_fwd.cu"
-FWD_KERNEL = "flash_fwd_wgmma_kernel"
+FWD_KERNEL = "flash_fwd_wgmma_kernelILi64ELb0ELi2E"  # the LM's: D = 64, no bias
 FWD_VARIANTS = {
     "as_is": [],
     "overlap_alone": [("constexpr bool kPingPong = true;", "constexpr bool kPingPong = false;")],
     "no_ex2": [("s[x] = ex2(fmaf(s[x], a.scale_log2, -mu[hh]));",
                 "s[x] = fmaf(s[x], a.scale_log2, -mu[hh]);")],
-    "two_stages": [("constexpr int kWgStages = 6;", "constexpr int kWgStages = 2;")],
-    "four_stages": [("constexpr int kWgStages = 6;", "constexpr int kWgStages = 4;")],
+    "two_stages": [("static constexpr int kStages = 6;", "static constexpr int kStages = 2;")],
+    "four_stages": [("static constexpr int kStages = 6;", "static constexpr int kStages = 4;")],
     "all_heads_per_tile": [("constexpr int kChunkBlocks = 132;",
                             "constexpr int kChunkBlocks = 1 << 30;")],
+    "two_warpgroup_blocks": [("constexpr int kShortQueries = 64;",
+                              "constexpr int kShortQueries = 0;")],
+    "q_base_once": [("  const uint32_t q_tile = wg::smem_u32(sm);\n"
+                     "  const uint32_t q_row0 = wgi * 64 * Wg<D>::kRowBytes;",
+                     "  const uint32_t q_tile = wg::smem_u32(sm) + wgi * 64 * Wg<D>::kRowBytes;\n"
+                     "  const uint32_t q_row0 = 0;")],
+    "v_lbo_one_box": [("  return wg_desc<D>(tile + kk * 16 * Wg<D>::kRowBytes, 2 * Wg<D>::kBox, "
+                       "8 * Wg<D>::kRowBytes);",
+                       "  return wg_desc<D>(tile + kk * 16 * Wg<D>::kRowBytes, (Wg<D>::kChunks == 1 ? 1 "
+                       ": 2) * Wg<D>::kBox, 8 * Wg<D>::kRowBytes);")],
+    "unguarded_unmasked_loop": [("  if constexpr (!BIAS)\n    for (int t = 0; t < n_full; ++t)\n"
+                                 "      flash_tile<D, WGS, false, false>",
+                                 "  for (int t = 0; t < n_full; ++t)\n"
+                                 "      flash_tile<D, WGS, false, false>")],
+    "plain_desc": [("  return (wg::desc(addr, lbo, sbo) & ~(3ull << 62)) | (Wg<D>::kSwizzle << 62);",
+                    "  if constexpr (Wg<D>::kSwizzle == 1) return wg::desc(addr, lbo, sbo);\n"
+                    "  return (wg::desc(addr, lbo, sbo) & ~(3ull << 62)) | (Wg<D>::kSwizzle << 62);")],
 }
 
 FWD_TIME = r"""
@@ -97,6 +126,14 @@ with torch.no_grad():
             torch.cuda.synchronize()
         kernels[name] = {e.key[:60]: round(getattr(e, "device_time_total", 0) / 3 / 1e3, 4)
                          for e in prof.key_averages() if getattr(e, "device_time_total", 0)}
+    # CoCa's and BLIP-2's short shapes (the bias lane, head width 96):
+    # device ms from the profiler, their calls being host-bound on the events
+    for name, b, h, sq, sk, d, _, kw in cs.CAPTION_FLASH_CASES:
+        q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(torch.bfloat16)
+                   for n in (sq, sk, sk))
+        bias = cs.make_bias(kw.get("bias_kind"), b, h, sq, sk, gen)
+        fn = lambda: fa.flash_attention_forward(q, k, v, bias, return_lse=kw.get("lse", False))
+        ms[name] = [cs.device_ms(fn, "flash_attention") for _ in range(3)]
 print("variant_time " + json.dumps({"ms": ms, "device_ms": kernels, "card": cs.card_line()}))
 """
 
@@ -162,9 +199,53 @@ with torch.inference_mode():
 print("variant_time " + json.dumps({"ms": ms, "device_ms": kernels, "card": cs.card_line()}))
 """
 
+QKV_SOURCE = "fused_qkv_attention.cu"
+QKV_KERNEL = "qkv_attention_wgmma_kernelILi4E"
+QKV_VARIANTS = {
+    "as_is": [],
+    "no_ex2": [("s[c][x] = ex2(s[c][x] - mx[hh]);", "s[c][x] = s[c][x] - mx[hh];")],
+    "no_pv": [("      wg::mma_m64n64k16_rs<wg::MN>(o, pa[c][kl],\n                        "
+               "           wg::desc(vb + (4 * c + kl) * 2048, kBox, 1024), 1);",
+               "      wg::fence_regs(pa[c][kl]);")],
+    "loads_only": [("  // S = Q K^T, both K-major",
+                    "  for (int c = 0; c < C; ++c) wg::bar_wait(&k_bars[c], 0);\n"
+                    "  wg::bar_wait(v_bar, 0);\n  if (S > 0) return;\n"
+                    "  // S = Q K^T, both K-major")],
+    "two_blocks_an_sm": [("__launch_bounds__(kWgThreads, 3)", "__launch_bounds__(kWgThreads)")],
+}
+
+QKV_TIME = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from torch.profiler import ProfilerActivity, profile
+from multimodal_tpu_torch.ops import fused_encoder as fe
+gen = torch.Generator(device="cuda").manual_seed(6)
+ms, kernels = {}, {}
+with torch.inference_mode():
+    for name, b, s, d, h, causal, key_bias in (
+            ("coca_vit_l14", 32, 256, 1024, 16, False, False),
+            ("vit_b16", cs.TRAIN_BATCH, 197, 768, 12, False, False),
+            ("clip_vision", cs.BATCH, 50, 768, 12, False, False),
+            ("clip_text", cs.BATCH, 77, 512, 8, True, False),
+            ("albef_text", 32, 30, 768, 12, False, True)):
+        qkv, kb = cs._attention_inputs(b, s, d, torch.bfloat16, key_bias, gen)
+        fn = lambda: fe.fused_qkv_attention(qkv, h, causal, None, kb)
+        ms[name] = [cs.time_ms(fn, 100, warmup=3) for _ in range(3)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        kernels[name] = {e.key[:60]: round(getattr(e, "device_time_total", 0) / 20 / 1e3, 4)
+                         for e in prof.key_averages() if getattr(e, "device_time_total", 0)}
+print("variant_time " + json.dumps({"ms": ms, "device_ms": kernels, "card": cs.card_line()}))
+"""
+
 KEEP = {SOURCE: ("flash_attention_fwd.cu", "flash_attention_bwd.cu"),
         FWD_SOURCE: ("flash_attention_fwd.cu", "flash_attention_bwd.cu"),
-        DECODE_SOURCE: (DECODE_SOURCE,)}
+        DECODE_SOURCE: (DECODE_SOURCE,),
+        QKV_SOURCE: (QKV_SOURCE, "fused_qkv_attention_bwd.cu", "fused_mlp.cu",
+                     "fused_mlp_bwd.cu", "fused_mlp_bwd_acc.cu")}
 
 
 def make_copy(name: str, edits, source: str = SOURCE) -> Path:
@@ -216,12 +297,17 @@ def main(argv) -> None:
     time_it = "--time" in argv
     forward = "--forward" in argv
     decode = "--decode" in argv
+    qkv = "--qkv" in argv
     source, kernel, timer, defaults = (
         (FWD_SOURCE, FWD_KERNEL, FWD_TIME, FWD_VARIANTS) if forward
         else (DECODE_SOURCE, DECODE_KERNEL, DECODE_TIME, DECODE_VARIANTS) if decode
+        else (QKV_SOURCE, QKV_KERNEL, QKV_TIME, QKV_VARIANTS) if qkv
         else (SOURCE, KERNEL, TIME, VARIANTS))
     files = [a for a in argv if not a.startswith("--")]
     variants = json.loads(Path(files[0]).read_text()) if files else defaults
+    only = [a.split("=", 1)[1].split(",") for a in argv if a.startswith("--only=")]
+    if only:
+        variants = {n: e for n, e in variants.items() if n in only[0]}
     copies = {name: make_copy(name, edits, source) for name, edits in variants.items()}
     with ThreadPoolExecutor(len(copies)) as ex:
         reports = dict(zip(copies, ex.map(lambda c: build_report(c, kernel), copies.values())))

@@ -307,8 +307,15 @@ def test_hard_negative_draw_frequencies(offset):
     sim_i2t = torch.from_numpy(r.randn(3, 7).astype(np.float32)) * 2
     sim_t2i = torch.from_numpy(r.randn(3, 7).astype(np.float32)) * 2
     gen = torch.Generator().manual_seed(11)
-    draws = [tloss.hard_negative_indices(sim_i2t, sim_t2i, gen, offset=offset)
-             for _ in range(6000)]
+    # one intra-op thread: 6,000 calls on 3 x 7 tensors spend their time in
+    # the thread pool's hand-offs when other processes hold the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        draws = [tloss.hard_negative_indices(sim_i2t, sim_t2i, gen, offset=offset)
+                 for _ in range(6000)]
+    finally:
+        torch.set_num_threads(threads)
     img = torch.stack([d[0] for d in draws])
     txt = torch.stack([d[1] for d in draws])
     diag = torch.arange(7)[None] == torch.arange(3)[:, None] + offset

@@ -136,16 +136,24 @@ def test_argtypes_match_the_entry_point():
             assert param.startswith("int") and arg == "_I", param
 
 
-def test_bf16_head_width_64_without_bias_takes_the_wgmma_kernel():
-    """The route is decided by dtype, head width and bias alone: bf16 at 64
-    without a bias launches the `wgmma` kernel; 32, 128 and a bias keep
-    the `mma.sync` kernel, fp32 the FP32 pipes."""
+def test_bf16_head_widths_64_and_96_take_the_wgmma_kernel_with_or_without_bias():
+    """The route is decided by dtype and head width, never after a failure:
+    bf16 at 64 and 96 launches the `wgmma` kernel, with or without a bias
+    (its BIAS lane), in blocks of one warpgroup up to ``kShortQueries``
+    queries and of two past them; 32 and 128 keep the `mma.sync` kernel, fp32 and
+    other widths the FP32 pipes."""
     text = (CSRC / "flash_attention_fwd.cu").read_text()
     entry = text[text.index("int mm_flash_attention_fwd("):]
     assert "if (dtype == 0) return (int)dispatch_fp32<float>(a, D, st);" in entry
-    assert "if (D == 64 && bias == nullptr) return (int)launch_wgmma(a, st);" in entry
-    assert set(re.findall(r"launch_mma<(\d+)>\(a, st\)", entry)) == {"32", "64", "128"}
-    assert entry.index("launch_wgmma") < entry.index("launch_mma<64>")
+    assert "if (D == 64) return (int)dispatch_wgmma<64>(a, st);" in entry
+    assert "if (D == 96) return (int)dispatch_wgmma<96>(a, st);" in entry
+    assert set(re.findall(r"launch_mma<(\d+)>\(a, st\)", entry)) == {"32", "128"}
+    assert entry.index("dispatch_wgmma<96>") < entry.index("dispatch_fp32<__nv_bfloat16>")
+    assert ("return a.bias ? dispatch_blocks<D, true>(a, stream) : "
+            "dispatch_blocks<D, false>(a, stream);") in text
+    assert re.search(r"a\.Sq <= kShortQueries \? launch_wgmma<D, BIAS, 1>\(a, stream\)\s*"
+                     r": launch_wgmma<D, BIAS, 2>\(a, stream\)", text)
+    assert "constexpr int kShortQueries = 64;" in text
 
 
 def _chip_smoke():
@@ -157,6 +165,8 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("key", [
     "(anonymous namespace)::flash_fwd_wgmma_kernel((anonymous namespace)::WgParams)",
+    "void (anonymous namespace)::flash_fwd_wgmma_kernel<96, true, 1>((anonymous "
+    "namespace)::WgParams)",
     "void (anonymous namespace)::flash_fwd_mma_kernel<64>((anonymous namespace)::Args)",
     "void (anonymous namespace)::flash_fwd_fp32_kernel<float, 2>((anonymous namespace)::Args, "
     "int)",
@@ -172,6 +182,71 @@ def test_chip_smoke_cases_cover_the_tile_edges_and_the_train_shape():
     assert cases["train"][1:5] == (8, 12, 8192, 8192) and cases["train"][7]["lse"]
     assert cases["train_segment_ids"][7] == {"lse": True, "segments": True}
     assert {c[3] for c in cases.values()} >= {127, 129, 191}
+
+
+# The `wgmma` kernel's bias lane and head width 96: the
+# port's plain version against the JAX package's Pallas forward in interpret
+# mode. (name, b, h, sq, sk, d, bias kind, lse). "masked_row": a (B, 1, Sq,
+# Sk) key-padding bias with query row 40 masked wholly (-1e30 at every key:
+# every score is -1e30, the softmax is uniform, the row is the mean of V);
+# "broadcast": a (1, 1, Sq, Sk) bias (a causal bool mask as -1e30 plus a
+# ramp), read at its broadcast shape; D = 96 without a bias, with lse. Sk
+# fits one JAX key block, so the JAX kernel pads no key for the wholly
+# masked row to average over.
+BIAS_LANE_CASES = [
+    ("masked_row", 2, 2, 77, 100, 64, "masked_row", True),
+    ("broadcast_1_1_sq_sk", 2, 3, 76, 76, 64, "broadcast", False),
+    ("head_width_96_lse", 2, 2, 77, 200, 96, None, True),
+]
+
+
+def _bias(kind, b, sq, sk, r):
+    if kind == "masked_row":
+        keys = np.arange(sk)[None, :] < r.randint(sk // 2, sk + 1, size=(b, 1))
+        bias = np.where(keys, 0.0, -1e30)[:, None, None, :].repeat(sq, axis=2)
+        bias[:, :, 40] = -1e30
+        return bias.astype(np.float32)
+    if kind == "broadcast":
+        causal = np.tril(np.ones((sq, sk), dtype=bool))
+        return (np.where(causal, 0.0, -1e30) - 0.01 * np.arange(sk)[None, :])[None, None].astype(
+            np.float32)
+    return None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,b,h,sq,sk,d,kind,lse", BIAS_LANE_CASES,
+                         ids=[c[0] for c in BIAS_LANE_CASES])
+def test_bias_lane_and_head_width_96_match_jax(name, b, h, sq, sk, d, kind, lse, dtype):
+    """The plain version's semantics of the `wgmma` kernel's new lanes
+    against the JAX forward (interpret mode), with the tolerances above; a
+    row the bias masks wholly averages V (its lse finite, about -1.44e30
+    in log2 units) and does not come back 0."""
+    r = np.random.RandomState(sq + sk + d)
+    q = r.randn(b, h, sq, d).astype(np.float32)
+    k = r.randn(b, h, sk, d).astype(np.float32)
+    v = r.randn(b, h, sk, d).astype(np.float32)
+    bias = _bias(kind, b, sq, sk, r)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                        torch.bfloat16)
+    want, want_lse = jfa.flash_attention_forward(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        None if bias is None else jnp.asarray(bias), return_lse=True)
+    want = np.asarray(want.astype(jnp.float32))
+    want_lse = np.asarray(want_lse)[:, :, :sq, 0]
+    got, got_lse = tfa.flash_attention_forward(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt), torch.from_numpy(v).to(tdt),
+        None if bias is None else torch.from_numpy(bias), return_lse=True)
+    got, got_lse = got.float().numpy(), got_lse.numpy()
+    assert got.shape == (b, h, sq, d)
+    np.testing.assert_allclose(got, want, atol=ATOL_F32 if dtype == "float32" else ATOL_BF16)
+    if lse:
+        np.testing.assert_allclose(got_lse, want_lse, atol=LSE_ATOL, rtol=1e-6)
+    if kind == "masked_row":  # every key of row 40 is -1e30: the mean of all Sk values
+        mean = v.mean(axis=2) if dtype == "float32" else torch.from_numpy(v).to(
+            torch.bfloat16).float().numpy().mean(axis=2)
+        np.testing.assert_allclose(got[:, :, 40], mean, atol=ATOL_F32 if dtype == "float32"
+                                   else ATOL_BF16)
+        assert np.isfinite(got_lse[:, :, 40]).all() and (got_lse[:, :, 40] < -1e29).all()
 
 
 @pytest.mark.parametrize("variant", sorted(kernel_variants.FWD_VARIANTS))

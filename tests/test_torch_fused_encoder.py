@@ -7,6 +7,8 @@ tests/ops/test_fused_encoder.py does) and their XLA references. Inputs come
 from a numpy seed and go to both as the same arrays.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import torch
 
 from multimodal_tpu.ops import fused_encoder as jfe
 from multimodal_tpu_torch.ops import fused_encoder as tfe
+from multimodal_tpu_torch.tools import kernel_variants
 
 # fp32 attention: the same exact-softmax arithmetic in two frameworks; the
 # sums differ only in order (the JAX package's own kernel-vs-XLA tolerance).
@@ -116,5 +119,86 @@ def test_plain_mlp_bf16_matches_jax():
 def test_attention_shape_predicate(seq, width, heads, ok):
     """Admits CLIP's S=50 / 77 at head width 64; rejects sequences above 256
     (ViT-L/14's 257 goes to the flash kernels), unclean head splits, head
-    widths not a multiple of 8, and blocks over the shared-memory budget."""
+    widths not a multiple of 8, and blocks over the shared-memory budget;
+    at head width 64 a shape is admitted only where both kernels' blocks
+    (the FP32 pipes' and the bf16 `wgmma` kernel's) fit."""
     assert tfe.fused_attention_supported(seq, width, heads) is ok
+    if ok and width // heads == 64:
+        assert tfe._attention_smem_bytes(seq, 64) <= tfe._SMEM_LIMIT
+        assert tfe._attention_wgmma_smem_bytes(seq) <= tfe._SMEM_LIMIT
+
+
+def test_attention_wgmma_smem_mirrors_the_source():
+    """The `wgmma` route's shared memory, as ``wg_smem`` in
+    csrc/fused_qkv_attention.cu lays it out: 1,024 alignment bytes, a 64 x 64
+    bf16 box of Q, S / 64 (rounded up) of K and of V, the key bias (64 floats
+    a chunk) and an mbarrier a K box and one for V."""
+    text = (Path(tfe.__file__).parents[1] / "csrc" / "fused_qkv_attention.cu").read_text()
+    assert ("return 1024 + (1 + 2 * NC) * (size_t)kBox + 64 * NC * sizeof(float) + "
+            "(NC + 1) * sizeof(uint64_t);") in " ".join(text.split())
+    for seq, chunks in ((1, 1), (50, 1), (64, 1), (65, 2), (193, 4), (256, 4)):
+        assert tfe._attention_wgmma_smem_bytes(seq) == (
+            1024 + (1 + 2 * chunks) * 8192 + 256 * chunks + 8 * (chunks + 1))
+
+
+def test_attention_forward_takes_the_wgmma_kernel_at_head_width_64():
+    """The forward's kernel by dtype and head width alone, never after a
+    failure: bf16 at head width 64 runs the `wgmma` kernel at every S (it
+    beat the `mma.sync` kernel it replaces at every path's S on the card,
+    PERF.md), fp32 and the other widths the FP32 pipes; the C entry takes no
+    route."""
+    text = (Path(tfe.__file__).parents[1] / "csrc" / "fused_qkv_attention.cu").read_text()
+    entry = text[text.index("int mm_qkv_attention("):]
+    assert "int dtype, void* stream)" in entry[:300]
+    assert ("if (dtype == 0) return (int)dispatch<float>(qkv, key_bias, out, B, S, D, H, "
+            "scale, causal, st);") in entry
+    assert "if (D / H == kHd)\n    return (int)dispatch_wgmma(" in entry
+    assert "mm::mma_bf16(" not in text and "mm::ldsm_x4" not in text  # no `mma.sync` kernel
+    assert "constexpr int kHd = 64;" in text
+    params = entry[entry.index("(") + 1:entry.index(")")].split(",")
+    py = Path(tfe.__file__).read_text()
+    argtypes = py[py.index("lib.mm_qkv_attention.argtypes = ["):].split("]")[0].split(",")
+    assert len(params) == len(argtypes) == 11
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_attention_at_256_with_key_bias_and_causal_matches_jax(dtype):
+    """#1's longest rows (the `wgmma` route's four key chunks) with a key
+    bias under the causal mask, at a narrow width (two heads of 64): the
+    plain version against ``_qkv_attention_impl`` in interpret mode. Batch
+    row 0's bias masks keys [0, 100), so its queries 0-99 see masked keys
+    only: every score of theirs is -1e30 (causal keys too), and the TPU
+    kernel's softmax is uniform over all S keys, the mean of V (the
+    `wgmma` route's query tiles skip the key chunks past their rows, whose
+    keys count there). fp32 to ``ATTN_ATOL``; bf16: both round p and the
+    output to bf16 at the same points, so two bf16 units in the last place
+    of the output scale."""
+    r = np.random.RandomState(5)
+    b, s, d, h = 2, 256, 128, 2
+    qkv = r.randn(b, s, 3 * d).astype(np.float32)
+    kb = np.where(r.rand(b, s) < 0.3, -1e30, 0.0).astype(np.float32)
+    kb[0, :100] = -1e30
+    kb[1, 0] = 0.0  # every causal row of batch row 1 keeps a visible key
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                        torch.bfloat16)
+    want = np.asarray(jfe._qkv_attention_impl(jnp.asarray(qkv, jdt), h, True, None,
+                                              jnp.asarray(kb)).astype(jnp.float32))
+    got = tfe.fused_qkv_attention(torch.from_numpy(qkv).to(tdt), h, True, None,
+                                  torch.from_numpy(kb)).float().numpy()
+    assert got.shape == (b, s, d)
+    atol = ATTN_ATOL if dtype == "float32" else 2 * 2.0 ** -7 * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, atol=atol)
+    v = torch.from_numpy(qkv[0, :, 2 * d:]).to(tdt).float().numpy()
+    np.testing.assert_allclose(got[0, :100], np.broadcast_to(v.mean(axis=0), (100, d)),
+                               atol=atol)
+
+
+@pytest.mark.parametrize("variant", sorted(kernel_variants.QKV_VARIANTS))
+def test_kernel_variants_apply_to_the_qkv_attention(variant):
+    """Each default ``--qkv`` variant of tools/kernel_variants.py edits text
+    that #1's source holds once, so the tool still measures what PERF.md
+    reports."""
+    text = (Path(tfe.__file__).parents[1] / "csrc" / kernel_variants.QKV_SOURCE).read_text()
+    for old, _ in kernel_variants.QKV_VARIANTS[variant]:
+        assert text.count(old) == 1
+
