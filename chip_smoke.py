@@ -269,8 +269,8 @@ against the plain version in bf16, as before.
 ``--planted-faults`` only builds copies of #1, #2, #6, the flash backward,
 #4, #5, #3 and #10 with known faults (``PLANTED_FAULTS``) and shows that
 the checks catch each one; ``--ab PARENT`` only times #1-#6 and #10 at
-their paths' shapes, the flash attention backward at the LM training shape
-and the LM serving tick of the tree at
+their paths' shapes, the flash attention backward at the LM training shape,
+CoCa's fusion self-attention both ways and the LM serving tick of the tree at
 PARENT (the parent commit unpacked with ``git archive``) and of this
 checkout, in turns, each in a process of its own.
 
@@ -345,6 +345,27 @@ def device_ms(fn, group: Optional[str], calls: int = 20) -> float:
     us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages()
              if group is None or kernel_group(e.key) == group)
     return us / 1e3 / calls if us else float("nan")
+
+
+def kernel_names(fn) -> list:
+    """The names of the kernels one ``fn()`` launches, from torch.profiler
+    (none when it sees no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:80] for e in prof.key_averages()
+                   if (getattr(e, "self_device_time_total", 0) or 0) > 0})
+
+
+def bwd_route(fa, dtype: torch.dtype, d: int) -> str:
+    """The flash backward's kernels for dq, dk and dv at head width ``d`` in
+    ``dtype``, as its C entry chooses them (``mm_flash_attention_bwd_route``)."""
+    return ("fp32 pipes", "mma.sync", "wgmma")[
+        fa._kernels().mm_flash_attention_bwd_route(d, fa._DTYPE_CODES[dtype])]
 
 
 def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
@@ -644,25 +665,47 @@ def check_mlp_kernel(fe, dtypes=(torch.bfloat16, torch.float32), timing=True):
 
 
 def _attention_bwd_inputs(b, s, d, dtype, key_bias, gen):
+    """#2's qkv, g and key bias (as ``_attention_inputs``'s, "masked_prefix"
+    too)."""
     qkv = torch.randn(b, s, 3 * d, device="cuda", generator=gen).to(dtype)
     g = torch.randn(b, s, d, device="cuda", generator=gen).to(dtype)
     kb = None
-    if key_bias:
+    if key_bias == "masked_prefix":
+        kb = torch.zeros(b, s, device="cuda")
+        kb[::2, :100] = -1e30
+    elif key_bias:
         kb = torch.zeros(b, s, device="cuda")
         kb[:, s // 2:] = torch.where(
             torch.rand(b, s - s // 2, device="cuda", generator=gen) < 0.5, -1e30, 0.0)
     return qkv, g, kb
 
 
-def attention_bwd_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen, timing=True):
+def attention_bwd_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen, timing=True,
+                       route=None):
     """Kernel #2 against its plain version by max abs error (``tolerance``),
     a key the bias masks getting dk = dv = 0 exactly, and a second launch
     through ``_attention_bwd_launch`` into a dqkv filled with NaN, bitwise
-    equal to the first (every element written, in a fixed order)."""
+    equal to the first (every element written, in a fixed order). With
+    ``route`` both launches go to that kernel (``fe._BWD_*``) instead of
+    the dispatch's. Under "masked_prefix" the masked keys are seen, by the
+    causal rows whose every visible key the bias masks (their p is uniform
+    over all S keys), so their dk and dv are not 0 and are not checked so;
+    those rows' dq and every key's dv are held to ``MASKED_ROWS_BAR`` by
+    ``row_relative_error`` besides."""
     qkv, g, kb = _attention_bwd_inputs(b, s, d, dtype, key_bias, gen)
-    out = fe.fused_qkv_attention_bwd(qkv, g, h, causal, None, kb)
+    forced = route is not None
+    if not forced:
+        route = fe._attention_bwd_route(s, d // h, dtype)
+
+    def call():
+        if not forced:
+            return fe.fused_qkv_attention_bwd(qkv, g, h, causal, None, kb)
+        dqkv = torch.empty_like(qkv)
+        fe._attention_bwd_launch(qkv, g, h, causal, None, kb, dqkv, route)
+        return dqkv
+
+    out = call()
     ref = fe.qkv_attention_bwd_plain(qkv, g, h, causal, None, kb)
-    route = fe._attention_bwd_route(s, d // h, dtype)
     again = torch.full_like(out, float("nan"))
     fe._attention_bwd_launch(qkv, g, h, causal, None, kb, again, route)
     torch.cuda.synchronize()
@@ -670,16 +713,29 @@ def attention_bwd_case(fe, name, b, s, d, h, causal, dtype, key_bias, gen, timin
     tol = tolerance(dtype, ref)
     deterministic = bool(torch.equal(out, again))
     # a key masked by the bias is seen by no query: its dk and dv are exactly 0
-    masked_zero = kb is None or bool((out[..., d:][kb < -1e29] == 0).all())
+    masked_zero = (kb is None or key_bias == "masked_prefix"
+                   or bool((out[..., d:][kb < -1e29] == 0).all()))
     row = dict(kernel="fused_qkv_attention_bwd", case=name, shape=[b, s, 3 * d], heads=h,
                causal=causal, key_bias=key_bias, dtype=str(dtype).replace("torch.", ""),
                route=route, max_abs_err=err, tol=tol, masked_keys_zero=masked_zero,
                deterministic=deterministic, ok=bool(err <= tol and masked_zero and deterministic))
+    if key_bias == "masked_prefix":
+        # The rows the bias masks wholly hold small values (p = 1 / S), far
+        # below the largest output that ``tolerance`` scales with: each
+        # element to its own row's scale (``row_relative_error``, a row one
+        # head's Dh values) over those rows' dq, and over every key's dv,
+        # which takes their p.
+        view = lambda t: t.float().view(b, s, 3, h, d // h)  # noqa: E731
+        rows = (kb < -1e29)[:, :, None, None].expand(b, s, h, d // h)
+        rel = max(row_relative_error(view(out)[:, :, 0], view(ref)[:, :, 0], keep=rows),
+                  row_relative_error(view(out)[:, :, 2], view(ref)[:, :, 2]))
+        row.update(masked_rows_rel_err=rel, masked_rows_bar=MASKED_ROWS_BAR[dtype])
+        row["ok"] = row["ok"] and rel <= MASKED_ROWS_BAR[dtype]
     if not timing:
         return row
-    kernel_ms = time_ms(lambda: fe.fused_qkv_attention_bwd(qkv, g, h, causal, None, kb), 1)
+    kernel_ms = time_ms(call, 1)
     reps = reps_for(kernel_ms)
-    kernel_ms = time_ms(lambda: fe.fused_qkv_attention_bwd(qkv, g, h, causal, None, kb), reps)
+    kernel_ms = time_ms(call, reps)
     plain_ms = time_ms(lambda: fe.qkv_attention_bwd_plain(qkv, g, h, causal, None, kb), reps)
     q, k, v = (t.detach().requires_grad_() for t in
                qkv.view(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4).contiguous().unbind(0))
@@ -721,21 +777,51 @@ ATTENTION_BWD_CASES = [
 # CoCa ViT-L/14's vision tower at the train batch, on generators of
 # its own (``slice_gen``): the cases above keep their inputs
 CAPTION_ATTENTION_BWD_CASES = [("coca_vit_l14", 32, 256, 1024, 16, False, False)]
+# Bars of #2's reading of the wholly masked rows (``attention_bwd_case``):
+# bf16 2^-6, two units in the last place of the element, as the flash
+# kernels' bars; fp32 2^-10, loose against the sums' order (the rows'
+# values to 2^-20) and tight against a fault, which moves them by their
+# own size.
+MASKED_ROWS_BAR = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -10}
+# Causal rows whose every visible key the bias masks ("masked_prefix": their
+# p is uniform over all S keys, the keys above the diagonal too) on each of
+# #2's kernels, forced: the `wgmma` and FP32-pipe kernels at S = 256, the
+# `mma.sync` one at its largest S, 128; the FP32 pipes alone in fp32. Then
+# ragged forms on the tensor-core kernels, whose padded keys (past S, up to
+# the kernel's padded length) must stay out of those rows' p: `wgmma` at
+# S = 200 (its 256-row instance with 112-key tiles) and `mma.sync` at
+# S = 120 (its 128-row tiles). On generators of their own (``route_gen``),
+# so the cases above keep their inputs.
+ROUTE_ATTENTION_BWD_CASES = [
+    ("causal_masked_rows_256", 8, 256, 768, 12, True, "masked_prefix", "_BWD_WGMMA"),
+    ("causal_masked_rows_128", 8, 128, 768, 12, True, "masked_prefix", "_BWD_MMA"),
+    ("causal_masked_rows_256", 8, 256, 768, 12, True, "masked_prefix", "_BWD_FP32_PIPES"),
+    ("causal_masked_rows_200", 8, 200, 768, 12, True, "masked_prefix", "_BWD_WGMMA"),
+    ("causal_masked_rows_120", 8, 120, 768, 12, True, "masked_prefix", "_BWD_MMA"),
+]
 
 
 def check_attention_bwd_kernel(fe, dtypes=(torch.bfloat16, torch.float32), timing=True):
-    """Kernel #2 at ``ATTENTION_BWD_CASES`` in each dtype."""
+    """Kernel #2 at ``ATTENTION_BWD_CASES``, ``CAPTION_ATTENTION_BWD_CASES``
+    and, on the kernels each names, ``ROUTE_ATTENTION_BWD_CASES`` (the
+    tensor-core kernels in bf16 only) in each dtype."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
     for dtype in dtypes:
-        for cases, g in ((ATTENTION_BWD_CASES, gen), (CAPTION_ATTENTION_BWD_CASES,
-                                                      slice_gen(dtype))):
-            for name, b, s, d, h, causal, kb in cases:
-                row = attention_bwd_case(fe, name, b, s, d, h, causal, dtype, kb, g,
-                                         timing=timing)
-                print("kernel_check " + json.dumps(row), flush=True)
-                rows.append(row)
-                torch.cuda.empty_cache()
+        runs = [(name, b, s, d, h, causal, kb, g, None)
+                for cases, g in ((ATTENTION_BWD_CASES, gen),
+                                 (CAPTION_ATTENTION_BWD_CASES, slice_gen(dtype)))
+                for name, b, s, d, h, causal, kb in cases]
+        g = route_gen(dtype)
+        runs += [(f"{name}/{route[5:].lower()}", b, s, d, h, causal, kb, g, getattr(fe, route))
+                 for name, b, s, d, h, causal, kb, route in ROUTE_ATTENTION_BWD_CASES
+                 if dtype == torch.bfloat16 or route == "_BWD_FP32_PIPES"]
+        for name, b, s, d, h, causal, kb, g, route in runs:
+            row = attention_bwd_case(fe, name, b, s, d, h, causal, dtype, kb, g,
+                                     timing=timing, route=route)
+            print("kernel_check " + json.dumps(row), flush=True)
+            rows.append(row)
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1407,8 +1493,9 @@ FLASH_CASES = [
 ]
 # The caption slice's cases, on generators of their own (``slice_gen``), so
 # the cases above keep their inputs. CoCa ViT-L/14 at the train batch: the
-# text decoder's causal-and-padding mask and the fusion layers' causal mask
-# on the bias lane (mma.sync), the fusion cross-attention (76 text queries
+# text decoder's causal-and-padding mask on the bias lane, the fusion
+# layers' self-attention causal with no bias (the module's route: #6's
+# causal loop), the fusion cross-attention (76 text queries
 # over the 256 pooled image tokens) and the attention pooler (256 queries, 8
 # heads of 96: the FP32-pipe route); BLIP-2 at the train batch: the frozen
 # tower (257 tokens, 16 heads), the Q-Former's cross-attention (32 queries
@@ -1416,7 +1503,7 @@ FLASH_CASES = [
 # cached query rows and the text, the -10000 mask bias).
 CAPTION_FLASH_CASES = [
     ("coca_text_77", 32, 12, 77, 77, 64, False, {"bias_kind": "coca_text", "lse": True}),
-    ("coca_fusion_76", 32, 12, 76, 76, 64, False, {"bias_kind": "causal_mask"}),
+    ("coca_fusion_76", 32, 12, 76, 76, 64, True, {}),
     ("coca_cross_76x256", 32, 12, 76, 256, 64, False, {}),
     ("coca_pooler_d96", 32, 8, 256, 256, 96, False, {"lse": True}),
     ("blip2_vit_257", 128, 16, 257, 257, 64, False, {}),
@@ -1548,10 +1635,11 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
     with NaN first: dk and dv must come back bitwise equal to the first
     call's (no element left unwritten, no workspace read before its
     zero-fill), dq within its bar (its sum over key blocks has no fixed
-    order on the one-pass route). With ``timing`` (no segments, no bias
-    gradient) the call is timed beside the plain backward, the SDPA
-    backward (dq, dk and dv in one call, the bias as its mask) and the bound
-    of :func:`flash_bwd_timing`."""
+    order on the one-pass route). The row's ``route`` is the C entry's
+    (``bwd_route``). With ``timing`` (no segments, no bias gradient) the
+    call is timed beside the plain backward, the SDPA backward (dq, dk and
+    dv in one call, the bias as its mask) and the bound of
+    :func:`flash_bwd_timing`."""
     q, k, v, do, bias, seg = _bwd_inputs(b, h, sq, sk, d, dtype, gen, bias_kind, segments)
     kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
     relaunch = {}
@@ -1617,7 +1705,8 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
         extra.update(bwd_case_timing(fa, q, k, v, do, causal, bias))
     return dict(kernel="flash_attention_bwd", case=name, shape=[b, h, sq, sk, d], causal=causal,
                 bias=bias_kind, segments=segments, dbias=dbias, lse_cotangent=lse_cot,
-                dtype=str(dtype).replace("torch.", ""), rel_err=rel, max_abs_err=err, tol=tol,
+                dtype=str(dtype).replace("torch.", ""), route=bwd_route(fa, dtype, d),
+                rel_err=rel, max_abs_err=err, tol=tol,
                 rel_err_no_terms=no_terms, **extra, ok=ok)
 
 
@@ -1643,8 +1732,12 @@ def bwd_case_timing(fa, q, k, v, do, causal, bias=None):
     lib_mask = None if bias is None else bias.to(q.dtype)
     o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=lib_mask,
                                        is_causal=causal and sq == sk and bias is None)
-    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True),
-                     reps_for(kernel_ms))
+    lib = lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)  # noqa: E731
+    lib_ms = time_ms(lib, reps_for(kernel_ms))
+    with torch.no_grad():
+        dev_ms = device_ms(call, "flash_attention_bwd")
+        names = kernel_names(call)
+    lib_dev_ms = device_ms(lib, None)
     del o, out, lse, delta, lib_mask
     mask = bias if bias is not None and float(bias.min()) <= -1e3 else None
     pairs = _visible_pairs(mask, causal, b, sq, sk, h)
@@ -1653,6 +1746,7 @@ def bwd_case_timing(fa, q, k, v, do, causal, bias=None):
     nbytes += 0 if bias is None else bias.numel() * 4
     bms, by = bound_ms(nbytes, 10.0 * d * pairs, q.dtype)
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                device_ms=dev_ms, library_device_ms=lib_dev_ms, kernels=names,
                 tflops=10.0 * d * pairs / kernel_ms / 1e9,
                 library="SDPA backward (dq, dk and dv in one call)")
 
@@ -1678,32 +1772,50 @@ BWD_CASES = [
     ("albef_vit_257", 2, 12, 257, 257, 64, False, {"timing": True}),
 ]
 # CoCa's and BLIP-2's trained attention: the mask biases (not
-# differentiated: no #9), the pooler at head width 96, the cross-attentions;
-# on the caption slice's generator (``slice_gen``), timed in bf16.
+# differentiated: no #9), the fusion layers' self-attention causal with no
+# bias (the module's route), the pooler at head width 96, the
+# cross-attentions; on the caption slice's generator (``slice_gen``), timed
+# in bf16.
 CAPTION_BWD_CASES = [
-    (name, b, h, sq, sk, d, False, {"bias_kind": kind, "timing": True})
-    for name, b, h, sq, sk, d, kind in (
-        ("coca_text_77", 32, 12, 77, 77, 64, "coca_text"),
-        ("coca_fusion_76", 32, 12, 76, 76, 64, "causal_mask"),
-        ("coca_cross_76x256", 32, 12, 76, 256, 64, None),
-        ("coca_pooler_d96", 32, 8, 256, 256, 96, None),
-        ("qformer_cross_32x257", 128, 12, 32, 257, 64, None),
-        ("blip2_itg_32x64", 128, 12, 32, 64, 64, "qformer_itg"))]
+    (name, b, h, sq, sk, d, causal, {"bias_kind": kind, "timing": True})
+    for name, b, h, sq, sk, d, causal, kind in (
+        ("coca_text_77", 32, 12, 77, 77, 64, False, "coca_text"),
+        ("coca_fusion_76", 32, 12, 76, 76, 64, True, None),
+        ("coca_cross_76x256", 32, 12, 76, 256, 64, False, None),
+        ("coca_pooler_d96", 32, 8, 256, 256, 96, False, None),
+        ("qformer_cross_32x257", 128, 12, 32, 257, 64, False, None),
+        ("blip2_itg_32x64", 128, 12, 32, 64, 64, False, "qformer_itg"))]
+
+
+# The one-pass kernel at head width 96, on a generator of its own
+# (``d96_gen``): the lse cotangent through ``flash_attention_lse`` over a
+# ragged last query tile and key block, and causal with Sq < Sk (blocks
+# whose first query tile starts past 0, the diagonal bottom-right aligned).
+D96_BWD_CASES = [
+    ("lse_cotangent_d96", 2, 4, 300, 300, 96, True, {"lse_cot": True}),
+    ("sq100_sk300_d96", 2, 4, 100, 300, 96, True, {}),
+]
+
+
+def d96_gen(dtype: torch.dtype) -> torch.Generator:
+    """The generator of ``D96_BWD_CASES`` in ``dtype``, apart from the
+    earlier cases' generators."""
+    return torch.Generator(device="cuda").manual_seed(1600 if dtype == torch.bfloat16 else 1601)
 
 
 def check_bwd_kernels(fa, dtypes=(torch.bfloat16, torch.float32)):
-    """The backward at ``BWD_CASES`` and ``CAPTION_BWD_CASES`` in each
-    dtype; every fp32 case again on the inputs of two more seeds
-    (``FP32_SEEDS``, untimed)."""
+    """The backward at ``BWD_CASES``, ``CAPTION_BWD_CASES`` and
+    ``D96_BWD_CASES`` in each dtype; every fp32 case again on the inputs of
+    two more seeds (``FP32_SEEDS``, untimed)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = []
     for dtype in dtypes:
-        runs = [("", gen, slice_gen(dtype), dtype == torch.bfloat16)]
+        runs = [("", gen, slice_gen(dtype), d96_gen(dtype), dtype == torch.bfloat16)]
         if dtype == torch.float32:
             runs += [(f"_seed{n}",) + tuple(torch.Generator(device="cuda").manual_seed(
-                1000 * n + 7 + i) for i in range(2)) + (False,) for n in FP32_SEEDS]
-        for tag, g0, g1, timed in runs:
-            for case_list, g in ((BWD_CASES, g0), (CAPTION_BWD_CASES, g1)):
+                1000 * n + 7 + i) for i in range(3)) + (False,) for n in FP32_SEEDS]
+        for tag, g0, g1, g2, timed in runs:
+            for case_list, g in ((BWD_CASES, g0), (CAPTION_BWD_CASES, g1), (D96_BWD_CASES, g2)):
                 for name, b, h, sq, sk, d, causal, kw in case_list:
                     kw = dict(kw)
                     kw["timing"] = kw.pop("timing", False) and timed
@@ -1717,6 +1829,38 @@ def check_bwd_kernels(fa, dtypes=(torch.bfloat16, torch.float32)):
     for c in cases:
         print("kernel_check " + json.dumps(c), flush=True)
     return cases
+
+
+def fusion_route_reading(fa, gen, b=32, h=12, s=76, d=64):
+    """CoCa's fusion self-attention (32, 12, 76, 76, 64) bf16, forward and
+    backward as its training step runs them, both ways the module can hand
+    it to the kernels: the (1, 1, 76, 76) causal bool as a bias (#6's bias
+    lane, the backward's masks from the bias) and ``causal`` with no bias
+    (#6's unmasked causal loop, the one-pass backward's causal walk); SDPA
+    (``is_causal``) beside them. Device ms of a forward and backward from
+    the profiler (every kernel of the call: the calls are host-bound on the
+    events) and the events' ms; the two ways' outputs and gradients against
+    each other, which must agree to the backward's bar (``ok``). The
+    numbers the module's route was chosen from; ``--ab`` reads them on both
+    trees."""
+    q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+    do = torch.randn(b, h, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = make_bias("causal_mask", b, h, s, s, gen)
+    ways = {"mask_bias": lambda: fa.flash_attention(q, k, v, mask, False),
+            "causal": lambda: fa.flash_attention(q, k, v, None, True),
+            "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)}
+    out, got = {}, {}
+    for name, fwd in ways.items():
+        step = lambda: (fwd(), *torch.autograd.grad(fwd(), (q, k, v), do))  # noqa: E731
+        fwd_bwd = lambda: torch.autograd.grad(fwd(), (q, k, v), do)  # noqa: E731
+        out[f"{name}_device_ms"] = device_ms(fwd_bwd, None)
+        out[f"{name}_ms"] = time_ms(fwd_bwd, 50)
+        got[name] = [x.detach() for x in step()]
+    out["causal_vs_mask_rel_err"] = max(row_relative_error(x, y)
+                                        for x, y in zip(got["causal"], got["mask_bias"]))
+    out["ok"] = out["causal_vs_mask_rel_err"] <= ROW_RELATIVE_BAR_BWD[torch.bfloat16]
+    return out
 
 
 def flash_bwd_timing(fa, b=8, h=12, s=8192, d=64):
@@ -1824,6 +1968,34 @@ PLANTED_FAULTS = {
     "attention bwd: the ragged last key tile unmasked (padded keys' bias 0)": (
         "fused_qkv_attention_bwd.cu", "qkv_attention_bwd_wgmma_kernel(const __grid_constant__",
         ": 0.f) : -INFINITY;", ": 0.f) : 0.f;"),
+    "attention bwd: the causal fill in natural units beside a log2 key bias": (
+        "fused_qkv_attention_bwd.cu", "qkv_attention_bwd_wgmma_kernel(const __grid_constant__",
+        "sacc[4 * n + e] = kMasked2;", "sacc[4 * n + e] = -1e30f;"),
+    "attention bwd: padded keys take the causal fill (wgmma's pass 1)": (
+        "fused_qkv_attention_bwd.cu", "qkv_attention_bwd_wgmma_kernel(const __grid_constant__",
+        "if (key > q0 + 16 * ww + gq + 8 * (e >> 1) && key < S)",
+        "if (key > q0 + 16 * ww + gq + 8 * (e >> 1))"),
+    "attention bwd: p = 0 above the diagonal in wgmma's pass 2": (
+        "fused_qkv_attention_bwd.cu", "void probs_t(float (&sacc)[KT / 2]",
+        "s2 = kMasked2;", "s2 = -INFINITY;"),
+    "attention bwd: padded keys take the causal fill (mma.sync)": (
+        "fused_qkv_attention_bwd.cu", "qkv_attention_bwd_mma_kernel(const __nv_bfloat16*",
+        "if (causal && key > row && (!MASKED || key < S)) s = -1e30f;",
+        "if (causal && key > row) s = -1e30f;"),
+    "attention bwd: mma.sync's query tiles skip the keys past them": (
+        "fused_qkv_attention_bwd.cu", "qkv_attention_bwd_mma_kernel(const __nv_bfloat16*",
+        "const int kg_end = causal && (!MASKED || m0 >= nm) ? min(KG, warp + 1) : KG;",
+        "const int kg_end = causal ? min(KG, warp + 1) : KG;"),
+    "attention bwd: mma.sync's key tiles skip the queries before them": (
+        "fused_qkv_attention_bwd.cu", "qkv_attention_bwd_mma_kernel(const __nv_bfloat16*",
+        "for (int it = causal && (!MASKED || nm == 0) ? warp : 0; it < KG; ++it)",
+        "for (int it = causal ? warp : 0; it < KG; ++it)"),
+    "attention bwd: the FP32 pipes' query rows skip the keys past the diagonal": (
+        "fused_qkv_attention_bwd.cu", "qkv_attention_bwd_kernel(const T* __restrict__ qkv",
+        "const int jend = causal && i >= nm ? i + 1 : S;", "const int jend = causal ? i + 1 : S;"),
+    "attention bwd: the FP32 pipes' keys skip the queries before them": (
+        "fused_qkv_attention_bwd.cu", "qkv_attention_bwd_kernel(const T* __restrict__ qkv",
+        "const int istart = causal && nm == 0 ? j : 0;", "const int istart = causal ? j : 0;"),
     "quantized attention: the merge drops the last run": (
         "quantized_cache_attention.cu", "quantized_cache_attention_values_kernel(QArgs a)",
         "for (int k = 0; k < a.runs; ++k) o +=", "for (int k = 0; k < a.runs - 1; ++k) o +="),
@@ -1832,12 +2004,13 @@ PLANTED_FAULTS = {
         "visible(a, b, i, j)",
         "(visible(a, b, i, j) || (a.causal && j == i + 1 + off && (!a.qseg || "
         "a.qseg[b * a.qseg_b + i] == a.kvseg[b * a.kvseg_b + j])))"),
-    # (at least one tile: below 64 queries, as the Q-Former's 32, a block
-    # with no tile would wait forever for its loads)
+    # (at least one tile a block: a block with none, as below 64 queries (the
+    # Q-Former's 32) or a causal key block whose first query tile is the
+    # ragged last one (D = 96's 300 x 300), would wait forever for its loads)
     "bwd: the ragged last query tile dropped": (
         "flash_attention_bwd.cu", "flash_bwd_wgmma_kernel(const __grid_constant__",
         "const int nq = (a.Sq + kWgTile - 1) / kWgTile;",
-        "const int nq = max(1, a.Sq / kWgTile);"),
+        "const int nq = max(first_query_tile(a, k0, kWgTile) + 1, a.Sq / kWgTile);"),
     "bwd: delta left out of ds": (
         "flash_attention_bwd.cu", "flash_bwd_wgmma_kernel(const __grid_constant__",
         "pe * (dpt[4 * n + e] - ((e & 1) ? d2.y : d2.x))", "pe * dpt[4 * n + e]"),
@@ -1848,6 +2021,15 @@ PLANTED_FAULTS = {
     "bwd: the dq workspace not zero-filled": (
         "flash_attention_bwd.cu", "cudaError_t launch_wgmma(",
         "cudaMemsetAsync(ws, 0, bytes, st)", "cudaSuccess"),
+    "bwd: D = 96's last 32-column dq box not reduced": (
+        "flash_attention_bwd.cu", "void add_dq_part_96(const float (&dq)[32]",
+        "wg::tma_reduce_add_3d_part(map, boxes + 4 * wgi * kBox, 64 * wgi, q0, bh);",
+        "if (wgi == 0) wg::tma_reduce_add_3d_part(map, boxes + 4 * wgi * kBox, 64 * wgi, q0, "
+        "bh);"),
+    "bwd: D = 96's last 32 columns of dk not written": (
+        "flash_attention_bwd.cu", "flash_bwd_wgmma_kernel(const __grid_constant__",
+        "*reinterpret_cast<__nv_bfloat162*>(dkg + key * a.o0s[2] + c) =",
+        "if (c < 64) *reinterpret_cast<__nv_bfloat162*>(dkg + key * a.o0s[2] + c) ="),
     "acc: the first row run's dW partial left out of the sum": (
         "fused_mlp_bwd_acc.cu", "fused_mlp_bwd_acc_sum_kernel(const float*",
         "for (int c = 0; c < splits; ++c)", "for (int c = 1; c < splits; ++c)"),
@@ -2044,14 +2226,17 @@ def ab_side() -> None:
     rows, of its #6 at the LM's prefill and train shapes (8, 12, 2048 and
     8192, 64) bf16 causal, of its flash attention backward
     (``_flash_backward``: delta, dq, dk and dv) at the LM training shape
-    (8, 12, 8192, 64) bf16 causal, of its #1 (device ms) at ALBEF's text
-    tower, CLIP's vision (512, 50) and causal text (512, 77) towers,
-    ViT-B/16's (256, 197) and CoCa-L's (32, 256, 3 x 1024), of its #2 at
-    CLIP's vision (256, 50) and causal text (256, 77) towers and ViT-B/16's
-    (256, 197), of its #10 at the first four ``QCA_CASES`` (device time
-    from the profiler, and the call on the events' clock), and the LM
-    serving phase's ms a tick on the host clock and on the device. Prints
-    one ``ab`` JSON line."""
+    (8, 12, 8192, 64) bf16 causal and (device ms) non-causal at ALBEF's ViT
+    (32, 12, 577, 577, 64) and CoCa's pooler (32, 8, 256, 256, 96), of its
+    #1 (device ms) at ALBEF's text tower, CLIP's vision (512, 50) and
+    causal text (512, 77) towers, ViT-B/16's (256, 197) and CoCa-L's (32,
+    256, 3 x 1024), of its #2 at CLIP's vision (256, 50) and causal text
+    (256, 77) towers, ViT-B/16's (256, 197) and causal at (256, 256) (the
+    `wgmma` kernel), of its #10 at the first four ``QCA_CASES`` (device time
+    from the profiler, and the call on the events' clock), of CoCa's fusion
+    self-attention both ways (``fusion_route_reading``), and the LM serving
+    phase's ms a tick on the host clock and on the device. Prints one
+    ``ab`` JSON line."""
     from multimodal_tpu_torch.ops import flash_attention as fa
     from multimodal_tpu_torch.ops import fused_encoder as fe
     from multimodal_tpu_torch.ops import kv_cache as kv
@@ -2103,6 +2288,17 @@ def ab_side() -> None:
         out["flash_backward_train"] = time_ms(fn, reps_for(time_ms(fn, 1)))
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
+        # ALBEF's ViT-B/16 at 384 (D = 64) and CoCa's attention pooler (D = 96),
+        # non-causal; device ms from the profiler
+        for name, b, h, s, d in (("albef_vit_577", 32, 12, 577, 64),
+                                 ("coca_pooler_d96", 32, 8, 256, 96)):
+            q, k, v, do, _, _ = _bwd_inputs(b, h, s, s, d, torch.bfloat16, gen, None, False)
+            o, lse = fa.flash_attention_forward(q, k, v, return_lse=True)
+            fn = lambda: fa._flash_backward(q, k, v, o, lse, do, causal=False,  # noqa: E731
+                                            sm_scale=None)
+            out[f"flash_backward_{name}"] = device_ms(fn, "flash_attention_bwd")
+            del q, k, v, do, o, lse
+            torch.cuda.empty_cache()
         # #1 at every path's S: ALBEF's text tower (its padding bias),
         # CLIP's vision and (causal) text towers at the serving batch,
         # ViT-B/16's and CoCa-L's vision towers; device ms from the profiler
@@ -2122,7 +2318,8 @@ def ab_side() -> None:
         # tower, the train batch
         for name, s, d, h, causal in (("clip_vision", 50, 768, 12, False),
                                       ("clip_text", 77, 512, 8, True),
-                                      ("vit_b16", 197, 768, 12, False)):
+                                      ("vit_b16", 197, 768, 12, False),
+                                      ("causal_256", 256, 768, 12, True)):
             qkv, g, _ = _attention_bwd_inputs(TRAIN_BATCH, s, d, torch.bfloat16, False, gen)
             fn = lambda: fe.fused_qkv_attention_bwd(qkv, g, h, causal)  # noqa: E731
             out[f"attn_bwd_{name}"] = time_ms(fn, reps_for(time_ms(fn, 1)))
@@ -2138,6 +2335,9 @@ def ab_side() -> None:
             del q, kc, vc, mask
             torch.cuda.empty_cache()
 
+    # CoCa's fusion self-attention, forward and backward, both ways
+    fusion = fusion_route_reading(fa, torch.Generator(device="cuda").manual_seed(16))
+    out.update({f"fusion_{k}": v for k, v in fusion.items() if k.endswith("ms")})
     _, res = lm_serve(fe, fa, qa, card_line())
     out["lm_ms_per_tick"] = res["ms_per_tick"]
     out["lm_device_ms_per_tick"] = res.get("device_ms_per_tick", "not measured")

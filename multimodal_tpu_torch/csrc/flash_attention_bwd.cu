@@ -3,8 +3,8 @@
 //
 // Replaces: multimodal_tpu/ops/flash_attention.py, `_flash_backward`'s three
 // kernel bodies: `_bwd_dq_kernel` (#7, its pallas_call at :625) and
-// `_bwd_dkv_kernel` (#8, :650), both here flash_bwd_wgmma_kernel in bf16 at
-// head width 64, and `_bwd_dbias_kernel` (#9, :679, here
+// `_bwd_dkv_kernel` (#8, :650), both here flash_bwd_wgmma_kernel<D> in bf16
+// at head widths 64 and 96, and `_bwd_dbias_kernel` (#9, :679, here
 // flash_bwd_dq_mma_kernel<..., kDbias = true>).
 //
 // What they compute, per batch b and head h, for query row i (Sq rows) and
@@ -31,7 +31,7 @@
 // split design can reach the library's backward. #9 writes the fp32 (Sq, Sk)
 // matrix and so is bound by bytes (25.8 GB, 7.7 ms at that shape).
 //
-// Design, bf16 at head width 64 (flash_bwd_wgmma_kernel): one block of two
+// Design, bf16 at head width 64 (flash_bwd_wgmma_kernel<64>): one block of two
 // warpgroups per (128-key block, head, batch), 64 keys a warpgroup; blocks
 // of a head are numbered from key block 0, which under the causal mask sees
 // the most query tiles, so the longest start first. Thread 0 loads the
@@ -71,6 +71,28 @@
 // `setmaxnreg`; two warpgroups get 246. At (8, 12, 8192, 64) bf16 causal
 // the call takes 5.84 ms against the 2.085 ms bound and the library's
 // 4.79 (H100 80GB HBM3, 700.00 W; PERF.md).
+//
+// At head width 96 (flash_bwd_wgmma_kernel<96>, CoCa's attention pooler)
+// the same pass, shaped by three limits. Registers: dk and dv take 96 of a
+// thread's, so K and V stay in shared memory as the A operands of s^T and
+// dp^T (their fragments would add 48, past 255), and dk takes T(ds^T) from
+// the buffer dq reads, issued with dq after the barrier, so only p^T's
+// fragments stay in registers. The swizzle: a 192-byte row is past the
+// 128-byte swizzle, so K, V, q and do are 32-column chunks of 64-byte rows
+// in the 64-byte swizzle (TMA boxes of 64 rows x 32 columns; the products'
+// descriptors step through the chunks), while T(ds^T) keeps its 128-byte
+// rows. dq's split: 96 columns do not halve into whole 32-column chunks, so
+// warpgroup 0 computes columns 0-63 and warpgroup 1 64-95 with the same
+// m64n64 products (its other 32 columns read V's first chunk and are
+// dropped): products issued under a branch on the warpgroup would be
+// serialized. Its fp32 part goes out in 32-column boxes, the workspace
+// (B H, Sq, 96). Shared memory: K and V 48 KB, three stages of q and do
+// 72 KB, T(ds^T) 32 KB, dq's boxes 48 KB: 200 KB (a fourth stage would pass
+// 227 KB). 240 registers, no spills. At CoCa's pooler (32, 8, 256, 256, 96)
+// the call takes 0.095 device ms (the kernel 0.079; the FP32 pipes took
+// 1.75-1.78) against the 0.026 ms bound and SDPA's backward 0.101; the
+// 64 + 32 split by a branch made ptxas serialize the products (C7519,
+// C7520) and ran 12% slower (H100 80GB HBM3, 700.00 W; PERF.md).
 //
 // Other routes, chosen by type and head width, never after a failure:
 // - bf16 at head width 32 or 128: `mma.sync` m16n8k16, fragments by
@@ -172,33 +194,67 @@ __device__ __forceinline__ int first_query_tile(const Args& a, int k0, int tile)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at head width 64: one pass over each key block, `wgmma` + TMA.
+// bf16 at head width 64 or 96: one pass over each key block, `wgmma` + TMA.
 // ---------------------------------------------------------------------------
 
 constexpr int kWgKeys = 128;  // keys a block owns: 64 a warpgroup
 constexpr int kWgTile = 64;   // queries a ring stage holds
-constexpr int kWgStages = 3;
 constexpr int kWgThreads = 256;  // two warpgroups; thread 0 issues the copies
-constexpr int kBox = 64 * 64 * 2;  // one 64 x 64 bf16 box
+constexpr int kBox = 64 * 64 * 2;  // a 64 x 64 bf16 box (128-byte rows); a 64 x 32 fp32 one
 
-// Shared memory, from a 1024-byte aligned base, in boxes: K (2), V (2),
-// q and do of each stage, T(ds^T) of both warpgroups in two buffers (4),
-// the fp32 dq part in two buffers (4: a 64 x 32 box a warpgroup), then
-// each stage's lse and delta (64 floats each) and the barriers.
-constexpr int kBoxK = 0;
-constexpr int kBoxV = 2;
-constexpr int kBoxQ = 4;
-constexpr int kBoxDo = kBoxQ + kWgStages;
-constexpr int kBoxDs = kBoxDo + kWgStages;
-constexpr int kBoxDq = kBoxDs + 4;
-constexpr int kBoxes = kBoxDq + 4;
-constexpr size_t kWgSmem =
-    1024 + (size_t)kBoxes * kBox + 2 * kWgStages * kWgTile * sizeof(float) +
-    (kWgStages + 1) * sizeof(uint64_t);
+// The layout of head width D's tiles. A tile of R rows is D / kCols column
+// chunks, each R rows of kRowBytes back to back, each 64 rows of it one TMA
+// box. At D = 64 a row is 128 bytes, one chunk in the 128-byte swizzle; a
+// 192-byte row at D = 96 is past that swizzle's span, so there it is three
+// 32-column chunks of 64-byte rows in the 64-byte swizzle (as the forward's).
+template <int D>
+struct WgShape;
+template <>
+struct WgShape<64> {
+  static constexpr int kCols = 64;
+  static constexpr CUtensorMapSwizzle kMapSwizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+  static constexpr int kDq = 16;  // dq accumulator floats: 64 queries x 32 columns
+  static constexpr int kStages = 3;  // ring stages of q and do
+};
+template <>
+struct WgShape<96> {
+  static constexpr int kCols = 32;
+  static constexpr CUtensorMapSwizzle kMapSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
+  static constexpr int kDq = 32;  // 64 queries x 64 columns
+  static constexpr int kStages = 3;  // a fourth would pass 227 KB
+};
+
+// Shared memory, from a 1024-byte aligned base, in chunk boxes (64 rows of
+// a chunk: kUnit bytes, one kBox at D = 64, half of one at 96): K and V
+// (128 rows each), q and do of each stage (64 rows each), T(ds^T) of both
+// warpgroups in two buffers (128 keys x 64 queries, 128-byte rows, by tile
+// parity), the fp32 dq part in two buffers (a 64 x 32 box a 32-column
+// chunk), then each stage's lse and delta (64 floats each) and the
+// barriers. (Offsets in units, as (offset + index) * unit, keep the D = 64
+// instance's code that of the kernel before D = 96.)
+template <int D>
+struct Wg : WgShape<D> {
+  static constexpr int kRowBytes = 2 * WgShape<D>::kCols;
+  static constexpr int kChunks = D / WgShape<D>::kCols;
+  static constexpr int kUnit = 64 * kRowBytes;
+  static constexpr int kPerBox = kBox / kUnit;  // units of a kBox
+  static constexpr int kBoxK = 0;
+  static constexpr int kBoxV = 2 * kChunks;
+  static constexpr int kBoxQ = 4 * kChunks;
+  static constexpr int kBoxDo = kBoxQ + WgShape<D>::kStages * kChunks;
+  static constexpr int kBoxDs = kBoxDo + WgShape<D>::kStages * kChunks;
+  static constexpr int kBoxDq = kBoxDs + 4 * kPerBox;
+  static constexpr int kBoxes = kBoxDq + 2 * (D / 32) * kPerBox;
+  static constexpr size_t kSmem = 1024 + (size_t)kBoxes * kUnit +
+                                  2 * WgShape<D>::kStages * kWgTile * sizeof(float) +
+                                  (WgShape<D>::kStages + 1) * sizeof(uint64_t);
+};
+static_assert(Wg<64>::kBoxes == 18 && Wg<64>::kUnit == kBox && Wg<96>::kSmem <= 232448,
+              "a block's shared memory");
 
 struct WgParams {
-  CUtensorMap q, k, v, dout;  // (B, H, S, 64) bf16, 64 x 64 boxes
-  CUtensorMap dq_acc;         // (B H, Sq, 64) fp32, 64-row x 32-column boxes
+  CUtensorMap q, k, v, dout;  // (B, H, S, D) bf16, 64-row boxes of a chunk's columns
+  CUtensorMap dq_acc;         // (B H, Sq, D) fp32, 64-row x 32-column boxes
   const float* lse_pad;       // (B H, sq_pad): row_lse, +inf past Sq
   const float* delta_pad;     // (B H, sq_pad): row_delta, 0 past Sq
   int sq_pad;                 // Sq rounded up to the query tile
@@ -214,17 +270,39 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t box, int kk) {
 __device__ __forceinline__ uint64_t desc_mn(uint32_t box, int kk) {
   return wg::desc(box + kk * 2048, kBox, 1024);
 }
+// Head width 96's, in the 64-byte swizzle (8-row groups of 64-byte rows 512
+// bytes apart) of a tile whose chunks hold `rows` rows: K-major, k-step kk
+// in chunk kk / 2, 32 bytes into its rows; MN-major, k-step kk 16 rows
+// (1024 bytes) on, the chunks `rows` rows apart.
+__device__ __forceinline__ uint64_t desc64(uint32_t addr, uint32_t lbo) {
+  return (wg::desc(addr, lbo, 512) & ~(3ull << 62)) | (2ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_k96(uint32_t tile, int rows, int kk) {
+  return desc64(tile + (kk >> 1) * rows * 64 + (kk & 1) * 32, 16);
+}
+__device__ __forceinline__ uint64_t desc_mn96(uint32_t tile, int rows, int kk) {
+  return desc64(tile + kk * 1024, rows * 64);
+}
 
 // Thread 0: the copies of query tile `it` of the block into its stage: q
-// and do (two boxes), lse and delta (256 bytes each), reported to full.
-__device__ __forceinline__ void load_tile(const WgParams& p, uint8_t* sm, float* lse_s,
-                                          float* delta_s, uint64_t* full, int it, int t_begin,
-                                          int h, int b, long long bh) {
-  const int s = it % kWgStages;
+// and do (a box a chunk each), lse and delta (256 bytes each), reported to
+// full.
+template <int D>
+__device__ __forceinline__ void load_stage(const WgParams& p, uint8_t* sm, float* lse_s,
+                                           float* delta_s, uint64_t* full, int it, int t_begin,
+                                           int h, int b, long long bh) {
+  using L = Wg<D>;
+  const int s = it % L::kStages;
   const int q0 = (t_begin + it) * kWgTile;
-  wg::bar_expect_tx(&full[s], 2 * kBox + 2 * kWgTile * sizeof(float));
-  wg::tma_box_4d(sm + (kBoxQ + s) * kBox, &p.q, &full[s], 0, q0, h, b);
-  wg::tma_box_4d(sm + (kBoxDo + s) * kBox, &p.dout, &full[s], 0, q0, h, b);
+  wg::bar_expect_tx(&full[s], 2 * L::kChunks * L::kUnit + 2 * kWgTile * sizeof(float));
+#pragma unroll
+  for (int c = 0; c < L::kChunks; ++c)
+    wg::tma_box_4d(sm + (L::kBoxQ + s * L::kChunks + c) * L::kUnit, &p.q, &full[s],
+                   c * L::kCols, q0, h, b);
+#pragma unroll
+  for (int c = 0; c < L::kChunks; ++c)
+    wg::tma_box_4d(sm + (L::kBoxDo + s * L::kChunks + c) * L::kUnit, &p.dout, &full[s],
+                   c * L::kCols, q0, h, b);
   wg::bulk_copy(lse_s + s * kWgTile, p.lse_pad + bh * p.sq_pad + q0, kWgTile * sizeof(float),
                 &full[s]);
   wg::bulk_copy(delta_s + s * kWgTile, p.delta_pad + bh * p.sq_pad + q0,
@@ -232,24 +310,42 @@ __device__ __forceinline__ void load_tile(const WgParams& p, uint8_t* sm, float*
 }
 
 // Steps 1 and 2 of query tile `it` of a block: s^T = K q^T and dp^T =
-// V do^T (a warpgroup's 64 keys x 64 queries; K and V from registers, q and
-// do K-major), issued as one group once the tile's stage has landed. The
-// first k-step overwrites the accumulators (scale-d 0): no other
-// instruction may write registers of a product in flight, or ptxas
-// serializes the products.
+// V do^T (a warpgroup's 64 keys x 64 queries; q and do K-major), issued as
+// one group once the tile's stage has landed. At D = 64 K and V are the
+// register fragments kf and vf; at D = 96 they are read from shared memory
+// (the warpgroup's 64 rows of each chunk): their fragments would take 48
+// registers a thread, past the cap beside dk's and dv's 96. The first
+// k-step overwrites the accumulators (scale-d 0): no other instruction may
+// write registers of a product in flight, or ptxas serializes the
+// products.
+template <int D>
 __device__ __forceinline__ void issue_sdp(float (&st)[32], float (&dpt)[32], uint8_t* sm,
                                           uint64_t* full, int it, const uint32_t (&kf)[4][4],
                                           const uint32_t (&vf)[4][4]) {
-  const int s = it % kWgStages;
-  wg::bar_wait(&full[s], (it / kWgStages) & 1);
+  using L = Wg<D>;
+  const int s = it % L::kStages;
+  wg::bar_wait(&full[s], (it / L::kStages) & 1);
   __syncwarp();  // the warp leaves the poll together: `wgmma` is .aligned
-  const uint32_t q_box = wg::smem_u32(sm + (kBoxQ + s) * kBox);
-  const uint32_t do_box = wg::smem_u32(sm + (kBoxDo + s) * kBox);
+  const uint32_t q_box = wg::smem_u32(sm + (L::kBoxQ + s * L::kChunks) * L::kUnit);
+  const uint32_t do_box = wg::smem_u32(sm + (L::kBoxDo + s * L::kChunks) * L::kUnit);
   wg::wgmma_fence();
+  if constexpr (D == 64) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wg::mma_m64n64k16_rs<wg::K>(st, kf[kk], desc_k(q_box, kk), kk);
+    for (int kk = 0; kk < 4; ++kk) wg::mma_m64n64k16_rs<wg::K>(st, kf[kk], desc_k(q_box, kk), kk);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wg::mma_m64n64k16_rs<wg::K>(dpt, vf[kk], desc_k(do_box, kk), kk);
+    for (int kk = 0; kk < 4; ++kk) wg::mma_m64n64k16_rs<wg::K>(dpt, vf[kk], desc_k(do_box, kk), kk);
+  } else {
+    const uint32_t k_rows = wg::smem_u32(sm + (L::kBoxK + threadIdx.x / 128) * L::kUnit);
+    const uint32_t v_rows = wg::smem_u32(sm + (L::kBoxV + threadIdx.x / 128) * L::kUnit);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::mma_m64n64k16<wg::K, wg::K>(st, desc_k96(k_rows, kWgKeys, kk),
+                                      desc_k96(q_box, kWgTile, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::mma_m64n64k16<wg::K, wg::K>(dpt, desc_k96(v_rows, kWgKeys, kk),
+                                      desc_k96(do_box, kWgTile, kk), kk);
+  }
   wg::wgmma_commit();
 }
 
@@ -272,13 +368,11 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[4][4], const uint8_t*
     }
 }
 
-// The dq part of query tile q0 (64 queries x warpgroup wgi's 32 columns)
-// from its accumulator into one of the warpgroup's fp32 boxes (query row r,
-// column c at 16-byte chunk c / 4 ^ (r % 8) of its 128-byte row), then
-// added into the workspace by TMA.
-__device__ __forceinline__ void add_dq_part(const float (&dq)[16], uint8_t* box,
-                                            const CUtensorMap* map, int wgi, int q0, int bh,
-                                            bool issuer) {
+// Columns 8 n + 2 t4 (+ 1) of dq[4 n + e], n in [4 h, 4 h + 4), into an fp32
+// 64 x 32 box (query row r, column c at 16-byte chunk c / 4 ^ (r % 8) of
+// its 128-byte row).
+template <int N>
+__device__ __forceinline__ void dq_box(const float (&dq)[N], uint8_t* box, int h) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
@@ -289,24 +383,53 @@ __device__ __forceinline__ void add_dq_part(const float (&dq)[16], uint8_t* box,
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 16 * ww + g + 8 * hh;
       *reinterpret_cast<float2*>(box + r * 128 + (((2 * n + (t4 >> 1)) ^ g) << 4) +
-                                 8 * (t4 & 1)) = make_float2(dq[4 * n + 2 * hh],
-                                                             dq[4 * n + 2 * hh + 1]);
+                                 8 * (t4 & 1)) = make_float2(dq[4 * (4 * h + n) + 2 * hh],
+                                                             dq[4 * (4 * h + n) + 2 * hh + 1]);
     }
+}
+
+// The dq part of query tile q0 (64 queries x warpgroup wgi's 32 columns)
+// from its accumulator into one of the warpgroup's fp32 boxes, then added
+// into the workspace by TMA.
+__device__ __forceinline__ void add_dq_part(const float (&dq)[16], uint8_t* box,
+                                            const CUtensorMap* map, int wgi, int q0, int bh,
+                                            bool issuer) {
+  dq_box(dq, box, 0);
   wg::fence_async_smem();
   wg::named_sync(2 + wgi, 128);
   if (issuer) wg::tma_reduce_add_3d(map, box, 32 * wgi, q0, bh);
 }
 
+// The same at head width 96: warpgroup 0's part is dq's columns 0-63 (two
+// boxes), warpgroup 1's columns 64-95 (one box; its accumulator's other 32
+// columns hold nothing); box c of the 32-column chunks at `boxes` + 2 c kBox.
+// A warpgroup's reductions go out as one bulk group.
+__device__ __forceinline__ void add_dq_part_96(const float (&dq)[32], uint8_t* boxes,
+                                               const CUtensorMap* map, int wgi, int q0, int bh,
+                                               bool issuer) {
+  dq_box(dq, boxes + 4 * wgi * kBox, 0);
+  if (wgi == 0) dq_box(dq, boxes + 2 * kBox, 1);
+  wg::fence_async_smem();
+  wg::named_sync(2 + wgi, 128);
+  if (issuer) {
+    wg::tma_reduce_add_3d_part(map, boxes + 4 * wgi * kBox, 64 * wgi, q0, bh);
+    if (wgi == 0) wg::tma_reduce_add_3d_part(map, boxes + 2 * kBox, 32, q0, bh);
+    wg::bulk_commit();
+  }
+}
+
+template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_bwd_wgmma_kernel(const __grid_constant__ WgParams p) {
+  using L = Wg<D>;
   const Args& a = p.a;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                            ~uintptr_t(1023));
-  float* lse_s = reinterpret_cast<float*>(sm + kBoxes * kBox);  // [stage][64]
-  float* delta_s = lse_s + kWgStages * kWgTile;                  // [stage][64]
-  uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + kWgStages * kWgTile);
-  uint64_t* kv_bar = full + kWgStages;
+  float* lse_s = reinterpret_cast<float*>(sm + L::kBoxes * L::kUnit);  // [stage][64]
+  float* delta_s = lse_s + L::kStages * kWgTile;          // [stage][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + L::kStages * kWgTile);
+  uint64_t* kv_bar = full + L::kStages;
 
   const int kb = blockIdx.x;
   const int h = blockIdx.y;
@@ -317,19 +440,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int t_begin = first_query_tile(a, k0, kWgTile);
   const int ntiles = nq - t_begin;  // >= 1: the block's first key is < Sk
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kWgStages; ++s) wg::bar_init(&full[s], 1);
+    for (int s = 0; s < L::kStages; ++s) wg::bar_init(&full[s], 1);
     wg::bar_init(kv_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    wg::bar_expect_tx(kv_bar, 4 * kBox);
-    for (int j = 0; j < 2; ++j) {
-      wg::tma_box_4d(sm + (kBoxK + j) * kBox, &p.k, kv_bar, 0, k0 + 64 * j, h, b);
-      wg::tma_box_4d(sm + (kBoxV + j) * kBox, &p.v, kv_bar, 0, k0 + 64 * j, h, b);
-    }
+    wg::bar_expect_tx(kv_bar, 4 * L::kChunks * L::kUnit);
+#pragma unroll
+    for (int c = 0; c < L::kChunks; ++c)
+      for (int j = 0; j < 2; ++j) {
+        wg::tma_box_4d(sm + (L::kBoxK + 2 * c + j) * L::kUnit, &p.k, kv_bar, c * L::kCols,
+                       k0 + 64 * j, h, b);
+        wg::tma_box_4d(sm + (L::kBoxV + 2 * c + j) * L::kUnit, &p.v, kv_bar, c * L::kCols,
+                       k0 + 64 * j, h, b);
+      }
     for (int it = 0; it < 2 && it < ntiles; ++it)
-      load_tile(p, sm, lse_s, delta_s, full, it, t_begin, h, b, bh);
+      load_stage<D>(p, sm, lse_s, delta_s, full, it, t_begin, h, b, bh);
   }
 
   // Warpgroup wgi owns keys [k0w, k0w + 64); its accumulators' element
@@ -350,29 +477,33 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // and the dq product of t: the three run together. No other instruction
   // writes a product's registers while any product is in flight (ptxas
   // would serialize them), and every product is issued on every tile (the
-  // last recomputes its own s/dp).
-  float st[32], dpt[32], dk[32], dv[32], dq[16];
+  // last recomputes its own s/dp). At D = 96 dk(t) takes T(ds^T) from
+  // shared memory, so it is issued with dq(t).
+  float st[32], dpt[32], dk[D / 2], dv[D / 2], dq[L::kDq];
   uint32_t pa[4][4], da[4][4];  // live until the products that read them are done
-  uint32_t kf[4][4], vf[4][4];  // the warpgroup's K and V as A fragments
+  uint32_t kf[4][4], vf[4][4];  // D = 64: the warpgroup's K and V as A fragments
 #pragma unroll
-  for (int x = 0; x < 32; ++x) dk[x] = dv[x] = 0.f;
+  for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
 #pragma unroll
-  for (int x = 0; x < 16; ++x) dq[x] = 0.f;
+  for (int x = 0; x < L::kDq; ++x) dq[x] = 0.f;
   // the zeros are written here, not sunk into the first products' flight
   wg::fence_acc(dk);
   wg::fence_acc(dv);
   wg::fence_acc(dq);
   wg::bar_wait(kv_bar, 0);
-  load_a_frags(kf, sm + (kBoxK + wgi) * kBox);
-  load_a_frags(vf, sm + (kBoxV + wgi) * kBox);
-  issue_sdp(st, dpt, sm, full, 0, kf, vf);
+  if constexpr (D == 64) {
+    load_a_frags(kf, sm + (L::kBoxK + wgi) * L::kUnit);
+    load_a_frags(vf, sm + (L::kBoxV + wgi) * L::kUnit);
+  }
+  issue_sdp<D>(st, dpt, sm, full, 0, kf, vf);
 
   for (int it = 0; it < ntiles; ++it) {
-    const int s = it % kWgStages;
+    const int s = it % L::kStages;
     const int q0 = (t_begin + it) * kWgTile;
-    const uint32_t q_box = wg::smem_u32(sm + (kBoxQ + s) * kBox);
-    const uint32_t do_box = wg::smem_u32(sm + (kBoxDo + s) * kBox);
-    uint8_t* ds_buf = sm + (kBoxDs + 2 * (it & 1)) * kBox;  // 128 keys x 64 queries
+    const uint32_t q_box = wg::smem_u32(sm + (L::kBoxQ + s * L::kChunks) * L::kUnit);
+    const uint32_t do_box = wg::smem_u32(sm + (L::kBoxDo + s * L::kChunks) * L::kUnit);
+    // 128 keys x 64 queries
+    uint8_t* ds_buf = sm + (L::kBoxDs + 2 * (it & 1) * L::kPerBox) * L::kUnit;
     wg::wgmma_wait<0>();  // s/dp(t), dv/dk(t - 1) and dq(t - 1)
     wg::fence_acc(st);
     wg::fence_acc(dpt);
@@ -382,11 +513,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       wg::fence_regs(pa[kk]);
-      wg::fence_regs(da[kk]);
+      if constexpr (D == 64) wg::fence_regs(da[kk]);
     }
-    if (it > 0)
-      add_dq_part(dq, sm + (kBoxDq + 2 * wgi + ((it + 1) & 1)) * kBox, &p.dq_acc, wgi,
-                  q0 - kWgTile, (int)bh, issuer);
+    if (it > 0) {
+      if constexpr (D == 64)
+        add_dq_part(dq, sm + (L::kBoxDq + 2 * wgi + ((it + 1) & 1)) * L::kUnit, &p.dq_acc,
+                    wgi, q0 - kWgTile, (int)bh, issuer);
+      else
+        add_dq_part_96(dq, sm + (L::kBoxDq + ((it + 1) & 1) * L::kPerBox) * L::kUnit,
+                       &p.dq_acc, wgi, q0 - kWgTile, (int)bh, issuer);
+    }
 
     // s2 = s * scale * log2(e) in place, the masks and the bias only on
     // tiles that cross the diagonal or an edge or carry a bias or segments;
@@ -447,33 +583,56 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     wg::fence_async_smem();
 
-    // 3, 4: dv += T(p^T) do, dk += T(ds^T) q (B MN-major).
+    // 3, 4: dv += T(p^T) do, dk += T(ds^T) q (B MN-major; at D = 96 dk
+    // after the barrier below, A from the buffer).
     wg::wgmma_fence();
+    if constexpr (D == 64) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wg::mma_m64n64k16_rs<wg::MN>(dv, pa[kk], desc_mn(do_box, kk), 1);
+      for (int kk = 0; kk < 4; ++kk)
+        wg::mma_m64n64k16_rs<wg::MN>(dv, pa[kk], desc_mn(do_box, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wg::mma_m64n64k16_rs<wg::MN>(dk, da[kk], desc_mn(q_box, kk), 1);
+      for (int kk = 0; kk < 4; ++kk)
+        wg::mma_m64n64k16_rs<wg::MN>(dk, da[kk], desc_mn(q_box, kk), 1);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wg::mma_m64n96k16_rs<wg::MN>(dv, pa[kk], desc_mn96(do_box, kWgTile, kk), 1);
+    }
     wg::wgmma_commit();
 
     // Both warpgroups have stored T(ds^T)(t) and are done with the stage of
-    // t - 1, which takes tile t + 2; the dq box of t has been read by its
-    // last reduction.
+    // t - 1, which takes tile t + 2; the dq boxes of t have been read by
+    // their last reduction.
     if (issuer) wg::bulk_wait_read<1>();
     wg::named_sync(1, kWgThreads);
     if (threadIdx.x == 0 && it + 2 < ntiles)
-      load_tile(p, sm, lse_s, delta_s, full, it + 2, t_begin, h, b, bh);
+      load_stage<D>(p, sm, lse_s, delta_s, full, it + 2, t_begin, h, b, bh);
     __syncwarp();
-    issue_sdp(st, dpt, sm, full, it + 1 < ntiles ? it + 1 : it, kf, vf);
+    issue_sdp<D>(st, dpt, sm, full, it + 1 < ntiles ? it + 1 : it, kf, vf);
 
-    // 5: dq part (64 queries x this warpgroup's 32 columns) = T(ds) K over
-    // both warpgroups' keys.
+    // 5: dq part = T(ds) K over both warpgroups' keys: at D = 64 64 queries
+    // x this warpgroup's 32 columns; at D = 96 64 queries x 64 columns from
+    // column 64 wgi (warpgroup 1's last 32 read V's first chunk, which
+    // follows K's last, and are never stored).
     const uint32_t ds_box = wg::smem_u32(ds_buf);
     wg::wgmma_fence();
+    if constexpr (D == 64) {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wg::mma_m64n32k16<wg::MN, wg::MN>(dq, desc_mn(ds_box, kk),
-                                        desc_mn(wg::smem_u32(sm + kBoxK * kBox) + 64 * wgi, kk),
-                                        kk);
+      for (int kk = 0; kk < 8; ++kk)
+        wg::mma_m64n32k16<wg::MN, wg::MN>(
+            dq, desc_mn(ds_box, kk),
+            desc_mn(wg::smem_u32(sm + L::kBoxK * L::kUnit) + 64 * wgi, kk), kk);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wg::mma_m64n96k16<wg::K, wg::MN>(dk, desc_k(ds_box + wgi * kBox, kk),
+                                         desc_mn96(q_box, kWgTile, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wg::mma_m64n64k16<wg::MN, wg::MN>(
+            dq, desc_mn(ds_box, kk),
+            desc_mn96(wg::smem_u32(sm + (L::kBoxK + 4 * wgi) * L::kUnit), kWgKeys, kk), kk);
+    }
     wg::wgmma_commit();
   }
   wg::wgmma_wait<0>();
@@ -483,8 +642,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   wg::fence_acc(dv);
   wg::fence_acc(dq);
   const int last = ntiles - 1;
-  add_dq_part(dq, sm + (kBoxDq + 2 * wgi + (last & 1)) * kBox, &p.dq_acc, wgi,
-              (t_begin + last) * kWgTile, (int)bh, issuer);
+  if constexpr (D == 64)
+    add_dq_part(dq, sm + (L::kBoxDq + 2 * wgi + (last & 1)) * L::kUnit, &p.dq_acc, wgi,
+                (t_begin + last) * kWgTile, (int)bh, issuer);
+  else
+    add_dq_part_96(dq, sm + (L::kBoxDq + (last & 1) * L::kPerBox) * L::kUnit, &p.dq_acc, wgi,
+                   (t_begin + last) * kWgTile, (int)bh, issuer);
   if (issuer) wg::bulk_wait_all();
 
   __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.out0) + b * a.o0s[0] + h * a.o0s[1];
@@ -494,7 +657,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int key = k0w + 16 * ww + g + 8 * hh;
     if (key >= a.Sk) continue;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       const int c = 8 * n + 2 * t4;
       *reinterpret_cast<__nv_bfloat162*>(dkg + key * a.o0s[2] + c) = __floats2bfloat162_rn(
           dk[4 * n + 2 * hh] * a.scale, dk[4 * n + 2 * hh + 1] * a.scale);
@@ -518,15 +681,16 @@ __global__ void flash_bwd_wgmma_rows_kernel(const Args a, float* lse_pad, float*
   }
 }
 
-// dq = T(scale * workspace): the fp32 (B H, Sq, 64) sum into dq's strides,
+// dq = T(scale * workspace): the fp32 (B H, Sq, D) sum into dq's strides,
 // four columns a thread.
+template <int D>
 __global__ void flash_bwd_wgmma_dq_kernel(const float4* __restrict__ acc, __nv_bfloat16* dq,
                                           long long s0, long long s1, long long s2, int H,
                                           int Sq, float scale, long long n4) {
   for (long long x = blockIdx.x * (long long)blockDim.x + threadIdx.x; x < n4;
        x += (long long)gridDim.x * blockDim.x) {
-    const long long row = x / 16;
-    const int c = (int)(x % 16) * 4;
+    const long long row = x / (D / 4);
+    const int c = (int)(x % (D / 4)) * 4;
     const long long bh = row / Sq;
     const int i = (int)(row - bh * Sq);
     const float4 f = acc[x];
@@ -544,43 +708,58 @@ unsigned grid_of(long long n) {
   return (unsigned)(blocks < 65536 ? blocks : 65536);
 }
 
+// A TMA map of a bf16 (B, H, S, D) tensor with element strides st (batch,
+// head, row): boxes of 64 rows by a chunk's columns, in D's swizzle. Rows
+// past S read zeros.
+template <int D>
+cudaError_t map_bhsd(CUtensorMap* map, const void* base, int B, int H, int S,
+                     const long long (&st)[3]) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)Wg<D>::kCols, 64, 1, 1};
+  return wg::make_map_nd<4>(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box,
+                            Wg<D>::kMapSwizzle);
+}
+
 // The zero-fill of dq's sum, the rows of lse and delta, the one-pass kernel
-// and dq's conversion, on `stream` in that order. ws: the (B H, Sq, 64)
-// sum, then the two (B H, sq_pad) rows.
+// and dq's conversion, on `stream` in that order. ws: the (B H, Sq, D) sum,
+// then the two (B H, sq_pad) rows.
+template <int D>
 cudaError_t launch_wgmma(const Args& a, void* dq, const long long* dqs, void* ws,
                          cudaStream_t st) {
-  static const cudaError_t smem_err = wg::allow_smem(flash_bwd_wgmma_kernel, kWgSmem);
+  static const cudaError_t smem_err = wg::allow_smem(flash_bwd_wgmma_kernel<D>, Wg<D>::kSmem);
   if (smem_err != cudaSuccess) return smem_err;
   WgParams p;
   p.a = a;
   cudaError_t err;
-  if ((err = wg::map_bhsd(&p.q, a.q, a.B, a.H, a.Sq, a.qs)) != cudaSuccess) return err;
-  if ((err = wg::map_bhsd(&p.k, a.k, a.B, a.H, a.Sk, a.ks)) != cudaSuccess) return err;
-  if ((err = wg::map_bhsd(&p.v, a.v, a.B, a.H, a.Sk, a.vs)) != cudaSuccess) return err;
-  if ((err = wg::map_bhsd(&p.dout, a.dout, a.B, a.H, a.Sq, a.dos)) != cudaSuccess) return err;
+  if ((err = map_bhsd<D>(&p.q, a.q, a.B, a.H, a.Sq, a.qs)) != cudaSuccess) return err;
+  if ((err = map_bhsd<D>(&p.k, a.k, a.B, a.H, a.Sk, a.ks)) != cudaSuccess) return err;
+  if ((err = map_bhsd<D>(&p.v, a.v, a.B, a.H, a.Sk, a.vs)) != cudaSuccess) return err;
+  if ((err = map_bhsd<D>(&p.dout, a.dout, a.B, a.H, a.Sq, a.dos)) != cudaSuccess) return err;
   const long long rows = (long long)a.B * a.H * a.Sq;
-  const cuuint64_t dims[3] = {64, (cuuint64_t)a.Sq, (cuuint64_t)a.B * a.H};
-  const cuuint64_t strides[2] = {64 * sizeof(float), (cuuint64_t)a.Sq * 64 * sizeof(float)};
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)a.Sq, (cuuint64_t)a.B * a.H};
+  const cuuint64_t strides[2] = {D * sizeof(float), (cuuint64_t)a.Sq * D * sizeof(float)};
   const cuuint32_t box[3] = {32, 64, 1};
   if ((err = wg::make_map_nd<3>(&p.dq_acc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ws, dims, strides,
                                 box)) != cudaSuccess)
     return err;
   p.sq_pad = (a.Sq + kWgTile - 1) / kWgTile * kWgTile;
   const long long pad_rows = (long long)a.B * a.H * p.sq_pad;
-  float* lse_pad = static_cast<float*>(ws) + rows * 64;
+  float* lse_pad = static_cast<float*>(ws) + rows * D;
   p.lse_pad = lse_pad;
   p.delta_pad = lse_pad + pad_rows;
-  const size_t bytes = (size_t)rows * 64 * sizeof(float);
+  const size_t bytes = (size_t)rows * D * sizeof(float);
   if ((err = cudaMemsetAsync(ws, 0, bytes, st)) != cudaSuccess) return err;
   flash_bwd_wgmma_rows_kernel<<<grid_of(pad_rows), 256, 0, st>>>(a, lse_pad, lse_pad + pad_rows,
                                                                  p.sq_pad, pad_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_bwd_wgmma_kernel<<<dim3((a.Sk + kWgKeys - 1) / kWgKeys, a.H, a.B), kWgThreads, kWgSmem,
-                           st>>>(p);
+  flash_bwd_wgmma_kernel<D><<<dim3((a.Sk + kWgKeys - 1) / kWgKeys, a.H, a.B), kWgThreads,
+                              Wg<D>::kSmem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_bwd_wgmma_dq_kernel<<<grid_of(rows * 16), 256, 0, st>>>(
+  flash_bwd_wgmma_dq_kernel<D><<<grid_of(rows * D / 4), 256, 0, st>>>(
       static_cast<const float4*>(ws), static_cast<__nv_bfloat16*>(dq), dqs[0], dqs[1], dqs[2],
-      a.H, a.Sq, a.scale, rows * 16);
+      a.H, a.Sq, a.scale, rows * D / 4);
   return cudaGetLastError();
 }
 
@@ -1313,6 +1492,14 @@ bool shape_ok(int B, int H, int Sq, int Sk, int D, int dtype, const void* qseg,
 
 extern "C" {
 
+// The kernels of mm_flash_attention_bwd for dq, dk and dv at head width D
+// in `dtype`: 2 the one-pass `wgmma` kernel (bf16 at 64 and 96; it takes
+// dq_acc), 1 `mma.sync` (bf16 at 32 and 128), 0 the FP32 pipes.
+int mm_flash_attention_bwd_route(int D, int dtype) {
+  if (dtype == 1 && (D == 64 || D == 96)) return 2;
+  return dtype == 1 && (D == 32 || D == 128) ? 1 : 0;
+}
+
 // q, do (B, H, Sq, D), k, v (B, H, Sk, D), all of `dtype` (0 = fp32, 1 =
 // bf16) with the last dimension contiguous; in_strides holds the batch, head
 // and row strides (in elements, 16-byte aligned rows) of q, k, v and do.
@@ -1323,10 +1510,10 @@ extern "C" {
 //
 // dq (#7), dk and dv (#8) of `dtype`, in the layouts of q, k and v with the
 // batch, head and row strides out_strides (dq's, dk's, dv's). bf16 at D = 64
-// takes dq_acc, a contiguous fp32 workspace, 16-byte aligned, of B H (64 Sq
-// + 2 sq_pad) floats (sq_pad: Sq rounded up to a multiple of 64): dq's sum
-// over key blocks, which this entry zero-fills first, and the rows of lse
-// and delta that the kernel copies; the other routes ignore it.
+// and 96 takes dq_acc, a contiguous fp32 workspace, 16-byte aligned, of B H
+// (D Sq + 2 sq_pad) floats (sq_pad: Sq rounded up to a multiple of 64): dq's
+// sum over key blocks, which this entry zero-fills first, and the rows of
+// lse and delta that the kernel copies; the other routes ignore it.
 int mm_flash_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                            void* dq, void* dk, void* dv, void* dq_acc,
                            const long long* in_strides, const long long* out_strides,
@@ -1334,8 +1521,8 @@ int mm_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
                            long long qseg_b, const void* kvseg, long long kvseg_b,
                            const void* lse, const void* delta, int B, int H, int Sq, int Sk,
                            int D, float sm_scale, int causal, int dtype, void* stream) {
-  const bool one_pass = dtype == 1 && D == 64;
-  if (!shape_ok(B, H, Sq, Sk, D, dtype, qseg, kvseg) || (one_pass && dq_acc == nullptr))
+  const int route = mm_flash_attention_bwd_route(D, dtype);
+  if (!shape_ok(B, H, Sq, Sk, D, dtype, qseg, kvseg) || (route == 2 && dq_acc == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a = make_args(q, k, v, dout, in_strides, bias, bias_strides, qseg, qseg_b, kvseg,
                      kvseg_b, lse, delta, B, H, Sq, Sk, sm_scale, causal);
@@ -1346,23 +1533,23 @@ int mm_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
     a.o0s[i] = out_strides[3 + i];
     a.o1s[i] = out_strides[6 + i];
   }
-  if (one_pass) return (int)launch_wgmma(a, dq, out_strides, dq_acc, st);
+  if (route == 2)
+    return (int)(D == 64 ? launch_wgmma<64>(a, dq, out_strides, dq_acc, st)
+                         : launch_wgmma<96>(a, dq, out_strides, dq_acc, st));
   cudaError_t err;
-  if (dtype == 0)
+  if (route == 1)
+    err = D == 32 ? launch_mma_dkv<32>(a, st) : launch_mma_dkv<128>(a, st);
+  else if (dtype == 0)
     err = dispatch_fp32<float>(1, a, D, st);
-  else if (D == 32)
-    err = launch_mma_dkv<32>(a, st);
-  else if (D == 128)
-    err = launch_mma_dkv<128>(a, st);
   else
     err = dispatch_fp32<__nv_bfloat16>(1, a, D, st);
   if (err != cudaSuccess) return (int)err;
   a.out0 = dq;
   a.out1 = nullptr;
   for (int i = 0; i < 3; ++i) a.o0s[i] = out_strides[i];
+  if (route == 1)
+    return (int)(D == 32 ? launch_mma_dq<32, false>(a, st) : launch_mma_dq<128, false>(a, st));
   if (dtype == 0) return (int)dispatch_fp32<float>(0, a, D, st);
-  if (D == 32) return (int)launch_mma_dq<32, false>(a, st);
-  if (D == 128) return (int)launch_mma_dq<128, false>(a, st);
   return (int)dispatch_fp32<__nv_bfloat16>(0, a, D, st);
 }
 

@@ -30,7 +30,11 @@
 //      here;
 //   2. warps own key rows: dv and dk sum over the query rows.
 // Masked keys (causal, or a -1e30 key bias) get exp() == 0 exactly, hence
-// p = ds = 0 and dk = dv = 0 for a key no query sees.
+// p = ds = 0 and dk = dv = 0 for a key no query sees. Under the causal mask
+// a row whose every visible key the key bias masks has every score at
+// -1e30, above the diagonal too (the TPU kernel adds the bias, then writes
+// -1e30 there): its p is 1 / S at every key, and every route takes all S
+// keys into that row's sums and that row into every key's.
 //
 // bf16 at head width 64 and S <= 128 (CLIP, ViT-B/32, BERT-base) runs on
 // the tensor cores: q, k, v, g staged in bf16 with cp.async; a warp per
@@ -103,6 +107,22 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Under the causal mask with a key bias, the query rows [0, n) of batch row
+// b whose every visible key the bias masks: n is the first key the bias
+// leaves open (above -1e20), S if none. Such a row's scores all sit at
+// -1e30, the keys above the diagonal too, so its p is uniform over all S
+// keys (as in the TPU kernel) and every key enters its p, dp, ds and dq and
+// takes it into dk and dv. kb: the batch row's S biases; the whole warp
+// calls it.
+__device__ __forceinline__ int masked_rows(const float* kb, int S) {
+  const int lane = threadIdx.x & 31;
+  for (int j0 = 0; j0 < S; j0 += 32) {
+    const unsigned open = __ballot_sync(0xffffffffu, j0 + lane < S && kb[j0 + lane] > -1e20f);
+    if (open) return j0 + __ffs(open) - 1;
+  }
+  return S;
+}
+
 // Shared memory, in floats, of the FP32-pipe path at sequence length `s`
 // and head width `dh`: two transposed head matrices, three statistics per
 // query row, and each warp's two rows of width dh and two of width s.
@@ -152,6 +172,9 @@ qkv_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
     }
   };
 
+  // Rows [0, nm) may see only keys the bias masks (masked_rows).
+  const int nm = causal && kb ? masked_rows(kb, S) : 0;
+
   // Phase 1: a warp owns query rows; K^T and V^T staged.
   stage(base + D, d3, base + 2 * D, d3);
   __syncthreads();
@@ -161,7 +184,7 @@ qkv_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
       rb[c] = to_f(gbase[(size_t)i * D + c]);
     }
     __syncwarp();
-    const int jend = causal ? i + 1 : S;  // keys row i can see
+    const int jend = causal && i >= nm ? i + 1 : S;  // keys with p > 0 in row i
     float sc[NT], dp[NT];
 #pragma unroll
     for (int t = 0; t < NT; ++t) sc[t] = dp[t] = 0.f;
@@ -250,7 +273,7 @@ qkv_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
       rb[c] = to_f(base[(size_t)j * d3 + 2 * D + c]);
     }
     __syncwarp();
-    const int istart = causal ? j : 0;  // queries that can see key j
+    const int istart = causal && nm == 0 ? j : 0;  // queries with p > 0 at key j
     float sc[NT], dp[NT];
 #pragma unroll
     for (int t = 0; t < NT; ++t) sc[t] = dp[t] = 0.f;
@@ -270,8 +293,11 @@ qkv_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
       if (i < S) {
         float p = 0.f, ds = 0.f;
         if (i >= istart) {
+          // above the diagonal -1e30, as in phase 1: p = 0 but in a row
+          // the bias masks wholly (its maximum -1e30)
           float s = sc[t] * scale;
           if (kb) s += kb[j];
+          if (causal && j > i) s = -1e30f;
           p = expf(s - row_m[i]) / row_l[i];
           ds = p * (dp[t] - row_rs[i]) * scale;
         }
@@ -346,7 +372,10 @@ cudaError_t dispatch(const void* qkv, const void* g, const void* key_bias, void*
 constexpr int kHd = 64;          // head width of this path
 constexpr int kPitch = kHd + 8;  // bf16 row pitch of q, k, v, g in shared memory
 
-template <int KG>  // 16-row groups: S <= 16 * KG; one warp per group
+// KG: 16-row groups, S <= 16 * KG; one warp per group. MASKED: causal with a
+// key bias, so that rows may see only masked keys (masked_rows); without
+// it the kernel skips that test and keeps its causal walk.
+template <int KG, bool MASKED>
 __global__ void __launch_bounds__(KG * 32)
 qkv_attention_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
                              const __nv_bfloat16* __restrict__ g,
@@ -393,13 +422,16 @@ qkv_attention_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2;
   const int t4 = lane & 3;
+  // Rows [0, nm) may see only keys the bias masks (masked_rows).
+  const int nm = MASKED ? masked_rows(kbias, S) : 0;
 
   // Phase 1: warp `warp` owns query rows m0 .. m0 + 15.
   {
     const int m0 = 16 * warp;
     // With the causal mask, key groups past the tile's last row are masked
-    // for all of its rows and need no product.
-    const int kg_end = causal ? min(KG, warp + 1) : KG;
+    // for all of its rows (-1e30) and need no product, unless a row sees
+    // only keys the bias masks: they then count as its every key does.
+    const int kg_end = causal && (!MASKED || m0 >= nm) ? min(KG, warp + 1) : KG;
 
     float sc[2 * KG][4];  // scores, then p; 8-key tile nt holds keys 8nt + 2t, +1
     float dp[2 * KG][4];  // g . v^T, then ds
@@ -440,7 +472,7 @@ qkv_attention_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
         const int key = 8 * nt + 2 * t4 + (e & 1);
         const int row = e < 2 ? r0 : r1;
         float s = sc[nt][e] * scale + kbias[key];
-        if (causal && key > row) s = -1e30f;
+        if (causal && key > row && (!MASKED || key < S)) s = -1e30f;  // padded keys: -inf
         sc[nt][e] = s;
         mx[e >> 1] = fmaxf(mx[e >> 1], s);
       }
@@ -541,7 +573,7 @@ qkv_attention_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     for (int dt = 0; dt < kHd / 8; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dv[dt][e] = dk[dt][e] = 0.f;
-    for (int it = causal ? warp : 0; it < KG; ++it) {
+    for (int it = causal && (!MASKED || nm == 0) ? warp : 0; it < KG; ++it) {
       const int i0 = 16 * it;
       // A (16 keys x 16 query rows) is the transpose of a stored tile.
       const int aoff = (i0 + (lane & 7) + ((lane >> 4) << 3)) * PP + j0 + ((lane >> 3) & 1) * 8;
@@ -588,7 +620,8 @@ cudaError_t launch_mma(const void* qkv, const void* g, const void* key_bias, voi
   constexpr int SP = 16 * KG;
   const size_t smem =
       sizeof(__nv_bfloat16) * (4 * SP * kPitch + 2 * SP * (SP + 8)) + sizeof(float) * SP;
-  auto kernel = qkv_attention_bwd_mma_kernel<KG>;
+  auto kernel = causal && key_bias ? qkv_attention_bwd_mma_kernel<KG, true>
+                                   : qkv_attention_bwd_mma_kernel<KG, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -747,6 +780,39 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long ld, in
   }
 }
 
+// -1e30 in log2 units: the causal fill beside a key bias in log2 units, so
+// that a row whose every visible key the bias masks (-1e30) has every score
+// at its maximum, above the diagonal too, as in the TPU kernel.
+constexpr float kMasked2 = -1e30f * kLog2e;
+
+// Pass 2's p^T of key tile j0 (the warpgroup's queries from qw0) from the
+// scores s^T in `sacc` and the rows' statistics: element 4 n + e is key
+// j0 + 16 ww + gq + 8 (e / 2), query qw0 + 8 n + 2 t4 + e % 2. With CAUSAL
+// the keys above the diagonal take pass 1's kMasked2, so p is 0 there but
+// in a row the bias masks wholly (its maximum kMasked2: p = 1 / S).
+template <int KT, bool CAUSAL>
+__device__ __forceinline__ void probs_t(float (&sacc)[KT / 2], const float* kb2,
+                                        const float* row_m, const float* row_il, float sl2,
+                                        int j0, int qw0) {
+  const int lane = threadIdx.x & 31;
+  const int ww = (threadIdx.x % 128) / 32;
+  const int gq = lane >> 2;
+  const int t4 = lane & 3;
+  const float kbk[2] = {kb2[j0 + 16 * ww + gq], kb2[j0 + 16 * ww + gq + 8]};
+#pragma unroll
+  for (int n = 0; n < KT / 8; ++n) {
+    const int q = qw0 + 8 * n + 2 * t4;
+    const float2 m2 = *reinterpret_cast<const float2*>(row_m + q);
+    const float2 l2 = *reinterpret_cast<const float2*>(row_il + q);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float s2 = fmaf(sacc[4 * n + e], sl2, kbk[e >> 1]);
+      if (CAUSAL && j0 + 16 * ww + gq + 8 * (e >> 1) > q + (e & 1)) s2 = kMasked2;
+      sacc[4 * n + e] = exp2f(s2 - ((e & 1) ? m2.y : m2.x)) * ((e & 1) ? l2.y : l2.x);
+    }
+  }
+}
+
 // One block of two warpgroups per (head, batch row). The head's q, k, v and
 // g arrive by TMA through 3-d views of the fused layouts, rows past S as
 // zeros. Both warpgroups work on the same 64-row tile, each on one half of
@@ -765,8 +831,11 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long ld, in
 // once per pass. Scores are in log2 units (scale * log2(e)), padded keys
 // carry a -inf bias and padded query rows a +inf max, so neither adds to any
 // sum; masked keys give p = ds = 0 exactly, so dk = dv = 0 for a key no
-// query sees. The causal mask is a pass of its own, and every product is
-// issued on every tile.
+// query sees. The keys above the causal diagonal take -1e30 in the bias's
+// log2 units (kMasked2) in both passes, so that a row whose every visible
+// key the bias masks spreads p over all S keys, as the TPU kernel's does.
+// The causal mask is a pass of its own, and every product is issued on
+// every tile.
 template <int SP, int KT>
 __global__ void __launch_bounds__(kWgThreads, 1)
     qkv_attention_bwd_wgmma_kernel(const __grid_constant__ WgParams p) {
@@ -875,12 +944,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         sacc[4 * n + e] = fmaf(sacc[4 * n + e], sl2, (e & 1) ? kb.y : kb.x);
     }
     if (p.causal) {
+      // -1e30 above the diagonal in the bias's log2 units, as the TPU kernel
+      // sets it after the bias; keys past S stay -inf (no keys at all)
 #pragma unroll
       for (int n = 0; n < KT / 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0w + 8 * n + 2 * t4 + (e & 1) > q0 + 16 * ww + gq + 8 * (e >> 1))
-            sacc[4 * n + e] = -1e30f;
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0w + 8 * n + 2 * t4 + (e & 1);
+          if (key > q0 + 16 * ww + gq + 8 * (e >> 1) && key < S) sacc[4 * n + e] = kMasked2;
+        }
     }
     // The row's max, then sum, over both warpgroups' keys; a row's values sit
     // in the 4 lanes of a quad.
@@ -984,25 +1056,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     wg::wgmma_wait<1>();
     wg::fence_acc(sacc);
     // element 4 n + e: key j0 + 16 ww + gq + 8 (e / 2), query qw0 + 8 n + 2 t4 + e % 2
-    const float kbk[2] = {kb2[j0 + 16 * ww + gq], kb2[j0 + 16 * ww + gq + 8]};
-#pragma unroll
-    for (int n = 0; n < KT / 8; ++n) {
-      const int q = qw0 + 8 * n + 2 * t4;
-      const float2 m2 = *reinterpret_cast<const float2*>(row_m + q);
-      const float2 l2 = *reinterpret_cast<const float2*>(row_il + q);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sacc[4 * n + e] = exp2f(fmaf(sacc[4 * n + e], sl2, kbk[e >> 1]) - ((e & 1) ? m2.y : m2.x)) *
-                          ((e & 1) ? l2.y : l2.x);
-    }
-    if (p.causal) {
-#pragma unroll
-      for (int n = 0; n < KT / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (j0 + 16 * ww + gq + 8 * (e >> 1) > qw0 + 8 * n + 2 * t4 + (e & 1))
-            sacc[4 * n + e] = 0.f;
-    }
+    if (p.causal)
+      probs_t<KT, true>(sacc, kb2, row_m, row_il, sl2, j0, qw0);
+    else
+      probs_t<KT, false>(sacc, kb2, row_m, row_il, sl2, j0, qw0);
     wg::wgmma_wait<0>();
     wg::fence_acc(dacc);
 #pragma unroll

@@ -31,8 +31,8 @@
 // The header also carries what the flash attention kernels
 // (csrc/flash_attention_{fwd,bwd}.cu) need beside the ring's barriers and
 // descriptors: maps of strided tensors of up to five dimensions (in the
-// 64-byte swizzle too), m64n64k16 and m64n32k16 products, the form with A in
-// registers (also m64n96k16), bulk copies, TMA reductions into global fp32,
+// 64-byte swizzle too), m64n64k16, m64n96k16 and m64n32k16 products, the
+// form with A in registers, bulk copies, TMA reductions into global fp32,
 // and named barriers.
 
 #pragma once
@@ -383,6 +383,34 @@ __device__ __forceinline__ void mma_m64n96k16_rs(float (&d)[48], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(MB));
 }
 
+// d (64 x 96) (+)= A (64 x 16) . B (16 x 96), both from shared memory: the
+// flash backward's dk at head width 96.
+template <int MA, int MB>
+__device__ __forceinline__ void mma_m64n96k16(float (&d)[48], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, %51, %52;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(acc), "n"(MA), "n"(MB));
+}
+
 // d (64 x 32) (+)= A (64 x 16) . B (16 x 32), both from shared memory.
 template <int MA, int MB>
 __device__ __forceinline__ void mma_m64n32k16(float (&d)[16], uint64_t da, uint64_t db, int acc) {
@@ -433,6 +461,19 @@ __device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const 
       "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// The reduction of tma_reduce_add_3d without its commit, so that several
+// go into one bulk group; bulk_commit closes it.
+__device__ __forceinline__ void tma_reduce_add_3d_part(const CUtensorMap* map, const void* src,
+                                                       int c0, int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group [%0, {%2, %3, %4}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 // Until this thread's bulk groups have read their shared memory (all but

@@ -4,9 +4,12 @@
 the text tokens that cross-attends the pooled image tokens, with an optional
 output projection (the vocabulary logits).
 
-Its self-attention mask is the JAX module's dense ``(1, 1, s, s)`` causal
-bool, so from ``FLASH_MIN_SEQ`` tokens up it takes the flash kernel's bias
-route; the cross-attention takes #6 without a bias.
+Its self-attention is causal: the JAX module's dense ``(1, 1, s, s)`` causal
+bool, handed to the kernels as ``is_causal`` with no mask (the same
+function: no row is masked wholly and Sq = Sk), so from ``FLASH_MIN_SEQ``
+tokens up it takes #6's causal loop and the backward's causal walk, which
+beat the mask on the bias lane on the card (PERF.md); the cross-attention
+takes #6 without a bias.
 """
 
 from __future__ import annotations
@@ -55,9 +58,7 @@ class CoCaMultimodalDecoder(nn.Module):
         seq_len = texts.shape[1]
         if seq_len != self.input_seq_len:
             raise ValueError(f"expected text seq len {self.input_seq_len}, got {seq_len}")
-        causal = torch.ones(seq_len, seq_len, dtype=torch.bool, device=texts.device).tril()
-        hidden = self.transformer_decoder(texts, encoder_hidden_states=images,
-                                          attention_mask=causal[None, None],
+        hidden = self.transformer_decoder(texts, encoder_hidden_states=images, is_causal=True,
                                           deterministic=deterministic).last_hidden_state
         if self.output_projection is not None:
             hidden = dense(self.output_projection, hidden, hidden.dtype)

@@ -34,12 +34,12 @@ On a CUDA tensor each wrapper (``flash_attention_forward``,
 kernels in ``csrc/flash_attention_{fwd,bwd}.cu`` or raises, and counts its
 calls in its ``launches``; on a CPU tensor it runs its part of the plain
 versions (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`),
-the same arithmetic a whole row at a time. In bf16 at head width 64 both
-directions run `wgmma` kernels fed by TMA (the forward also at head width
-96 and with a bias): the forward keeps the probabilities in registers
-between its two products; ``flash_attention_bwd`` is one pass over each
-key block that adds dq into an fp32 workspace, in no fixed order: its dq
-is not bitwise repeatable from call to call, its dk and dv are.
+the same arithmetic a whole row at a time. In bf16 at head widths 64 and
+96 both directions run `wgmma` kernels fed by TMA (the forward also with a
+bias): the forward keeps the probabilities in registers between its two
+products; ``flash_attention_bwd`` is one pass over each key block that adds
+dq into an fp32 workspace, in no fixed order: its dq is not bitwise
+repeatable from call to call, its dk and dv are.
 """
 
 from __future__ import annotations
@@ -78,6 +78,8 @@ def _kernels() -> ctypes.CDLL:
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _V, _L, _V, _V,
             _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
         lib.mm_flash_attention_bwd_dbias.restype = _I
+        lib.mm_flash_attention_bwd_route.argtypes = [_I, _I]
+        lib.mm_flash_attention_bwd_route.restype = _I
         _lib = lib
     return _lib
 
@@ -320,16 +322,17 @@ def flash_attention_bwd_plain(
 
 
 def _dq_workspace(q: torch.Tensor):
-    """The shape of the fp32 workspace of the bf16 head-width-64 route, or
-    None on the other routes, which take none: dq's sum over key blocks,
-    ``(B, H, Sq, 64)``, then the rows of lse and delta that the kernel
-    copies a query tile at a time, ``(B, H, Sq_pad)`` each with ``Sq_pad``
-    Sq rounded up to a multiple of 64; flat."""
+    """The shape of the fp32 workspace of the one-pass `wgmma` route (bf16
+    at head widths 64 and 96, route 2 of ``mm_flash_attention_bwd_route``),
+    or None on the other routes, which take none: dq's sum over key blocks,
+    ``(B, H, Sq, D)``, then the rows of lse and delta that the kernel copies
+    a query tile at a time, ``(B, H, Sq_pad)`` each with ``Sq_pad`` Sq
+    rounded up to a multiple of 64; flat."""
     b, h, sq, d = q.shape
-    if q.dtype != torch.bfloat16 or d != 64:
+    if q.dtype != torch.bfloat16 or d not in (64, 96):
         return None
     sq_pad = -(-sq // 64) * 64
-    return (b * h * (64 * sq + 2 * sq_pad),)
+    return (b * h * (d * sq + 2 * sq_pad),)
 
 
 def _check_bwd(name, q, k, v, do, lse, delta, bias, q_segment_ids, kv_segment_ids,

@@ -7,15 +7,17 @@ highest register its SASS uses, and, with ``--time``, its ms by CUDA
 events, each variant in a process of its own, twice in turns, with the
 profiler's device ms by kernel.
 
-    python -m multimodal_tpu_torch.tools.kernel_variants [--forward | --decode | --qkv]
-        [--time] [--only=name,name] [edits.json]
+    python -m multimodal_tpu_torch.tools.kernel_variants
+        [--forward | --decode | --qkv] [--time] [--only=name,name] [edits.json]
 
 Without ``--forward`` the kernel is the backward's one-pass
 ``flash_bwd_wgmma_kernel`` (``csrc/flash_attention_bwd.cu``), timed as
 ``flash_attention_bwd`` at the LM training shape (8, 12, 8192, 64) bf16
-causal, and the default variants are ``VARIANTS``: the source as it is, K
-and V read from shared memory in place of register fragments, ``exp2``
-left out, the dq reduction left out, and four ring stages. With
+causal (and, by the profiler's device ms, its head-width-96 instance at
+CoCa's attention pooler, (32, 8, 256, 256, 96) bf16 non-causal), and the
+default variants are ``VARIANTS``: the source as it is, K and V read from
+shared memory in place of register fragments, ``exp2`` left out, the dq
+reduction left out, and four ring stages. With
 ``--forward`` it is the forward's ``flash_fwd_wgmma_kernel``
 (``csrc/flash_attention_fwd.cu``), timed as ``flash_attention_forward`` at
 the LM's prefill (8, 12, 2048, 64) and train (8, 12, 8192, 64) shapes bf16
@@ -59,21 +61,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 SOURCE = "flash_attention_bwd.cu"
-KERNEL = "flash_bwd_wgmma_kernel"
+KERNEL = "flash_bwd_wgmma_kernelILi64E"  # the LM's: D = 64
 
 VARIANTS = {
     "as_is": [],
     "kv_from_shared_memory": [
         ("wg::mma_m64n64k16_rs<wg::K>(st, kf[kk], desc_k(q_box, kk), kk);",
-         "wg::mma_m64n64k16<wg::K, wg::K>(st, desc_k(wg::smem_u32(sm + (kBoxK + threadIdx.x"
-         " / 128) * kBox), kk), desc_k(q_box, kk), kk);"),
+         "wg::mma_m64n64k16<wg::K, wg::K>(st, desc_k(k_rows, kk), desc_k(q_box, kk), kk);"),
         ("wg::mma_m64n64k16_rs<wg::K>(dpt, vf[kk], desc_k(do_box, kk), kk);",
-         "wg::mma_m64n64k16<wg::K, wg::K>(dpt, desc_k(wg::smem_u32(sm + (kBoxV + threadIdx.x"
-         " / 128) * kBox), kk), desc_k(do_box, kk), kk);")],
+         "wg::mma_m64n64k16<wg::K, wg::K>(dpt, desc_k(v_rows, kk), desc_k(do_box, kk), kk);")],
     "no_exp2": [("exp2f(st[4 * n + e] - ", "(st[4 * n + e] - ")],
     "no_dq_reduction": [("if (issuer) wg::tma_reduce_add_3d(",
                          "if (false) wg::tma_reduce_add_3d(")],
-    "four_stages": [("constexpr int kWgStages = 3;", "constexpr int kWgStages = 4;")],
+    "four_stages": [("static constexpr int kStages = 3;  // ring stages of q and do",
+                     "static constexpr int kStages = 4;  // ring stages of q and do")],
 }
 
 FWD_SOURCE = "flash_attention_fwd.cu"
@@ -154,9 +155,16 @@ with torch.no_grad():
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
+    del q, k, v, do, out, lse, delta
+    q, k, v, do, _, _ = cs._bwd_inputs(32, 8, 256, 256, 96, torch.bfloat16, gen, None, False)
+    out, lse = fa.flash_attention_forward(q, k, v, return_lse=True)
+    delta = fa._delta(out, do, None)
+    fn = lambda: fa.flash_attention_bwd(q, k, v, do, lse, delta)
+    pooler = [cs.device_ms(fn, "flash_attention_bwd") for _ in range(3)]
 kernels = {e.key[:60]: round(getattr(e, "device_time_total", 0) / 3 / 1e3, 4)
            for e in prof.key_averages() if getattr(e, "device_time_total", 0)}
-print("variant_time " + json.dumps({"ms": ms, "device_ms": kernels, "card": cs.card_line()}))
+print("variant_time " + json.dumps({"ms": ms, "device_ms": kernels,
+                                    "pooler_d96_device_ms": pooler, "card": cs.card_line()}))
 """
 
 

@@ -179,6 +179,29 @@ def test_multimodal_decoder_matches_jax(pretrain_setup):
         CoCaMultimodalDecoder(**kw)(_t(texts[:, :5]), _t(images))
 
 
+def test_multimodal_decoder_self_attention_is_causal_without_a_mask():
+    """The fusion layers' self-attention gets ``is_causal`` and no mask (the
+    kernels' causal route, not the dense causal bool on the bias lane);
+    their cross-attention gets neither."""
+    kw = dict(input_seq_len=8, text_embedding_dim=64, n_layer=2, n_head=2,
+              dim_feedforward=128, output_dim=VOCAB)
+    m = CoCaMultimodalDecoder(**kw)
+    seen = []
+
+    def hook(name):
+        def record(_, args, kwargs):
+            seen.append((name, kwargs.get("attn_mask"), kwargs.get("is_causal", False)))
+        return record
+
+    for layer in m.transformer_decoder.layers:
+        layer.attention.register_forward_pre_hook(hook("self"), with_kwargs=True)
+        layer.cross_attention.register_forward_pre_hook(hook("cross"), with_kwargs=True)
+    m(torch.randn(B, 8, 64), torch.randn(B, 5, 64))
+    assert [s[0] for s in seen] == ["self", "cross"] * 2
+    assert all(mask is None for _, mask, _ in seen)
+    assert [causal for _, _, causal in seen] == [True, False] * 2
+
+
 @pytest.mark.parametrize("cascaded", [True, False])
 def test_coca_model_matches_jax(pretrain_setup, cascaded):
     """``CoCaModel``'s three outputs with the cascaded pooler and with one

@@ -172,19 +172,26 @@ def test_no_kernel_off_cuda():
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 32),
-                                     (torch.bfloat16, 96), (torch.bfloat16, 128)])
+                                     (torch.float32, 96), (torch.bfloat16, 128)])
 def test_other_routes_take_no_workspace(dtype, d):
     q = torch.zeros(2, 3, 96, d, dtype=dtype)
     assert tfa._dq_workspace(q) is None
     _check(q, q, q, q, torch.zeros(2, 3, 96), torch.zeros(2, 3, 96), _outs(q, q, q), None)
 
 
+@pytest.mark.parametrize("d", [64, 96])
 @pytest.mark.parametrize("sq,pad", [(1, 64), (64, 64), (1000, 1024), (8192, 8192)])
-def test_workspace_holds_the_sum_and_the_padded_rows(sq, pad):
-    """bf16 at head width 64: dq's fp32 sum (B, H, Sq, 64), then lse and
-    delta padded to whole 64-query tiles."""
-    q = torch.zeros(2, 3, sq, 64, dtype=torch.bfloat16)
-    assert tfa._dq_workspace(q) == (2 * 3 * (64 * sq + 2 * pad),)
+def test_workspace_holds_the_sum_and_the_padded_rows(sq, pad, d):
+    """bf16 at head widths 64 and 96 (the one-pass route): dq's fp32 sum
+    (B, H, Sq, D), then lse and delta padded to whole 64-query tiles; the
+    checks take that workspace and refuse the call without it."""
+    q = torch.zeros(2, 3, sq, d, dtype=torch.bfloat16)
+    assert tfa._dq_workspace(q) == (2 * 3 * (d * sq + 2 * pad),)
+    if sq == 64:
+        lse = torch.zeros(2, 3, sq)
+        _check(q, q, q, q, lse, lse, _outs(q, q, q), torch.zeros(tfa._dq_workspace(q)))
+        with pytest.raises(ValueError, match="workspace"):
+            _check(q, q, q, q, lse, lse, _outs(q, q, q), None)
 
 
 def test_workspace_at_the_lm_train_shape():
@@ -200,7 +207,8 @@ def _params(src, entry):
 
 
 @pytest.mark.parametrize("entry,n", [("mm_flash_attention_bwd", 27),
-                                     ("mm_flash_attention_bwd_dbias", 23)])
+                                     ("mm_flash_attention_bwd_dbias", 23),
+                                     ("mm_flash_attention_bwd_route", 2)])
 def test_argtypes_match_the_entry_points(entry, n):
     """The wrapper's ctypes signature has one argument per parameter of the
     C entry point, pointers and strides as pointers, sizes as ints."""
@@ -221,13 +229,16 @@ def test_argtypes_match_the_entry_points(entry, n):
 
 
 def test_no_mma_sync_instance_at_head_width_64():
-    """bf16 at head width 64 takes the one-pass kernel for dq, dk and dv:
-    the `mma.sync` dq and dk/dv bodies are instantiated only at 32 and 128
-    (and #9's dq body at 64)."""
+    """bf16 at head widths 64 and 96 takes the one-pass kernel for dq, dk
+    and dv, launched at both: the `mma.sync` dq and dk/dv bodies are
+    instantiated only at 32 and 128 (and #9's dq body at 64), and the entry
+    takes the one-pass route at 64 and 96."""
     text = (CSRC / "flash_attention_bwd.cu").read_text()
     assert set(re.findall(r"launch_mma_dq<(\d+), false>\(", text)) == {"32", "128"}
     assert set(re.findall(r"launch_mma_dkv<(\d+)>\(", text)) == {"32", "128"}
     assert set(re.findall(r"launch_mma_dq<(\d+), true>\(", text)) == {"32", "64", "128"}
+    assert set(re.findall(r"launch_wgmma<(\d+)>\(", text)) == {"64", "96"}
+    assert "if (dtype == 1 && (D == 64 || D == 96)) return 2;" in text
 
 
 @pytest.mark.parametrize("variant", sorted(kernel_variants.VARIANTS))
@@ -248,9 +259,10 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("name,group", [
-    ("flash_bwd_wgmma_kernel((anonymous namespace)::WgParams)", "flash_attention_bwd"),
+    ("flash_bwd_wgmma_kernel<64>((anonymous namespace)::WgParams)", "flash_attention_bwd"),
+    ("flash_bwd_wgmma_kernel<96>((anonymous namespace)::WgParams)", "flash_attention_bwd"),
     ("flash_bwd_wgmma_rows_kernel((anonymous namespace)::Args, float*)", "flash_attention_bwd"),
-    ("flash_bwd_wgmma_dq_kernel(float4 const*)", "flash_attention_bwd"),
+    ("flash_bwd_wgmma_dq_kernel<96>(float4 const*)", "flash_attention_bwd"),
     ("flash_bwd_dq_mma_kernel<128, false>((anonymous namespace)::Args)", "flash_attention_bwd"),
     ("flash_bwd_dkv_mma_kernel<32, 64, 32>((anonymous namespace)::Args)", "flash_attention_bwd"),
     ("flash_bwd_dkv_fp32_kernel<float, 2>((anonymous namespace)::Args, int)",

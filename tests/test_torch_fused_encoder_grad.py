@@ -77,6 +77,44 @@ def test_attention_bwd_plain_matches_jax(b, s, d, h, causal, scale, kb):
     np.testing.assert_allclose(got, want_xla, atol=ATTN_ATOL)
 
 
+def test_attention_bwd_plain_wholly_masked_causal_rows_match_jax():
+    """A causal call whose -1e30 key bias masks every visible key of rows
+    0-5 of batch row 0: their scores are all -1e30, above the diagonal too,
+    so their p is 1 / S at every key (the TPU kernel adds the bias, then
+    writes -1e30 above the diagonal) and their gradients reach keys above
+    the diagonal. The plain version against ``_qkv_attention_bwd_impl`` in
+    interpret mode, fp32, S = 16, two heads of 64. ``jax.vjp`` of the XLA
+    reference agrees on dv only: it passes no gradient through the -1e30
+    written above the diagonal, where the TPU kernel's ds = p (dp -
+    rowsum) flows into dq and dk like any other entry's."""
+    r = np.random.RandomState(16)
+    b, s, d, h = 2, 16, 128, 2
+    qkv = r.randn(b, s, 3 * d).astype(np.float32)
+    g = r.randn(b, s, d).astype(np.float32)
+    kb = np.zeros((b, s), np.float32)
+    kb[0, :6] = -1e30
+    kb[1, 3] = -1e30
+    want_kernel = np.asarray(jfe._qkv_attention_bwd_impl(
+        jnp.asarray(qkv), jnp.asarray(g), h, True, None, jnp.asarray(kb)))
+    _, vjp = jax.vjp(lambda t: jfe._qkv_attention_xla(t, h, True, None, jnp.asarray(kb)),
+                     jnp.asarray(qkv))
+    want_xla = np.asarray(vjp(jnp.asarray(g))[0])
+    tq, tk = (x.reshape(b, s, h, d // h).transpose(1, 2)
+              for x in torch.from_numpy(qkv).split(d, dim=-1)[:2])
+    p = tfe._attention_probs(tq, tk, (d // h) ** -0.5, True, torch.from_numpy(kb))
+    torch.testing.assert_close(p[0, :, :6], torch.full((h, 6, s), 1.0 / s), rtol=0, atol=1e-7)
+    got = tfe.qkv_attention_bwd_plain(torch.from_numpy(qkv), torch.from_numpy(g), h, True, None,
+                                      torch.from_numpy(kb)).numpy()
+    np.testing.assert_allclose(got, want_kernel, atol=ATTN_ATOL)
+    np.testing.assert_allclose(got[..., 2 * d:], want_xla[..., 2 * d:], atol=ATTN_ATOL)
+    np.testing.assert_allclose(got[1], want_xla[1], atol=ATTN_ATOL)  # no row masked wholly
+    # the last key's dv takes rows 0-5's p = 1 / S besides row 15's own
+    gh = g[0].reshape(s, h, d // h)
+    p15 = p[0, :, 15, 15].numpy()
+    dv_last = got[0, 15, 2 * d:].reshape(h, d // h)
+    np.testing.assert_allclose(dv_last, gh[:6].sum(0) / s + p15[:, None] * gh[15], atol=ATTN_ATOL)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_bwd_masked_keys_get_zero_grad(causal):
     """A key the bias masks (-1e30) is seen by no query: its dk and dv are
