@@ -194,7 +194,31 @@ in order (any failure exits non-zero):
    primed, captioned from BOS for 31 tokens on 32 slots with the int8
    cache, half greedy and half sampled, with the same checks and rates as
    CoCa's (#10 and #3 12 times a tick and a prefill call);
-14. a ``kernels`` JSON line, the card line, and the result line
+14. MUGEN text-to-video retrieval at the recipe's defaults
+   (``examples/mugen/retrieval_train.py``: S3D and DistilBERT 6 x 768,
+   batch 16, 32 frames every 3rd, text 32, AdamW lr 1e-3 and weight decay
+   1e-3, fp32 parameters and bf16 compute, random weights from a seed) on a
+   seeded release written to a temporary directory (96-frame uint8 clips at
+   256 x 256, resized on the card by ``VideoTransform``): 2 warm-up and 5
+   timed steps through ``build_trainer_and_state`` and ``Trainer.fit``
+   (no kernel launches: both towers train at dropout 0.1), items/s, ms a
+   step, peak memory, a step's device time by group and the idle share;
+   recall@{1,5,10} both ways over the 64-clip val split (#1 and #3 6 times
+   a text batch); the bf16 towers against an fp32 copy of the weights on
+   the card (row cosine >= 0.99);
+15. MDETR phrase grounding (``mdetr_for_phrase_grounding``: ResNet-101,
+   RoBERTa-base, d_model 256, 8 heads of 32, 6 + 6 layers, 100 queries,
+   bf16 compute, random weights) on 32 seeded 800 x 1066 and 1066 x 800
+   images with captions of up to 64 words and their Flickr30k Entities
+   files: ``evaluate_phrase_grounding`` at batch 8 (``post_process_flickr``,
+   the recall evaluator; #1 12, #3 24 and #6 18 times a forward), images/s
+   and a forward's device time by group; the bf16 model against an fp32
+   copy on the card at 2 images (row cosine >= 0.99); 3 fine-tuning steps
+   after 1 at batch 4 (``mdetr_loss``, the three-group AdamW and its
+   schedule; no kernel launches at dropout 0.1), ms a step, peak memory,
+   the Hungarian matcher's host ms, a step's device time by group and the
+   idle share;
+16. a ``kernels`` JSON line, the card line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 checks the MLP forward (#3) at the CLIP, LM (prefill, train step,
@@ -260,6 +284,14 @@ positions), each relaunched into NaN-filled outputs and timed as above.
 mean of V, not 0), a ragged Sq = 77 at D = 96 with lse, D = 96 causal,
 and D = 96 with a bias in blocks of two warpgroups (300 queries) and of
 one (48 queries, a row masked wholly).
+Slice 10's shapes (``check_slice10_kernels``): #6 at head width 32 (the
+`mma.sync` kernel) at MDETR's encoder self-attention (8, 8, 1220, 1220)
+and cross-attention (8, 8, 100, 1220), their key padding as segment ids
+(queries 1, keys by the mask), and its decoder self-attention (8, 8, 100,
+100); #1 at MUGEN's text tower (16, 32, 3 x 768) and MDETR's RoBERTa (8,
+64, 3 x 768) with their key biases; #3 with ReLU at MDETR's encoder (9,760
+rows) and decoder (800) MLPs, 256 -> 2048 -> 256, and with exact GELU at
+the text towers' 512 rows.
 The fp32 cases of #6 and of the flash backward are held against the plain
 version run in float64 on the card, to their bar or to twice the plain
 fp32 version's own distance from float64, whichever is larger, and run
@@ -1188,7 +1220,10 @@ def flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
                for s in (sq, sk, sk))
     bias = make_bias(bias_kind, b, h, sq, sk, gen)
     qseg = kvseg = None
-    if segments:
+    if segments == "key_padding":  # a (B, Sk) key mask as segment ids, queries all 1
+        qseg = torch.ones(b, sq, dtype=torch.int32, device="cuda")
+        kvseg = mdetr_key_mask(b, sk, gen).to(torch.int32)
+    elif segments:
         qseg = kvseg = _segments(b, sq, gen)
     kw = dict(causal=causal, return_lse=lse, q_segment_ids=qseg, kv_segment_ids=kvseg)
     rows = b if b * h * sq * sk <= 2 ** 30 else 1  # batch rows of one plain call
@@ -5227,6 +5262,493 @@ def blip2_phase(fe, fa, qa, attn, card):
     return paths_out, result
 
 
+# --------------------------------------------------------------------------
+# slice 10 (BASELINE.json's fifth config): MUGEN retrieval, MDETR grounding
+# --------------------------------------------------------------------------
+
+MDETR_LONG, MDETR_SHORT = 1066, 800  # 800 x 1066 and 1066 x 800 images pad to 1066 x 1066
+MDETR_GRID = 34  # ResNet-101's stride-32 grid of a 1066-pixel side
+MUGEN_SIDE, MUGEN_SIZE = 256, 224  # the clips' frames and the transform's output
+MDETR_TEXT = 64  # MDETRDataModule's text_len
+MDETR_SEQ = MDETR_GRID * MDETR_GRID + MDETR_TEXT  # 1,220 encoder tokens
+MDETR_QUERIES = 100
+MUGEN_TEXT = 32
+
+
+def mdetr_key_mask(b: int, sk: int, gen) -> torch.Tensor:
+    """(B, Sk) bool, True = a real key, as MDETR's encoder and cross-
+    attention see them: the 34 x 34 grid of 800 x 1066 (even rows) and
+    1066 x 800 (odd rows) images padded to 1066 x 1066 (the padding by the
+    half-pixel nearest resize), then text tokens of seeded lengths."""
+    from multimodal_tpu_torch.models.mdetr.image_encoder import resize_mask_nearest
+
+    pad = torch.ones(b, MDETR_LONG, MDETR_LONG, dtype=torch.bool, device="cuda")
+    pad[0::2, :MDETR_SHORT, :] = False
+    pad[1::2, :, :MDETR_SHORT] = False
+    img = ~resize_mask_nearest(pad, (MDETR_GRID, MDETR_GRID)).reshape(b, -1)
+    n_text = sk - img.shape[1]
+    text = torch.arange(n_text, device="cuda")[None] < _key_lengths(b, n_text, gen, 8)[:, None]
+    return torch.cat([img, text], dim=1)
+
+
+# Slice 10's kernel cases, on a generator of their own (``slice10_gen``):
+# #6 at head width 32 (the `mma.sync` kernel) at MDETR's encoder self-
+# attention (1,220 tokens, key padding as segment ids), decoder self-
+# attention (100 queries) and cross-attention (100 queries over the 1,220
+# tokens, key padding); #1 at MUGEN's text tower at evaluation (16 x 32) and
+# MDETR's RoBERTa (8 x 64), with their key biases; #3 with ReLU at MDETR's
+# encoder (8 x 1,220 rows) and decoder (8 x 100) MLPs, and with exact GELU
+# at the text towers' 512 rows.
+MDETR_FLASH_CASES = [
+    ("mdetr_encoder_1220", 8, 8, MDETR_SEQ, MDETR_SEQ, 32, False, {"segments": "key_padding"}),
+    ("mdetr_decoder_self_100", 8, 8, MDETR_QUERIES, MDETR_QUERIES, 32, False, {}),
+    ("mdetr_cross_100x1220", 8, 8, MDETR_QUERIES, MDETR_SEQ, 32, False,
+     {"segments": "key_padding"}),
+]
+SLICE10_ATTENTION_CASES = [
+    ("mugen_text", 16, MUGEN_TEXT, 768, 12, False, True),
+    ("mdetr_roberta", 8, MDETR_TEXT, 768, 12, False, True),
+]
+SLICE10_MLP_CASES = [
+    ("mdetr_encoder", 8 * MDETR_SEQ, 256, 2048, 256, "relu"),
+    ("mdetr_decoder", 8 * MDETR_QUERIES, 256, 2048, 256, "relu"),
+    ("mugen_text", 16 * MUGEN_TEXT, 768, 3072, 768, "gelu_exact"),
+]
+
+
+def slice10_gen(dtype: torch.dtype) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(17 if dtype == torch.bfloat16 else 18)
+
+
+def check_slice10_kernels(fe, fa, dtypes=(torch.bfloat16, torch.float32), timing=True):
+    """#6, #1 and #3 at slice 10's shapes in each dtype, each against its
+    plain version and timed against its library call, beside its bound."""
+    rows = []
+    for dtype in dtypes:
+        gen = slice10_gen(dtype)
+        for name, b, h, sq, sk, d, causal, kw in MDETR_FLASH_CASES:
+            rows.append(flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, timing=timing,
+                                   **kw))
+        for name, b, s, d, h, causal, kb in SLICE10_ATTENTION_CASES:
+            rows.append(attention_case(fe, name, b, s, d, h, causal, dtype, kb, gen,
+                                       timing=timing))
+        for shape in SLICE10_MLP_CASES:
+            rows.append(mlp_case(fe, *shape, dtype, gen, timing=timing))
+        torch.cuda.empty_cache()
+    for row in rows:
+        print("kernel_check " + json.dumps(row), flush=True)
+    return rows
+
+
+def text_tower_launches(fe, seq: int, layers: int, dropout: bool) -> dict:
+    """A BERT-style tower's launches, derived from the dispatch predicates:
+    #1 a layer where ``fused_attention_supported`` holds and no dropout is
+    on (its key-padding mask on the key-bias lane), #3 a layer where
+    ``fused_mlp_available`` holds and no dropout is on. Training runs the
+    towers at dropout 0.1: no kernel."""
+    if dropout:
+        return {}
+    return {"fused_qkv_attention": layers * fe.fused_attention_supported(seq, 768, 12),
+            "fused_mlp": layers * fe.fused_mlp_available(768, 3072, 768)}
+
+
+def mdetr_launches(fe, attn, train: bool = False) -> dict:
+    """One MDETR forward's launches (none in training, at dropout 0.1):
+    RoBERTa's 12 layers by ``text_tower_launches``; the encoder's 6 layers a
+    self-attention over 1,220 tokens (#6 by ``FLASH_MIN_SEQ``) and an MLP
+    (#3 by ``fused_mlp_available(256, 2048, 256)``); the decoder's 6 layers
+    a self-attention over 100 queries, a cross-attention over 1,220 tokens
+    and an MLP. The box head's three-layer MLP takes no kernel."""
+    if train:
+        return {}
+    out = text_tower_launches(fe, MDETR_TEXT, 12, False)
+    mlp = fe.fused_mlp_available(256, 2048, 256)
+    out["fused_mlp"] += 12 * mlp
+    out["flash_attention"] = (6 * flash_pair(attn, MDETR_SEQ, MDETR_SEQ)
+                              + 6 * (flash_pair(attn, MDETR_QUERIES, MDETR_QUERIES)
+                                     + flash_pair(attn, MDETR_QUERIES, MDETR_SEQ)))
+    return out
+
+
+def write_mugen_data(root: str, rng) -> dict:
+    """A MUGEN release in the data module's layout: ``{split}.json`` and
+    ``{id}.npy`` clips of 96 uint8 frames at 256 x 256 (the transform
+    resizes them to 224), 32 train and 64 val clips with two annotations
+    each, and a WordPiece vocab of the annotations' words."""
+    words = ("mugen jumps runs over a the gap coin collects climbs ladder kills slime monster "
+             "walks left right and then from platform gem lands falls onto rope").split()
+    paths = {"path": root, "frames_dir": root, "vocab_path": os.path.join(root, "vocab.txt")}
+    with open(paths["vocab_path"], "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + sorted(set(words))))
+    for split, n in (("train", 32), ("val", 64)):
+        data = []
+        for i in range(n):
+            vid = f"{split}_{i}"
+            np.save(os.path.join(root, f"{vid}.npy"),
+                    rng.integers(0, 256, (96, MUGEN_SIDE, MUGEN_SIDE, 3), dtype=np.uint8))
+            texts = [" ".join(rng.choice(words, rng.integers(6, 24))) for _ in range(2)]
+            data.append({"video": {"id": vid, "num_frames": 96},
+                         "annotations": [{"text": t} for t in texts]})
+        with open(os.path.join(root, f"{split}.json"), "w") as f:
+            json.dump({"metadata": {"seed": 0}, "data": data}, f)
+    return paths
+
+
+def mugen_phase(fe, fa, qa, attn, card):
+    """Phase 14: MUGEN text-to-video retrieval (see the module docstring)."""
+    from multimodal_tpu_torch.examples.mugen import retrieval_train as rt
+    from multimodal_tpu_torch.training.retrieval_eval import retrieval_recall_at_k
+    from multimodal_tpu_torch.transforms.video_transform import VideoTransform
+
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mugen_")
+    try:
+        return _mugen(fe, fa, qa, attn, card, rt, retrieval_recall_at_k,
+                      VideoTransform(resize_shape=(MUGEN_SIZE, MUGEN_SIZE)), root, phase_t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _mugen(fe, fa, qa, attn, card, rt, recall_at, transform, root, phase_t0):
+    t0 = time.perf_counter()
+    paths = write_mugen_data(root, np.random.default_rng(14))
+    print(f"mugen: wrote 96 clips of 96 frames at {MUGEN_SIDE} x {MUGEN_SIDE} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = rt.build_config(None, [f"data.{k}={v}" for k, v in paths.items()] + [
+        "model.bf16=true", "train.log_interval=100"], defaults=rt.DEFAULTS)
+    d = cfg["data"]
+    trainer, model = rt.build_trainer_and_state(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"mugen: VideoCLIPForRetrieval (S3D + DistilBERT 6 x 768), {n_params / 1e6:.1f}M "
+          f"parameters (fp32, bf16 compute); batch {d['batch_size']}, "
+          f"{d['sequence_length']} frames every {d['sample_every_n_frames']}, text "
+          f"{d['text_len']}, AdamW lr {cfg['train']['lr']} wd {cfg['train']['weight_decay']}",
+          flush=True)
+    result, paths_out = {}, {}
+
+    def on_card(batches):
+        """The data module's batches with their video resized on the card
+        (``VideoTransform``: 256 -> 224, normalized)."""
+        for b in batches:
+            yield {"video": transform(b["video"].cuda(non_blocking=True)),
+                   "text": b["text"].cuda(non_blocking=True)}
+
+    stream = on_card(rt.build_datamodule(cfg, "train").train_batches())
+    warmup, steps = 2, 5
+    trainer.fit(model, stream, warmup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fe, fa, qa)
+    t0 = time.perf_counter()
+    trainer.fit(model, stream, steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = path_counts(fe, fa, qa)
+    expect(f"mugen training ({steps} steps)", counts,
+                   text_tower_launches(fe, d["text_len"], 6, True))
+    losses = [r["loss"] for r in trainer.logger.records if "loss" in r]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"MUGEN losses {losses}")
+    result.update(items_per_s=d["batch_size"] * steps / dt, ms_per_step=dt / steps * 1e3,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, losses=losses)
+    print(f"mugen: {result['items_per_s']:.2f} items/s, {result['ms_per_step']:.1f} ms a step "
+          f"(the data module's stream and the transform included), peak memory "
+          f"{result['peak_gib']:.2f} GiB, losses {[round(x, 4) for x in losses]} on {card}",
+          flush=True)
+    paths_out["mugen_train"] = counts
+    batch = next(stream)
+    breakdown = profile_step(lambda: trainer.fit(model, iter([batch]), 1), "mugen train")
+    if isinstance(breakdown, dict):
+        result["idle_share"] = 1 - breakdown["total_device_ms"] / breakdown[
+            "wall_ms_under_profiler"]
+    result["profile"] = breakdown
+    print(f"mugen: device time of one step (a drawn batch) by kernel group "
+          f"{json.dumps(breakdown)}; idle share {result.get('idle_share', float('nan')):.4f}",
+          flush=True)
+
+    # recall over the 64-clip validation split, the towers in eval mode
+    model.eval()
+    reset_counts(fe, fa, qa)
+    t0 = time.perf_counter()
+    v_emb, t_emb, n_batches = [], [], 0
+    with torch.no_grad():
+        for b in on_card(rt.build_datamodule(cfg, "val").eval_batches()):
+            v_emb.append(model.encode_video(b["video"]).float())
+            t_emb.append(model.encode_text(b["text"]).float())
+            n_batches += 1
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = path_counts(fe, fa, qa)
+    want = text_tower_launches(fe, d["text_len"], 6, False)
+    expect("mugen recall eval", counts, {k: v * n_batches for k, v in want.items()})
+    recalls = recall_at(torch.cat(v_emb), torch.cat(t_emb))
+    result["recall"] = {f"{dd}_recall_{k}": recalls[f"{s}_recall_{k}"]
+                        for dd, s in (("v2t", "a2b"), ("t2v", "b2a")) for k in (1, 5, 10)}
+    result["eval_s"] = eval_s
+    print(f"mugen: recall over {len(torch.cat(v_emb))} val clips (random weights: chance is "
+          f"k / 64) {json.dumps(result['recall'])} in {eval_s:.1f} s", flush=True)
+    paths_out["mugen_eval"] = counts
+
+    # the bf16 towers against an fp32 copy of the same weights on the card
+    ref = rt.build_model({**cfg, "model": {**cfg["model"], "bf16": False}})
+    ref.load_state_dict(model.state_dict())
+    ref.eval()
+    b = next(on_card(rt.build_datamodule(cfg, "val").eval_batches()))
+    with torch.no_grad():
+        got = {"video": model.encode_video(b["video"][:4]), "text": model.encode_text(b["text"])}
+        want = {"video": ref.encode_video(b["video"][:4]), "text": ref.encode_text(b["text"])}
+    cos = {k: float(cosine_rows(got[k].float().cpu().numpy(), want[k].float().cpu().numpy())
+                    .min()) for k in got}
+    print(f"mugen: lowest row cosines of the bf16 towers vs fp32 on the card {json.dumps(cos)} "
+          f"(bar {SLICE10_COSINE})", flush=True)
+    if min(cos.values()) < SLICE10_COSINE:
+        fail(f"MUGEN embeddings {cos} below {SLICE10_COSINE} against fp32")
+    result["output_cosines"] = cos
+    del ref, model, trainer
+    torch.cuda.empty_cache()
+    result["wall_s"] = time.perf_counter() - phase_t0
+    print(f"mugen: phase wall time {result['wall_s']:.1f} s", flush=True)
+    return paths_out, result
+
+
+SLICE10_COSINE = 0.99
+FLICKR_WORDS = ("a man woman child dog ball red blue shirt hat on in with near the park street "
+                "grass runs throws holds sits stands looks at two small big white black").split()
+FLICKR_TYPES = ("people", "clothing", "animals", "other", "scene", "bodyparts")
+
+
+def write_flickr_data(root: str, n: int, rng) -> list:
+    """``n`` seeded images (uint8, 800 x 1066 and 1066 x 800 in turn: the
+    shape of Flickr30k's 375 x 500 photos at MDETR's evaluation scale,
+    shorter side 800) and one caption each with 1-4 boxed phrases, in
+    Flickr30k Entities' layout (``test.txt``, ``Sentences/<id>.txt``,
+    ``Annotations/<id>.xml``) and as the samples ``MDETRDataModule`` takes
+    (boxes cxcywh in [0, 1], ``tokens_positive`` char spans). Returns the
+    samples, with their phrases' char spans for the eval."""
+    os.makedirs(os.path.join(root, "Sentences"))
+    os.makedirs(os.path.join(root, "Annotations"))
+    samples = []
+    for i in range(n):
+        h, w = (MDETR_SHORT, MDETR_LONG) if i % 2 == 0 else (MDETR_LONG, MDETR_SHORT)
+        img_id = str(1000 + i)
+        path = os.path.join(root, f"{img_id}.npy")
+        np.save(path, rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        words, tagged, spans, boxes, objs = [], [], [], [], []
+        n_phrases = int(rng.integers(1, 5))
+        for p in range(n_phrases):
+            filler = list(rng.choice(FLICKR_WORDS, rng.integers(1, 6)))
+            phrase = list(rng.choice(FLICKR_WORDS, rng.integers(1, 4)))
+            words += filler
+            tagged += filler
+            start = len(" ".join(words)) + (1 if words else 0)
+            words += phrase
+            spans.append([(start, start + len(" ".join(phrase)))])
+            tagged += [f"[/EN#{p + 1}/{FLICKR_TYPES[p % len(FLICKR_TYPES)]}"] + phrase
+            tagged[-1] += "]"
+            x0, y0 = rng.uniform(0, 0.6, 2)
+            bw, bh = rng.uniform(0.1, 0.4, 2)
+            boxes.append([x0 + bw / 2, y0 + bh / 2, bw, bh])
+            xyxy = [int(x0 * w), int(y0 * h), int((x0 + bw) * w), int((y0 + bh) * h)]
+            objs.append(f"<object><name>{p + 1}</name><bndbox><xmin>{xyxy[0]}</xmin><ymin>"
+                        f"{xyxy[1]}</ymin><xmax>{xyxy[2]}</xmax><ymax>{xyxy[3]}</ymax></bndbox>"
+                        f"</object>")
+        extra = list(rng.choice(FLICKR_WORDS, min(int(rng.integers(0, 40)),
+                                                  MDETR_TEXT - len(words))))
+        words += extra
+        tagged += extra
+        with open(os.path.join(root, "Sentences", f"{img_id}.txt"), "w") as f:
+            f.write(" ".join(tagged) + "\n")
+        with open(os.path.join(root, "Annotations", f"{img_id}.xml"), "w") as f:
+            f.write(f"<annotation><size><width>{w}</width><height>{h}</height><depth>3</depth>"
+                    f"</size>{''.join(objs)}</annotation>")
+        samples.append({"image": path, "text": " ".join(words), "boxes": boxes,
+                        "tokens_positive": spans, "image_id": img_id, "orig_size": (h, w)})
+    with open(os.path.join(root, "test.txt"), "w") as f:
+        f.write("\n".join(s["image_id"] for s in samples) + "\n")
+    return samples
+
+
+def grounding_inputs(batch, device="cuda"):
+    """The model's inputs from an ``MDETRDataModule`` batch: RoBERTa's pad
+    id (1) on the padded text positions, and the masks True = padded."""
+    text_real = batch["text_attention_mask"].to(device)
+    text = torch.where(text_real, batch["text"].to(device), 1)
+    return (batch["images"].to(device), batch["image_mask"].to(device), text, ~text_real)
+
+
+def mdetr_phase(fe, fa, qa, attn, card):
+    """Phase 15: MDETR phrase grounding (see the module docstring)."""
+    root = tempfile.mkdtemp(prefix="flickr_")
+    try:
+        return _mdetr(fe, fa, qa, attn, card, root, time.perf_counter())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _mdetr(fe, fa, qa, attn, card, root, phase_t0):
+    from multimodal_tpu_torch.examples.mdetr import optimizer as mopt
+    from multimodal_tpu_torch.examples.mdetr.data import (
+        MDETRDataModule, create_positive_map, whitespace_tokenize_with_offsets)
+    from multimodal_tpu_torch.examples.mdetr.eval import evaluate_phrase_grounding
+    from multimodal_tpu_torch.examples.mdetr.flickr_eval import Flickr30kEntitiesRecallEvaluator
+    from multimodal_tpu_torch.models.mdetr.model import mdetr_for_phrase_grounding
+    from multimodal_tpu_torch.modules.losses import mdetr as mloss
+
+    t0 = time.perf_counter()
+    samples = write_flickr_data(root, 32, np.random.default_rng(15))
+    print(f"mdetr: wrote 32 images ({MDETR_SHORT} x {MDETR_LONG} and {MDETR_LONG} x "
+          f"{MDETR_SHORT}) and their Flickr30k Entities files in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    model = mdetr_for_phrase_grounding(dtype=torch.bfloat16, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"mdetr: mdetr_for_phrase_grounding (ResNet-101, RoBERTa-base, d_model 256, 8 heads "
+          f"of 32, 6 + 6 layers, 100 queries), {n_params / 1e6:.1f}M parameters (fp32, bf16 "
+          f"compute), built in {time.perf_counter() - t0:.1f} s", flush=True)
+    result, paths_out = {}, {}
+
+    # 1. grounding inference at batch 8 over the 32 images, Flickr30k recall
+    def eval_batches():
+        dm = MDETRDataModule(samples, text_len=MDETR_TEXT, batch_size=8, shuffle=False,
+                             drop_last=False)
+        for start, batch in zip(range(0, len(samples), 8), dm.eval_batches()):
+            chunk = samples[start:start + 8]
+            images, image_mask, text, text_mask = grounding_inputs(batch)
+            pms = []
+            for s in chunk:
+                _, offsets = whitespace_tokenize_with_offsets(s["text"])
+                pms.append(create_positive_map(offsets, s["tokens_positive"]))
+            yield {"images": images, "image_mask": image_mask, "text": text,
+                   "text_mask": text_mask,
+                   "orig_sizes": torch.tensor([s["orig_size"] for s in chunk]),
+                   "positive_map_eval": torch.from_numpy(np.concatenate(pms)),
+                   "phrases_per_sample": [len(s["tokens_positive"]) for s in chunk],
+                   "image_ids": [s["image_id"] for s in chunk], "sentence_ids": [0] * len(chunk)}
+
+    evaluator = Flickr30kEntitiesRecallEvaluator(root, subset="test")
+    batches = list(eval_batches())
+    with torch.no_grad():  # warm-up: cuDNN's plans, the first launches
+        model(*(batches[0][k] for k in ("images", "image_mask", "text", "text_mask")))
+    torch.cuda.synchronize()
+    reset_counts(fe, fa, qa)
+    t0 = time.perf_counter()
+    report = evaluate_phrase_grounding(model, batches, evaluator, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = path_counts(fe, fa, qa)
+    expect("mdetr grounding eval (4 forwards)", counts,
+                   {k: 4 * v for k, v in mdetr_launches(fe, attn).items()})
+    result.update(images_per_s=len(samples) / dt, eval_ms_per_batch=dt / len(batches) * 1e3,
+                  recall={str(k): v for k, v in report.items()})
+    print(f"mdetr: grounding eval {result['images_per_s']:.2f} images/s, "
+          f"{result['eval_ms_per_batch']:.1f} ms a batch of 8 (post-processing and the "
+          f"evaluator included); Flickr30k recall (random weights) "
+          f"{json.dumps({k: round(v.get('all', 0.0), 4) for k, v in report.items()})}", flush=True)
+    paths_out["mdetr_eval"] = counts
+    b0 = batches[0]
+    args = tuple(b0[k] for k in ("images", "image_mask", "text", "text_mask"))
+    with torch.no_grad():
+        breakdown = profile_step(lambda: model(*args), "mdetr forward")
+    result["eval_profile"] = breakdown
+    print(f"mdetr: device time of one forward at batch 8 by kernel group "
+          f"{json.dumps(breakdown)}", flush=True)
+
+    # 2. the bf16 model against an fp32 copy of its weights on the card
+    ref = mdetr_for_phrase_grounding(dtype=torch.float32, seed=1)
+    ref.load_state_dict(model.state_dict())
+    ref.eval()
+    small = tuple(a[:2] for a in args)
+    with torch.no_grad():
+        outs = [m(*small) for m in (model, ref)]
+    pick = lambda o: {"pred_logits": o.model_output.pred_logits,  # noqa: E731
+                      "pred_boxes": o.model_output.pred_boxes,
+                      **o.contrastive_embeddings}
+    got, want = pick(outs[0]), pick(outs[1])
+    cos = {k: float(cosine_rows(got[k].float().reshape(-1, got[k].shape[-1]).cpu().numpy(),
+                                want[k].float().reshape(-1, want[k].shape[-1]).cpu().numpy()
+                                ).min()) for k in got}
+    print(f"mdetr: lowest row cosines of the bf16 model vs fp32 on the card at 2 images "
+          f"{json.dumps(cos)} (bar {SLICE10_COSINE})", flush=True)
+    if min(cos.values()) < SLICE10_COSINE:
+        fail(f"MDETR outputs {cos} below {SLICE10_COSINE} against fp32")
+    result["output_cosines"] = cos
+    del ref, outs
+    torch.cuda.empty_cache()
+
+    # 3. fine-tuning: 3 steps after 1 at batch 4, mdetr_loss and the MDETR
+    # optimizer (lr 1e-4, backbone 1e-5, text encoder 5e-5, wd 1e-4)
+    schedules = mopt.mdetr_lr_schedules("linear_with_warmup", 1e-4, 1e-5, 5e-5,
+                                        num_training_steps=100, steps_per_epoch=8, lr_drop=35,
+                                        epochs=20)
+    opt, sched = mopt.build_mdetr_optimizer(model, schedules)
+    weights = mloss.build_weight_dict()
+    dm = MDETRDataModule(samples, text_len=MDETR_TEXT, batch_size=4, shuffle=True, seed=0)
+    train_batches = [b for _, b in zip(range(5), dm.train_batches())]
+
+    def train_step(batch):
+        opt.zero_grad(set_to_none=True)
+        out = model(*grounding_inputs(batch), deterministic=False)
+        pm = batch["positive_map"].cuda()
+        loss = mloss.mdetr_loss(
+            out.model_output.pred_logits, out.model_output.pred_boxes, pm,
+            batch["target_boxes"].cuda(), batch["valid"].cuda(),
+            out.contrastive_embeddings["query_embeddings"],
+            out.contrastive_embeddings["token_embeddings"], pm[..., :MDETR_TEXT])
+        total = loss.total(weights)
+        total.backward()
+        opt.step()
+        sched.step()
+        return total.detach(), out.model_output
+
+    model.train()
+    train_step(train_batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fe, fa, qa)
+    t0 = time.perf_counter()
+    steps = [train_step(b) for b in train_batches[1:4]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = path_counts(fe, fa, qa)
+    expect("mdetr fine-tuning (3 steps)", counts, mdetr_launches(fe, attn, train=True))
+    losses = [float(loss) for loss, _ in steps]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"MDETR losses {losses}")
+    # the matcher alone on the host: the last step's cost, already on the
+    # card, to the host and through scipy
+    last, batch = steps[-1][1], train_batches[3]
+    cost = mloss.hungarian_cost_matrix(last.pred_logits.detach(), last.pred_boxes.detach().float(),
+                                       batch["positive_map"].cuda(),
+                                       batch["target_boxes"].cuda())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mloss.hungarian_matcher(cost, batch["valid"].cuda())
+    matcher_ms = (time.perf_counter() - t1) * 1e3
+    result.update(train_items_per_s=4 * 3 / dt, ms_per_step=dt / 3 * 1e3,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, losses=losses,
+                  matcher_host_ms=matcher_ms, lrs={g["name"]: g["lr"] for g in opt.param_groups})
+    print(f"mdetr: fine-tuning {result['train_items_per_s']:.2f} images/s, "
+          f"{result['ms_per_step']:.1f} ms a step at batch 4, peak memory "
+          f"{result['peak_gib']:.2f} GiB, the Hungarian matcher {matcher_ms:.3f} ms on the host "
+          f"(a (4, 100, 16) cost), losses {[round(x, 4) for x in losses]}, rates "
+          f"{json.dumps(result['lrs'])} on {card}", flush=True)
+    paths_out["mdetr_train"] = counts
+    del steps, last
+    breakdown = profile_step(lambda: train_step(train_batches[4]), "mdetr train")
+    if isinstance(breakdown, dict):
+        result["idle_share"] = 1 - breakdown["total_device_ms"] / breakdown[
+            "wall_ms_under_profiler"]
+    result["profile"] = breakdown
+    print(f"mdetr: device time of one fine-tuning step by kernel group "
+          f"{json.dumps(breakdown)}; idle share {result.get('idle_share', float('nan')):.4f}",
+          flush=True)
+    del model, opt
+    torch.cuda.empty_cache()
+    result["wall_s"] = time.perf_counter() - phase_t0
+    print(f"mdetr: phase wall time {result['wall_s']:.1f} s", flush=True)
+    return paths_out, result
+
+
 SCRIPT_T0 = time.perf_counter()
 
 
@@ -5268,7 +5790,8 @@ def main() -> None:
                 print("  " + line.strip(), flush=True)
 
     cases = (check_kernels(fe) + check_mlp_kernel(fe) + check_acc_kernel(fe)
-             + check_new_kernels(fa, qa, kv) + check_bwd_kernels(fa))
+             + check_new_kernels(fa, qa, kv) + check_bwd_kernels(fa)
+             + check_slice10_kernels(fe, fa))
     bwd_rows = flash_bwd_timing(fa)
     cases += bwd_rows
     bad = [c for c in cases if not c["ok"]]
@@ -5304,6 +5827,8 @@ def main() -> None:
     albef_launches_by_path, albef_result = albef(fe, fa, attn, card)
     coca_launches_by_path, coca = coca_phase(fe, fa, qa, attn, card)
     blip2_launches_by_path, blip2 = blip2_phase(fe, fa, qa, attn, card)
+    mugen_launches_by_path, mugen = mugen_phase(fe, fa, qa, attn, card)
+    mdetr_launches_by_path, mdetr = mdetr_phase(fe, fa, qa, attn, card)
 
     # every path's launch counts, each read just after the path ran with the
     # counts set to 0 just before it; a kernel's `launches` is its count on
@@ -5319,7 +5844,8 @@ def main() -> None:
              **{f"zero_shot_{m}_{part}": zs[m][f"{part}_launches"]
                 for m in ("vit_b32", "rn50") for part in ("classifier", "eval")},
              **{f"zero_shot_{name}": c for name, c in zs["rn_builders"].items()},
-             **albef_launches_by_path, **coca_launches_by_path, **blip2_launches_by_path}
+             **albef_launches_by_path, **coca_launches_by_path, **blip2_launches_by_path,
+             **mugen_launches_by_path, **mdetr_launches_by_path}
     main_path = {"fused_qkv_attention": "serve", "fused_qkv_attention_bwd": "train",
                  "fused_mlp": "flava", "fused_mlp_bwd": "flava_grad_check",
                  "fused_mlp_bwd_acc": "flava", "flash_attention": "lm",
@@ -5446,6 +5972,17 @@ def main() -> None:
               f"{r['serving']['ttft_p50_s']:.3f} s, teacher-forced cosine "
               f"{r['serving']['teacher_forced_cosine']:.6f}; {name} phase {r['wall_s']:.1f} s"
               for name, r in (("CoCa", coca), ("BLIP-2", blip2)))
+          + f"; MUGEN retrieval training {mugen['items_per_s']:.2f} items/s, "
+          f"{mugen['ms_per_step']:.1f} ms a step, peak {mugen['peak_gib']:.2f} GiB, idle share "
+          f"{mugen.get('idle_share', float('nan')):.4f}, recall "
+          f"{json.dumps({k: round(v, 4) for k, v in mugen['recall'].items()})}, cosines "
+          f"{json.dumps({k: round(v, 6) for k, v in mugen['output_cosines'].items()})}, phase "
+          f"{mugen['wall_s']:.1f} s; MDETR grounding {mdetr['images_per_s']:.2f} images/s, "
+          f"fine-tuning {mdetr['ms_per_step']:.1f} ms a step, peak {mdetr['peak_gib']:.2f} GiB, "
+          f"matcher {mdetr['matcher_host_ms']:.2f} ms, idle share "
+          f"{mdetr.get('idle_share', float('nan')):.4f}, cosines "
+          f"{json.dumps({k: round(v, 6) for k, v in mdetr['output_cosines'].items()})}, phase "
+          f"{mdetr['wall_s']:.1f} s"
           + f"; build {build_s:.1f} s; script {time.perf_counter() - SCRIPT_T0:.1f} s",
           flush=True)
     print(card, flush=True)

@@ -32,8 +32,11 @@ EXPANSION = 4
 
 
 class Fp32BatchNorm2d(nn.Module):
-    """BatchNorm over the channels of an NCHW tensor, in fp32. The running
-    statistics stay fp32 whatever the parameters' dtype."""
+    """BatchNorm over dim 1 of an ``(N, C, ...)`` tensor (NCHW here), in
+    fp32, with flax's numerics: in training the batch variance is ``E[x^2]
+    - E[x]^2`` (biased), differentiated through, and the running statistics
+    move toward it by ``momentum``. The running statistics stay fp32
+    whatever the parameters' dtype."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -45,20 +48,25 @@ class Fp32BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.normalize(x, batch_statistics=self.training)
+
+    def normalize(self, x: torch.Tensor, batch_statistics: bool) -> torch.Tensor:
         w, b = self.weight.float(), self.bias.float()
-        if not self.training:
+        if not batch_statistics:
             # x in the compute dtype with fp32 statistics and parameters:
             # computed in fp32, rounded once to x's dtype, in one pass
             return F.batch_norm(x, self.running_mean, self.running_var, w, b,
                                 training=False, eps=self.eps)
         x32 = x.float()
-        mean = x32.mean(dim=(0, 2, 3))
-        var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        dims = (0, *range(2, x.dim()))
+        mean = x32.mean(dim=dims)
+        var = ((x32 * x32).mean(dim=dims) - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean.detach(), self.momentum)
             self.running_var.lerp_(var.detach(), self.momentum)
+        shape = (-1,) + (1,) * (x.dim() - 2)
         mul = torch.rsqrt(var + self.eps) * w
-        y = (x32 - mean[:, None, None]) * mul[:, None, None] + b[:, None, None]
+        y = (x32 - mean.view(shape)) * mul.view(shape) + b.view(shape)
         return y.to(x.dtype)
 
 

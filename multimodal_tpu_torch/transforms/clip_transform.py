@@ -8,11 +8,11 @@ pre-tokens with the third-party ``regex`` module's pattern
 
 under IGNORECASE. This module gives the same pre-tokens with the standard
 library only (:func:`pre_tokenize`), so it runs where ``regex`` is absent.
-Read against that pattern on every assigned code point:
+Read against that pattern on every code point:
 
 - ``[\\p{L}]`` is ``str.isalpha()``; ``[\\p{N}]`` is a ``unicodedata``
   category ``N*`` (not ``str.isnumeric()``, which also takes CJK numerals
-  of category ``Lo``);
+  of category ``Lo``), both as amended below;
 - ``\\s`` is ``str.isspace()`` less U+001C-U+001F, which ``regex`` counts
   as punctuation;
 - U+0345 (combining ypogegrammeni) matches no alternative: under
@@ -21,9 +21,13 @@ Read against that pattern on every assigned code point:
 - IGNORECASE lets U+017F (long s) stand for ``s`` in the special tokens and
   contractions; no other character outside ASCII folds to their letters.
 
-``regex``'s newer Unicode tables also call letters or numbers some code
-points that Python's ``unicodedata`` leaves unassigned (``Cn``); this module
-follows ``unicodedata``.
+``regex``'s newer Unicode tables also call letters or numbers code points
+that Python's ``unicodedata`` leaves unassigned (``Cn``): 9,568 letters and
+93 numbers between Unicode 15.0 and 17.0. ``_unicode_tables.py`` holds
+those differences as ranges (written once from ``regex`` by
+``scripts/make_unicode_tables.py``); the classes consult them by bisection
+before ``unicodedata``, so they equal ``regex``'s on every code point. A
+Python whose ``unicodedata`` is not the table's version is refused.
 
 The image path (:class:`CLIPImageTransform`) resamples with the port's copy
 of PIL's resampler (``native/resample.py``), so it needs PIL only for a PIL
@@ -34,6 +38,7 @@ HTML, the JAX package's path when ``ftfy`` is absent; ``ftfy`` is not used.
 
 from __future__ import annotations
 
+import bisect
 import functools
 import html
 import re
@@ -43,7 +48,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from multimodal_tpu_torch.transforms import text_transforms
+from multimodal_tpu_torch.transforms import _unicode_tables, text_transforms
 
 CLIP_DEFAULT_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_DEFAULT_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -64,15 +69,42 @@ def _is_space(c: str) -> bool:
     return c.isspace() and not "\x1c" <= c <= "\x1f"
 
 
+def _in(ranges, cp: int) -> bool:
+    """Whether ``cp`` lies in one of the sorted, inclusive ``ranges``."""
+    i = bisect.bisect_right(ranges, (cp, 0x10FFFF)) - 1
+    return i >= 0 and ranges[i][0] <= cp <= ranges[i][1]
+
+
+def is_letter(c: str) -> bool:
+    """``regex``'s ``\\p{L}``."""
+    cp = ord(c)
+    if _in(_unicode_tables.LETTERS_ADDED, cp):
+        return True
+    return c.isalpha() and not _in(_unicode_tables.LETTERS_REMOVED, cp)
+
+
+def is_number(c: str) -> bool:
+    """``regex``'s ``\\p{N}``."""
+    cp = ord(c)
+    if _in(_unicode_tables.NUMBERS_ADDED, cp):
+        return True
+    return unicodedata.category(c)[0] == "N" and not _in(_unicode_tables.NUMBERS_REMOVED, cp)
+
+
 class _ClassTable(dict):
     """``str.translate`` table: code point -> class character, filled on
     first sight of each code point."""
 
     def __missing__(self, cp: int) -> str:
+        if unicodedata.unidata_version != _unicode_tables.UNICODEDATA_VERSION:
+            raise RuntimeError(
+                f"_unicode_tables.py was written against unicodedata "
+                f"{_unicode_tables.UNICODEDATA_VERSION}, this Python has "
+                f"{unicodedata.unidata_version}: run scripts/make_unicode_tables.py")
         c = chr(cp)
-        if c.isalpha():
+        if is_letter(c):
             k = _LETTER
-        elif unicodedata.category(c)[0] == "N":
+        elif is_number(c):
             k = _NUMBER
         elif _is_space(c) or cp == 0x345:
             k = _SKIP

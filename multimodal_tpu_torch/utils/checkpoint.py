@@ -12,11 +12,16 @@
 ``clip_resnet_state_dict_from_jax`` for the ``clip_rn*`` models, the inverse
 of ``multimodal_tpu/utils/checkpoint.py:clip_resnet_params_from_torch``, and
 ``albef_state_dict_from_jax`` for ALBEF (``ALBEFModelWithSimilarity``,
-``ALBEFModelForRetrieval``, ``ALBEFModelForVQA``).
+``ALBEFModelForRetrieval``, ``ALBEFModelForVQA``),
+``videoclip_state_dict_from_jax`` for MUGEN's VideoCLIP
+(``multimodal_tpu/examples/mugen``) and ``mdetr_state_dict_from_jax`` for
+MDETR (``multimodal_tpu/models/mdetr``).
 Layouts:
 
 - ``nn.Dense`` kernels are ``(in, out)``; ``nn.Linear`` weights ``(out, in)``;
-- convolution kernels are HWIO in JAX and OIHW in torch;
+- convolution kernels are HWIO in JAX and OIHW in torch
+  (:func:`conv2d_weight_from_jax`), DHWIO and OIDHW in 3-D
+  (:func:`conv3d_weight_from_jax`);
 - flax ``BatchNorm`` keeps ``scale`` / ``bias`` in ``params`` and ``mean`` /
   ``var`` in ``batch_stats``; ``Fp32BatchNorm2d`` has ``weight`` / ``bias``
   and the buffers ``running_mean`` / ``running_var``;
@@ -42,6 +47,17 @@ def _t(a: Any) -> torch.Tensor:
     a = np.asarray(a)
     # arrays that JAX hands out are read-only; torch tensors never are
     return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def conv2d_weight_from_jax(kernel: Any) -> np.ndarray:
+    """A flax 2-D convolution kernel (HWIO) in ``nn.Conv2d``'s layout (OIHW)."""
+    return np.asarray(kernel).transpose(3, 2, 0, 1)
+
+
+def conv3d_weight_from_jax(kernel: Any) -> np.ndarray:
+    """A flax 3-D convolution kernel (DHWIO) in ``nn.Conv3d``'s layout
+    (OIDHW)."""
+    return np.asarray(kernel).transpose(4, 3, 0, 1, 2)
 
 
 def _linear(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
@@ -83,7 +99,7 @@ def clip_state_dict_from_jax(
     p = params["params"] if "params" in params else params
     va, tb = p["encoder_a"], p["encoder_b"]
     sd: Dict[str, torch.Tensor] = {
-        "encoder_a.conv.weight": _t(np.asarray(va["conv"]["kernel"]).transpose(3, 2, 0, 1)),
+        "encoder_a.conv.weight": _t(conv2d_weight_from_jax(va["conv"]["kernel"])),
         "encoder_a.cls_token_embedding": _t(va["cls_token_embedding"]),
         "encoder_a.positional_embedding": _t(va["positional_embedding"]),
         "encoder_a.projection": _t(va["projection"]),
@@ -115,15 +131,7 @@ def clip_resnet_state_dict_from_jax(
     become ``running_mean`` / ``running_var``."""
     p = variables["params"]
     sd = {f"encoder_a.{k}": v for k, v in state_dict_from_jax_tree(p["encoder_a"]).items()}
-
-    def stats(node: Mapping, path: List[str]) -> None:
-        for key, value in node.items():
-            if key in ("mean", "var"):
-                sd[".".join(["encoder_a", *path, f"running_{key}"])] = _t(value)
-            else:
-                stats(value, path + [key])
-
-    stats(variables["batch_stats"]["encoder_a"], [])
+    sd.update(_batch_stats(variables["batch_stats"]["encoder_a"], "encoder_a"))
     sd.update(_clip_text(p["encoder_b"], n_text_layers))
     return sd
 
@@ -157,8 +165,8 @@ def state_dict_from_jax_tree(tree: Mapping, skip=()) -> Dict[str, torch.Tensor]:
     the port's module that carries the JAX module's names: the map is by
     path. ``layer_<i>`` is ``layers.<i>``, the ``LayerNorm_0`` level of
     ``Fp32LayerNorm`` goes, ``kernel`` / ``scale`` / ``embedding`` become
-    ``weight`` (dense kernels transposed, convolution kernels HWIO -> OIHW).
-    Top-level entries named in ``skip`` are left out."""
+    ``weight`` (dense kernels transposed, convolution kernels HWIO -> OIHW
+    and DHWIO -> OIDHW). Top-level entries named in ``skip`` are left out."""
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, path: List[str]) -> None:
@@ -168,7 +176,8 @@ def state_dict_from_jax_tree(tree: Mapping, skip=()) -> Dict[str, torch.Tensor]:
                 continue
             a = np.asarray(value)
             if key == "kernel":
-                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+                a = {4: conv2d_weight_from_jax, 5: conv3d_weight_from_jax}.get(
+                    a.ndim, np.transpose)(a)
             name = "weight" if key in ("kernel", "scale", "embedding") else key
             parts = [re.sub(r"^layer_(\d+)$", r"layers.\1", k) for k in path
                      if k != "LayerNorm_0"]
@@ -205,3 +214,43 @@ def flava_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 # the momentum copy's buffers) need nothing past the path map: dense kernels
 # transposed, the patchify convolution HWIO -> OIHW.
 albef_state_dict_from_jax = state_dict_from_jax_tree
+
+
+def _batch_stats(stats: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """flax ``batch_stats`` (``mean`` / ``var`` under each BatchNorm's path)
+    as the port's ``running_mean`` / ``running_var`` buffers."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, path: List[str]) -> None:
+        for key, value in node.items():
+            if key in ("mean", "var"):
+                sd[".".join([*path, f"running_{key}"])] = _t(value)
+            else:
+                walk(value, path + [key])
+
+    walk(stats, [prefix] if prefix else [])
+    return sd
+
+
+def videoclip_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``VideoCLIPForRetrieval`` or ``videoclip`` variables
+    (``{"params": ..., "batch_stats": ...}``, leaves as numpy arrays) ->
+    the ``state_dict`` of this package's counterpart
+    (``examples/mugen/retrieval_train.py``, ``examples/mugen/video_clip.py``):
+    by path, 3-D kernels DHWIO -> OIDHW, S3D's BatchNorm statistics as
+    buffers. Without ``batch_stats`` (a gradient tree) only the parameters
+    map."""
+    sd = state_dict_from_jax_tree(variables["params"])
+    sd.update(_batch_stats(variables.get("batch_stats", {})))
+    return sd
+
+
+def mdetr_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``MDETR``, ``MDETRForPhraseGrounding`` or ``MDETRForVQA``
+    variables (``{"params": ...}`` or the bare tree, leaves as numpy arrays)
+    -> this package's ``state_dict`` (``models/mdetr/model.py``): by path,
+    2-D kernels HWIO -> OIHW. ``FrozenBatchNorm2d``'s weight, bias and
+    statistics, parameters under ``stop_gradient`` in JAX, are buffers
+    here under the same names."""
+    p = params["params"] if "params" in params else params
+    return state_dict_from_jax_tree(p)

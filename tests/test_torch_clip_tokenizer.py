@@ -97,13 +97,31 @@ def test_imagenet_classnames_default_templates(tokenizers):
             _assert_same_ids(tokenizers, template.format(name))
 
 
-# Text over every assigned code point: category Cn (unassigned) is left out
-# because the third-party regex module's newer Unicode tables call letters
-# or numbers code points that this Python's unicodedata leaves unassigned,
-# and Cs (lone surrogates) because UTF-8 cannot encode them.
-ASSIGNED = st.characters(exclude_categories=("Cn", "Cs"))
+# Text over every code point but Cs (lone surrogates), which UTF-8 cannot
+# encode; Cn (unassigned in this Python's unicodedata) is drawn too, since
+# the port's classes carry the regex module's newer tables
+# (transforms/_unicode_tables.py).
+ASSIGNED = st.characters(exclude_categories=("Cs",))
 PIECES = st.one_of(st.text(ASSIGNED, max_size=8), st.sampled_from(
     ["<|startoftext|>", "<|endoftext|>", "'s", "'LL", "'d", " ", "\x1c", "ͅ", "ſ", "'"]))
+
+
+def test_classes_equal_regex_on_every_code_point():
+    """The letter and number classes against regex's \\p{L} and \\p{N} over
+    every code point but the surrogates (one string, one pass of the
+    tokenizer's class table), and the pre-tokens of that string."""
+    text = "".join(chr(cp) for cp in range(0x110000) if not 0xD800 <= cp <= 0xDFFF)
+    got = np.frombuffer(text.translate(pct._CLASSES).encode("utf-32-le"), np.uint32)
+    want = np.full(len(text), ord("x"), np.uint32)
+    for pattern, cls in ((r"\p{L}+", pct._LETTER), (r"\p{N}+", pct._NUMBER)):
+        for m in regex.finditer(pattern, text):
+            want[m.start():m.end()] = ord(cls)
+    classes = (ord(pct._LETTER), ord(pct._NUMBER))
+    mismatch = np.isin(got, classes) | np.isin(want, classes)
+    mismatch &= got != want
+    points = np.frombuffer(text.encode("utf-32-le"), np.uint32)
+    assert not mismatch.any(), [hex(c) for c in points[mismatch][:10]]
+    assert pct.pre_tokenize(text) == JAX_PATTERN.findall(text)
 
 
 @settings(max_examples=300, deadline=None, suppress_health_check=[HealthCheck.too_slow])

@@ -19,6 +19,8 @@ from multimodal_tpu_torch.examples.flava import finetune as flava_finetune
 from multimodal_tpu_torch.examples.flava import pretrain as flava_pretrain
 from multimodal_tpu_torch.examples.long_context import train as lm_train
 from multimodal_tpu_torch.examples.long_context.model import long_context_lm
+from multimodal_tpu_torch.examples.mugen import retrieval_train as mugen_retrieval
+from multimodal_tpu_torch.models.mdetr import model as mdetr_model
 from multimodal_tpu_torch.models.clip import model as clip_model
 from multimodal_tpu_torch.models.clip.image_encoder import CLIPViTEncoder
 from multimodal_tpu_torch.models.clip.text_encoder import CLIPTextEncoder
@@ -90,6 +92,43 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         lm_train.main(["--seq-len", "64", "--n-layer", "1", "--d-model", "64", "--n-head", "2",
                        "--vocab-size", "64", "--steps", "1"])
+
+
+MDETR_TINY = dict(resnet_layers=(1, 1, 1, 1), embedding_dim=64, transformer_d_model=64,
+                  transformer_num_heads=2, transformer_encoder_layers=1,
+                  transformer_decoder_layers=1, transformer_dim_feedforward=128, num_queries=4,
+                  text_encoder_kwargs=dict(num_hidden_layers=1, num_attention_heads=2,
+                                           intermediate_size=128, vocab_size=100))
+
+
+def test_mugen_and_mdetr_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mugen_retrieval.build_model(mugen_retrieval.DEFAULTS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mdetr_model.mdetr_for_phrase_grounding(**MDETR_TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mdetr_model.mdetr_for_vqa(**MDETR_TINY)
+
+
+def test_cpu_mdetr_launches_no_kernel():
+    """MDETR on the CPU past the flash threshold (40 image tokens and 40
+    text tokens) at widths the fused kernels take: their plain versions
+    run, no kernel."""
+    fe.reset_launch_counts()
+    fa.reset_launch_counts()
+    model = mdetr_model.mdetr_for_phrase_grounding(device="cpu", **MDETR_TINY)
+    images = torch.rand(2, 160, 256, 3)
+    mask = torch.zeros(2, 160, 256, dtype=torch.bool)
+    mask[1, :, 200:] = True
+    text = torch.randint(3, 100, (2, 40))
+    text_mask = torch.zeros(2, 40, dtype=torch.bool)
+    text_mask[0, 30:] = True
+    with torch.no_grad():
+        out = model(images, mask, text, text_mask)
+    assert torch.isfinite(out.model_output.pred_boxes).all()
+    for counter in (fe.fused_qkv_attention, fe.fused_mlp, fa.flash_attention_forward):
+        assert counter.launches == 0
 
 
 def test_cpu_tensors_launch_no_kernel():
