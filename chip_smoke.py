@@ -285,7 +285,7 @@ mean of V, not 0), a ragged Sq = 77 at D = 96 with lse, D = 96 causal,
 and D = 96 with a bias in blocks of two warpgroups (300 queries) and of
 one (48 queries, a row masked wholly).
 Slice 10's shapes (``check_slice10_kernels``): #6 at head width 32 (the
-`mma.sync` kernel) at MDETR's encoder self-attention (8, 8, 1220, 1220)
+`wgmma` kernel) at MDETR's encoder self-attention (8, 8, 1220, 1220)
 and cross-attention (8, 8, 100, 1220), their key padding as segment ids
 (queries 1, keys by the mask), and its decoder self-attention (8, 8, 100,
 100); #1 at MUGEN's text tower (16, 32, 3 x 768) and MDETR's RoBERTa (8,
@@ -304,7 +304,8 @@ the checks catch each one; ``--ab PARENT`` only times #1-#6 and #10 at
 their paths' shapes, the flash attention backward at the LM training shape,
 CoCa's fusion self-attention both ways and the LM serving tick of the tree at
 PARENT (the parent commit unpacked with ``git archive``) and of this
-checkout, in turns, each in a process of its own.
+checkout, in turns, each in a process of its own, after comparing the two
+trees' flash attention kernels by their SASS.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -391,6 +392,21 @@ def kernel_names(fn) -> list:
         torch.cuda.synchronize()
     return sorted({e.key[:80] for e in prof.key_averages()
                    if (getattr(e, "self_device_time_total", 0) or 0) > 0})
+
+
+def fwd_route(fa, dtype: torch.dtype, d: int) -> str:
+    """Kernel #6's kernel at head width ``d`` in ``dtype``, as its C entry
+    chooses it (``mm_flash_attention_fwd_route``)."""
+    return ("fp32 pipes", "mma.sync", "wgmma")[
+        fa._kernels().mm_flash_attention_fwd_route(d, fa._DTYPE_CODES[dtype])]
+
+
+def dbias_route(dtype: torch.dtype, d: int) -> str:
+    """Kernel #9's kernel at head width ``d`` in ``dtype``, as
+    ``mm_flash_attention_bwd_dbias`` chooses it."""
+    if dtype != torch.bfloat16:
+        return "fp32 pipes"
+    return "wgmma" if d in (32, 64, 96) else "mma.sync" if d == 128 else "fp32 pipes"
 
 
 def bwd_route(fa, dtype: torch.dtype, d: int) -> str:
@@ -1223,6 +1239,11 @@ def flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
     if segments == "key_padding":  # a (B, Sk) key mask as segment ids, queries all 1
         qseg = torch.ones(b, sq, dtype=torch.int32, device="cuda")
         kvseg = mdetr_key_mask(b, sk, gen).to(torch.int32)
+    elif segments == "masked_tiles":  # key padding over whole key tiles, a row seeing no key
+        qseg = torch.ones(b, sq, dtype=torch.int32, device="cuda")
+        qseg[:, sq // 2] = 2
+        kvseg = mdetr_key_mask(b, sk, gen).to(torch.int32)
+        kvseg[:, MASKED_TILES] = 0
     elif segments:
         qseg = kvseg = _segments(b, sq, gen)
     kw = dict(causal=causal, return_lse=lse, q_segment_ids=qseg, kv_segment_ids=kvseg)
@@ -1279,7 +1300,8 @@ def flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None,
         lse_ok = lse_fin and (lse_err is None or lse_err <= lse_bar)
         row = dict(kernel="flash_attention", case=name, shape=[b, h, sq, sk, d], causal=causal,
                    bias=bias_kind, segments=segments, lse=lse,
-                   dtype=str(dtype).replace("torch.", ""), max_abs_err=err, rel_err=rel_err,
+                   dtype=str(dtype).replace("torch.", ""), route=fwd_route(fa, dtype, d),
+                   max_abs_err=err, rel_err=rel_err,
                    tol=tol, lse_err=lse_err, deterministic=deterministic,
                    ok=bool(rel_err <= bar and lse_ok and deterministic))
         if exact:
@@ -1559,31 +1581,57 @@ ROUTE_FLASH_CASES = [
     ("d96_bias_1h1k_300", 4, 8, 300, 300, 96, False, {"bias_kind": "1h1k", "lse": True}),
     ("d96_masked_row_48", 16, 8, 48, 300, 96, False, {"bias_kind": "masked_row"}),
 ]
+# Head width 32 on the `wgmma` kernel, on generators of their own
+# (``d32_gen``), untimed (MDETR's cases time the route), in blocks of one
+# warpgroup (64 queries): one query, 64 and 65 over MDETR's 1,220 memory
+# tokens (``MDETR_SEQ``) with its key padding; a ragged Sk (1,001: 105 keys
+# in the last tile); causal with Sq != Sk; at batch 2 a key padding that
+# masks two whole key tiles (keys 256-511, ``MASKED_TILES``) with a query
+# row whose segment id no key carries (o = 0, lse = -inf); and 32 queries
+# over two key tiles.
+MASKED_TILES = slice(256, 512)
+D32_FLASH_CASES = [
+    ("d32_sq1", 8, 8, 1, 1220, 32, False, {"segments": "key_padding", "lse": True}),
+    ("d32_sq64", 8, 8, 64, 1220, 32, False, {"segments": "key_padding"}),
+    ("d32_sq65", 8, 8, 65, 1220, 32, False, {"lse": True}),
+    ("d32_ragged_sk1001", 4, 8, 100, 1001, 32, False, {"lse": True}),
+    ("d32_causal_300x700", 4, 8, 300, 700, 32, True, {"lse": True}),
+    ("d32_masked_tiles", 2, 8, 100, 1220, 32, False, {"segments": "masked_tiles", "lse": True}),
+    ("d32_sq32_sk200", 8, 8, 32, 200, 32, False, {"lse": True}),
+]
+
+
+def d32_gen(dtype: torch.dtype) -> torch.Generator:
+    """The generator of ``D32_FLASH_CASES`` in ``dtype``, apart from the
+    earlier cases' generators."""
+    return torch.Generator(device="cuda").manual_seed(1800 if dtype == torch.bfloat16 else 1801)
+
+
 # Generators of the fp32 cases' second and third runs: fp32 is held against
 # float64 on three seeds' inputs.
 FP32_SEEDS = (2, 3)
 
 
 def check_flash_fwd_kernel(fa, dtypes=(torch.bfloat16, torch.float32), timing=True):
-    """Kernel #6 at ``FLASH_CASES``, ``CAPTION_FLASH_CASES`` and
-    ``ROUTE_FLASH_CASES`` in each dtype (the train step's shapes in bf16
-    only, the dtype it runs in); every fp32 case again on the inputs of two
-    more seeds (``FP32_SEEDS``, untimed)."""
+    """Kernel #6 at ``FLASH_CASES``, ``CAPTION_FLASH_CASES``,
+    ``ROUTE_FLASH_CASES`` and ``D32_FLASH_CASES`` in each dtype (the train
+    step's shapes in bf16 only, the dtype it runs in); every fp32 case again
+    on the inputs of two more seeds (``FP32_SEEDS``, untimed)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for dtype in dtypes:
-        runs = [("", gen, slice_gen(dtype), route_gen(dtype), timing)]
+        runs = [("", gen, slice_gen(dtype), route_gen(dtype), d32_gen(dtype), timing)]
         if dtype == torch.float32:
             runs += [(f"_seed{n}",) + tuple(torch.Generator(device="cuda").manual_seed(
-                1000 * n + i) for i in range(3)) + (False,) for n in FP32_SEEDS]
-        for tag, g0, g1, g2, timed in runs:
+                1000 * n + i) for i in (0, 1, 2, 4)) + (False,) for n in FP32_SEEDS]
+        for tag, g0, g1, g2, g3, timed in runs:
             for cases, g in ((FLASH_CASES, g0), (CAPTION_FLASH_CASES, g1),
-                             (ROUTE_FLASH_CASES, g2)):
+                             (ROUTE_FLASH_CASES, g2), (D32_FLASH_CASES, g3)):
                 for name, b, h, sq, sk, d, causal, kw in cases:
                     if name.startswith("train") and dtype != torch.bfloat16:
                         continue
                     row = flash_case(fa, name + tag, b, h, sq, sk, d, causal, dtype, g,
-                                     timing=timed, **kw)
+                                     timing=timed and cases is not D32_FLASH_CASES, **kw)
                     print("kernel_check " + json.dumps(row), flush=True)
                     rows.append(row)
                     torch.cuda.empty_cache()
@@ -1712,6 +1760,13 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
             if dbias:
                 got["ds"] = fa.flash_attention_bwd_dbias(q, k, v, do, lse, delta, bias, **kw)
                 parts += ("ds",)
+                # again into a ds filled with NaN: no element left unwritten
+                # (the ragged edges, the causal zero tiles), bitwise equal
+                again = fa._dbias_out(q, sk).fill_(math.nan)
+                fa._flash_bwd_dbias_launch(q, k, v, do, lse, delta, bias, again, sm_scale=None,
+                                           **kw)
+                relaunch["ds_same"] = torch.equal(again, got["ds"])
+                del again
             ref = fa._bwd_plain_parts(q, k, v, do, lse, delta, bias, causal, None, seg, seg,
                                       parts)
             if dtype == torch.float32:
@@ -1734,8 +1789,11 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
     ok = all(rel[n] <= bar[n] for n in rel)
     if relaunch:
         rel_dq = row_relative_error(relaunch["dq"], ref["dq"], terms["dq"])
-        extra.update(deterministic=relaunch["same"], relaunch_dq_rel_err=rel_dq)
-        ok = ok and relaunch["same"] and rel_dq <= bar["dq"]
+        same = relaunch["same"] and relaunch.get("ds_same", True)
+        extra.update(deterministic=same, relaunch_dq_rel_err=rel_dq)
+        ok = ok and same and rel_dq <= bar["dq"]
+    if dbias:
+        extra.update(dbias_route=dbias_route(dtype, d))
     if timing:
         extra.update(bwd_case_timing(fa, q, k, v, do, causal, bias))
     return dict(kernel="flash_attention_bwd", case=name, shape=[b, h, sq, sk, d], causal=causal,
@@ -1822,6 +1880,25 @@ CAPTION_BWD_CASES = [
         ("blip2_itg_32x64", 128, 12, 32, 64, 64, False, "qformer_itg"))]
 
 
+# #9's `wgmma` kernel, on a generator of its own (``dbias_gen``): causal
+# with ragged Sq and Sk (301: rows of ds 304 floats apart, the last key tile
+# 45 keys, zero tiles above the diagonal), Sq != Sk non-causal with a dense
+# (B, 1, Sq, Sk) bias, segment ids, and head widths 32 and 96 ragged.
+DBIAS_BWD_CASES = [
+    ("dbias_ragged_300x301", 2, 4, 300, 301, 64, True, {"bias_kind": "1h1k", "dbias": True}),
+    ("dbias_sq130_sk301", 2, 4, 130, 301, 64, False, {"bias_kind": "b1qk", "dbias": True}),
+    ("dbias_segment_ids", 2, 4, 200, 200, 64, True,
+     {"bias_kind": "1h1k", "segments": True, "dbias": True}),
+    ("dbias_d32_ragged", 2, 4, 300, 301, 32, True, {"bias_kind": "b1qk", "dbias": True}),
+    ("dbias_d96_ragged", 2, 4, 130, 301, 96, True, {"bias_kind": "1h1k", "dbias": True}),
+]
+
+
+def dbias_gen(dtype: torch.dtype) -> torch.Generator:
+    """The generator of ``DBIAS_BWD_CASES`` in ``dtype``."""
+    return torch.Generator(device="cuda").manual_seed(1900 if dtype == torch.bfloat16 else 1901)
+
+
 # The one-pass kernel at head width 96, on a generator of its own
 # (``d96_gen``): the lse cotangent through ``flash_attention_lse`` over a
 # ragged last query tile and key block, and causal with Sq < Sk (blocks
@@ -1839,18 +1916,20 @@ def d96_gen(dtype: torch.dtype) -> torch.Generator:
 
 
 def check_bwd_kernels(fa, dtypes=(torch.bfloat16, torch.float32)):
-    """The backward at ``BWD_CASES``, ``CAPTION_BWD_CASES`` and
-    ``D96_BWD_CASES`` in each dtype; every fp32 case again on the inputs of
-    two more seeds (``FP32_SEEDS``, untimed)."""
+    """The backward at ``BWD_CASES``, ``CAPTION_BWD_CASES``,
+    ``D96_BWD_CASES`` and ``DBIAS_BWD_CASES`` in each dtype; every fp32 case
+    again on the inputs of two more seeds (``FP32_SEEDS``, untimed)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = []
     for dtype in dtypes:
-        runs = [("", gen, slice_gen(dtype), d96_gen(dtype), dtype == torch.bfloat16)]
+        runs = [("", gen, slice_gen(dtype), d96_gen(dtype), dbias_gen(dtype),
+                 dtype == torch.bfloat16)]
         if dtype == torch.float32:
             runs += [(f"_seed{n}",) + tuple(torch.Generator(device="cuda").manual_seed(
-                1000 * n + 7 + i) for i in range(3)) + (False,) for n in FP32_SEEDS]
-        for tag, g0, g1, g2, timed in runs:
-            for case_list, g in ((BWD_CASES, g0), (CAPTION_BWD_CASES, g1), (D96_BWD_CASES, g2)):
+                1000 * n + 7 + i) for i in range(4)) + (False,) for n in FP32_SEEDS]
+        for tag, g0, g1, g2, g3, timed in runs:
+            for case_list, g in ((BWD_CASES, g0), (CAPTION_BWD_CASES, g1), (D96_BWD_CASES, g2),
+                                 (DBIAS_BWD_CASES, g3)):
                 for name, b, h, sq, sk, d, causal, kw in case_list:
                     kw = dict(kw)
                     kw["timing"] = kw.pop("timing", False) and timed
@@ -2098,6 +2177,16 @@ PLANTED_FAULTS = {
     "fwd: the bias's head stride ignored": (
         "flash_attention_fwd.cu", "void bias_tile(float (&bv)[64]",
         "b * a.bs[0] + h * a.bs[1]", "b * a.bs[0] + 0 * a.bs[1]"),
+    "fwd: a segment id off by one key at D = 32": (
+        "flash_attention_fwd.cu", "void mask_tile_ids(float (&s)[64]",
+        "const int id = c ? kid.y : kid.x;", "const int id = c ? kid.x : kid.y;"),
+    "dbias: the ragged last key tile not stored": (
+        "flash_attention_bwd.cu", "void dbias_tile(const DbParams& p",
+        "  if (issuer) {\n    wg::tma_store_3d(",
+        "  if (issuer && k0 + kDbKeys <= a.Sk) {\n    wg::tma_store_3d("),
+    "dbias: a causal zero tile not written": (
+        "flash_attention_bwd.cu", "flash_bwd_dbias_kernel(const __grid_constant__",
+        "for (int t = n; t < nk; ++t) {", "for (int t = n + 1; t < nk; ++t) {"),
     "fwd: the last 32 columns of D = 96 unwritten": (
         "flash_attention_fwd.cu", "flash_fwd_wgmma_kernel(const __grid_constant__",
         "for (int jc = 0; jc < D / 8; ++jc)", "for (int jc = 0; jc < (D == 96 ? 8 : D / 8); ++jc)"),
@@ -2379,29 +2468,65 @@ def ab_side() -> None:
     print("ab " + json.dumps(out), flush=True)
 
 
+def sass_by_kernel(lib: str) -> dict:
+    """Each flash attention kernel's SASS in the library at ``lib`` (from
+    ``cuobjdump``), by its mangled name with the anonymous namespace's
+    per-build hashes taken out."""
+    import re
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for body in re.split(r"\n\s+Function : ", sass)[1:]:
+        name, code = body.split("\n", 1)
+        if "flash_" not in name:
+            continue
+        name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?_cu)_[0-9a-f]{8}", r"\1", name.strip())
+        out[name] = code
+    return out
+
+
+def build_trees(parent: str) -> dict:
+    """The kernels of another tree of the repo (PARENT) and of this
+    checkout, built in parallel, and their flash attention kernels that both
+    trees hold compared by their SASS (an ``ab sass`` line). Returns each
+    tree's root, by "parent" and "change"."""
+    trees = {"parent": Path(parent).resolve(), "change": Path(__file__).resolve().parent}
+    t0 = time.perf_counter()
+    procs = {n: subprocess.Popen([sys.executable, "-c", f"import sys; sys.path.insert(0, "
+                                  f"{str(root)!r}); from multimodal_tpu_torch.ops import _build; "
+                                  "print(_build.build())"],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for n, root in trees.items()}
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"--ab: the {name} tree's kernels did not build\n{log[-3000:]}")
+        libs[name] = log.strip().splitlines()[-1]
+    print(f"ab: built {len(trees)} trees in {time.perf_counter() - t0:.1f} s", flush=True)
+    sass = {n: sass_by_kernel(lib) for n, lib in libs.items()}
+    both = sorted(set(sass["parent"]) & set(sass["change"]))
+    print("ab sass: " + json.dumps({
+        "same": [k for k in both if sass["parent"][k] == sass["change"][k]],
+        "differ": [k for k in both if sass["parent"][k] != sass["change"][k]],
+        "parent_only": sorted(set(sass["parent"]) - set(both)),
+        "change_only": sorted(set(sass["change"]) - set(both))}), flush=True)
+    return trees
+
+
 def ab(parent: str) -> None:
     """--ab PARENT: #1-#6, #10, the flash backward and the LM serving tick of
     another tree of the repo (PARENT: the parent commit, unpacked with git
     archive) and of this checkout, each side a process of its own, in turns: parent, checkout,
-    checkout, parent, twice. The trees' kernels build in parallel first."""
-    from pathlib import Path
-
-    trees = {"parent": Path(parent).resolve(), "change": Path(__file__).resolve().parent}
+    checkout, parent, twice, after ``build_trees``."""
+    trees = build_trees(parent)
 
     def run(name, code):
         return [sys.executable, "-c", f"import sys; sys.path.insert(0, {str(trees[name])!r}); "
                 + code]
 
-    t0 = time.perf_counter()
-    procs = {n: subprocess.Popen(run(n, "from multimodal_tpu_torch.ops import _build; "
-                                        "_build.build()"),
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for n in trees}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            fail(f"--ab: the {name} tree's kernels did not build\n{log[-3000:]}")
-    print(f"ab: built {len(trees)} trees in {time.perf_counter() - t0:.1f} s", flush=True)
     results = {n: [] for n in trees}
     me = str(Path(__file__).resolve())
     for name in ("parent", "change", "change", "parent") * 2:
@@ -2753,8 +2878,9 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in name:
         return "flash_attention"
-    if "flash_bwd" in name:  # #9 is the dq body's kDbias = true instance
-        return "flash_attention_bwd_dbias" if "true" in name else "flash_attention_bwd"
+    if "flash_bwd" in name:  # #9: its `wgmma` kernel, the dq bodies' kDbias = true instances
+        return ("flash_attention_bwd_dbias" if "dbias" in name or "true" in name
+                else "flash_attention_bwd")
     if "quantized_cache_attention" in name:
         return "quantized_cache_attention"
     if "qkv_attention_bwd" in name:
@@ -5292,7 +5418,7 @@ def mdetr_key_mask(b: int, sk: int, gen) -> torch.Tensor:
 
 
 # Slice 10's kernel cases, on a generator of their own (``slice10_gen``):
-# #6 at head width 32 (the `mma.sync` kernel) at MDETR's encoder self-
+# #6 at head width 32 (the `wgmma` kernel) at MDETR's encoder self-
 # attention (1,220 tokens, key padding as segment ids), decoder self-
 # attention (100 queries) and cross-attention (100 queries over the 1,220
 # tokens, key padding); #1 at MUGEN's text tower at evaluation (16 x 32) and
@@ -5890,7 +6016,7 @@ def main() -> None:
                                              "ms", "stage_ms", "device_ms", "library_device_ms",
                                              "plain_ms", "library_ms", "staged_ms", "tflops",
                                              "bound_ms", "bound_by", "deterministic", "bar",
-                                             "plain_rel_err")
+                                             "plain_rel_err", "route")
                            if k in c}
                           for c in mine]
         kernels.append(entry)

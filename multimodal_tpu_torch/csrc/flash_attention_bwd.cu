@@ -5,7 +5,7 @@
 // kernel bodies: `_bwd_dq_kernel` (#7, its pallas_call at :625) and
 // `_bwd_dkv_kernel` (#8, :650), both here flash_bwd_wgmma_kernel<D> in bf16
 // at head widths 64 and 96, and `_bwd_dbias_kernel` (#9, :679, here
-// flash_bwd_dq_mma_kernel<..., kDbias = true>).
+// flash_bwd_dbias_kernel<D, BIAS> in bf16 at head widths 32, 64 and 96).
 //
 // What they compute, per batch b and head h, for query row i (Sq rows) and
 // key j (Sk keys), with the forward's scores and visibility rules:
@@ -94,6 +94,34 @@
 // 64 + 32 split by a branch made ptxas serialize the products (C7519,
 // C7520) and ran 12% slower (H100 80GB HBM3, 700.00 W; PERF.md).
 //
+// #9 in bf16 at head width 32, 64 or 96 (flash_bwd_dbias_kernel<D, BIAS>):
+// bound by bytes, the fp32 (B, H, Sq, Sk) ds it writes (25.8 GB at (8, 12,
+// 8192, 64) causal, 7.7 ms at 3.35 TB/s, against 0.83 ms of products and
+// about 0.85 ms of `ex2`), so its design keeps the store stream full. One
+// block of two warpgroups per (128-query tile, head, batch), 64 query rows
+// a warpgroup, walks the key tiles (64 keys) that any of its rows sees:
+// thread 0 loads Q and dO once by TMA and K and V through a ring of four
+// stages (three at D = 96), refilled by the last of the eight warps done
+// with a stage (as the forward's). Per tile a warpgroup issues S = Q K^T
+// and dP = dO V^T (`wgmma` m64n64k16, D / 16 k-steps each, fp32), forms
+// ds = p (dp - delta), p = exp2(s2 - lse), in registers (masks only on the
+// tiles that cross the diagonal or carry segment ids; the bias read through
+// its strides before the products), writes it into one of its two staging
+// buffers in the 128-byte swizzle of 64 x 32 fp32 boxes, and two TMA stores
+// (cp.async.bulk.tensor, a bulk group a tile) stream it out while the next
+// tile's products run; a buffer is written again once its stores have read
+// it (wait_group.read). The tiles wholly above the causal diagonal load and
+// multiply nothing: each warpgroup stores them from one zeroed box, so no
+// separate fill writes the bytes twice. ds's rows are padded to a multiple
+// of 4 floats (TMA's 16-byte strides; the wrapper returns the [..., :Sk]
+// view), and the store's map clips the ragged edges, so padded keys and
+// rows need no mask. 110-147 registers, no spills, one block an SM (168 KB
+// of shared memory at D = 64). At (8, 12, 8192, 64) causal with an ALiBi
+// (1, H, 1, S) bias it takes 9.99 ms against the 7.815 ms bound (78%;
+// the `mma.sync` tiles it replaced took 22.44) and the library's 74.99 (SDPA's
+// memory-efficient backward with a differentiable mask; H100 80GB HBM3,
+// 700.00 W; PERF.md).
+//
 // Other routes, chosen by type and head width, never after a failure:
 // - bf16 at head width 32 or 128: `mma.sync` m16n8k16, fragments by
 //   `ldmatrix` (at 128 the dk and dv accumulators alone would take 128
@@ -105,9 +133,9 @@
 //   (two passes of 32 queries) from the first that can see its keys, with
 //   the transposed products s^T = k q^T and dp^T = v do^T, so that p^T and
 //   ds^T are A fragments in registers.
-// - #9 at every bf16 head width 32, 64, 128: #7's `mma.sync` block at a
-//   single key tile: grid x enumerates (query tile, key tile); each writes
-//   its ds tile in fp32, or zeros where the causal skip applies.
+// - #9 in bf16 at head width 128: #7's `mma.sync` block at a single key
+//   tile: grid x enumerates (query tile, key tile); each writes its ds tile
+//   in fp32, or zeros where the causal skip applies.
 // - fp32, and bf16 at other head widths: the FP32 pipes. #7 / #9 as a block
 //   of 8 warps owning 32 query rows (4 a warp) over 32-key tiles (a lane
 //   owns a key for the scores, 32-column slices of dq for ds . k, with ds
@@ -209,6 +237,13 @@ constexpr int kBox = 64 * 64 * 2;  // a 64 x 64 bf16 box (128-byte rows); a 64 x
 // 32-column chunks of 64-byte rows in the 64-byte swizzle (as the forward's).
 template <int D>
 struct WgShape;
+template <>
+struct WgShape<32> {  // #9's kernel only
+  static constexpr int kCols = 32;
+  static constexpr CUtensorMapSwizzle kMapSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
+  static constexpr int kDq = 16;
+  static constexpr int kStages = 3;
+};
 template <>
 struct WgShape<64> {
   static constexpr int kCols = 64;
@@ -764,8 +799,304 @@ cudaError_t launch_wgmma(const Args& a, void* dq, const long long* dqs, void* ws
 }
 
 // ---------------------------------------------------------------------------
+// #9 in bf16 at head width 32, 64 or 96: `wgmma` + TMA stores.
+// ---------------------------------------------------------------------------
+
+constexpr int kDbKeys = 64;   // keys a tile holds
+constexpr int kDbRows = 128;  // query rows a block owns: 64 a warpgroup
+constexpr int kDbOutBox = 64 * 32 * 4;  // a 64-row x 32-key fp32 box of ds
+
+// Shared memory, from a 1024-byte aligned base: Q's and dO's 128 rows, the
+// ring of K and V tiles (64 keys each), each warpgroup's two staging
+// buffers of ds (two boxes each), a zero box, the barriers and the ring's
+// counts of warps done with a stage. Tiles in head width D's chunk layout
+// (Wg<D>: 32-column chunks of 64-byte rows in the 64-byte swizzle at D = 32
+// and 96, one 128-byte chunk at 64).
+template <int D>
+struct Db {
+  static constexpr int kStages = D == 96 ? 3 : 4;
+  static constexpr int kUnit = Wg<D>::kUnit;  // 64 rows of a chunk
+  static constexpr int kQTile = 2 * Wg<D>::kChunks * kUnit;
+  static constexpr int kKvTile = Wg<D>::kChunks * kUnit;
+  static constexpr int kStage = 2 * kKvTile;  // K's tile, then V's
+  static constexpr int kRing = 2 * kQTile;
+  static constexpr int kStaging = kRing + kStages * kStage;
+  static constexpr int kZero = kStaging + 8 * kDbOutBox;
+  static constexpr int kBars = kZero + kDbOutBox;
+  static constexpr size_t kSmem = 1024 + (size_t)kBars + (kStages + 1) * sizeof(uint64_t) +
+                                  kStages * sizeof(int);
+};
+static_assert(Db<96>::kSmem <= 232448, "a block's shared memory");
+
+struct DbParams {
+  CUtensorMap q, k, v, dout;  // (B, H, S, D) bf16, 64-row boxes of a chunk's columns
+  CUtensorMap ds;             // (B H, Sq, Sk) fp32 at row pitch ds_pitch, 64 x 32 boxes
+  Args a;
+};
+
+// K-major descriptor of k-step kk (16 columns) of the rows at `tile` of a
+// tile whose chunks hold `rows` rows.
+template <int D>
+__device__ __forceinline__ uint64_t db_desc(uint32_t tile, int rows, int kk) {
+  constexpr int per = Wg<D>::kCols / 16;
+  const uint32_t addr = tile + (kk / per) * rows * Wg<D>::kRowBytes + (kk % per) * 32;
+  if constexpr (D == 64) return wg::desc(addr, 16, 1024);
+  return desc64(addr, 16);
+}
+
+// The boxes of 64 R rows of a (B, H, S, D) tensor from row r0 into a tile.
+template <int D, int R>
+__device__ __forceinline__ void db_load(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                        int r0, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < Wg<D>::kChunks; ++c)
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      wg::tma_box_4d(dst + (R * c + j) * Wg<D>::kUnit, map, bar, c * Wg<D>::kCols, r0 + 64 * j,
+                     h, b);
+}
+
+// The copies of key tile t (K and V, 64 keys each) into its stage.
+template <int D>
+__device__ __forceinline__ void db_load_kv(const DbParams& p, uint8_t* ring, uint64_t* full,
+                                           int t, int h, int b) {
+  const int s = t % Db<D>::kStages;
+  uint8_t* dst = ring + s * Db<D>::kStage;
+  wg::bar_expect_tx(&full[s], Db<D>::kStage);
+  db_load<D, 1>(dst, &p.k, &full[s], t * kDbKeys, h, b);
+  db_load<D, 1>(dst + Db<D>::kKvTile, &p.v, &full[s], t * kDbKeys, h, b);
+}
+
+// One key tile t of a warpgroup's 64 query rows: S = Q K^T and dP = dO V^T
+// (`wgmma` m64n64k16, D / 16 k-steps each, fp32), the stage released (the
+// last of the block's eight warps refills it with tile t + kStages), then
+// ds = p (dp - delta), p = exp2(s2 - lse), in registers, into staging
+// buffer t % 2 in the 128-byte swizzle of the store's boxes, and out by
+// two TMA stores (keys and rows past Sk and Sq are clipped by the map).
+// With MASK the per-element masks (causal, segments) apply; with BIAS the
+// bias, read through its strides before the products are issued.
+template <int D, bool MASK, bool BIAS>
+__device__ __forceinline__ void dbias_tile(const DbParams& p, uint8_t* sm, uint64_t* full,
+                                           int* released, int t, int n, int h, int b, int bh,
+                                           int r0, int q_row, const int (&qid)[2],
+                                           const float (&lse)[2], const float (&delta)[2],
+                                           bool issuer) {
+  using L = Db<D>;
+  const Args& a = p.a;
+  const int lane = threadIdx.x & 31;
+  const int wgi = threadIdx.x / 128;
+  const int t4 = lane & 3;
+  const int st = t % L::kStages;
+  const int k0 = t * kDbKeys;
+  float bv[32];
+  if (BIAS) {
+    const float* base = a.bias + b * a.bs[0] + h * a.bs[1];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float* row = base + min(r0 + 8 * hh, a.Sq - 1) * a.bs[2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          bv[4 * j + 2 * hh + c] = row[min(k0 + 8 * j + 2 * t4 + c, a.Sk - 1) * a.bs[3]];
+    }
+  }
+  uint32_t seg = ~0u;  // bit 4 j + 2 hh + c: row r0 + 8 hh, key k0 + 8 j + 2 t4 + c
+  if (MASK && a.qseg) {
+    seg = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + 8 * j + 2 * t4 + c;
+        const int kid = key < a.Sk ? a.kvseg[b * a.kvseg_b + key] : 0;  // clipped anyway
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) seg |= (uint32_t)(kid == qid[hh]) << (4 * j + 2 * hh + c);
+      }
+  }
+  wg::bar_wait(&full[st], (t / L::kStages) & 1);
+  __syncwarp();  // the warp leaves the poll together: `wgmma` is .aligned
+  const uint32_t q_tile = wg::smem_u32(sm) + q_row;
+  const uint32_t do_tile = wg::smem_u32(sm + L::kQTile) + q_row;
+  const uint32_t k_tile = wg::smem_u32(sm + L::kRing + st * L::kStage);
+  const uint32_t v_tile = k_tile + L::kKvTile;
+  float s[32], dp[32];
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wg::mma_m64n64k16<wg::K, wg::K>(s, db_desc<D>(q_tile, kDbRows, kk),
+                                    db_desc<D>(k_tile, kDbKeys, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wg::mma_m64n64k16<wg::K, wg::K>(dp, db_desc<D>(do_tile, kDbRows, kk),
+                                    db_desc<D>(v_tile, kDbKeys, kk), kk);
+  wg::wgmma_commit();
+  wg::wgmma_wait<0>();
+  wg::fence_acc(s);
+  wg::fence_acc(dp);
+  if (lane == 0) {
+    __threadfence_block();
+    if (atomicAdd(&released[st], 1) == 7) {
+      released[st] = 0;
+      __threadfence_block();
+      wg::fence_async_smem();
+      if (t + L::kStages < n) db_load_kv<D>(p, sm + L::kRing, full, t + L::kStages, h, b);
+    }
+  }
+  __syncwarp();
+
+  // the last key each of the thread's two rows sees (keys past Sk are
+  // clipped by the store, not masked)
+  const int off = a.Sk - a.Sq;
+  const int last[2] = {a.causal ? r0 + off : 0x7fffffff, a.causal ? r0 + 8 + off : 0x7fffffff};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int key = k0 + 8 * j + 2 * t4 + c;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int x = 4 * j + 2 * hh + c;
+        float s2 = BIAS ? fmaf(s[x], a.scale_log2, bv[x] * kLog2e) : s[x] * a.scale_log2;
+        if (MASK) s2 = (key <= last[hh]) & (((seg >> x) & 1) != 0) ? s2 : -INFINITY;
+        s[x] = mm::ex2(s2 - lse[hh]) * (dp[x] - delta[hh]);
+      }
+    }
+
+  // Staging buffer t % 2 of this warpgroup: free once the stores of tile
+  // t - 2 have read it (this thread's bulk groups but the newest).
+  uint8_t* buf = sm + L::kStaging + (4 * wgi + 2 * (t & 1)) * kDbOutBox;
+  if (issuer) wg::bulk_wait_read<1>();
+  wg::named_sync(1 + wgi, 128);
+  dq_box(s, buf, 0);
+  dq_box(s, buf + kDbOutBox, 1);
+  wg::fence_async_smem();
+  wg::named_sync(1 + wgi, 128);
+  if (issuer) {
+    wg::tma_store_3d(&p.ds, buf, k0, r0 - r0 % 64, bh);
+    wg::tma_store_3d(&p.ds, buf + kDbOutBox, k0 + 32, r0 - r0 % 64, bh);
+    wg::bulk_commit();
+  }
+}
+
+// #9: one block of two warpgroups per (128-query tile, head, batch); it
+// walks the key tiles that any of its rows sees, [0, n), then stores zeros
+// from a zeroed box over the tiles the causal mask leaves out, [n, nk).
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(256, 1)
+    flash_bwd_dbias_kernel(const __grid_constant__ DbParams p) {
+  using L = Db<D>;
+  const Args& a = p.a;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                           ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* q_bar = full + L::kStages;
+  int* released = reinterpret_cast<int*>(q_bar + 1);
+
+  const int q0 = blockIdx.x * kDbRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int bh = b * a.H + h;
+  const int nk = (a.Sk + kDbKeys - 1) / kDbKeys;
+  const int n = key_tiles(a, q0, kDbRows, kDbKeys);
+
+  float4* zero = reinterpret_cast<float4*>(sm + L::kZero);
+  for (int x = threadIdx.x; x < kDbOutBox / 16; x += 256) zero[x] = make_float4(0.f, 0.f, 0.f, 0.f);
+  wg::fence_async_smem();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      wg::bar_init(&full[s], 1);
+      released[s] = 0;
+    }
+    wg::bar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && n > 0) {
+    wg::bar_expect_tx(q_bar, 2 * L::kQTile);
+    db_load<D, 2>(sm, &p.q, q_bar, q0, h, b);
+    db_load<D, 2>(sm + L::kQTile, &p.dout, q_bar, q0, h, b);
+    for (int t = 0; t < L::kStages && t < n; ++t) db_load_kv<D>(p, sm + L::kRing, full, t, h, b);
+  }
+
+  // Warpgroup wgi owns rows [q0 + 64 wgi, + 64); a thread rows r0 and
+  // r0 + 8, keys 8 j + 2 t4 and + 1 of a tile (s[4 j + 2 hh + c]).
+  const int lane = threadIdx.x & 31;
+  const int wgi = threadIdx.x / 128;
+  const int r0 = q0 + 64 * wgi + 16 * ((threadIdx.x / 32) % 4) + (lane >> 2);
+  const bool issuer = threadIdx.x % 128 == 0;
+  int qid[2] = {0, 0};
+  float lse[2], delta[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = r0 + 8 * hh;
+    if (a.qseg && i < a.Sq) qid[hh] = a.qseg[b * a.qseg_b + i];
+    lse[hh] = row_lse(a, bh, i);
+    delta[hh] = row_delta(a, bh, i);
+  }
+  // Tiles [0, n_whole) need no per-element mask: every row of the
+  // warpgroup sees each of their keys below Sk.
+  int n_whole = a.qseg ? 0 : n;
+  if (a.causal) {
+    const int first = q0 + 64 * wgi + a.Sk - a.Sq;  // the warpgroup's first row's last key
+    n_whole = min(n_whole, first + 1 > 0 ? (first + 1) / kDbKeys : 0);
+  }
+  if (n > 0) {
+    wg::bar_wait(q_bar, 0);
+    const int q_row = wgi * 64 * Wg<D>::kRowBytes;
+    for (int t = 0; t < n_whole; ++t)
+      dbias_tile<D, false, BIAS>(p, sm, full, released, t, n, h, b, bh, r0, q_row, qid, lse,
+                                 delta, issuer);
+    for (int t = n_whole; t < n; ++t)
+      dbias_tile<D, true, BIAS>(p, sm, full, released, t, n, h, b, bh, r0, q_row, qid, lse,
+                                delta, issuer);
+  }
+  // the tiles above the causal diagonal: zeros
+  if (issuer) {
+    for (int t = n; t < nk; ++t) {
+      wg::tma_store_3d(&p.ds, zero, t * kDbKeys, q0 + 64 * wgi, bh);
+      wg::tma_store_3d(&p.ds, zero, t * kDbKeys + 32, q0 + 64 * wgi, bh);
+    }
+    wg::bulk_commit();
+    wg::bulk_wait_read<0>();  // the block's shared memory outlives its stores' reads
+  }
+}
+
+// The maps of q, k, v and do and of ds ((B H, Sq, Sk) fp32, rows a.o0s[2]
+// floats apart: 16-byte aligned), and #9's kernel.
+template <int D, bool BIAS>
+cudaError_t launch_dbias(const Args& a, cudaStream_t st) {
+  static const cudaError_t smem_err =
+      wg::allow_smem(flash_bwd_dbias_kernel<D, BIAS>, Db<D>::kSmem);
+  if (smem_err != cudaSuccess) return smem_err;
+  DbParams p;
+  p.a = a;
+  cudaError_t err;
+  if ((err = map_bhsd<D>(&p.q, a.q, a.B, a.H, a.Sq, a.qs)) != cudaSuccess) return err;
+  if ((err = map_bhsd<D>(&p.k, a.k, a.B, a.H, a.Sk, a.ks)) != cudaSuccess) return err;
+  if ((err = map_bhsd<D>(&p.v, a.v, a.B, a.H, a.Sk, a.vs)) != cudaSuccess) return err;
+  if ((err = map_bhsd<D>(&p.dout, a.dout, a.B, a.H, a.Sq, a.dos)) != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {(cuuint64_t)a.Sk, (cuuint64_t)a.Sq, (cuuint64_t)a.B * a.H};
+  const cuuint64_t strides[2] = {(cuuint64_t)a.o0s[2] * sizeof(float),
+                                 (cuuint64_t)a.o0s[1] * sizeof(float)};
+  const cuuint32_t box[3] = {32, 64, 1};
+  if ((err = wg::make_map_nd<3>(&p.ds, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.out0, dims, strides,
+                                box)) != cudaSuccess)
+    return err;
+  flash_bwd_dbias_kernel<D, BIAS><<<dim3((a.Sq + kDbRows - 1) / kDbRows, a.H, a.B), 256,
+                                    Db<D>::kSmem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch_dbias(const Args& a, cudaStream_t st) {
+  return a.bias ? launch_dbias<D, true>(a, st) : launch_dbias<D, false>(a, st);
+}
+
+// ---------------------------------------------------------------------------
 // `mma.sync` path: #7 and #8 in bf16 at head width 32 or 128, #9 in bf16 at
-// 32, 64 or 128.
+// 128.
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;
@@ -886,10 +1217,10 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_mma_kernel(Args a) {
   if (kDbias) {
     const int kt = blockIdx.x - qt * nk;
     if (kt >= t_end) {  // the causal skip: this tile of ds is zero
-      float* dst = static_cast<float*>(a.out0) + bh * a.Sq * (long long)a.Sk;
+      float* dst = static_cast<float*>(a.out0) + bh * a.o0s[1];
       for (int idx = threadIdx.x; idx < kBQ * kBK; idx += kWarps * 32) {
         const int i = q0 + idx / kBK, j = kt * kBK + idx % kBK;
-        if (i < a.Sq && j < a.Sk) dst[(long long)i * a.Sk + j] = 0.f;
+        if (i < a.Sq && j < a.Sk) dst[i * a.o0s[2] + j] = 0.f;
       }
       return;
     }
@@ -964,14 +1295,14 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_mma_kernel(Args a) {
       }
 
     if (kDbias) {
-      float* dst = static_cast<float*>(a.out0) + bh * a.Sq * (long long)a.Sk;
+      float* dst = static_cast<float*>(a.out0) + bh * a.o0s[1];
 #pragma unroll
       for (int nt = 0; nt < kBK / 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = rows[e >> 1];
           const int j = k0 + 8 * nt + 2 * t4 + (e & 1);
-          if (i < a.Sq && j < a.Sk) dst[(long long)i * a.Sk + j] = sc[nt][e];
+          if (i < a.Sq && j < a.Sk) dst[i * a.o0s[2] + j] = sc[nt][e];
         }
     } else {
       mma_xb<D, kBK / 8>(dq, sc, ks, lane);  // dq += bf16(ds) . k
@@ -1186,10 +1517,10 @@ __global__ void __launch_bounds__(kFWarps * 32) flash_bwd_dq_fp32_kernel(Args a,
   if (kDbias) {
     const int ktile = blockIdx.x - qt * nk;
     if (ktile >= t_end) {
-      float* dst = static_cast<float*>(a.out0) + bh * a.Sq * (long long)a.Sk;
+      float* dst = static_cast<float*>(a.out0) + bh * a.o0s[1];
       const int j = ktile * kFT + lane;
       for (int r = 0; r < kFRows; ++r)
-        if (i0 + r < a.Sq && j < a.Sk) dst[(long long)(i0 + r) * a.Sk + j] = 0.f;
+        if (i0 + r < a.Sq && j < a.Sk) dst[(i0 + r) * a.o0s[2] + j] = 0.f;
       return;
     }
     t_begin = ktile;
@@ -1261,10 +1592,10 @@ __global__ void __launch_bounds__(kFWarps * 32) flash_bwd_dq_fp32_kernel(Args a,
       ds[r] = p * (dp[r] - delta[r]);
     }
     if (kDbias) {
-      float* dst = static_cast<float*>(a.out0) + bh * a.Sq * (long long)a.Sk;
+      float* dst = static_cast<float*>(a.out0) + bh * a.o0s[1];
 #pragma unroll
       for (int r = 0; r < kFRows; ++r)
-        if (i0 + r < a.Sq && j < a.Sk) dst[(long long)(i0 + r) * a.Sk + j] = ds[r];
+        if (i0 + r < a.Sq && j < a.Sk) dst[(i0 + r) * a.o0s[2] + j] = ds[r];
     } else {
 #pragma unroll
       for (int r = 0; r < kFRows; ++r) ds[r] = round_to<T>(ds[r]);
@@ -1553,21 +1884,31 @@ int mm_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
   return (int)dispatch_fp32<__nv_bfloat16>(0, a, D, st);
 }
 
-// #9: ds, the full fp32 (B, H, Sq, Sk) bias gradient, contiguous.
+// #9: ds, the full fp32 (B, H, Sq, Sk) bias gradient, its rows ds_pitch
+// floats apart (ds_pitch >= Sk, a multiple of 4; heads and batches packed:
+// the columns past Sk are never written). bf16 at head width 32, 64 and 96
+// runs the `wgmma` kernel, 128 `mma.sync`, fp32 and other widths the FP32
+// pipes.
 int mm_flash_attention_bwd_dbias(const void* q, const void* k, const void* v, const void* dout,
-                                 void* ds, const long long* in_strides, const void* bias,
-                                 const long long* bias_strides, const void* qseg, long long qseg_b,
-                                 const void* kvseg, long long kvseg_b, const void* lse,
-                                 const void* delta, int B, int H, int Sq, int Sk, int D,
-                                 float sm_scale, int causal, int dtype, void* stream) {
-  if (!shape_ok(B, H, Sq, Sk, D, dtype, qseg, kvseg)) return (int)cudaErrorInvalidValue;
+                                 void* ds, long long ds_pitch, const long long* in_strides,
+                                 const void* bias, const long long* bias_strides,
+                                 const void* qseg, long long qseg_b, const void* kvseg,
+                                 long long kvseg_b, const void* lse, const void* delta, int B,
+                                 int H, int Sq, int Sk, int D, float sm_scale, int causal,
+                                 int dtype, void* stream) {
+  if (!shape_ok(B, H, Sq, Sk, D, dtype, qseg, kvseg) || ds_pitch < Sk || ds_pitch % 4 != 0)
+    return (int)cudaErrorInvalidValue;
   Args a = make_args(q, k, v, dout, in_strides, bias, bias_strides, qseg, qseg_b, kvseg,
                      kvseg_b, lse, delta, B, H, Sq, Sk, sm_scale, causal);
   a.out0 = ds;
+  a.o0s[0] = (long long)H * Sq * ds_pitch;
+  a.o0s[1] = (long long)Sq * ds_pitch;  // a (batch, head)'s rows
+  a.o0s[2] = ds_pitch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_fp32<float>(2, a, D, st);
-  if (D == 32) return (int)launch_mma_dq<32, true>(a, st);
-  if (D == 64) return (int)launch_mma_dq<64, true>(a, st);
+  if (D == 32) return (int)dispatch_dbias<32>(a, st);
+  if (D == 64) return (int)dispatch_dbias<64>(a, st);
+  if (D == 96) return (int)dispatch_dbias<96>(a, st);
   if (D == 128) return (int)launch_mma_dq<128, true>(a, st);
   return (int)dispatch_fp32<__nv_bfloat16>(2, a, D, st);
 }

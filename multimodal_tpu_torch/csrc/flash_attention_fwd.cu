@@ -23,7 +23,7 @@
 // S = 8192 (a train step's call, 0.834 ms), against 4 * 8 * 12 * S * 64 * 2
 // bytes of q, k, v and o (0.015 and 0.06 ms at 3.35 TB/s).
 //
-// Design, bf16 at head width 64 or 96, with or without a bias
+// Design, bf16 at head width 32, 64 or 96, with or without a bias
 // (flash_fwd_wgmma_kernel<D, BIAS, WGS>): one block of two warpgroups per
 // (128-query tile, head, batch), 64 query rows a warpgroup; up to 64
 // queries (kShortQueries: BLIP-2's 32 text queries) a block is one
@@ -72,8 +72,29 @@
 // 0.021 device ms against SDPA's 0.007-0.014; the pooler at D = 96 0.033
 // against 0.024, PERF.md).
 //
+// At head width 32 (MDETR's 8 heads of 32) a pair's products are 128 FLOPs
+// and its `ex2` one of 16 an SM a clock, so the `ex2` units, not the tensor
+// cores, are the floor (MDETR's encoder, (8, 8, 1220, 1220) with key
+// padding, 72.6 M visible pairs: 0.017 ms at 1,980 MHz, against 0.0094
+// for operations). A 32-wide row is 64 bytes, one 32-column chunk in the
+// 64-byte swizzle (as each of D = 96's three): S = Q K^T is two k-steps of m64n128k16 and O +=
+// P V eight of m64n32k16, O 16 floats a thread. Every block is one
+// warpgroup of 64 query rows with a two-stage ring: 168 registers a
+// thread, so three blocks share an SM where a block of two warpgroups
+// held it alone (the encoder 0.0829 ms against 0.0962). Segment ids are
+// compared element by element in the mask pass, the tile's 128 key ids
+// copied into the stage with K and V by one bulk copy (the wrapper pads
+// kvseg's rows to whole 128-key tiles): packing them first into
+// segment_bits' 64-bit word, as at D = 64 and 96, is a chain of 64
+// dependent ORs a tile, which here doubled the kernel's time (0.184 ms
+// against 0.088 with every bit set). MDETR's encoder 0.081-0.087 ms and
+// cross-attention 0.018-0.021 against SDPA's 0.114-0.121 and 0.024-0.025
+// (H100 80GB HBM3, 700.00 W; PERF.md). A split of the cross-attention's
+// key tiles into runs merged after (as #10 does) took it to 0.016, 2 us a
+// call, and is not kept (PERF.md section 7).
+//
 // The other routes, chosen by type and head width, never after a failure:
-// - bf16 at head width 32 or 128 (flash_fwd_mma_kernel), with or without a
+// - bf16 at head width 128 (flash_fwd_mma_kernel), with or without a
 //   bias: one block of 4 warps per (64-query tile, head, batch); each warp
 //   owns 16 query rows and keeps its q fragments, its 16 x 64 score tile and
 //   its 16 x D output accumulator in registers. The block walks 64-key tiles
@@ -133,7 +154,7 @@ __device__ __forceinline__ float bias_at(const Args& a, int b, int h, int i, int
 }
 
 // ---------------------------------------------------------------------------
-// `mma.sync` path: bf16 at head width 32 or 128.
+// `mma.sync` path: bf16 at head width 128.
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;
@@ -357,7 +378,7 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at head width 64 or 96, with or without a bias: `wgmma` + TMA.
+// bf16 at head width 32, 64 or 96, with or without a bias: `wgmma` + TMA.
 // ---------------------------------------------------------------------------
 
 constexpr int kWgKeys = 128;  // keys a tile holds
@@ -379,6 +400,13 @@ constexpr int kShortStages = 2;
 // KB hold beside Q.
 template <int D>
 struct WgShape;
+template <>
+struct WgShape<32> {
+  static constexpr int kCols = 32;
+  static constexpr int kStages = kShortStages;  // blocks of one warpgroup only
+  static constexpr uint64_t kSwizzle = 2;  // 64-byte swizzle
+  static constexpr CUtensorMapSwizzle kMapSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
+};
 template <>
 struct WgShape<64> {
   static constexpr int kCols = 64;
@@ -404,6 +432,12 @@ struct Wg : WgShape<D> {
   static constexpr int kKSteps = D / 16;               // k-steps of Q K^T
 };
 
+// A block's two warpgroups take turns to issue their products (named
+// barriers 3 and 4), so that one's softmax runs under the other's products,
+// besides each overlapping its own softmax of tile t with its product of
+// t - 1.
+constexpr bool kPingPong = true;
+
 // A block of WGS warpgroups (64 query rows each) at head width D.
 template <int D, int WGS>
 struct Blk {
@@ -411,21 +445,22 @@ struct Blk {
   static constexpr int kThreads = 128 * WGS;  // one lane issues each copy
   static constexpr int kWarps = 4 * WGS;
   static constexpr int kStages = WGS == 2 ? WgShape<D>::kStages : kShortStages;
+  // The two warpgroups take turns to issue their products (kPingPong).
+  static constexpr bool kTurns = kPingPong && WGS == 2;
   static constexpr int kQTile = WGS * Wg<D>::kChunks * Wg<D>::kBox;  // Q: kRows rows
+  // At head width 32 each stage also holds its tile's key segment ids (128
+  // int32), copied with K and V.
+  static constexpr int kSegBytes = D == 32 ? kStages * kWgKeys * 4 : 0;
   // Shared memory, from a 1024-byte aligned base: Q's tile, the stages,
-  // their `full` barriers and Q's, and a count a stage of the warps done
-  // with it.
+  // their segment ids, their `full` barriers and Q's, and a count a stage
+  // of the warps done with it.
   static constexpr size_t kSmem = 1024 + kQTile + (size_t)kStages * Wg<D>::kKvBytes +
-                                  (kStages + 1) * sizeof(uint64_t) + kStages * sizeof(int);
+                                  kSegBytes + (kStages + 1) * sizeof(uint64_t) +
+                                  kStages * sizeof(int);
 };
 static_assert(Blk<64, 2>::kSmem <= 232448 && Blk<96, 2>::kSmem <= 232448,
               "a block's shared memory");
 
-// A block's two warpgroups take turns to issue their products (named
-// barriers 3 and 4), so that one's softmax runs under the other's products,
-// besides each overlapping its own softmax of tile t with its product of
-// t - 1.
-constexpr bool kPingPong = true;
 // Blocks that a chunk of heads spans (about a wave of the card's 132 SMs at
 // a block an SM): the blocks of a few heads run together and share their K
 // and V in L2.
@@ -471,15 +506,39 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, 
 }
 
 // The copies of key tile t (K and V, 128 rows each) into its stage,
-// reported to the stage's `full` barrier.
+// reported to the stage's `full` barrier; at head width 32 with segment ids
+// also the tile's 128 key ids (rows of kvseg padded to whole tiles), after
+// the STAGES stages.
 template <int D, int STAGES>
 __device__ __forceinline__ void load_kv(const WgParams& p, uint8_t* kv, uint64_t* full, int t,
                                         int h, int b) {
   const int s = t % STAGES;
   uint8_t* dst = kv + s * Wg<D>::kKvBytes;
-  wg::bar_expect_tx(&full[s], Wg<D>::kKvBytes);
+  if constexpr (D == 32) {
+    wg::bar_expect_tx(&full[s], Wg<D>::kKvBytes + (p.a.qseg ? kWgKeys * 4 : 0));
+    if (p.a.qseg)
+      wg::bulk_copy(kv + STAGES * Wg<D>::kKvBytes + s * kWgKeys * 4,
+                    p.a.kvseg + b * p.a.kvseg_b + t * kWgKeys, kWgKeys * 4, &full[s]);
+  } else {
+    wg::bar_expect_tx(&full[s], Wg<D>::kKvBytes);
+  }
   load_tile<D, 2>(dst, &p.k, &full[s], t * kWgKeys, h, b);
   load_tile<D, 2>(dst + Wg<D>::kTile, &p.v, &full[s], t * kWgKeys, h, b);
+}
+
+// O += P V over the 128 keys of a V tile (eight k-steps, P in registers).
+template <int D>
+__device__ __forceinline__ void pv_products(float (&o)[D / 2], const uint32_t (&pa)[8][4],
+                                            uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if constexpr (D == 32)
+      wg::mma_m64n32k16_rs<wg::MN>(o, pa[kk], desc_v<D>(v_tile, kk), 1);
+    else if constexpr (D == 64)
+      wg::mma_m64n64k16_rs<wg::MN>(o, pa[kk], desc_v<D>(v_tile, kk), 1);
+    else
+      wg::mma_m64n96k16_rs<wg::MN>(o, pa[kk], desc_v<D>(v_tile, kk), 1);
+  }
 }
 
 // Which of a thread's scores of key tile k0 pair a query and a key of one
@@ -520,6 +579,36 @@ __device__ __forceinline__ void bias_tile(float (&bv)[64], const Args& a, int b,
 #pragma unroll
       for (int c = 0; c < 2; ++c)
         bv[4 * j + 2 * hh + c] = row[min(k0 + 8 * j + 2 * t4 + c, a.Sk - 1) * a.bs[3]];
+  }
+}
+
+// mask_tile at head width 32 with segment ids: each element's key id read
+// from the tile's 128 ids in shared memory (`kvs`, copied with K and V) and
+// compared with its row's, element by element. (Packing the comparisons
+// into segment_bits' 64-bit word first is a chain of 64 dependent ORs a
+// tile, which at this width held the kernel: MDETR's encoder 0.184 ms
+// against 0.088 with every bit set, PERF.md.)
+template <bool BIAS>
+__device__ __forceinline__ void mask_tile_ids(float (&s)[64], const Args& a, int r0, int k0,
+                                              int t4, const int* kvs, const int (&qid)[2],
+                                              const float (&bv)[64]) {
+  const int last[2] = {a.causal ? min(a.Sk - 1, r0 + a.Sk - a.Sq) : a.Sk - 1,
+                       a.causal ? min(a.Sk - 1, r0 + 8 + a.Sk - a.Sq) : a.Sk - 1};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int2 kid = *reinterpret_cast<const int2*>(kvs + 8 * j + 2 * t4);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int key = k0 + 8 * j + 2 * t4 + c;
+      const int id = c ? kid.y : kid.x;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int x = 4 * j + 2 * hh + c;
+        const bool vis = (key <= last[hh]) & (id == qid[hh]);
+        const float v = BIAS ? fmaf(s[x], a.scale_log2, bv[x] * kLog2e) : s[x];
+        s[x] = vis ? v : -INFINITY;
+      }
+    }
   }
 }
 
@@ -568,16 +657,18 @@ __device__ __forceinline__ void flash_tile(const WgParams& p, uint8_t* kv, uint6
                                            uint32_t (&pa)[8][4], float (&m)[2], float (&l)[2]) {
   using B = Blk<D, WGS>;
   constexpr int kStages = B::kStages;
-  constexpr bool kTurns = kPingPong && WGS == 2;
+  constexpr bool kTurns = B::kTurns;
   const Args& a = p.a;
   const int lane = threadIdx.x & 31;
   const int t4 = lane & 3;
   const int wgi = threadIdx.x / 128;
   const int st = t % kStages;
   const int pv = t == 0 ? 0 : (t - 1) % kStages;
-  const uint64_t seg = MASK && a.qseg ? segment_bits(a, b, t * kWgKeys, t4, qid) : ~0ull;
+  const int k0 = t * kWgKeys;
+  uint64_t seg = ~0ull;
+  if constexpr (D != 32) seg = MASK && a.qseg ? segment_bits(a, b, k0, t4, qid) : ~0ull;
   float bv[64];
-  if (BIAS) bias_tile(bv, a, b, h, r0, t * kWgKeys, t4);
+  if (BIAS) bias_tile(bv, a, b, h, r0, k0, t4);
   wg::bar_wait(&full[st], (t / kStages) & 1);
   __syncwarp();  // the warp leaves the poll together: `wgmma` is .aligned
   if (kTurns) wg::named_sync(3 + wgi, B::kThreads);
@@ -589,19 +680,22 @@ __device__ __forceinline__ void flash_tile(const WgParams& p, uint8_t* kv, uint6
     wg::mma_m64n128k16<wg::K, wg::K>(s, desc_k<D, B::kRows>(q_tile, q_row0, kk),
                                      desc_k<D, kWgKeys>(k_tile, 0, kk), kk);
   wg::wgmma_commit();
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    if constexpr (D == 64)
-      wg::mma_m64n64k16_rs<wg::MN>(o, pa[kk], desc_v<D>(v_tile, kk), 1);
-    else
-      wg::mma_m64n96k16_rs<wg::MN>(o, pa[kk], desc_v<D>(v_tile, kk), 1);
-  }
+  pv_products<D>(o, pa, v_tile);
   wg::wgmma_commit();
   if (kTurns) wg::named_arrive(3 + (wgi ^ 1), B::kThreads);
   wg::wgmma_wait<1>();  // S(t) is done; P(t - 1) V(t - 1) runs on
   wg::fence_acc(s);
 
-  if (MASK) mask_tile<BIAS>(s, a, r0, t * kWgKeys, t4, seg, bv);
+  if constexpr (D == 32) {
+    if (MASK && a.qseg)
+      mask_tile_ids<BIAS>(
+          s, a, r0, k0, t4,
+          reinterpret_cast<const int*>(kv + kStages * Wg<D>::kKvBytes) + st * kWgKeys, qid, bv);
+    else if (MASK)
+      mask_tile<BIAS>(s, a, r0, k0, t4, seg, bv);
+  } else if (MASK) {
+    mask_tile<BIAS>(s, a, r0, k0, t4, seg, bv);
+  }
   // Row maxima and sums in four partials a row (x = 4 j + e: partial j % 4,
   // row e / 2), so that no chain of 32 dependent instructions stalls the
   // warp.
@@ -670,13 +764,13 @@ __global__ void __launch_bounds__(Blk<D, WGS>::kThreads, WGS == 2 ? 1 : 2)
   using B = Blk<D, WGS>;
   constexpr int kStages = B::kStages;
   constexpr int kWgRows = B::kRows;
-  constexpr bool kTurns = kPingPong && WGS == 2;
+  constexpr bool kTurns = B::kTurns;
   const Args& a = p.a;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                            ~uintptr_t(1023));
   uint8_t* kv = sm + B::kQTile;
-  uint64_t* full = reinterpret_cast<uint64_t*>(kv + kStages * Wg<D>::kKvBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv + kStages * Wg<D>::kKvBytes + B::kSegBytes);
   uint64_t* q_bar = full + kStages;
   int* released = reinterpret_cast<int*>(q_bar + 1);
 
@@ -764,13 +858,7 @@ __global__ void __launch_bounds__(Blk<D, WGS>::kThreads, WGS == 2 ? 1 : 2)
   const uint32_t v_last =
       wg::smem_u32(kv + ((n - 1) % kStages) * Wg<D>::kKvBytes + Wg<D>::kTile);
   wg::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    if constexpr (D == 64)
-      wg::mma_m64n64k16_rs<wg::MN>(o, pa[kk], desc_v<D>(v_last, kk), 1);
-    else
-      wg::mma_m64n96k16_rs<wg::MN>(o, pa[kk], desc_v<D>(v_last, kk), 1);
-  }
+  pv_products<D>(o, pa, v_last);
   wg::wgmma_commit();
   if (kTurns && wgi == 0) wg::named_arrive(4, B::kThreads);
   wg::wgmma_wait<0>();
@@ -828,10 +916,17 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Blocks of one warpgroup up to kShortQueries queries, of two past them;
+// at head width 32 of one at every length: three such blocks share an SM
+// (168 registers a thread), where a block of two would hold it alone
+// (MDETR's encoder 0.0829 ms against 0.0962, PERF.md).
 template <int D, bool BIAS>
 cudaError_t dispatch_blocks(const Args& a, cudaStream_t stream) {
-  return a.Sq <= kShortQueries ? launch_wgmma<D, BIAS, 1>(a, stream)
-                               : launch_wgmma<D, BIAS, 2>(a, stream);
+  if constexpr (D == 32)
+    return launch_wgmma<D, BIAS, 1>(a, stream);
+  else
+    return a.Sq <= kShortQueries ? launch_wgmma<D, BIAS, 1>(a, stream)
+                                 : launch_wgmma<D, BIAS, 2>(a, stream);
 }
 
 template <int D>
@@ -1003,12 +1098,21 @@ cudaError_t dispatch_fp32(const Args& a, int D, cudaStream_t stream) {
 
 extern "C" {
 
+// The forward's kernels at head width D in `dtype`: 2 the `wgmma` kernel
+// (bf16 at 32, 64 and 96), 1 `mma.sync` (bf16 at 128), 0 the FP32 pipes.
+int mm_flash_attention_fwd_route(int D, int dtype) {
+  if (dtype == 1 && (D == 32 || D == 64 || D == 96)) return 2;
+  return dtype == 1 && D == 128 ? 1 : 0;
+}
+
 // q (B, H, Sq, D), k and v (B, H, Sk, D), o (B, H, Sq, D), all of `dtype`
 // (0 = fp32, 1 = bf16) with the last dimension contiguous and the other
 // three strides given in elements (16-byte aligned rows). bias: fp32 with
 // strides bs (0 on broadcast dimensions) or null. qseg (B, Sq) / kvseg
-// (B, Sk) int32 with batch strides, both or neither. lse: (B, H, Sq) fp32 or
-// null. Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// (B, Sk) int32 with batch strides, both or neither (at head width 32 in
+// bf16 kvseg 16-byte aligned, kvseg_b a multiple of 128, the ids past Sk
+// read but masked). lse: (B, H, Sq) fp32 or null. Launches on `stream`,
+// allocates nothing, returns cudaGetLastError().
 int mm_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                            const long long* q_strides, const long long* k_strides,
                            const long long* v_strides, const long long* o_strides,
@@ -1018,6 +1122,9 @@ int mm_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                            int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || D <= 0 || D % 8 != 0 || D > 128 ||
       (dtype != 0 && dtype != 1) || ((qseg == nullptr) != (kvseg == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && D == 32 && kvseg &&
+      (kvseg_b % kWgKeys != 0 || reinterpret_cast<uintptr_t>(kvseg) % 16 != 0))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -1047,7 +1154,7 @@ int mm_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == 0) return (int)dispatch_fp32<float>(a, D, st);
   if (D == 64) return (int)dispatch_wgmma<64>(a, st);
   if (D == 96) return (int)dispatch_wgmma<96>(a, st);
-  if (D == 32) return (int)launch_mma<32>(a, st);
+  if (D == 32) return (int)dispatch_wgmma<32>(a, st);
   if (D == 128) return (int)launch_mma<128>(a, st);
   return (int)dispatch_fp32<__nv_bfloat16>(a, D, st);
 }

@@ -33,7 +33,7 @@
 // descriptors: maps of strided tensors of up to five dimensions (in the
 // 64-byte swizzle too), m64n64k16, m64n96k16 and m64n32k16 products, the
 // form with A in registers, bulk copies, TMA reductions into global fp32,
-// and named barriers.
+// TMA stores, and named barriers.
 
 #pragma once
 
@@ -429,6 +429,26 @@ __device__ __forceinline__ void mma_m64n32k16(float (&d)[16], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(acc), "n"(MA), "n"(MB));
 }
 
+// d (64 x 32) (+)= A (64 x 16) . B (16 x 32), A from registers as in
+// mma_m64n64k16_rs: the output product of attention at head width 32.
+template <int MB>
+__device__ __forceinline__ void mma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(MB));
+}
+
 // One box of a 4-d map at coordinates (c0 along the contiguous axis, ...)
 // into `dst`, reported to `bar`.
 __device__ __forceinline__ void tma_box_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -471,6 +491,17 @@ __device__ __forceinline__ void tma_reduce_add_3d_part(const CUtensorMap* map, c
       "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group [%0, {%2, %3, %4}], "
       "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// Stores the box at `src` (shared memory, in the map's layout and made
+// visible by fence_async_smem) into the tensor of a 3-d map; elements past
+// the map's extents are not written. Part of the calling thread's open bulk
+// group, which bulk_commit closes.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {

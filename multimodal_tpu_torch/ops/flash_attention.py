@@ -70,12 +70,14 @@ def _kernels() -> ctypes.CDLL:
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _V, _L, _V,
             _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
         lib.mm_flash_attention_fwd.restype = _I
+        lib.mm_flash_attention_fwd_route.argtypes = [_I, _I]
+        lib.mm_flash_attention_fwd_route.restype = _I
         lib.mm_flash_attention_bwd.argtypes = [
             _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _V, _L, _V, _V,
             _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
         lib.mm_flash_attention_bwd.restype = _I
         lib.mm_flash_attention_bwd_dbias.argtypes = [
-            _V, _V, _V, _V, _V, _V, _V, _V, _V, _L, _V, _L, _V, _V,
+            _V, _V, _V, _V, _V, _L, _V, _V, _V, _V, _L, _V, _L, _V, _V,
             _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _V]
         lib.mm_flash_attention_bwd_dbias.restype = _I
         lib.mm_flash_attention_bwd_route.argtypes = [_I, _I]
@@ -164,6 +166,9 @@ def _check(q, k, v, bias, q_segment_ids, kv_segment_ids,
             raise ValueError(f"{name}: segment ids on {ids.device}, q on {q.device}")
 
 
+_WG_KEYS = 128  # keys a tile of the forward's `wgmma` kernel holds
+
+
 def flash_attention_forward(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -224,8 +229,16 @@ def _flash_fwd_launch(q, k, v, bias, out, lse, *, causal: bool, sm_scale: Option
     qseg_b = kvseg_b = 0
     if q_segment_ids is not None:
         qseg = q_segment_ids.to(torch.int32).expand(b, sq).contiguous()
-        kvseg = kv_segment_ids.to(torch.int32).expand(b, sk).contiguous()
-        qseg_b, kvseg_b = sq, sk
+        qseg_b = sq
+        if q.dtype == torch.bfloat16 and d == 32:
+            # key ids in rows of whole 128-key tiles (zeros past Sk): the
+            # `wgmma` kernel at head width 32 copies a tile's ids with its K and V
+            kvseg_b = -(-sk // _WG_KEYS) * _WG_KEYS
+            kvseg = torch.zeros((b, kvseg_b), dtype=torch.int32, device=q.device)
+            kvseg[:, :sk] = kv_segment_ids.to(torch.int32).expand(b, sk)
+        else:
+            kvseg = kv_segment_ids.to(torch.int32).expand(b, sk).contiguous()
+            kvseg_b = sk
     err = _kernels().mm_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _build.int64s(*q.stride()[:3]), _build.int64s(*k.stride()[:3]),
@@ -448,29 +461,62 @@ def flash_attention_bwd(q, k, v, do, lse, delta, bias=None, *, causal: bool = Fa
     return dq, dk, dv
 
 
+def _dbias_out(q: torch.Tensor, sk: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A ``(B, H, Sq, Sk)`` bias gradient for kernel #9 to write: the
+    ``[..., :Sk]`` view of a contiguous ``(B, H, Sq, Sk_pad)`` buffer,
+    ``Sk_pad`` Sk rounded up to a multiple of 4, so that its fp32 rows start
+    16 bytes apart (TMA's stride rule); the columns past Sk are never
+    written."""
+    b, h, sq, _ = q.shape
+    pitch = -(-sk // 4) * 4
+    return torch.empty((b, h, sq, pitch), dtype=dtype, device=q.device)[..., :sk]
+
+
+def _flash_bwd_dbias_launch(q, k, v, do, lse, delta, bias, ds, *, causal: bool,
+                            sm_scale: Optional[float], q_segment_ids=None,
+                            kv_segment_ids=None) -> None:
+    """Launches kernel #9 into ``ds``, an fp32 ``(B, H, Sq, Sk)`` view of
+    :func:`_dbias_out`'s layout (rows 16-byte aligned, heads and batches
+    packed). Counts nothing: :func:`flash_attention_bwd_dbias` is the counted
+    entry point; a check may pass a ``ds`` filled with NaN, so that an
+    element the kernel leaves unwritten shows."""
+    name = "flash_attention_bwd_dbias"
+    _check_bwd(name, q, k, v, do, lse, delta, bias, q_segment_ids, kv_segment_ids)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    pitch = ds.stride(2)
+    if ds.shape != (b, h, sq, sk) or ds.dtype != torch.float32 or ds.device != q.device \
+            or ds.stride() != (h * sq * pitch, sq * pitch, pitch, 1) or pitch % 4 \
+            or ds.data_ptr() % 16:
+        raise ValueError(f"{name}: ds must be an fp32 {(b, h, sq, sk)} view of rows 16 bytes "
+                         f"apart, heads and batches packed, on {q.device}")
+    keep, strides, rest = _bwd_args(q, k, v, do, lse, delta, bias, q_segment_ids,
+                                    kv_segment_ids)
+    err = _kernels().mm_flash_attention_bwd_dbias(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), ds.data_ptr(), pitch, strides,
+        *rest, b, h, sq, sk, d, _scale(q, sm_scale), int(causal), _DTYPE_CODES[q.dtype],
+        _build.stream_of(q),
+    )
+    _build.raise_on(err, name)
+
+
 def flash_attention_bwd_dbias(q, k, v, do, lse, delta, bias, *, causal: bool = False,
                               sm_scale: Optional[float] = None, q_segment_ids=None,
                               kv_segment_ids=None) -> torch.Tensor:
     """``ds``, the full fp32 ``(B, H, Sq, Sk)`` bias gradient before its sum
-    over the bias's broadcast dims (0 on causally skipped tiles): kernel #9
-    on CUDA, the plain version's ``ds`` on the CPU."""
+    over the bias's broadcast dims (0 on causally skipped tiles), in
+    :func:`_dbias_out`'s layout: kernel #9 on CUDA, the plain version's
+    ``ds`` on the CPU."""
+    ds = _dbias_out(q, k.shape[2], _acc(q) if q.device.type == "cpu" else torch.float32)
+    kw = dict(causal=causal, sm_scale=sm_scale, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids)
     if q.device.type == "cpu":
-        return _bwd_plain_parts(q, k, v, do, lse, delta, bias, causal, sm_scale,
-                                q_segment_ids, kv_segment_ids, ("ds",))["ds"]
+        ds.copy_(_bwd_plain_parts(q, k, v, do, lse, delta, bias, causal, sm_scale,
+                                  q_segment_ids, kv_segment_ids, ("ds",))["ds"])
+        return ds
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd_dbias: no kernel for {q.device}")
-    name = "flash_attention_bwd_dbias"
-    _check_bwd(name, q, k, v, do, lse, delta, bias, q_segment_ids, kv_segment_ids)
-    b, h, sq, d = q.shape
-    ds = torch.empty((b, h, sq, k.shape[2]), dtype=torch.float32, device=q.device)
-    keep, strides, rest = _bwd_args(q, k, v, do, lse, delta, bias, q_segment_ids,
-                                    kv_segment_ids)
-    err = _kernels().mm_flash_attention_bwd_dbias(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), ds.data_ptr(), strides, *rest,
-        b, h, sq, k.shape[2], d, _scale(q, sm_scale), int(causal), _DTYPE_CODES[q.dtype],
-        _build.stream_of(q),
-    )
-    _build.raise_on(err, name)
+    _flash_bwd_dbias_launch(q, k, v, do, lse, delta, bias, ds, **kw)
     flash_attention_bwd_dbias.launches += 1
     return ds
 

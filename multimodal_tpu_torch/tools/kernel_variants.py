@@ -27,7 +27,8 @@ is, each warpgroup overlapping only its own softmax (no ping-pong),
 of every head at a time (in place of a chunk of heads at a time), and
 two-warpgroup blocks at every query length (no one-warpgroup blocks up to
 ``kShortQueries``); CoCa's and BLIP-2's shapes (``chip_smoke``'s
-``CAPTION_FLASH_CASES``) are timed too, by the profiler's device ms. With
+``CAPTION_FLASH_CASES``) and MDETR's at head width 32 with key padding
+(``MDETR_FLASH_CASES``) are timed too, by the profiler's device ms. With
 ``--decode`` it is the int8-cache decode attention's values kernel
 (``csrc/quantized_cache_attention.cu``, reported at head width 64 and one
 row), timed as ``quantized_cache_attention`` at ``chip_smoke.py``'s four
@@ -134,6 +135,15 @@ with torch.no_grad():
                    for n in (sq, sk, sk))
         bias = cs.make_bias(kw.get("bias_kind"), b, h, sq, sk, gen)
         fn = lambda: fa.flash_attention_forward(q, k, v, bias, return_lse=kw.get("lse", False))
+        ms[name] = [cs.device_ms(fn, "flash_attention") for _ in range(3)]
+    for name, b, h, sq, sk, d, _, kw in cs.MDETR_FLASH_CASES:
+        q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(torch.bfloat16)
+                   for n in (sq, sk, sk))
+        qseg = torch.ones(b, sq, dtype=torch.int32, device="cuda")
+        kvseg = (cs.mdetr_key_mask(b, sk, gen).to(torch.int32) if kw.get("segments")
+                 else torch.ones(b, sk, dtype=torch.int32, device="cuda"))
+        fn = lambda: fa.flash_attention_forward(q, k, v, q_segment_ids=qseg,
+                                                kv_segment_ids=kvseg)
         ms[name] = [cs.device_ms(fn, "flash_attention") for _ in range(3)]
 print("variant_time " + json.dumps({"ms": ms, "device_ms": kernels, "card": cs.card_line()}))
 """

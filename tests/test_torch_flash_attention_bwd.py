@@ -207,7 +207,7 @@ def _params(src, entry):
 
 
 @pytest.mark.parametrize("entry,n", [("mm_flash_attention_bwd", 27),
-                                     ("mm_flash_attention_bwd_dbias", 23),
+                                     ("mm_flash_attention_bwd_dbias", 24),
                                      ("mm_flash_attention_bwd_route", 2)])
 def test_argtypes_match_the_entry_points(entry, n):
     """The wrapper's ctypes signature has one argument per parameter of the
@@ -231,14 +231,18 @@ def test_argtypes_match_the_entry_points(entry, n):
 def test_no_mma_sync_instance_at_head_width_64():
     """bf16 at head widths 64 and 96 takes the one-pass kernel for dq, dk
     and dv, launched at both: the `mma.sync` dq and dk/dv bodies are
-    instantiated only at 32 and 128 (and #9's dq body at 64), and the entry
-    takes the one-pass route at 64 and 96."""
+    instantiated only at 32 and 128, and the entry takes the one-pass route
+    at 64 and 96. #9 in bf16 takes its `wgmma` kernel at 32, 64 and 96 and
+    the `mma.sync` dq body only at 128."""
     text = (CSRC / "flash_attention_bwd.cu").read_text()
     assert set(re.findall(r"launch_mma_dq<(\d+), false>\(", text)) == {"32", "128"}
     assert set(re.findall(r"launch_mma_dkv<(\d+)>\(", text)) == {"32", "128"}
-    assert set(re.findall(r"launch_mma_dq<(\d+), true>\(", text)) == {"32", "64", "128"}
+    assert set(re.findall(r"launch_mma_dq<(\d+), true>\(", text)) == {"128"}
     assert set(re.findall(r"launch_wgmma<(\d+)>\(", text)) == {"64", "96"}
     assert "if (dtype == 1 && (D == 64 || D == 96)) return 2;" in text
+    entry = text[text.index("int mm_flash_attention_bwd_dbias("):]
+    assert set(re.findall(r"dispatch_dbias<(\d+)>\(a, st\)", entry)) == {"32", "64", "96"}
+    assert "if (dtype == 0) return (int)dispatch_fp32<float>(2, a, D, st);" in entry
 
 
 @pytest.mark.parametrize("variant", sorted(kernel_variants.VARIANTS))
@@ -269,6 +273,10 @@ def _chip_smoke():
      "flash_attention_bwd"),
     ("flash_bwd_dq_mma_kernel<64, true>((anonymous namespace)::Args)",
      "flash_attention_bwd_dbias"),
+    ("flash_bwd_dbias_kernel<64, true>((anonymous namespace)::DbParams)",
+     "flash_attention_bwd_dbias"),
+    ("flash_bwd_dbias_kernel<96, false>((anonymous namespace)::DbParams)",
+     "flash_attention_bwd_dbias"),
     ("flash_bwd_dq_fp32_kernel<float, 2, true>((anonymous namespace)::Args, int)",
      "flash_attention_bwd_dbias"),
 ])
@@ -276,3 +284,58 @@ def test_profile_groups_of_the_backward(name, group):
     """The LM train step's device time files every kernel of the call under
     ``flash_attention_bwd`` and #9's under its own group."""
     assert _chip_smoke().kernel_group(f"void (anonymous namespace)::{name}") == group
+
+
+@pytest.mark.parametrize("sk,pitch", [(301, 304), (300, 300), (1, 4), (8192, 8192)])
+def test_dbias_out_rows_start_16_bytes_apart(sk, pitch):
+    """#9's output: the ``[..., :Sk]`` view of a (B, H, Sq, Sk_pad) fp32
+    buffer, Sk_pad a multiple of 4 (TMA's 16-byte stride rule), heads and
+    batches packed, as ``_flash_bwd_dbias_launch`` requires."""
+    q = torch.zeros(2, 3, 5, 64, dtype=torch.bfloat16)
+    ds = tfa._dbias_out(q, sk)
+    assert ds.shape == (2, 3, 5, sk) and ds.dtype == torch.float32
+    assert ds.stride() == (3 * 5 * pitch, 5 * pitch, pitch, 1)
+
+
+def test_dbias_launch_refuses_what_the_kernel_cannot_write():
+    q, k, v, do, lse, delta = _args(sq=96, sk=130)
+    kw = dict(causal=True, sm_scale=None)
+    with pytest.raises(ValueError, match="ds must be"):  # rows 130 floats apart
+        tfa._flash_bwd_dbias_launch(q, k, v, do, lse, delta, None,
+                                    torch.zeros(2, 3, 96, 130), **kw)
+    with pytest.raises(ValueError, match="ds must be"):  # not fp32
+        tfa._flash_bwd_dbias_launch(q, k, v, do, lse, delta, None,
+                                    tfa._dbias_out(q, 130, torch.float64), **kw)
+
+
+@pytest.mark.parametrize("bias_shape", ["full", "1h1k"])
+def test_dbias_padded_view_and_zeros_match_jax(bias_shape):
+    """#9's CPU route at a ragged Sk = 301, causal with Sq = 40 (rows see
+    keys up to i + 261): ``flash_attention_bwd_dbias`` returns the padded
+    view (pitch 304), exactly 0 above the diagonal, and through
+    ``_reduce_dbias`` it matches the JAX package's ``_flash_backward(...,
+    need_dbias=True)`` (Pallas in interpret mode) for a full (B, H, Sq, Sk)
+    bias and an ALiBi-style (1, H, 1, Sk) one, fp32, to 1e-5 of the largest
+    gradient."""
+    b, h, sq, sk, d = 1, 2, 40, 301, 32
+    r = np.random.RandomState(301)
+    q, k, v = (r.randn(b, h, n, d).astype(np.float32) for n in (sq, sk, sk))
+    do = r.randn(b, h, sq, d).astype(np.float32)
+    bias = (r.randn(b, h, sq, sk) if bias_shape == "full"
+            else -0.05 * r.rand(1, h, 1, 1) * np.arange(sk)[None, None, None, :])
+    bias = bias.astype(np.float32)
+    jq, jk, jv, jdo, jb = (jnp.asarray(a) for a in (q, k, v, do, bias))
+    out, lse = jfa.flash_attention_forward(jq, jk, jv, jb, causal=True, return_lse=True)
+    want = jfa._flash_backward(jq, jk, jv, out, lse, jdo, causal=True, sm_scale=None, bias=jb,
+                               need_dbias=True)[3]
+    tq, tk, tv, tdo, tb = (torch.from_numpy(a) for a in (q, k, v, do, bias))
+    tout, tlse = tfa.flash_attention_forward(tq, tk, tv, tb, causal=True, return_lse=True)
+    ds = tfa.flash_attention_bwd_dbias(tq, tk, tv, tdo, tlse, tfa._delta(tout, tdo, None), tb,
+                                       causal=True)
+    assert ds.shape == (b, h, sq, sk) and ds.stride(2) == 304
+    above = torch.ones(sq, sk, dtype=torch.bool).triu(sk - sq + 1)
+    assert bool((ds[..., above] == 0).all()) and bool((ds[..., ~above] != 0).any())
+    got = tfa._reduce_dbias(ds, tb).numpy()
+    want = np.asarray(want)
+    assert got.shape == want.shape == bias.shape
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)

@@ -6,9 +6,10 @@ On the CPU the port's wrapper runs its plain version; the JAX package's
 tests/ops/test_flash_attention.py does). Inputs come from a numpy seed and go
 to both as the same arrays; the lse is compared in log2 space, the JAX
 kernel's ``lse[..., :Sq, 0]``. Also here: the launch helper's refusals, the
-C entry point's ctypes signature, the route that bf16 at head width 64
-takes in the source, and the names under which ``chip_smoke.py`` files the
-kernel's device time.
+C entry points' ctypes signatures, the route that each bf16 head width
+takes in the source, head width 32 with key padding over whole key tiles,
+and the names under which ``chip_smoke.py`` files the kernel's device
+time.
 """
 
 import importlib.util
@@ -138,21 +139,25 @@ def test_argtypes_match_the_entry_point():
 
 def test_bf16_head_widths_64_and_96_take_the_wgmma_kernel_with_or_without_bias():
     """The route is decided by dtype and head width, never after a failure:
-    bf16 at 64 and 96 launches the `wgmma` kernel, with or without a bias
-    (its BIAS lane), in blocks of one warpgroup up to ``kShortQueries``
-    queries and of two past them; 32 and 128 keep the `mma.sync` kernel, fp32 and
-    other widths the FP32 pipes."""
+    bf16 at 32, 64 and 96 launches the `wgmma` kernel, with or without a
+    bias (its BIAS lane), in blocks of one warpgroup up to ``kShortQueries``
+    queries and of two past them; 128 keeps the `mma.sync` kernel (its only
+    instance), fp32 and other widths the FP32 pipes."""
     text = (CSRC / "flash_attention_fwd.cu").read_text()
     entry = text[text.index("int mm_flash_attention_fwd("):]
     assert "if (dtype == 0) return (int)dispatch_fp32<float>(a, D, st);" in entry
     assert "if (D == 64) return (int)dispatch_wgmma<64>(a, st);" in entry
     assert "if (D == 96) return (int)dispatch_wgmma<96>(a, st);" in entry
-    assert set(re.findall(r"launch_mma<(\d+)>\(a, st\)", entry)) == {"32", "128"}
+    assert "if (D == 32) return (int)dispatch_wgmma<32>(a, st);" in entry
+    assert set(re.findall(r"launch_mma<(\d+)>\(a, st\)", entry)) == {"128"}
+    assert set(re.findall(r"launch_mma<(\d+)>", text)) == {"128"}
     assert entry.index("dispatch_wgmma<96>") < entry.index("dispatch_fp32<__nv_bfloat16>")
     assert ("return a.bias ? dispatch_blocks<D, true>(a, stream) : "
             "dispatch_blocks<D, false>(a, stream);") in text
     assert re.search(r"a\.Sq <= kShortQueries \? launch_wgmma<D, BIAS, 1>\(a, stream\)\s*"
                      r": launch_wgmma<D, BIAS, 2>\(a, stream\)", text)
+    assert re.search(r"if constexpr \(D == 32\)\s*return launch_wgmma<D, BIAS, 1>\(a, stream\);",
+                     text)
     assert "constexpr int kShortQueries = 64;" in text
 
 
@@ -257,3 +262,58 @@ def test_kernel_variants_apply_to_the_forward(variant):
     text = (CSRC / kernel_variants.FWD_SOURCE).read_text()
     for old, _ in kernel_variants.FWD_VARIANTS[variant]:
         assert text.count(old) == 1
+
+
+@pytest.mark.parametrize("d,dtype,route", [
+    (32, 1, "wgmma"), (64, 1, "wgmma"), (96, 1, "wgmma"), (128, 1, "mma.sync"),
+    (48, 1, "fp32 pipes"), (32, 0, "fp32 pipes"), (64, 0, "fp32 pipes")])
+def test_route_by_dtype_and_head_width(d, dtype, route):
+    """``mm_flash_attention_fwd_route`` (which ``chip_smoke`` prints beside
+    each case) as its source decides it: 2 `wgmma` for bf16 at 32, 64 and
+    96, 1 `mma.sync` for bf16 at 128, 0 the FP32 pipes."""
+    text = (CSRC / "flash_attention_fwd.cu").read_text()
+    body = text[text.index("int mm_flash_attention_fwd_route("):]
+    body = body[:body.index("\n}\n")]
+    assert "if (dtype == 1 && (D == 32 || D == 64 || D == 96)) return 2;" in body
+    assert "return dtype == 1 && D == 128 ? 1 : 0;" in body
+    got = 2 if dtype == 1 and d in (32, 64, 96) else 1 if dtype == 1 and d == 128 else 0
+    assert ("fp32 pipes", "mma.sync", "wgmma")[got] == route
+
+
+def test_argtypes_of_the_route_entry():
+    params = re.search(r"int mm_flash_attention_fwd_route\(([^)]*)\)",
+                       (CSRC / "flash_attention_fwd.cu").read_text()).group(1).split(",")
+    argtypes = re.search(r"lib\.mm_flash_attention_fwd_route\.argtypes = \[([^\]]*)\]",
+                         Path(tfa.__file__).read_text()).group(1).split(",")
+    assert len(params) == len(argtypes) == 2
+    assert all(p.strip().startswith("int ") for p in params)
+    assert all(a.strip() == "_I" for a in argtypes)
+
+
+def test_head_width_32_key_padding_over_whole_tiles_matches_jax():
+    """Head width 32 (the `wgmma` kernel's one-warpgroup route on the card)
+    at (2, 2, 40, 300, 32) fp32, MDETR-style key padding as segment ids
+    (queries 1, keys 1 where real) that masks the whole second 128-key tile
+    and batch 1's tail, and a query row whose segment id no key carries: o
+    and lse against the JAX forward in interpret mode, with this file's
+    tolerances; the row that sees no key has o = 0 and lse = -inf (the
+    port's contract, which the JAX kernel does not state: it is left out of
+    the comparison)."""
+    r = np.random.RandomState(40)
+    q = r.randn(2, 2, 40, 32).astype(np.float32)
+    k = r.randn(2, 2, 300, 32).astype(np.float32)
+    v = r.randn(2, 2, 300, 32).astype(np.float32)
+    qseg = np.ones((2, 40), dtype=np.int32)
+    qseg[0, 3] = 7
+    kvseg = np.ones((2, 300), dtype=np.int32)
+    kvseg[:, 128:256] = 0
+    kvseg[1, 280:] = 0
+    want, want_lse = _jax(q, k, v, False, qseg, kvseg, jnp.float32)
+    got, got_lse = _port(q, k, v, False, qseg, kvseg, torch.float32)
+    assert (got[0, :, 3] == 0).all() and (got_lse[0, :, 3] == -np.inf).all()
+    seen = np.ones((2, 40), dtype=bool)
+    seen[0, 3] = False
+    np.testing.assert_allclose(got.transpose(0, 2, 1, 3)[seen],
+                               want.transpose(0, 2, 1, 3)[seen], atol=ATOL_F32)
+    np.testing.assert_allclose(got_lse.transpose(0, 2, 1)[seen],
+                               want_lse.transpose(0, 2, 1)[seen], atol=LSE_ATOL, rtol=1e-6)
