@@ -218,8 +218,36 @@ in order (any failure exits non-zero):
    schedule; no kernel launches at dropout 0.1), ms a step, peak memory,
    the Hungarian matcher's host ms, a step's device time by group and the
    idle share;
-16. a ``kernels`` JSON line, the card line, and the result line
-   ``{"ok": true, "device": {...}}``.
+16. MUGEN text-to-video generation at full width (``text_video_gpt``: 128
+   BPE tokens over CLIP's 49,408 ids, d_model 768, 8 heads, 12 layers,
+   MUGEN's VQ-VAE of 2,048 codes from an (8, 8, 8) latent to 32 x 256 x
+   256; bf16 compute, random weights from a seed, ``to_logit`` random):
+   16 seeded prompts tokenized with ``clip_merges.bpe``, served through
+   ``VideoGPTServer`` on 8 slots (the start row a registered prefix), 512
+   new tokens each, half greedy and half sampled; every request must reach
+   its length and #3 must launch 12 times a prefill call and a tick
+   (asserted on the whole run and on one call of each alone); videos/s,
+   decode tokens/s, host and device ms a tick, TTFT p50; the 16 videos
+   decoded to (16, 32, 256, 256, 3), finite; ``GenerationUtil.sample`` at
+   batch 8 on the same prompts (#3 12 times a step); in fp32 on the card
+   the server's greedy tokens equal to ``GenerationUtil``'s on the first
+   16 steps; 4 served videos teacher-forced, bf16 logits against fp32 (row
+   cosine >= 0.99); a VQ-VAE round trip of 8 clips, timed, with the share
+   of codes that bf16 and fp32 agree on; and ``video_gpt`` (16 x 64 x 64
+   -> 8 x 32 x 32, d_model 576, 4 heads, 16 layers) teacher-forced at
+   batch 1, bf16 against fp32 (row cosine >= 0.99);
+17. MDETR VQA fine-tuning (``mdetr_for_vqa`` at the grounding phase's
+   widths, the six GQA heads) on seeded GQA-format batches of 4 at 800 x
+   1066 / 1066 x 800: ``finetune_vqa`` for 5 steps with EMA (the model
+   deterministic, as the JAX loss runs it, so #1, #3 and #6 launch forward
+   and #2, #4 and the flash backward backward: ``mdetr_vqa_launches``), ms
+   a step, peak memory, the EMA against its chunk formula, a step's device
+   time by group and the idle share; ``evaluate_vqa`` over 32 examples; the
+   bf16 gradients against an fp32 copy's on the card at the batch of 4
+   (cosine >= 0.99);
+18. a ``phases:`` line (each phase's wall seconds), a ``kernels`` JSON
+   line, the card line, and the result line ``{"ok": true, "device":
+   {...}}``.
 
 Phase 2 checks the MLP forward (#3) at the CLIP, LM (prefill, train step,
 decode tick), FLAVA and ALBEF (960, 3,840 and 18,464 rows) shapes, every
@@ -291,7 +319,16 @@ and cross-attention (8, 8, 100, 1220), their key padding as segment ids
 100); #1 at MUGEN's text tower (16, 32, 3 x 768) and MDETR's RoBERTa (8,
 64, 3 x 768) with their key biases; #3 with ReLU at MDETR's encoder (9,760
 rows) and decoder (800) MLPs, 256 -> 2048 -> 256, and with exact GELU at
-the text towers' 512 rows.
+the text towers' 512 rows. Slice 11's (``check_slice11_kernels``): #3 with
+quick-GELU at MUGEN text-to-video's GPT MLP (768 -> 3,072 -> 768) at a
+serving tick (9 rows), a sampler step (8) and the prefill bucket (1,024),
+and at VideoGPT's (576 -> 2,304 -> 576) teacher-forced 16,384 rows; and
+MDETR VQA fine-tuning's kernels at its batch of 4, forward and backward:
+#6 and the flash backward at head width 32 (the backward on `mma.sync`)
+at (4, 8, 1220, 1220) and (4, 8, 100, 1220) with key padding as segment
+ids and at (4, 8, 100, 100), #1 and #2 at RoBERTa's (4, 64, 3 x 768) with
+its key bias, #3 and #4 at 4,880 and 400 rows of 256 -> 2048 -> 256 ReLU
+and 256 rows of 768 -> 3,072 -> 768 exact GELU.
 The fp32 cases of #6 and of the flash backward are held against the plain
 version run in float64 on the card, to their bar or to twice the plain
 fp32 version's own distance from float64, whichever is larger, and run
@@ -1211,13 +1248,15 @@ def make_bias(kind, b, h, sq, sk, gen):
     raise ValueError(f"unknown bias kind {kind!r}")
 
 
-def _visible_pairs(bias, causal, b, sq, sk, h):
-    """(query, key) pairs a case's function needs: the causal or mask
-    pattern's open pairs over every batch row and head."""
+def _visible_pairs(bias, causal, b, sq, sk, h, seg=(None, None)):
+    """(query, key) pairs a case's function needs: the causal, segment or
+    mask pattern's open pairs over every batch row and head."""
     visible = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
     if causal:
         visible = visible.tril(sk - sq)
     visible = visible[None, None].expand(b, 1, sq, sk)
+    if seg[0] is not None:
+        visible = visible & (seg[0][:, None, :, None] == seg[1][:, None, None, :])
     if bias is not None:
         visible = visible & (bias > -1e3).expand(b, 1, sq, sk)
     return int(visible.sum().item()) * h
@@ -1668,12 +1707,18 @@ def bwd_readings(got, ref, terms):
 
 def _bwd_inputs(b, h, sq, sk, d, dtype, gen, bias_kind, segments):
     """q, k, v as #6's cases make them; do in (B, Sq, H, D) storage, as the
-    gradient of #6's output arrives."""
+    gradient of #6's output arrives; the (query, key) segment ids as #6's
+    cases make them ("key_padding": queries 1, keys by MDETR's mask)."""
     q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen).to(dtype)
                for s in (sq, sk, sk))
     do = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dtype).transpose(1, 2)
     bias = make_bias(bias_kind, b, h, sq, sk, gen)
-    seg = _segments(b, sq, gen) if segments else None
+    seg = (None, None)
+    if segments == "key_padding":
+        seg = (torch.ones(b, sq, dtype=torch.int32, device="cuda"),
+               mdetr_key_mask(b, sk, gen).to(torch.int32))
+    elif segments:
+        seg = (_segments(b, sq, gen),) * 2
     return q, k, v, do, bias, seg
 
 
@@ -1682,13 +1727,14 @@ def bwd_terms(fa, q, k, v, out, do, lse, dlse, bias, causal, seg, parts):
     terms, for ``row_relative_error``: with a_ij = p_ij (|do_i| . |v_j| +
     |do_i| . |o_i| + |dlse_i| log2(e)), the size of the terms of ds_ij = p_ij
     (do_i . v_j - delta_i), dq_i sums a_ij |k_j| scale, dk_j sums a_ij |q_i|
-    scale, dv_j sums p_ij |do_i|, and ds_ij is a_ij."""
+    scale, dv_j sums p_ij |do_i|, and ds_ij is a_ij. ``seg`` is the (query,
+    key) segment ids."""
     d = q.shape[-1]
     scale = d ** -0.5
     s2 = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (scale * fa.LOG2E)
     if bias is not None:
         s2 = s2 + fa._as_4d_bias(bias) * fa.LOG2E
-    visible = fa._visible(q.shape[2], k.shape[2], causal, seg, seg, q.device)
+    visible = fa._visible(q.shape[2], k.shape[2], causal, *seg, q.device)
     lse = torch.where(lse == -math.inf, math.inf, lse)
     p = torch.where(visible, torch.exp2(s2 - lse[..., None]), 0.0)
     del s2
@@ -1719,12 +1765,12 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
     call's (no element left unwritten, no workspace read before its
     zero-fill), dq within its bar (its sum over key blocks has no fixed
     order on the one-pass route). The row's ``route`` is the C entry's
-    (``bwd_route``). With ``timing`` (no segments, no bias gradient) the
-    call is timed beside the plain backward, the SDPA backward (dq, dk and
-    dv in one call, the bias as its mask) and the bound of
+    (``bwd_route``). With ``timing`` (no bias gradient) the call is timed
+    beside the plain backward, the SDPA backward (dq, dk and dv in one
+    call, the bias and the segments as its mask) and the bound of
     :func:`flash_bwd_timing`."""
     q, k, v, do, bias, seg = _bwd_inputs(b, h, sq, sk, d, dtype, gen, bias_kind, segments)
-    kw = dict(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    kw = dict(causal=causal, q_segment_ids=seg[0], kv_segment_ids=seg[1])
     relaunch = {}
     if lse_cot:
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1741,7 +1787,7 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
                 ref64 = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(
                     q.double(), k.double(), v.double(), out.double(), lse, do.double(),
                     causal=causal, dlse=dlse)))
-            terms = bwd_terms(fa, q, k, v, out, do, lse, dlse, None, causal, None,
+            terms = bwd_terms(fa, q, k, v, out, do, lse, dlse, None, causal, (None, None),
                               ("dq", "dk", "dv"))
     else:
         with torch.no_grad():
@@ -1767,11 +1813,10 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
                                            **kw)
                 relaunch["ds_same"] = torch.equal(again, got["ds"])
                 del again
-            ref = fa._bwd_plain_parts(q, k, v, do, lse, delta, bias, causal, None, seg, seg,
-                                      parts)
+            ref = fa._bwd_plain_parts(q, k, v, do, lse, delta, bias, causal, None, *seg, parts)
             if dtype == torch.float32:
                 ref64 = fa._bwd_plain_parts(q.double(), k.double(), v.double(), do.double(),
-                                            lse, delta, bias, causal, None, seg, seg, parts)
+                                            lse, delta, bias, causal, None, *seg, parts)
             terms = bwd_terms(fa, q, k, v, out, do, lse, None, bias, causal, seg, parts)
     torch.cuda.synchronize()
     tol = {n: ROW_RELATIVE_BAR_BWD[got[n].dtype] for n in got}
@@ -1795,7 +1840,7 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
     if dbias:
         extra.update(dbias_route=dbias_route(dtype, d))
     if timing:
-        extra.update(bwd_case_timing(fa, q, k, v, do, causal, bias))
+        extra.update(bwd_case_timing(fa, q, k, v, do, causal, bias, seg))
     return dict(kernel="flash_attention_bwd", case=name, shape=[b, h, sq, sk, d], causal=causal,
                 bias=bias_kind, segments=segments, dbias=dbias, lse_cotangent=lse_cot,
                 dtype=str(dtype).replace("torch.", ""), route=bwd_route(fa, dtype, d),
@@ -1803,28 +1848,35 @@ def flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, bias_kind=None
                 rel_err_no_terms=no_terms, **extra, ok=ok)
 
 
-def bwd_case_timing(fa, q, k, v, do, causal, bias=None):
+def bwd_case_timing(fa, q, k, v, do, causal, bias=None, seg=(None, None)):
     """``flash_attention_bwd``'s ms at these inputs beside the plain
     backward's, the SDPA backward's (dq, dk and dv in one call; a bias goes
-    in as its float mask, not differentiated) and the bound: five products
-    over the visible pairs (a mask bias's open ones), or q, k, v, do, lse,
-    delta and the bias read once and dq, dk, dv written once."""
+    in as its float mask, not differentiated, and the (query, key) segment
+    ids ``seg`` as -inf where they differ) and the bound: five products over
+    the visible pairs (a mask bias's and the segments' open ones), or q, k,
+    v, do, lse, delta, the bias and the segment ids read once and dq, dk, dv
+    written once."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    qseg, kvseg = seg
+    kw = dict(causal=causal, q_segment_ids=qseg, kv_segment_ids=kvseg)
     with torch.no_grad():
-        out, lse = fa.flash_attention_forward(q, k, v, bias, causal=causal, return_lse=True)
+        out, lse = fa.flash_attention_forward(q, k, v, bias, return_lse=True, **kw)
         delta = fa._delta(out, do, None)
-        call = lambda: fa.flash_attention_bwd(q, k, v, do, lse, delta, bias,  # noqa: E731
-                                              causal=causal)
+        call = lambda: fa.flash_attention_bwd(q, k, v, do, lse, delta, bias, **kw)  # noqa: E731
         kernel_ms = time_ms(call, 1, warmup=1)
         kernel_ms = time_ms(call, reps_for(kernel_ms), warmup=1)
         plain_ms = time_ms(lambda: fa._bwd_plain_parts(q, k, v, do, lse, delta, bias, causal,
-                                                        None, None, None, ("dq", "dk", "dv")),
+                                                        None, qseg, kvseg, ("dq", "dk", "dv")),
                            2, warmup=1)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     lib_mask = None if bias is None else bias.to(q.dtype)
+    if qseg is not None:
+        same = fa._visible(sq, sk, False, qseg, kvseg, q.device)
+        seg_mask = torch.where(same, 0.0, -math.inf).to(q.dtype)
+        lib_mask = seg_mask if lib_mask is None else lib_mask + seg_mask
     o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=lib_mask,
-                                       is_causal=causal and sq == sk and bias is None)
+                                       is_causal=causal and sq == sk and lib_mask is None)
     lib = lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)  # noqa: E731
     lib_ms = time_ms(lib, reps_for(kernel_ms))
     with torch.no_grad():
@@ -1833,10 +1885,11 @@ def bwd_case_timing(fa, q, k, v, do, causal, bias=None):
     lib_dev_ms = device_ms(lib, None)
     del o, out, lse, delta, lib_mask
     mask = bias if bias is not None and float(bias.min()) <= -1e3 else None
-    pairs = _visible_pairs(mask, causal, b, sq, sk, h)
+    pairs = _visible_pairs(mask, causal, b, sq, sk, h, seg)
     es = q.element_size()
     nbytes = (3 * q.numel() + 4 * k.numel()) * es + 2 * b * h * sq * 4
     nbytes += 0 if bias is None else bias.numel() * 4
+    nbytes += 0 if qseg is None else (qseg.numel() + kvseg.numel()) * 4
     bms, by = bound_ms(nbytes, 10.0 * d * pairs, q.dtype)
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
                 device_ms=dev_ms, library_device_ms=lib_dev_ms, kernels=names,
@@ -2021,7 +2074,8 @@ def flash_bwd_timing(fa, b=8, h=12, s=8192, d=64):
             for i in range(b):
                 ref = plain(i)
                 terms = bwd_terms(fa, q[i:i + 1], k[i:i + 1], v[i:i + 1], out[i:i + 1],
-                                  do[i:i + 1], lse[i:i + 1], None, bias, True, None, parts)
+                                  do[i:i + 1], lse[i:i + 1], None, bias, True, (None, None),
+                                  parts)
                 rel_i, no_terms_i = bwd_readings({n: got[n][i:i + 1] for n in parts}, ref, terms)
                 for n in parts:
                     rel[n] = max(rel[n], rel_i[n])
@@ -2113,6 +2167,10 @@ PLANTED_FAULTS = {
     "quantized attention: the merge drops the last run": (
         "quantized_cache_attention.cu", "quantized_cache_attention_values_kernel(QArgs a)",
         "for (int k = 0; k < a.runs; ++k) o +=", "for (int k = 0; k < a.runs - 1; ++k) o +="),
+    "bwd mma: dk and dv's in-bounds tiles skip the segment ids": (
+        "flash_attention_bwd.cu", "flash_bwd_dkv_mma_kernel(Args a)",
+        "const bool whole = !a.bias && !a.qseg && q0 + QT <= a.Sq",
+        "const bool whole = !a.bias && q0 + QT <= a.Sq"),
     "bwd: one key past the causal diagonal": (
         "flash_attention_bwd.cu", "flash_bwd_wgmma_kernel(const __grid_constant__",
         "visible(a, b, i, j)",
@@ -2246,7 +2304,8 @@ PLANTED_FAULT_CHECKS = {
     "flash_attention_bwd.cu": (
         ("flash_attention_fwd.cu", "flash_attention_bwd.cu"),
         "from multimodal_tpu_torch.ops import flash_attention as fa; "
-        "cs.check_bwd_kernels(fa, (torch.bfloat16,))"),
+        "cs.check_bwd_kernels(fa, (torch.bfloat16,)); "
+        "cs.check_vqa_flash_kernels(fa, (torch.bfloat16,), timing=False)"),
     "fused_mlp_bwd_acc.cu": (
         _MLP_SOURCES,
         "from multimodal_tpu_torch.ops import fused_encoder as fe; "
@@ -5466,6 +5525,105 @@ def check_slice10_kernels(fe, fa, dtypes=(torch.bfloat16, torch.float32), timing
     return rows
 
 
+# Slice 11's #3 cases, on a generator of their own (``slice11_gen``): MUGEN
+# text-to-video's GPT MLP (768 -> 3,072 -> 768, quick-GELU) at a serving tick
+# (8 slots and the trash row: 9 rows), a sampler step at batch 8 (8 rows)
+# and the prefill bucket (8 prompts x 128 text tokens: 1,024 rows), and
+# VideoGPT's (576 -> 2,304 -> 576) at its teacher-forced forward (two
+# 8 x 32 x 32 latents: 16,384 rows).
+T2V_TEXT = 128  # MUGEN's text length, the serving prompt
+T2V_SLOTS = 8
+SLICE11_MLP_CASES = [
+    ("mugen_t2v_tick", T2V_SLOTS + 1, 768, 3072, 768, "quick_gelu"),
+    ("mugen_t2v_step", 8, 768, 3072, 768, "quick_gelu"),
+    ("mugen_t2v_prefill", 8 * T2V_TEXT, 768, 3072, 768, "quick_gelu"),
+    ("video_gpt_forward", 2 * 8 * 32 * 32, 576, 2304, 576, "quick_gelu"),
+]
+
+
+# MDETR VQA fine-tuning's kernels, forward and backward (the model runs
+# deterministic, as JAX's loss runs it) at its batch of 4, on generators of
+# their own (``vqa_gen``): #6 and the flash backward (#7 + #8; head width
+# 32, the backward on `mma.sync`) at the encoder's self-attention and the
+# cross-attention, key padding as segment ids, and at the decoder's self-
+# attention; #1 and #2 at RoBERTa's (4, 64, 3 x 768) with its key bias; #3
+# and #4 at the encoder's (4 x 1,220 rows) and decoder's (4 x 100) MLPs, 256
+# -> 2048 -> 256 ReLU, and RoBERTa's 256 rows, 768 -> 3,072 -> 768 exact
+# GELU (all under ``_ACC_MIN_ROWS``: #4, not #5).
+VQA_BATCH = 4
+VQA_FLASH_CASES = [
+    ("vqa_encoder_1220", VQA_BATCH, 8, MDETR_SEQ, MDETR_SEQ, 32, False,
+     {"segments": "key_padding"}),
+    ("vqa_cross_100x1220", VQA_BATCH, 8, MDETR_QUERIES, MDETR_SEQ, 32, False,
+     {"segments": "key_padding"}),
+    ("vqa_decoder_self_100", VQA_BATCH, 8, MDETR_QUERIES, MDETR_QUERIES, 32, False, {}),
+]
+VQA_ATTENTION_CASES = [("vqa_roberta", VQA_BATCH, MDETR_TEXT, 768, 12, False, True)]
+VQA_MLP_CASES = [
+    ("vqa_encoder", VQA_BATCH * MDETR_SEQ, 256, 2048, 256, "relu"),
+    ("vqa_decoder", VQA_BATCH * MDETR_QUERIES, 256, 2048, 256, "relu"),
+    ("vqa_roberta", VQA_BATCH * MDETR_TEXT, 768, 3072, 768, "gelu_exact"),
+]
+
+
+def slice11_gen(dtype: torch.dtype) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(19 if dtype == torch.bfloat16 else 20)
+
+
+def vqa_gen(dtype: torch.dtype) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(21 if dtype == torch.bfloat16 else 22)
+
+
+def vqa_flash_cases(fa, dtype, gen, timing=True):
+    """#6 and the flash backward at ``VQA_FLASH_CASES`` in ``dtype`` (the
+    backward timed in bf16 only)."""
+    rows = []
+    for name, b, h, sq, sk, d, causal, kw in VQA_FLASH_CASES:
+        rows.append(flash_case(fa, name, b, h, sq, sk, d, causal, dtype, gen, timing=timing,
+                               **kw))
+        torch.cuda.empty_cache()
+        rows.append(flash_bwd_case(fa, name, b, h, sq, sk, d, causal, dtype, gen,
+                                   timing=timing and dtype == torch.bfloat16, **kw))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_vqa_flash_kernels(fa, dtypes=(torch.bfloat16, torch.float32), timing=True):
+    """``vqa_flash_cases`` in each dtype on its own generator, printed: the
+    check a planted fault in the flash kernels runs besides theirs."""
+    rows = [r for dtype in dtypes for r in vqa_flash_cases(fa, dtype, vqa_gen(dtype), timing)]
+    for row in rows:
+        print("kernel_check " + json.dumps(row), flush=True)
+    return rows
+
+
+def check_slice11_kernels(fe, fa, dtypes=(torch.bfloat16, torch.float32), timing=True):
+    """#3 at slice 11's text-to-video shapes, and MDETR VQA's kernels forward
+    and backward at its shapes, in each dtype: each against its plain
+    version (#6's and the flash backward's fp32 cases against float64),
+    relaunched into NaN-filled outputs, and timed against its library call
+    beside its bound."""
+    rows = []
+    for dtype in dtypes:
+        gen = slice11_gen(dtype)
+        for shape in SLICE11_MLP_CASES:
+            rows.append(mlp_case(fe, *shape, dtype, gen, timing=timing))
+        gen = vqa_gen(dtype)
+        rows += vqa_flash_cases(fa, dtype, gen, timing)
+        for name, b, s, d, h, causal, kb in VQA_ATTENTION_CASES:
+            rows.append(attention_case(fe, name, b, s, d, h, causal, dtype, kb, gen,
+                                       timing=timing))
+            rows.append(attention_bwd_case(fe, name, b, s, d, h, causal, dtype, kb, gen,
+                                           timing=timing))
+        for shape in VQA_MLP_CASES:
+            rows.append(mlp_case(fe, *shape, dtype, gen, timing=timing))
+            rows.append(mlp_bwd_case(fe, *shape, dtype, gen, timing=timing))
+        torch.cuda.empty_cache()
+    for row in rows:
+        print("kernel_check " + json.dumps(row), flush=True)
+    return rows
+
+
 def text_tower_launches(fe, seq: int, layers: int, dropout: bool) -> dict:
     """A BERT-style tower's launches, derived from the dispatch predicates:
     #1 a layer where ``fused_attention_supported`` holds and no dropout is
@@ -5875,7 +6033,498 @@ def _mdetr(fe, fa, qa, attn, card, root, phase_t0):
     return paths_out, result
 
 
+# --------------------------------------------------------------------------
+# phases 16 and 17: MUGEN text-to-video generation, MDETR VQA fine-tuning
+# --------------------------------------------------------------------------
+
+T2V_PROMPTS = 16
+T2V_SAMPLE_BATCH = 8
+T2V_GREEDY_STEPS = 16  # the steps the fp32 server and sampler must agree on
+T2V_TEACHER_FORCED = 4  # requests whose served tokens are teacher-forced
+T2V_ROUND_TRIP = 8  # clips through the VQ-VAE
+T2V_COSINE = 0.99
+# text_video_gpt's and video_gpt's defaults: MUGEN's model and VideoGPT at
+# their published widths (a CPU dry run shrinks them)
+T2V_WIDTHS: dict = {}
+VIDEO_GPT_WIDTHS: dict = {}
+T2V_WORDS = ("mugen jumps runs over a the gap coin collects climbs ladder kills slime monster "
+             "walks left right and then from platform gem lands falls onto rope bee snail "
+             "to up down").split()
+
+
+def t2v_prompts(rng, n: int) -> list:
+    """``n`` seeded MUGEN-style captions of 6 to 60 words (the longest run
+    past the 128-token text length and are cut)."""
+    return [" ".join(rng.choice(T2V_WORDS, rng.integers(6, 61))) for _ in range(n)]
+
+
+def randomize_to_logit(gpt, seed: int) -> None:
+    """``to_logit`` is zero-initialised (its logits tie): fan-in normal
+    weights from ``seed`` instead, so greedy decoding is unique."""
+    w = gpt.to_logit.weight
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        w.copy_((torch.randn(w.shape, generator=gen) * w.shape[1] ** -0.5).to(w.device))
+
+
+def t2v_phase(fe, fa, qa, attn, card):
+    """Phase 16: MUGEN text-to-video generation (see the module docstring)."""
+    from multimodal_tpu_torch.examples.mugen.text_video_gpt import text_video_gpt
+    from multimodal_tpu_torch.models.video_gpt.model import video_gpt
+    from multimodal_tpu_torch.serving.video_gpt_server import VideoGPTServer
+    from multimodal_tpu_torch.utils.generate import GenerationUtil
+
+    phase_t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    gpt = text_video_gpt(bpe_path=str(MERGES), dtype=torch.bfloat16, seed=0, **T2V_WIDTHS)
+    randomize_to_logit(gpt, 19)
+    dec = gpt.mm_decoder.decoder
+    layers, d_model = dec.num_layers, gpt.d_model
+    text_len, latent = gpt.in_tokenizer.context_len, math.prod(gpt.latent_shape)
+    vq = gpt.out_tokenizer
+    side = T2V_WIDTHS.get("resolution", 256)
+    video_shape = (T2V_WIDTHS.get("video_seq_len", 32), side, side)
+    mlp = int(fe.fused_mlp_available(d_model, 4 * d_model, d_model))
+    n_params = sum(p.numel() for p in gpt.parameters())
+    print(f"t2v: text_video_gpt ({text_len} BPE tokens over {gpt.num_in_tokens} ids, latent "
+          f"{gpt.latent_shape} = {latent} tokens over {gpt.num_out_tokens} codes, d_model "
+          f"{d_model}, {dec.n_head} heads, {layers} layers; MUGEN's VQ-VAE to {video_shape}), "
+          f"{n_params / 1e6:.1f}M parameters (fp32, bf16 compute), to_logit random, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    result, paths_out = {}, {}
+
+    rng = np.random.default_rng(19)
+    prompts = t2v_prompts(rng, T2V_PROMPTS)
+    t0 = time.perf_counter()
+    ids = gpt.in_tokenizer.tokenize_host(prompts)
+    result["tokenize_ms"] = (time.perf_counter() - t0) * 1e3
+    if ids.shape != (T2V_PROMPTS, text_len):
+        fail(f"t2v: tokenized prompts {ids.shape}")
+    print(f"t2v: {T2V_PROMPTS} prompts tokenized with clip_merges.bpe to {ids.shape} in "
+          f"{result['tokenize_ms']:.1f} ms", flush=True)
+
+    # 1. serving: 16 requests on 8 slots, the whole latent volume each, even
+    # ids greedy and odd ids sampled at temperature 1
+    server = VideoGPTServer(gpt, in_seq_len=text_len, n_slots=T2V_SLOTS)
+    engine = server.engine
+    server.submit(ids[0].tolist(), request_id="warm-up",
+                  max_new_tokens=min(engine.decode_steps + 1, latent))
+    server.run()
+    timing = {"prefill": 0.0, "decode": 0.0}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            timing[name] += time.perf_counter() - t
+            return out
+        return run
+
+    prefill_fn, decode_fn = engine._prefill_prefixed, engine._decode
+    engine._prefill_prefixed = timed("prefill", prefill_fn)
+    engine._decode = timed("decode", decode_fn)
+    for i, row in enumerate(ids):
+        server.submit(row.tolist(), request_id=i, temperature=0.0 if i % 2 == 0 else 1.0)
+    calls0, ticks0 = engine.prefill_calls, engine.ticks
+    torch.cuda.synchronize()
+    reset_counts(fe, fa, qa)
+    t0 = time.perf_counter()
+    outs = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = path_counts(fe, fa, qa)
+    engine._prefill_prefixed, engine._decode = prefill_fn, decode_fn
+    calls, ticks = engine.prefill_calls - calls0, engine.ticks - ticks0
+    expect(f"t2v serving ({calls} prefill calls, {ticks} decode ticks)", counts,
+           {"fused_mlp": layers * (ticks + calls) * mlp})
+    paths_out["mugen_t2v_serve"] = counts
+    by_id = {o.request_id: o for o in outs}
+    for i in range(T2V_PROMPTS):
+        o = by_id.get(i)
+        if o is None or o.finish_reason != "length" or len(o.tokens) != latent \
+                or not all(0 <= t < gpt.num_out_tokens for t in o.tokens):
+            fail(f"t2v request {i}: {None if o is None else (o.finish_reason, len(o.tokens))}")
+    ttft = sorted(o.queue_time + o.prefill_time for o in outs)
+    serving = {"requests": len(outs), "prefill_calls": calls, "decode_ticks": ticks,
+               "videos_per_s": len(outs) / wall,
+               "decode_tokens_per_s": sum(len(o.tokens) - 1 for o in outs) / timing["decode"],
+               "host_ms_per_tick": timing["decode"] / ticks * 1e3,
+               "prefill_ms_per_call": timing["prefill"] / calls * 1e3, "wall_s": wall,
+               "ttft_p50_s": ttft[len(ttft) // 2], "launches": counts}
+
+    # #3's launches in one prefill call and one decode call alone
+    dev = engine.device
+    pfx_kvs, plen = engine._prefixes["sos"]
+    n = engine.prefill_batch
+    ptok = torch.from_numpy(np.repeat(ids[:1], n, axis=0)).to(dev)
+    trash = torch.full((n,), engine.n_slots, device=dev)
+    plens = torch.full((n,), text_len, device=dev)
+    psamp = torch.tensor([[0.0, 0.0, 1.0]] * n, device=dev)
+    rows = engine.n_slots + 1
+    dtok = torch.full((rows,), gpt.num_in_tokens + 5, device=dev)
+    dpos = torch.full((rows,), engine.max_len // 2, device=dev)
+    dsamp = torch.tensor([[0.0, 0.0, 1.0]] * rows, device=dev)
+    reset_counts(fe, fa, qa)
+    engine._prefill_prefixed(pfx_kvs, plen, ptok, trash, plens, psamp)
+    torch.cuda.synchronize()
+    per_prefill = path_counts(fe, fa, qa)
+    expect("t2v: one prefill call", per_prefill, {"fused_mlp": layers * mlp})
+    reset_counts(fe, fa, qa)
+    engine._decode(dtok, dpos, torch.ones_like(dpos), dsamp, False)
+    torch.cuda.synchronize()
+    per_call = path_counts(fe, fa, qa)
+    expect(f"t2v: one decode call ({engine.decode_steps} ticks)", per_call,
+           {"fused_mlp": layers * engine.decode_steps * mlp})
+    serving["fused_mlp_per_prefill"] = per_prefill["fused_mlp"]
+    serving["fused_mlp_per_tick"] = per_call["fused_mlp"] / engine.decode_steps
+    groups = profile_step(lambda: engine._decode(dtok, dpos, torch.ones_like(dpos), dsamp, False),
+                          "t2v decode")
+    serving["decode_profile"] = groups
+    if isinstance(groups, dict):
+        serving["device_ms_per_tick"] = groups["total_device_ms"] / engine.decode_steps
+        serving["decode_idle_share"] = 1 - groups["total_device_ms"] / groups[
+            "wall_ms_under_profiler"]
+    result["serving"] = serving
+    print("t2v serving: " + json.dumps({k: v for k, v in serving.items()
+                                        if k != "decode_profile"}) + f" on {card}", flush=True)
+    print(f"t2v: #3 launches {serving['fused_mlp_per_prefill']} a prefill call and "
+          f"{serving['fused_mlp_per_tick']:g} a tick; device time of one decode call "
+          f"({engine.decode_steps} ticks x {rows} rows) by kernel group {json.dumps(groups)}",
+          flush=True)
+
+    # 2. the served tokens to pixels
+    tokens = np.asarray([by_id[i].tokens for i in range(T2V_PROMPTS)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    videos = server.decode_videos(tokens)
+    torch.cuda.synchronize()
+    result["decode_videos_s"] = time.perf_counter() - t0
+    if tuple(videos.shape) != (T2V_PROMPTS,) + video_shape + (3,) \
+            or not bool(torch.isfinite(videos).all()):
+        fail(f"t2v: decoded videos {tuple(videos.shape)}, finite "
+             f"{bool(torch.isfinite(videos).all())}")
+    print(f"t2v: decode_videos {tuple(videos.shape)} {videos.dtype}, finite, in "
+          f"{result['decode_videos_s']:.2f} s", flush=True)
+    del videos
+    torch.cuda.empty_cache()
+
+    # 3. GenerationUtil at batch 8 on the same prompts, greedy
+    x = torch.from_numpy(ids[:T2V_SAMPLE_BATCH]).cuda()
+    torch.cuda.synchronize()
+    reset_counts(fe, fa, qa)
+    t0 = time.perf_counter()
+    out = GenerationUtil(gpt).sample(x, max_seq_len=latent, top_k=1)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    counts = path_counts(fe, fa, qa)
+    expect(f"t2v GenerationUtil (prime + {latent} steps)", counts,
+           {"fused_mlp": layers * (1 + latent) * mlp})
+    paths_out["mugen_t2v_sample"] = counts
+    if tuple(out.decoded.shape) != (T2V_SAMPLE_BATCH,) + video_shape + (3,) \
+            or not bool(torch.isfinite(out.decoded).all()):
+        fail(f"t2v: sampler's videos {tuple(out.decoded.shape)}")
+    result["sampler"] = {"batch": T2V_SAMPLE_BATCH, "s": sample_s,
+                         "tokens_per_s": T2V_SAMPLE_BATCH * latent / sample_s,
+                         "ms_per_step": sample_s / latent * 1e3}
+    print(f"t2v: GenerationUtil.sample at batch {T2V_SAMPLE_BATCH}, {latent} greedy steps and "
+          f"the VQ decoding in {sample_s:.2f} s ({result['sampler']['ms_per_step']:.2f} ms a "
+          f"step, the decoding included) on {card}", flush=True)
+    del out
+    torch.cuda.empty_cache()
+
+    # 4. fp32 on the card: the server's greedy tokens against GenerationUtil's
+    ref = text_video_gpt(bpe_path=str(MERGES), dtype=torch.float32, seed=1, **T2V_WIDTHS)
+    ref.load_state_dict(gpt.state_dict())
+    steps = min(T2V_GREEDY_STEPS, latent)
+    srv32 = VideoGPTServer(ref, in_seq_len=text_len, n_slots=T2V_SLOTS, max_new_tokens=steps,
+                           cache_dtype=torch.float32)
+    for i in range(T2V_SAMPLE_BATCH):
+        srv32.submit(ids[i].tolist(), request_id=i)
+    served32 = {o.request_id: o.tokens for o in srv32.run()}
+    want32 = GenerationUtil(ref).sample(x, max_seq_len=latent, top_k=1).tokens.cpu().numpy()
+    agree = [served32[i] == want32[i, :steps].tolist() for i in range(T2V_SAMPLE_BATCH)]
+    print(f"t2v: fp32 greedy, server vs GenerationUtil over the first {steps} steps: "
+          f"{sum(agree)} of {T2V_SAMPLE_BATCH} requests equal", flush=True)
+    if not all(agree):
+        fail(f"t2v: fp32 server and sampler disagree on requests "
+             f"{[i for i, a in enumerate(agree) if not a]}")
+    result["fp32_greedy_equal"] = sum(agree)
+    del srv32
+
+    # 5. the served tokens teacher-forced: bf16 logits against fp32
+    n = T2V_TEACHER_FORCED
+    in_t = torch.from_numpy(ids[:n]).cuda()
+    out_t = torch.from_numpy(tokens[:n]).cuda()
+    num_in = gpt.num_in_tokens
+    with torch.no_grad():
+        got = [m(in_tokens=in_t, out_tokens=out_t, causal=True, right_shift=True)
+               .logits[:, text_len - 1:-1, num_in:] for m in (gpt, ref)]
+    cos = float(cosine_rows(got[0].reshape(-1, got[0].shape[-1]).cpu().numpy(),
+                            got[1].reshape(-1, got[1].shape[-1]).cpu().numpy()).min())
+    print(f"t2v: teacher-forced logits of {n} served videos, bf16 vs fp32 on the card: lowest "
+          f"row cosine {cos:.6f} (bar {T2V_COSINE})", flush=True)
+    if cos < T2V_COSINE:
+        fail(f"t2v: teacher-forced logits cosine {cos} below {T2V_COSINE}")
+    result["teacher_forced_cosine"] = cos
+    del got
+
+    # 6. a VQ-VAE round trip of 8 clips, bf16, and the codes against fp32
+    clips = torch.rand((T2V_ROUND_TRIP,) + video_shape + (3,), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(21)) - 0.5
+    reset_counts(fe, fa, qa)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes = vq.encode(clips)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rec = vq.decode(codes)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        codes32 = ref.out_tokenizer.encode(clips)
+    expect("t2v VQ-VAE round trip", path_counts(fe, fa, qa), {})
+    if tuple(codes.shape) != (T2V_ROUND_TRIP,) + gpt.latent_shape \
+            or tuple(rec.shape) != tuple(clips.shape) or not bool(torch.isfinite(rec).all()):
+        fail(f"t2v: VQ-VAE codes {tuple(codes.shape)}, reconstruction {tuple(rec.shape)}")
+    share = float((codes == codes32).float().mean())
+    result["vqvae"] = {"clips": T2V_ROUND_TRIP, "encode_s": t1 - t0, "decode_s": t2 - t1,
+                       "code_agreement_bf16_fp32": share}
+    print(f"t2v: VQ-VAE round trip of {T2V_ROUND_TRIP} clips {tuple(clips.shape)} -> "
+          f"{tuple(codes.shape)} -> {tuple(rec.shape)}: encode {t1 - t0:.3f} s, decode "
+          f"{t2 - t1:.3f} s; codes equal to fp32's: {share:.4f}", flush=True)
+    del clips, rec, codes, codes32, ref, server, gpt
+    torch.cuda.empty_cache()
+
+    # 7. VideoGPT (video -> video) teacher-forced at its published widths
+    vg = video_gpt(dtype=torch.bfloat16, seed=2, **VIDEO_GPT_WIDTHS)
+    randomize_to_logit(vg, 20)
+    vg32 = video_gpt(dtype=torch.float32, seed=3, **VIDEO_GPT_WIDTHS)
+    vg32.load_state_dict(vg.state_dict())
+    vshape = VIDEO_GPT_WIDTHS.get("input_shape", (16, 64, 64))
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    v_in, v_out = (torch.rand((1,) + tuple(vshape) + (3,), device="cuda", generator=gen) - 0.5
+                   for _ in range(2))
+    vlayers, vd = vg.mm_decoder.decoder.num_layers, vg.d_model
+    with torch.no_grad():
+        tin, tout = vg.encode(v_in, "in"), vg.encode(v_out, "out")
+        vg(in_tokens=tin[:, :64], out_tokens=tout[:, :64], causal=True, right_shift=True)
+        torch.cuda.synchronize()
+        reset_counts(fe, fa, qa)
+        t0 = time.perf_counter()
+        lb = vg(in_tokens=tin, out_tokens=tout, causal=True, right_shift=True).logits
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        counts = path_counts(fe, fa, qa)
+        lf = vg32(in_tokens=tin, out_tokens=tout, causal=True, right_shift=True).logits
+    expect("video_gpt teacher-forced forward", counts,
+           {"fused_mlp": vlayers * int(fe.fused_mlp_available(vd, 4 * vd, vd))})
+    paths_out["video_gpt_forward"] = counts
+    vcos = float(cosine_rows(lb[0].cpu().numpy(), lf[0].cpu().numpy()).min())
+    result["video_gpt"] = {"tokens": int(lb.shape[1]), "forward_s": fwd_s, "cosine": vcos,
+                           "latent_shape": list(vg.latent_shape)}
+    print(f"t2v: video_gpt ({tuple(vshape)} -> {vg.latent_shape}, d_model {vd}, "
+          f"{vg.mm_decoder.decoder.n_head} heads, {vlayers} layers) teacher-forced over "
+          f"{lb.shape[1]} tokens at batch 1 in {fwd_s * 1e3:.1f} ms; bf16 vs fp32 lowest row "
+          f"cosine {vcos:.6f} (bar {T2V_COSINE})", flush=True)
+    if vcos < T2V_COSINE:
+        fail(f"video_gpt: logits cosine {vcos} below {T2V_COSINE}")
+    del vg, vg32, lb, lf
+    torch.cuda.empty_cache()
+    result["wall_s"] = time.perf_counter() - phase_t0
+    print(f"t2v: phase wall time {result['wall_s']:.1f} s", flush=True)
+    return paths_out, result
+
+
+VQA_STEPS = 5
+VQA_EVAL = 32
+VQA_MAX_BOXES = 8
+VQA_HEADS = {"answer_type": 5, "answer_obj": 3, "answer_rel": 1594, "answer_attr": 403,
+             "answer_cat": 678, "answer_global": 111}
+
+
+def vqa_batches(rng, b: int, n: int):
+    """``n`` seeded GQA-format batches at MDETR's sizes: images of 800 x
+    1066 and 1066 x 800 padded to 1066 x 1066, questions of up to 64 tokens
+    (the first of each batch 64 long), up to 8 boxes each with its token
+    span, and the six heads' answers with their answer-type masks."""
+    from multimodal_tpu_torch.models.mdetr.model import pad_images, pad_text
+
+    for _ in range(n):
+        images, image_mask = pad_images([
+            rng.random((MDETR_SHORT, MDETR_LONG, 3) if i % 2 == 0
+                       else (MDETR_LONG, MDETR_SHORT, 3), dtype=np.float32) for i in range(b)])
+        lens = [MDETR_TEXT] + [int(rng.integers(8, MDETR_TEXT + 1)) for _ in range(b - 1)]
+        text, text_mask = pad_text([rng.integers(3, 50000, n_tok) for n_tok in lens])
+        n_box = rng.integers(1, VQA_MAX_BOXES + 1, b)
+        positive_map = np.zeros((b, VQA_MAX_BOXES, 256), np.float32)
+        for i in range(b):
+            for j in range(n_box[i]):
+                start = int(rng.integers(0, lens[i] - 2))
+                positive_map[i, j, start:start + 2] = 0.5
+        centres = rng.uniform(0.25, 0.75, (b, VQA_MAX_BOXES, 2))
+        sizes = rng.uniform(0.05, 0.4, (b, VQA_MAX_BOXES, 2))
+        answer_type = rng.integers(0, 5, b)
+        yield {"images": images, "image_mask": image_mask, "text": text,
+               "text_attention_mask": text_mask, "positive_map": positive_map,
+               "target_boxes": np.concatenate([centres, sizes], -1).astype(np.float32),
+               "valid": np.arange(VQA_MAX_BOXES)[None, :] < n_box[:, None],
+               "answers": {k: rng.integers(0, v, b) for k, v in VQA_HEADS.items()},
+               "answer_type_mask": {
+                   "answer_type": np.ones(b, bool), "answer_obj": answer_type == 0,
+                   "answer_attr": answer_type == 1, "answer_rel": answer_type == 2,
+                   "answer_cat": answer_type == 3, "answer_global": answer_type == 4}}
+
+
+def mdetr_vqa_launches(fe, attn, batch: int) -> dict:
+    """One VQA training step's launches: the forward's (``mdetr_launches``,
+    the model deterministic as the JAX loss runs it) and the backward of
+    each: #2 for every #1, the flash backward (#7 + #8 as one call) for
+    every #6, and #4 or #5 for every #3 by ``fused_mlp_bwd_acc_supported``
+    at its rows. The answer heads' and the box head's MLPs take no kernel."""
+    fwd = mdetr_launches(fe, attn)
+    out = dict(fwd)
+    out["fused_qkv_attention_bwd"] = fwd.get("fused_qkv_attention", 0)
+    out["flash_attention_bwd"] = fwd.get("flash_attention", 0)
+    text = text_tower_launches(fe, MDETR_TEXT, 12, False).get("fused_mlp", 0)
+    mlp = int(fe.fused_mlp_available(256, 2048, 256))
+    out.update(mlp_bwd_routes(fe, [(batch * MDETR_TEXT, 768, 3072, 768, text),
+                                   (batch * MDETR_SEQ, 256, 2048, 256, 6 * mlp),
+                                   (batch * MDETR_QUERIES, 256, 2048, 256, 6 * mlp)]))
+    return out
+
+
+def vqa_phase(fe, fa, qa, attn, card):
+    """Phase 17: MDETR VQA fine-tuning (see the module docstring)."""
+    from multimodal_tpu_torch.data.device_prefetch import to_device
+    from multimodal_tpu_torch.examples.mdetr import vqa_finetune as vf
+    from multimodal_tpu_torch.models.mdetr.model import mdetr_for_vqa
+    from multimodal_tpu_torch.training.trainer import Trainer
+
+    phase_t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    model = mdetr_for_vqa(dtype=torch.bfloat16, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"vqa: mdetr_for_vqa (ResNet-101, RoBERTa-base, d_model 256, 8 heads of 32, 6 + 6 "
+          f"layers, 100 + 6 queries, the six GQA heads), {n_params / 1e6:.1f}M parameters (fp32, "
+          f"bf16 compute), built in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(23)
+    t0 = time.perf_counter()
+    train = list(vqa_batches(rng, VQA_BATCH, VQA_STEPS + 3))
+    evals = list(vqa_batches(rng, VQA_BATCH, VQA_EVAL // VQA_BATCH))
+    print(f"vqa: {len(train) + len(evals)} seeded GQA-format batches of {VQA_BATCH} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    result, paths_out = {}, {}
+    cuda = torch.device("cuda")
+    loss_fn = vf.vqa_loss_fn()
+
+    # warm-up: a forward and backward, no update (cuDNN's plans)
+    model.train()
+    loss, _ = loss_fn(model, to_device(train[0], cuda))
+    loss.backward()
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    p0 = model.model.query_embed.detach().clone()
+
+    # 1. five fine-tuning steps with EMA (finetune_vqa: one chunk of 5)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fe, fa, qa)
+    t0 = time.perf_counter()
+    model, ema = vf.finetune_vqa(model, iter(train[1:1 + VQA_STEPS]), num_steps=VQA_STEPS,
+                                 trainer_kwargs={"log_interval": 1})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = path_counts(fe, fa, qa)
+    expect(f"vqa fine-tuning ({VQA_STEPS} steps)", counts,
+           {k: VQA_STEPS * v for k, v in mdetr_vqa_launches(fe, attn, VQA_BATCH).items()})
+    paths_out["mdetr_vqa_train"] = counts
+    # the EMA's chunk rule: 5 updates toward the chunk's final parameters
+    d = 0.9998 ** VQA_STEPS
+    p5 = model.model.query_embed.detach()
+    want = p0 * d + p5 * (1 - d)
+    ema_err = float((ema.model.query_embed - want).abs().max() / want.abs().max())
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    if not finite or ema_err > 1e-5:
+        fail(f"vqa: finite parameters {finite}, EMA relative error {ema_err}")
+    result.update(items_per_s=VQA_BATCH * VQA_STEPS / dt, ms_per_step=dt / VQA_STEPS * 1e3,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, ema_rel_err=ema_err)
+    print(f"vqa: fine-tuning {result['items_per_s']:.2f} questions/s, "
+          f"{result['ms_per_step']:.1f} ms a step at batch {VQA_BATCH} (the optimizer, its "
+          f"schedule and the EMA included), peak memory {result['peak_gib']:.2f} GiB, EMA "
+          f"against its chunk formula {ema_err:.2e} on {card}", flush=True)
+
+    # one more step through the trainer, profiled
+    opt, sched = vf.build_vqa_optimizer(model, num_training_steps=2, steps_per_epoch=2)
+    opt.register_step_post_hook(lambda *_: sched.step())
+    trainer = Trainer(loss_fn, opt, device=cuda, log_interval=1)
+    trainer.fit(model, iter([train[-2]]), 1)
+    breakdown = profile_step(lambda: trainer.fit(model, iter([train[-1]]), 1), "vqa train")
+    if isinstance(breakdown, dict):
+        result["idle_share"] = 1 - breakdown["total_device_ms"] / breakdown[
+            "wall_ms_under_profiler"]
+    result["profile"] = breakdown
+    losses = [r["loss"] for r in trainer.logger.records if "loss" in r]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"vqa: losses {losses}")
+    print(f"vqa: device time of one fine-tuning step by kernel group {json.dumps(breakdown)}; "
+          f"idle share {result.get('idle_share', float('nan')):.4f}; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    del opt, sched, trainer
+
+    # 2. evaluate_vqa over 32 examples
+    model.eval()
+    reset_counts(fe, fa, qa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = vf.evaluate_vqa(model, evals)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = path_counts(fe, fa, qa)
+    expect(f"vqa evaluation ({len(evals)} forwards)", counts,
+           {k: len(evals) * v for k, v in mdetr_launches(fe, attn).items()})
+    paths_out["mdetr_vqa_eval"] = counts
+    result.update(eval_images_per_s=VQA_EVAL / eval_s, accuracy=acc)
+    print(f"vqa: evaluate_vqa over {VQA_EVAL} examples in {eval_s:.2f} s "
+          f"({result['eval_images_per_s']:.2f} images/s), accuracies (random weights) "
+          f"{json.dumps({k: round(v, 4) for k, v in acc.items()})}", flush=True)
+
+    # 3. the bf16 gradients against an fp32 copy's on the card, at the
+    # fine-tuning batch (the kernels' own cases hold them to their plain
+    # versions in phase 2)
+    ref = mdetr_for_vqa(dtype=torch.float32, seed=1)
+    ref.load_state_dict(model.state_dict())
+    batch = to_device(train[1], cuda)
+    grads = []
+    for m in (model, ref):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(m, batch)
+        loss.backward()
+        grads.append(torch.cat([p.grad.double().flatten() for p in m.parameters()
+                                if p.grad is not None]))
+    gcos = float(grads[0] @ grads[1] / (grads[0].norm() * grads[1].norm()))
+    print(f"vqa: gradient cosine, bf16 vs fp32 on the card at {VQA_BATCH} questions "
+          f"{gcos:.6f} (bar {SLICE10_COSINE})", flush=True)
+    if not gcos >= SLICE10_COSINE:
+        fail(f"vqa: gradient cosine {gcos} below {SLICE10_COSINE}")
+    result["grad_cosine"] = gcos
+    del ref, grads, model, ema
+    torch.cuda.empty_cache()
+    result["wall_s"] = time.perf_counter() - phase_t0
+    print(f"vqa: phase wall time {result['wall_s']:.1f} s", flush=True)
+    return paths_out, result
+
+
 SCRIPT_T0 = time.perf_counter()
+PHASE_S = {}  # each phase's wall seconds, by its function's name
+
+
+def timed_phase(fn, *args):
+    """``fn(*args)``, its wall seconds kept in ``PHASE_S``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[fn.__name__] = round(time.perf_counter() - t0, 1)
+    return out
 
 
 def main() -> None:
@@ -5915,9 +6564,11 @@ def main() -> None:
                     or "C75" in line or line.startswith("==")):  # C75xx: wgmma serialized
                 print("  " + line.strip(), flush=True)
 
+    PHASE_S["build"] = round(build_s, 1)
+    t0 = time.perf_counter()
     cases = (check_kernels(fe) + check_mlp_kernel(fe) + check_acc_kernel(fe)
              + check_new_kernels(fa, qa, kv) + check_bwd_kernels(fa)
-             + check_slice10_kernels(fe, fa))
+             + check_slice10_kernels(fe, fa) + check_slice11_kernels(fe, fa))
     bwd_rows = flash_bwd_timing(fa)
     cases += bwd_rows
     bad = [c for c in cases if not c["ok"]]
@@ -5937,24 +6588,29 @@ def main() -> None:
     acc_rows = acc_threshold(fe)
     print(f"threshold: #5 vs #4 + library dW, (rows, 768, 3072, 768) bf16 exact GELU: "
           f"{json.dumps(acc_rows)}; _ACC_MIN_ROWS = {fe._ACC_MIN_ROWS}", flush=True)
+    PHASE_S["kernel_cases"] = round(time.perf_counter() - t0, 1)
     if "--kernels-only" in sys.argv[1:]:
         print("kernels only: every case within tolerance; no result line", flush=True)
         return
 
-    serve_launches, min_cos, device_rate, served_rate = serve(fe, card)
-    launches, grad_cos, train_rate, step_ms, peak = train(fe, card)
-    b16_launches, b16_cos, b16_step_launches, b16_step_ms = vit_b16_grad_check(fe, card)
-    vit_cos = vit_l14_check(card)
-    lm_launches, lm = lm_serve(fe, fa, qa, card)
-    train_launches, lm_tr = lm_train(fe, fa, card)
-    flava_launches, flava = flava_train(fe, fa, card)
-    real_launches, real = flava_real(fe, fa, card)
-    zs = zero_shot(fe, fa, card)
-    albef_launches_by_path, albef_result = albef(fe, fa, attn, card)
-    coca_launches_by_path, coca = coca_phase(fe, fa, qa, attn, card)
-    blip2_launches_by_path, blip2 = blip2_phase(fe, fa, qa, attn, card)
-    mugen_launches_by_path, mugen = mugen_phase(fe, fa, qa, attn, card)
-    mdetr_launches_by_path, mdetr = mdetr_phase(fe, fa, qa, attn, card)
+    serve_launches, min_cos, device_rate, served_rate = timed_phase(serve, fe, card)
+    launches, grad_cos, train_rate, step_ms, peak = timed_phase(train, fe, card)
+    b16_launches, b16_cos, b16_step_launches, b16_step_ms = timed_phase(vit_b16_grad_check, fe,
+                                                                        card)
+    vit_cos = timed_phase(vit_l14_check, card)
+    lm_launches, lm = timed_phase(lm_serve, fe, fa, qa, card)
+    train_launches, lm_tr = timed_phase(lm_train, fe, fa, card)
+    flava_launches, flava = timed_phase(flava_train, fe, fa, card)
+    real_launches, real = timed_phase(flava_real, fe, fa, card)
+    zs = timed_phase(zero_shot, fe, fa, card)
+    albef_launches_by_path, albef_result = timed_phase(albef, fe, fa, attn, card)
+    coca_launches_by_path, coca = timed_phase(coca_phase, fe, fa, qa, attn, card)
+    blip2_launches_by_path, blip2 = timed_phase(blip2_phase, fe, fa, qa, attn, card)
+    mugen_launches_by_path, mugen = timed_phase(mugen_phase, fe, fa, qa, attn, card)
+    mdetr_launches_by_path, mdetr = timed_phase(mdetr_phase, fe, fa, qa, attn, card)
+    t2v_launches_by_path, t2v = timed_phase(t2v_phase, fe, fa, qa, attn, card)
+    vqa_launches_by_path, vqa = timed_phase(vqa_phase, fe, fa, qa, attn, card)
+    print(f"phases: wall seconds {json.dumps(PHASE_S)}", flush=True)
 
     # every path's launch counts, each read just after the path ran with the
     # counts set to 0 just before it; a kernel's `launches` is its count on
@@ -5971,7 +6627,8 @@ def main() -> None:
                 for m in ("vit_b32", "rn50") for part in ("classifier", "eval")},
              **{f"zero_shot_{name}": c for name, c in zs["rn_builders"].items()},
              **albef_launches_by_path, **coca_launches_by_path, **blip2_launches_by_path,
-             **mugen_launches_by_path, **mdetr_launches_by_path}
+             **mugen_launches_by_path, **mdetr_launches_by_path, **t2v_launches_by_path,
+             **vqa_launches_by_path}
     main_path = {"fused_qkv_attention": "serve", "fused_qkv_attention_bwd": "train",
                  "fused_mlp": "flava", "fused_mlp_bwd": "flava_grad_check",
                  "fused_mlp_bwd_acc": "flava", "flash_attention": "lm",
@@ -6108,7 +6765,20 @@ def main() -> None:
           f"matcher {mdetr['matcher_host_ms']:.2f} ms, idle share "
           f"{mdetr.get('idle_share', float('nan')):.4f}, cosines "
           f"{json.dumps({k: round(v, 6) for k, v in mdetr['output_cosines'].items()})}, phase "
-          f"{mdetr['wall_s']:.1f} s"
+          f"{mdetr['wall_s']:.1f} s; MUGEN text-to-video "
+          f"{t2v['serving']['videos_per_s']:.3f} videos/s served, "
+          f"{t2v['serving']['decode_tokens_per_s']:.1f} decode tokens/s, "
+          f"{t2v['serving']['host_ms_per_tick']:.2f} ms a tick (device "
+          f"{t2v['serving'].get('device_ms_per_tick', float('nan')):.2f}), TTFT p50 "
+          f"{t2v['serving']['ttft_p50_s']:.3f} s, GenerationUtil "
+          f"{t2v['sampler']['ms_per_step']:.2f} ms a step, teacher-forced cosine "
+          f"{t2v['teacher_forced_cosine']:.6f}, VQ codes equal to fp32 "
+          f"{t2v['vqvae']['code_agreement_bf16_fp32']:.4f}, video_gpt cosine "
+          f"{t2v['video_gpt']['cosine']:.6f}, phase {t2v['wall_s']:.1f} s; MDETR VQA "
+          f"{vqa['ms_per_step']:.1f} ms a step, idle share "
+          f"{vqa.get('idle_share', float('nan')):.4f}, gradient cosine "
+          f"{vqa['grad_cosine']:.6f}, eval {vqa['eval_images_per_s']:.2f} images/s, phase "
+          f"{vqa['wall_s']:.1f} s"
           + f"; build {build_s:.1f} s; script {time.perf_counter() - SCRIPT_T0:.1f} s",
           flush=True)
     print(card, flush=True)

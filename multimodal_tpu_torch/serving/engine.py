@@ -27,6 +27,13 @@ position ``max_len - 1`` and do not advance, positions clamp to the last
 row, and the first tokens of an admission round are copied to the host only
 after every prefill of the round is launched.
 
+Registered prefixes (``register_prefix``, ``Request.prefix``): a shared
+prompt prefix's keys and values are computed once and broadcast into each
+admitted slot's positions ``[0, plen)`` (quantized as a prefill's rows are,
+for the int8 cache); the request's prompt prefills from ``plen`` on top of
+them (``_prefill_prefixed``). ``VideoGPTServer`` rides every request on the
+one-token start-of-sequence prefix.
+
 Two features serve encoder-decoder clients (the caption servers):
 
 - Per-request conditioning (``conditioning_spec``): a per-slot buffer
@@ -42,10 +49,10 @@ Two features serve encoder-decoder clients (the caption servers):
   position ``kv_prefix_len`` on top of them; decode attends them through
   the valid-prefix mask.
 
-Not ported yet (ROADMAP.md, queue A5): registered prefixes, chunked
-prefill, multi-LoRA adapters, sliding-window streaming (``window`` /
-``sinks``) and speculative decoding with a draft model. The constructor,
-``register_prefix`` or ``submit`` raises ``NotImplementedError`` for each.
+Not ported yet (ROADMAP.md, queue A5): chunked prefill, multi-LoRA
+adapters, sliding-window streaming (``window`` / ``sinks``) and speculative
+decoding with a draft model. The constructor, ``register_prefix`` or
+``submit`` raises ``NotImplementedError`` for each.
 """
 
 from __future__ import annotations
@@ -66,7 +73,7 @@ from multimodal_tpu_torch.ops.kv_cache import (
     quantized_kv_zeros,
 )
 from multimodal_tpu_torch.utils.device import resolve_device
-from multimodal_tpu_torch.utils.generate import filter_logits_per_row
+from multimodal_tpu_torch.utils.generate import filter_logits_per_row, gumbel_sample
 
 _NOT_PORTED = "not ported yet (ROADMAP.md, queue A5)"
 
@@ -122,9 +129,11 @@ class Request:
     slot retires. ``conditioning`` (one row of the engine's
     ``conditioning_spec``) and ``kv_prefix`` (per-layer ``(k, v)`` of shape
     ``(heads, kv_prefix_len, head_dim)``, tensors or arrays) are required
-    exactly when the engine was built with their feature. ``prefix`` and
-    ``adapter`` are the JAX engine's fields for features not ported yet;
-    ``submit`` refuses a request that sets one."""
+    exactly when the engine was built with their feature. ``prefix`` names
+    a prefix registered with ``InferenceEngine.register_prefix``: its rows
+    are copied into the slot and ``prompt`` is the suffix after it.
+    ``adapter`` is the JAX engine's field for a feature not ported yet;
+    ``submit`` refuses a request that sets it."""
 
     prompt: Sequence[int]
     max_new_tokens: int
@@ -282,6 +291,7 @@ class InferenceEngine:
                              f"and generation (max_len {max_len})")
         self.kv_prefix_len = kv_prefix_len
         self._kv_geom = (n_layer, n_head, head_dim)  # for Request.kv_prefix's validation
+        self._prefixes: dict = {}  # name -> (per-layer (k, v) rows (1, h, plen, d), plen)
         self._slots = [_Slot() for _ in range(n_slots)]
         self._queue: deque = deque()
         self._done: List[RequestOutput] = []
@@ -292,7 +302,21 @@ class InferenceEngine:
         self._finished = 0
         self._tokens_out = 0
 
+    @torch.no_grad()
     def register_prefix(self, name: str, tokens: Sequence[int], adapter: Optional[str] = None):
+        """Compute the keys and values of a shared prompt prefix once;
+        requests naming it (``Request.prefix``) start from copies of those
+        rows instead of recomputing them. The rows are kept in the compute
+        precision and converted (or quantized) into the cache's format at
+        admission."""
+        if adapter is not None:
+            raise NotImplementedError(f"register_prefix(adapter=...) is {_NOT_PORTED}")
+        tokens = np.asarray(tokens, np.int64)
+        if len(tokens) == 0:
+            raise ValueError("empty prefix")
+        if len(tokens) >= self.max_len:
+            raise ValueError(f"prefix of {len(tokens)} tokens leaves no room in max_len "
+                             f"{self.max_len}")
         if self.conditioning is not None:
             raise ValueError(
                 "prefix caching does not compose with per-request conditioning: prefix KV rows "
@@ -300,7 +324,8 @@ class InferenceEngine:
         if self.kv_prefix_len is not None:
             raise ValueError("registered prefixes do not compose with kv_prefix_len: both claim "
                              "cache positions [0, plen)")
-        raise NotImplementedError(f"registered prefixes are {_NOT_PORTED}")
+        _logits, kvs = self.model(self._tensor(tokens[None]), use_cache=True)
+        self._prefixes[name] = (tuple(kvs), len(tokens))
 
     # ------------------------------------------------------------- device
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -335,32 +360,34 @@ class InferenceEngine:
         return self._last_tokens(logits, lengths, sampling)
 
     @torch.no_grad()
-    def _seed_prefix(self, prefix_kvs, slots: torch.Tensor) -> None:
-        """Write whole rows ``slots`` of every layer's cache: the per-request
-        prefix rows ``prefix_kvs`` (per layer ``(b, h, kv_prefix_len, d)``)
-        at ``[0, kv_prefix_len)``, zeros after, so nothing of a slot's
-        earlier request stays."""
+    def _seed_prefix(self, prefix_kvs, plen: int, slots: torch.Tensor) -> None:
+        """Write whole rows ``slots`` of every layer's cache: the prefix rows
+        ``prefix_kvs`` (per layer ``(b, h, plen, d)``, or ``(1, h, plen,
+        d)`` broadcast to every slot) at ``[0, plen)``, zeros after, so
+        nothing of a slot's earlier request stays."""
         b = slots.shape[0]
         for (ck, cv), (pk, pv) in zip(self.cache, prefix_kvs):
-            _kv_scatter_rows(ck, _kv_rows_like(ck, b, pk, self.kv_prefix_len), slots)
-            _kv_scatter_rows(cv, _kv_rows_like(cv, b, pv, self.kv_prefix_len), slots)
+            _kv_scatter_rows(ck, _kv_rows_like(ck, b, pk, plen), slots)
+            _kv_scatter_rows(cv, _kv_rows_like(cv, b, pv, plen), slots)
 
     @torch.no_grad()
-    def _prefill_prefixed(self, prefix_kvs, tokens: torch.Tensor, slots: torch.Tensor,
-                          lengths: torch.Tensor, sampling: torch.Tensor) -> torch.Tensor:
-        """Prefill a batch of prompts on top of per-request prefix rows: the
-        slots are seeded (:meth:`_seed_prefix`), the prompts' forward runs on
-        copies of their rows, attending the prefix through the valid-prefix
-        mask and writing its own keys and values from position
-        ``kv_prefix_len``, and the rows go back to the slots. A padding
-        position past a row's prompt writes to the sacrificial ``max_len -
-        1``, which a tick overwrites before any mask admits it."""
-        self._seed_prefix(prefix_kvs, slots)
+    def _prefill_prefixed(self, prefix_kvs, plen: int, tokens: torch.Tensor,
+                          slots: torch.Tensor, lengths: torch.Tensor,
+                          sampling: torch.Tensor) -> torch.Tensor:
+        """Prefill a batch of prompts on top of prefix rows (a registered
+        prefix's, or per-request ``kv_prefix`` rows): the slots are seeded
+        (:meth:`_seed_prefix`), the prompts' forward runs on copies of their
+        rows, attending the prefix through the valid-prefix mask and writing
+        its own keys and values from position ``plen``, and the rows go
+        back to the slots. A padding position past a row's prompt writes to
+        the sacrificial ``max_len - 1``, which a tick overwrites before any
+        mask admits it."""
+        self._seed_prefix(prefix_kvs, plen, slots)
         rows = tuple((_kv_gather_rows(ck, slots), _kv_gather_rows(cv, slots))
                      for ck, cv in self.cache)
         b, bucket = tokens.shape
         offs = torch.arange(bucket, device=self.device)[None, :]
-        positions = (self.kv_prefix_len + offs).clamp_max(self.max_len - 1).expand(b, bucket)
+        positions = (plen + offs).clamp_max(self.max_len - 1).expand(b, bucket)
         write_idx = torch.where(offs < lengths[:, None], positions, self.max_len - 1)
         mask = (torch.arange(self.max_len, device=self.device)[None, None, None, :]
                 <= positions[:, None, :, None])
@@ -406,10 +433,7 @@ class InferenceEngine:
         scaled = logits / temperature.clamp_min(1e-6)[:, None]
         if use_filters:
             scaled = filter_logits_per_row(scaled, sampling[:, 1].long(), sampling[:, 2])
-        u = torch.rand(scaled.shape, generator=self._gen, device=scaled.device)
-        gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-        sampled = (scaled + gumbel).argmax(dim=-1)
-        return torch.where(temperature > 0, sampled, greedy)
+        return torch.where(temperature > 0, gumbel_sample(scaled, self._gen), greedy)
 
     def _sampling_row(self, req: Request):
         k = req.top_k if req.top_k is not None else (self.top_k or 0)
@@ -418,9 +442,8 @@ class InferenceEngine:
 
     # --------------------------------------------------------------- host
     def submit(self, request: Request) -> None:
-        for name in ("prefix", "adapter"):
-            if getattr(request, name) is not None:
-                raise NotImplementedError(f"Request.{name} is {_NOT_PORTED}")
+        if request.adapter is not None:
+            raise NotImplementedError(f"Request.adapter is {_NOT_PORTED}")
         if (self.kv_prefix_len is not None) != (request.kv_prefix is not None):
             raise ValueError(
                 "Request.kv_prefix is required exactly when the engine was built with "
@@ -439,6 +462,13 @@ class InferenceEngine:
                         raise ValueError(f"kv_prefix layer {li} {nm} shape {tuple(arr.shape)} "
                                          f"!= {want}")
             plen = self.kv_prefix_len
+        if request.prefix is not None:
+            if request.kv_prefix is not None:
+                raise ValueError("kv_prefix and a registered prefix cannot combine: both claim "
+                                 "cache positions [0, plen)")
+            if request.prefix not in self._prefixes:
+                raise ValueError(f"unknown prefix {request.prefix!r}")
+            plen = self._prefixes[request.prefix][1]
         if plen + len(request.prompt) + request.max_new_tokens > self.max_len:
             raise ValueError(
                 f"prefix({plen}) + prompt({len(request.prompt)}) + "
@@ -505,14 +535,16 @@ class InferenceEngine:
         if not pairs:
             return
         self._write_conditioning(pairs)
-        plen = self.kv_prefix_len or 0
         groups: dict = {}
         for slot_id, req in pairs:
-            groups.setdefault(_bucket(len(req.prompt), self.prefill_buckets), []).append(
-                (slot_id, req))
+            groups.setdefault((_bucket(len(req.prompt), self.prefill_buckets), req.prefix),
+                              []).append((slot_id, req))
 
         admitted = []
-        for bucket, items in groups.items():
+        for (bucket, prefix), items in groups.items():
+            pfx_kvs, plen = self._prefixes[prefix] if prefix is not None else (None, 0)
+            if self.kv_prefix_len is not None:
+                plen = self.kv_prefix_len
             for c in range(0, len(items), self.prefill_batch):
                 chunk = items[c: c + self.prefill_batch]
                 n = self.prefill_batch
@@ -536,10 +568,13 @@ class InferenceEngine:
                     slot.pos = plen + len(prompt)
                 args = (self._tensor(tokens), self._tensor(slots), self._tensor(lengths),
                         self._tensor(sampling))
-                if self.kv_prefix_len is None:
-                    firsts = self._prefill(*args)
+                if self.kv_prefix_len is not None:
+                    firsts = self._prefill_prefixed(self._stack_kv_prefixes(chunk, n), plen,
+                                                    *args)
+                elif prefix is not None:
+                    firsts = self._prefill_prefixed(pfx_kvs, plen, *args)
                 else:
-                    firsts = self._prefill_prefixed(self._stack_kv_prefixes(chunk, n), *args)
+                    firsts = self._prefill(*args)
                 admitted.append((chunk, firsts))
         # pull first tokens only after every prefill is dispatched
         for chunk, firsts in admitted:

@@ -15,13 +15,19 @@ of ``multimodal_tpu/utils/checkpoint.py:clip_resnet_params_from_torch``, and
 ``ALBEFModelForRetrieval``, ``ALBEFModelForVQA``),
 ``videoclip_state_dict_from_jax`` for MUGEN's VideoCLIP
 (``multimodal_tpu/examples/mugen``) and ``mdetr_state_dict_from_jax`` for
-MDETR (``multimodal_tpu/models/mdetr``).
+MDETR (``multimodal_tpu/models/mdetr``), and
+``video_vqvae_state_dict_from_jax`` / ``video_gpt_state_dict_from_jax``
+for the video VQ-VAE and VideoGPT's ``MultimodalGPT``
+(``multimodal_tpu/models/video_gpt``, with either tokenizer of MUGEN's
+text-to-video model).
 Layouts:
 
 - ``nn.Dense`` kernels are ``(in, out)``; ``nn.Linear`` weights ``(out, in)``;
 - convolution kernels are HWIO in JAX and OIHW in torch
   (:func:`conv2d_weight_from_jax`), DHWIO and OIDHW in 3-D
-  (:func:`conv3d_weight_from_jax`);
+  (:func:`conv3d_weight_from_jax`); flax's ``ConvTranspose`` kernel is
+  DHWIO and unflipped, ``nn.ConvTranspose3d``'s IODHW and flipped
+  (:func:`conv_transpose3d_weight_from_jax`);
 - flax ``BatchNorm`` keeps ``scale`` / ``bias`` in ``params`` and ``mean`` /
   ``var`` in ``batch_stats``; ``Fp32BatchNorm2d`` has ``weight`` / ``bias``
   and the buffers ``running_mean`` / ``running_var``;
@@ -58,6 +64,12 @@ def conv3d_weight_from_jax(kernel: Any) -> np.ndarray:
     """A flax 3-D convolution kernel (DHWIO) in ``nn.Conv3d``'s layout
     (OIDHW)."""
     return np.asarray(kernel).transpose(4, 3, 0, 1, 2)
+
+
+def conv_transpose3d_weight_from_jax(kernel: Any) -> np.ndarray:
+    """A flax 3-D transposed-convolution kernel (DHWIO, applied unflipped)
+    in ``nn.ConvTranspose3d``'s layout (IODHW, applied flipped)."""
+    return np.asarray(kernel).transpose(3, 4, 0, 1, 2)[:, :, ::-1, ::-1, ::-1].copy()
 
 
 def _linear(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
@@ -254,3 +266,41 @@ def mdetr_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     here under the same names."""
     p = params["params"] if "params" in params else params
     return state_dict_from_jax_tree(p)
+
+
+def _leaves(tree: Mapping, path: List[str] = ()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, [*path, key])
+        else:
+            yield [*path, key], value
+
+
+def video_vqvae_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX video VQ-VAE variables (``{"params": ..., "batch_stats": ...,
+    "vq_stats": ...}``, leaves as numpy arrays) -> the ``state_dict`` of
+    this package's ``VQVAE`` (``models/video_gpt/``): by path, convolution
+    kernels DHWIO -> OIDHW, transposed ones flipped into IODHW, the
+    BatchNorms' statistics and the codebook's ``vq_stats`` as buffers.
+    Applied to a ``MultimodalGPT``'s variables it maps the whole model, both
+    tokenizers included (:func:`video_gpt_state_dict_from_jax`)."""
+    params = variables["params"] if "params" in variables else variables
+    sd = state_dict_from_jax_tree(params)
+    for path, value in _leaves(params):
+        if path[-2:] == ["convt", "kernel"]:
+            sd[".".join(path[:-1] + ["weight"])] = _t(conv_transpose3d_weight_from_jax(value))
+    sd.update(_batch_stats(variables.get("batch_stats", {})))
+    for path, value in _leaves(variables.get("vq_stats", {})):
+        sd[".".join(path)] = _t(value)
+    return sd
+
+
+def video_gpt_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``MultimodalGPT`` variables (VideoGPT's, or MUGEN's text-to-video
+    model's) -> this package's ``MultimodalGPT`` ``state_dict``, both
+    tokenizers included: ``layer_<i>`` is ``layers.<i>``, the text
+    tokenizer's ``embedding_table`` an ``nn.Embedding``. The JAX model
+    builds no parameters for a tokenizer part it never ran (the input
+    VQ-VAE's decoder), so load with ``strict=False`` and check that the
+    missing keys are only those."""
+    return video_vqvae_state_dict_from_jax(variables)

@@ -1,5 +1,5 @@
-"""Momentum (EMA) copies of a module. Counterpart of
-``multimodal_tpu/utils/common.py:momentum_update``.
+"""Small shared utilities. Counterpart of ``multimodal_tpu/utils/common.py``:
+``shift_dim``, ``to_tuple_tuple`` and momentum (EMA) copies of a module.
 
 The JAX package threads a second parameter tree through its steps; here the
 momentum copy is a second module whose parameters are registered buffers
@@ -11,7 +11,7 @@ place: ``m = m * momentum + p * (1 - momentum)`` over matching names.
 from __future__ import annotations
 
 import copy
-from typing import Optional, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -47,3 +47,20 @@ def momentum_update(module: nn.Module, module_m: nn.Module, momentum: float) -> 
     p = [params[n].detach() for n in params]
     torch._foreach_mul_(m, momentum)
     torch._foreach_add_(m, p, alpha=1.0 - momentum)
+
+
+def shift_dim(x: torch.Tensor, src_dim: int = -1, dest_dim: int = -1) -> torch.Tensor:
+    """``x`` with dimension ``src_dim`` moved to position ``dest_dim`` (a
+    view)."""
+    return x.movedim(src_dim, dest_dim)
+
+
+def to_tuple_tuple(param: Any, dim_tuple: int, num_tuple: int) -> Tuple:
+    """An int or a tuple of ints as ``num_tuple`` tuples of length
+    ``dim_tuple`` (the per-layer kernel sizes and strides of 3-D conv
+    stacks); a tuple of tuples passes through."""
+    if isinstance(param, int):
+        param = (param,) * dim_tuple
+    if isinstance(param, tuple) and all(isinstance(p, int) for p in param):
+        param = (param,) * num_tuple
+    return tuple(param)

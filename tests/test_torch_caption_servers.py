@@ -295,9 +295,9 @@ def test_engine_conditioning_and_prefix_validation(coca, blip2):
     with pytest.raises(ValueError, match="kv_prefix_len"):
         InferenceEngine(server.adapter, n_slots=1, max_len=NQ, n_layer=2, n_head=2,
                         head_dim=32, kv_prefix_len=NQ, device="cpu")
-    # the features still to port keep refusing
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="cannot combine"):
         engine.submit(Request([1], max_new_tokens=1, kv_prefix=kvs[0], prefix="sys"))
+    # the features still to port keep refusing
     with pytest.raises(NotImplementedError, match="A5"):
         engine.submit(Request([1], max_new_tokens=1, kv_prefix=kvs[0], adapter="a"))
     for kw in (dict(prefill_chunk=4), dict(window=8), dict(draft_model=server.adapter),

@@ -124,15 +124,21 @@ def test_filter_logits_per_row_matches_jax():
 def test_submit_and_constructor_refuse_what_is_not_ported(models):
     _, _, port = models
     eng = InferenceEngine(port, device="cpu", **ENGINE)
-    for field in ("prefix", "adapter"):
-        with pytest.raises(NotImplementedError, match="A5"):
-            eng.submit(Request([1, 2], 3, **{field: "x"}))
+    with pytest.raises(NotImplementedError, match="A5"):
+        eng.submit(Request([1, 2], 3, adapter="x"))
     # ported since: a plain engine refuses requests that carry them
     for field in ("conditioning", "kv_prefix"):
         with pytest.raises(ValueError, match="required exactly when"):
             eng.submit(Request([1, 2], 3, **{field: torch.zeros(1)}))
+    with pytest.raises(ValueError, match="unknown prefix"):
+        eng.submit(Request([1, 2], 3, prefix="x"))
     with pytest.raises(NotImplementedError, match="A5"):
-        eng.register_prefix("sys", [1, 2])
+        eng.register_prefix("sys", [1, 2], adapter="a")
+    with pytest.raises(ValueError, match="empty prefix"):
+        eng.register_prefix("sys", [])
+    eng.register_prefix("sys", [1, 2])
+    with pytest.raises(ValueError, match=r"prefix\(2\) \+ prompt\(248\)"):
+        eng.submit(Request([1] * 248, 7, prefix="sys"))
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(Request([1] * 250, 7))
     with pytest.raises(ValueError, match="empty"):
@@ -143,6 +149,38 @@ def test_submit_and_constructor_refuse_what_is_not_ported(models):
             InferenceEngine(port, device="cpu", **ENGINE, **kw)
     with pytest.raises(ValueError, match="int8"):
         InferenceEngine(port, device="cpu", cache_dtype=torch.int8, **ENGINE)
+
+
+PREFIX = list(range(40, 52))  # 12 tokens
+
+
+@pytest.mark.parametrize("cache", ["bfloat16", "int8"])
+def test_registered_prefix_matches_prompt_with_prefix(models, cache):
+    """Requests riding a registered prefix (its rows broadcast into each
+    slot, int8 rows quantized as a prefill's are) give the tokens of the
+    JAX engine's requests on the same prefix, and, with the bf16 cache, of
+    the same prompts with the prefix written in; the outputs count the
+    prefix in ``prompt_len``."""
+    jax_model, variables, port = models
+    jdt = jnp.bfloat16 if cache == "bfloat16" else "int8"
+    tdt = torch.bfloat16 if cache == "bfloat16" else "int8"
+    reqs = _requests()
+    eng = InferenceEngine(port, cache_dtype=tdt, device="cpu", **ENGINE)
+    eng.register_prefix("sys", PREFIX)
+    jeng = JaxEngine(jax_model, variables, cache_dtype=jdt, **ENGINE)
+    jeng.register_prefix("sys", PREFIX)
+    for kw in reqs:
+        eng.submit(Request(**kw, prefix="sys"))
+        jeng.submit(JaxRequest(**kw, prefix="sys"))
+    outs = eng.run()
+    got = {o.request_id: o.tokens for o in outs}
+    assert got == {o.request_id: o.tokens for o in jeng.run()}
+    assert {o.request_id: o.prompt_len for o in outs} == {
+        kw["request_id"]: len(PREFIX) + len(kw["prompt"]) for kw in reqs}
+    if cache == "bfloat16":
+        written, _ = _run_port(port, tdt, [{**kw, "prompt": PREFIX + kw["prompt"]}
+                                           for kw in reqs])
+        assert got == {i: toks for i, (toks, _) in written.items()}
 
 
 def test_cancel(models):

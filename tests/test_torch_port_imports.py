@@ -131,6 +131,50 @@ def test_cpu_mdetr_launches_no_kernel():
         assert counter.launches == 0
 
 
+VIDEO_GPT_TINY = dict(text_seq_len=8, video_seq_len=4, resolution=8, downsample=(2, 2, 2),
+                      d_model=192, n_head=2, dropout=0.0, attn_dropout=0.0,
+                      num_decoder_layers=1, text_vocab_size=60,
+                      vqvae_kwargs=dict(encoder_hidden_dim=16, n_res_layers=1,
+                                        attn_hidden_dim=16, num_embeddings=32,
+                                        embedding_dim=8, decoder_hidden_dim=16))
+
+
+def test_video_gpt_entry_points_raise_without_cuda(monkeypatch):
+    from multimodal_tpu_torch.examples.mugen.text_video_gpt import text_video_gpt
+    from multimodal_tpu_torch.models.video_gpt.model import video_gpt, video_vqvae
+    from multimodal_tpu_torch.serving.video_gpt_server import VideoGPTServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        text_video_gpt(**VIDEO_GPT_TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        video_vqvae(**VIDEO_GPT_TINY["vqvae_kwargs"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        video_gpt(input_shape=(4, 8, 8), latent_shape=(2, 4, 4), d_model=48, n_head=2,
+                  num_decoder_layers=1, vqvae_kwargs=VIDEO_GPT_TINY["vqvae_kwargs"])
+    gpt = text_video_gpt(device="cpu", **VIDEO_GPT_TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VideoGPTServer(gpt, in_seq_len=8)
+
+
+def test_cpu_video_gpt_launches_no_kernel():
+    """Text-to-video serving and sampling on the CPU at widths the fused
+    MLP takes (192 -> 768 -> 192): its plain version runs, no kernel."""
+    from multimodal_tpu_torch.examples.mugen.text_video_gpt import text_video_gpt
+    from multimodal_tpu_torch.serving.video_gpt_server import VideoGPTServer
+    from multimodal_tpu_torch.utils.generate import GenerationUtil
+
+    fe.reset_launch_counts()
+    gpt = text_video_gpt(device="cpu", **VIDEO_GPT_TINY)
+    assert fe.fused_mlp_available(192, 768, 192)
+    server = VideoGPTServer(gpt, in_seq_len=8, n_slots=2, max_new_tokens=4, device="cpu")
+    server.submit(list(range(1, 9)), request_id=0)
+    assert len(server.run()[0].tokens) == 4
+    out = GenerationUtil(gpt).sample(torch.arange(1, 9)[None], max_seq_len=32)
+    assert out.decoded.shape == (1, 4, 8, 8, 3)
+    assert fe.fused_mlp.launches == 0
+
+
 def test_cpu_tensors_launch_no_kernel():
     fe.reset_launch_counts()
     r = np.random.RandomState(0)
